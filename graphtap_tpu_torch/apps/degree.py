@@ -1,0 +1,40 @@
+"""Degree: one plus-times superstep with unit messages.
+
+Counterpart of ``graphtap_tpu/apps/degree.py`` (reference: src/apps/deg.h:
+messenger = 1, combiner = +, applicator stores y, never 'changed').
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from graphtap_tpu_torch.engine.program import VertexProgram, numpy_dtype
+from graphtap_tpu_torch.kernels.semiring import plus_times
+
+
+class DegreeProgram(VertexProgram):
+    stationary = True
+
+    def __init__(self, value_dtype: torch.dtype = torch.float32):
+        self.semiring = plus_times()
+        self.value_dtype = value_dtype
+
+    def init(self, vids, i_mask, other):
+        state = {"degree": np.zeros(vids.shape,
+                                    dtype=numpy_dtype(self.value_dtype))}
+        return state, np.ones(vids.shape, dtype=bool)
+
+    def messenger(self, state):
+        return torch.ones_like(state["degree"])
+
+    def applicator(self, state, y, iteration):
+        return {"degree": y}, torch.zeros(y.shape, dtype=torch.bool,
+                                          device=y.device)
+
+    def get_state(self, state):
+        return state["degree"]
+
+    def format_state(self, row):
+        return f"Degree={row['degree']}"
+

@@ -1,0 +1,91 @@
+"""PageRank: the two-phase degree -> rank pipeline.
+
+Counterpart of ``graphtap_tpu/apps/pagerank.py`` (reference: src/apps/pr.h,
+pr.cpp): one load of Aᵀ (transpose=True); the degree phase on the COL
+ordering (out-degree of A), then PageRank on the ROW ordering, with the
+degree handed over only where the I bit (in-edge mask) is set
+(vertex_program.hpp:476-483).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from graphtap_tpu_torch.config import EngineConfig, Ordering
+from graphtap_tpu_torch.engine.executor import Executor
+from graphtap_tpu_torch.engine.program import VertexProgram, numpy_dtype
+from graphtap_tpu_torch.ingest.graph import Graph
+from graphtap_tpu_torch.kernels.semiring import plus_times
+from graphtap_tpu_torch.apps.degree import DegreeProgram
+
+ALPHA = 0.15   # reference: pr.h:13
+TOL = 1e-5     # reference: pr.h:12
+
+
+class PageRankProgram(VertexProgram):
+    stationary = True
+
+    def __init__(self, value_dtype: torch.dtype = torch.float32,
+                 alpha: float = ALPHA, tol: float = TOL):
+        self.semiring = plus_times()
+        self.value_dtype = value_dtype
+        self.alpha = alpha
+        self.tol = tol
+
+    def init(self, vids, i_mask, other):
+        dt = numpy_dtype(self.value_dtype)
+        degree = np.zeros(vids.shape, dtype=dt)
+        if other is not None:
+            # copy the degree only where the I bit is set (reference quirk,
+            # vertex_program.hpp:476-483)
+            degree = np.where(i_mask, other["degree"].astype(dt), degree)
+        state = {"rank": np.full(vids.shape, self.alpha, dtype=dt),
+                 "degree": degree}
+        return state, i_mask.copy()
+
+    def messenger(self, state):
+        d = state["degree"]
+        has = d > 0
+        return torch.where(has, state["rank"] /
+                           torch.where(has, d, torch.ones_like(d)),
+                           torch.zeros_like(d))
+
+    def applicator(self, state, y, iteration):
+        new_rank = self.alpha + (1 - self.alpha) * y
+        changed = torch.abs(new_rank - state["rank"]) > self.tol
+        return {"rank": new_rank, "degree": state["degree"]}, changed
+
+    def get_state(self, state):
+        return state["rank"]
+
+    def format_state(self, row):
+        return f"Rank={row['rank']:.6f},Degree={row['degree']}"
+
+
+def run_pagerank(graph: Graph, num_iterations: int = 0,
+                 value_dtype: torch.dtype = torch.float32,
+                 kernel: str = "panel", device="cpu") -> Executor:
+    """The pr.cpp pipeline on a loaded (transposed) graph, on ``device``.
+
+    The degree phase is one SpMV on the portable ``scan`` path (integer
+    sums, exact in f32); PageRank runs ``num_iterations`` supersteps on
+    ``kernel`` ('panel': the K1-K4 pipeline; 'scan'). The degree phase's
+    tiles are freed before the PageRank plans are uploaded. Convergence
+    mode (num_iterations=0) is not ported yet and raises.
+    """
+    if not num_iterations or num_iterations <= 0:
+        raise NotImplementedError("convergence mode is not ported yet")
+    deg_ex = Executor(graph, DegreeProgram(value_dtype=value_dtype),
+                      EngineConfig(stationary=True, ordering=Ordering.COL),
+                      kernel="scan", device=device)
+    deg_ex.initialize()
+    deg_ex.execute(1)
+    deg_ex.free()
+
+    pr_ex = Executor(graph, PageRankProgram(value_dtype=value_dtype),
+                     EngineConfig(stationary=True, ordering=Ordering.ROW),
+                     kernel=kernel, device=device)
+    pr_ex.initialize(other=deg_ex)
+    pr_ex.execute(num_iterations)
+    return pr_ex

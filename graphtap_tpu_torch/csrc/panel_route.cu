@@ -1,0 +1,466 @@
+// Hopper (sm_90a) kernels of the v3 panel-route SpMV pipeline.
+//
+// Hand-written CUDA C++ counterparts of the four Pallas kernels that carry
+// a PageRank superstep in graphtap_tpu/kernels/panel_kernels.py:
+//
+//   K1 route_xr_exp_kernel  replaces route_xr_exp (_xr_exp_body, :140-273)
+//   K2 route_passa_kernel   replaces route_passa  (_route_body, :80-137, :435-485)
+//   K3 route_fold_kernel    replaces route_fold   (_route_fold_body, :276-404)
+//   K4 hub_fold_kernel      replaces hub_fold     (_hub_body, :488-528)
+//
+// What they compute. The host planner (panel_plan.py) turns the sparse
+// matrix into uint8 route plans over (64,128) panels. A route reads 8-row
+// source bands and, for output slot (r, l) of a panel:
+//   m = idx3[r,l] & 127; s = (idx3[r,l] >= 128 ? sel_b : sel_a)[r, m];
+//   band = s >> 3, row = s & 7;
+//   out = band < nsrc ? src_band[band][row, idx1[band*8+row, m]] : fill.
+// On the TPU that is three crossbar stages over registers; here it is three
+// dependent byte loads and one value load per output. The plans are the
+// same bytes the Pallas kernels read, so each kernel can be checked against
+// its twin.
+//
+// What bounds them on the card: memory traffic and latency, not arithmetic.
+// Per output each route reads 3 plan bytes plus one value; the value and
+// idx1/sel reads are data-dependent gathers inside 128-lane rows (one or
+// two cache lines each), so the kernels are bound by L1/L2 gather latency
+// and by the plan stream (~0.4-0.5 KB of plan per 4 KB f32 panel). The
+// design keeps it simple: one thread block per panel, 256 threads striding
+// over its slots, so neighbouring threads read neighbouring plan bytes and
+// write neighbouring outputs (coalesced). K1 keeps its 32x128 x_ext panel
+// in shared memory between its two routes, so x_ext never goes to device
+// memory. K3 folds each routed 8-row band in registers and adds it to the
+// y table with one atomic per lane (f32/f64 atomicAdd, int32 atomicMin/Max)
+// after a fill pass sets the whole table to the identity; blocks run in any
+// order, so a float sum rounds in another order than the TPU's grid loop.
+// K4 runs one 128-thread block per row: warp shuffles for the xor shifts
+// 1..16 and shared memory for 32 and 64, in the Pallas kernel's order, so
+// it is bit-exact. All element offsets are 64-bit.
+//
+// The launchers are extern "C" (bound with ctypes), launch on the caller's
+// stream, allocate nothing, and return cudaGetLastError().
+
+#include <cstdint>
+#include <type_traits>
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int LANES = 128;
+constexpr int STRIPE = 8;
+constexpr int PROWS = 64;   // rows of a contribution / corner-turn panel
+constexpr int XROWS = 32;   // rows of an x_ext panel
+constexpr int THREADS = 256;
+
+enum Dtype { F32 = 0, F64 = 1, I32 = 2 };
+enum MulKind { MUL_NONE = 0, MUL_MUL = 1, MUL_ADD_SAT = 2 };
+enum ReduceKind { RED_SUM = 0, RED_MIN = 1, RED_MAX = 2 };
+
+// One output slot (r, l) of a route. src_row(band, row) points at the 128
+// values of source row `row` of band `band`. sel_b == nullptr is a
+// single-layer route: layer a is read whatever the pick bit says.
+template <typename T, typename SrcRow>
+__device__ __forceinline__ T route_slot(const uint8_t* __restrict__ idx1,
+                                        const uint8_t* __restrict__ sel_a,
+                                        const uint8_t* __restrict__ sel_b,
+                                        const uint8_t* __restrict__ idx3,
+                                        int r, int l, int nsrc, T fill,
+                                        SrcRow src_row) {
+  const int i3 = idx3[r * LANES + l];
+  const int m = i3 & 127;
+  const uint8_t* sel = (sel_b != nullptr && i3 >= 128) ? sel_b : sel_a;
+  const int s = sel[r * LANES + m];
+  const int band = s >> 3;
+  if (band >= nsrc) return fill;           // no landing: the ⊕-identity
+  const int row = s & 7;
+  const int lane = idx1[(band * STRIPE + row) * LANES + m];
+  return src_row(band, row)[lane];
+}
+
+// min-plus ⊗: INF stays INF, so INF + w never wraps (panel_kernels.py:134).
+template <typename T>
+__device__ __forceinline__ T add_sat(T acc, T w, T fill) {
+  return acc >= fill ? fill : acc + w;
+}
+template <>
+__device__ __forceinline__ int add_sat<int>(int acc, int w, int fill) {
+  // below INF the sum is the Pallas kernel's int32 add (two's complement)
+  return acc >= fill ? fill
+                     : static_cast<int>(static_cast<unsigned>(acc) +
+                                        static_cast<unsigned>(w));
+}
+
+template <int RED, typename T>
+__device__ __forceinline__ T combine(T a, T b) {
+  if constexpr (RED == RED_SUM) {
+    return a + b;
+  } else if constexpr (RED == RED_MIN) {
+    return a < b ? a : b;
+  } else {
+    return a > b ? a : b;
+  }
+}
+
+template <int RED, typename T>
+__device__ __forceinline__ void atomic_combine(T* addr, T v) {
+  if constexpr (RED == RED_SUM) {
+    atomicAdd(addr, v);
+  } else if constexpr (RED == RED_MIN) {
+    atomicMin(addr, v);
+  } else {
+    atomicMax(addr, v);
+  }
+}
+
+// ---------------------------------------------------------------- K1
+// x table -> (64,128) contribution panel per block: the single-layer
+// x -> x_ext route of the panel's nwin x windows into shared memory, the
+// two-layer expand route out of it, then ⊗ with the weight stream.
+// Plan rows per panel: [xr_idx1 (nwin*8), xr_sel_a (32), xr_idx3 (32),
+// ex_idx1 (32), ex_sel_a (64), ex_sel_b (64), ex_idx3 (64)].
+template <typename T, int MUL>
+__global__ void __launch_bounds__(THREADS)
+route_xr_exp_kernel(const T* __restrict__ x2d, const int* __restrict__ bases,
+                    const uint8_t* __restrict__ plan,
+                    const T* __restrict__ w, T* __restrict__ out, int nwin,
+                    T fill) {
+  __shared__ T xe[XROWS * LANES];
+  const long long p = blockIdx.x;
+  const int sr = nwin * STRIPE;
+  const long long prows = sr + 3 * XROWS + 3 * PROWS;
+  const uint8_t* xr_idx1 = plan + p * prows * LANES;
+  const uint8_t* xr_sela = xr_idx1 + sr * LANES;
+  const uint8_t* xr_idx3 = xr_sela + XROWS * LANES;
+  const uint8_t* ex_idx1 = xr_idx3 + XROWS * LANES;
+  const uint8_t* ex_sela = ex_idx1 + XROWS * LANES;
+  const uint8_t* ex_selb = ex_sela + PROWS * LANES;
+  const uint8_t* ex_idx3 = ex_selb + PROWS * LANES;
+  const int* pb = bases + p * nwin;
+
+  auto x_row = [&](int band, int row) -> const T* {
+    return x2d + (static_cast<long long>(pb[band]) * STRIPE + row) * LANES;
+  };
+  for (int e = threadIdx.x; e < XROWS * LANES; e += blockDim.x) {
+    xe[e] = route_slot<T>(xr_idx1, xr_sela, nullptr, xr_idx3, e >> 7,
+                          e & 127, nwin, fill, x_row);
+  }
+  __syncthreads();
+
+  auto xe_row = [&](int band, int row) -> const T* {
+    return xe + (band * STRIPE + row) * LANES;
+  };
+  T* po = out + p * PROWS * LANES;
+  const T* pw = (MUL == MUL_NONE) ? nullptr : w + p * PROWS * LANES;
+  for (int e = threadIdx.x; e < PROWS * LANES; e += blockDim.x) {
+    T v = route_slot<T>(ex_idx1, ex_sela, ex_selb, ex_idx3, e >> 7, e & 127,
+                        XROWS / STRIPE, fill, xe_row);
+    if constexpr (MUL == MUL_MUL) {
+      v = v * pw[e];
+    } else if constexpr (MUL == MUL_ADD_SAT) {
+      v = add_sat<T>(v, pw[e], fill);
+    }
+    po[e] = v;
+  }
+}
+
+// ---------------------------------------------------------------- K2
+// Corner turn: the panel's nwin 8-row windows of src (block indices
+// bases[p*nwin + band]) routed two-layer into a 64-row panel.
+// Plan rows per panel: [idx1 (nwin*8), sel_a (64), sel_b (64), idx3 (64)].
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+route_passa_kernel(const T* __restrict__ src, const int* __restrict__ bases,
+                   const uint8_t* __restrict__ plan, T* __restrict__ out,
+                   int nwin, T fill) {
+  const long long p = blockIdx.x;
+  const int sr = nwin * STRIPE;
+  const long long prows = sr + 3 * PROWS;
+  const uint8_t* idx1 = plan + p * prows * LANES;
+  const uint8_t* sel_a = idx1 + sr * LANES;
+  const uint8_t* sel_b = sel_a + PROWS * LANES;
+  const uint8_t* idx3 = sel_b + PROWS * LANES;
+  const int* pb = bases + p * nwin;
+  auto src_row = [&](int band, int row) -> const T* {
+    return src + (static_cast<long long>(pb[band]) * STRIPE + row) * LANES;
+  };
+  T* po = out + p * PROWS * LANES;
+  for (int e = threadIdx.x; e < PROWS * LANES; e += blockDim.x) {
+    po[e] = route_slot<T>(idx1, sel_a, sel_b, idx3, e >> 7, e & 127, nwin,
+                          fill, src_row);
+  }
+}
+
+// ---------------------------------------------------------------- K3
+template <typename T>
+__global__ void fill_kernel(T* __restrict__ y, long long n, T v) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += stride) {
+    y[i] = v;
+  }
+}
+
+// Route as K2, fold each routed 8-row band (ob) lane-wise in registers and
+// ⊕ it into y row seg[p]*seg_rows + dst[p*8+ob]. y holds the identity
+// before the first block runs (fill_kernel on the same stream).
+template <typename T, int RED>
+__global__ void __launch_bounds__(THREADS)
+route_fold_kernel(const T* __restrict__ src, const int* __restrict__ bases,
+                  const uint8_t* __restrict__ plan,
+                  const int* __restrict__ dst, const int* __restrict__ seg,
+                  T* __restrict__ y, long long seg_rows, int nwin, T fill) {
+  const long long p = blockIdx.x;
+  const int sr = nwin * STRIPE;
+  const long long prows = sr + 3 * PROWS;
+  const uint8_t* idx1 = plan + p * prows * LANES;
+  const uint8_t* sel_a = idx1 + sr * LANES;
+  const uint8_t* sel_b = sel_a + PROWS * LANES;
+  const uint8_t* idx3 = sel_b + PROWS * LANES;
+  const int* pb = bases + p * nwin;
+  auto src_row = [&](int band, int row) -> const T* {
+    return src + (static_cast<long long>(pb[band]) * STRIPE + row) * LANES;
+  };
+  const long long seg_base = static_cast<long long>(seg[p]) * seg_rows;
+  for (int t = threadIdx.x; t < STRIPE * LANES; t += blockDim.x) {
+    const int ob = t >> 7;
+    const int l = t & 127;
+    T acc = route_slot<T>(idx1, sel_a, sel_b, idx3, ob * STRIPE, l, nwin,
+                          fill, src_row);
+#pragma unroll
+    for (int r = 1; r < STRIPE; ++r) {
+      acc = combine<RED>(acc, route_slot<T>(idx1, sel_a, sel_b, idx3,
+                                            ob * STRIPE + r, l, nwin, fill,
+                                            src_row));
+    }
+    const long long row = seg_base + dst[p * STRIPE + ob];
+    atomic_combine<RED>(y + row * LANES + l, acc);
+  }
+}
+
+// ---------------------------------------------------------------- K4
+// One row per 128-thread block. The xor butterfly over lane shifts
+// 1, 2, 4, 8, 16 (warp shuffles), then 32 and 64 (shared memory), with
+// snapshots at group widths 32/64/128 picked by the row's hub code.
+template <typename T, int RED>
+__global__ void __launch_bounds__(LANES)
+hub_fold_kernel(const T* __restrict__ v, const uint8_t* __restrict__ hm,
+                T* __restrict__ out) {
+  __shared__ T buf[LANES];
+  const int l = threadIdx.x;
+  const long long i = static_cast<long long>(blockIdx.x) * LANES + l;
+  const T x = v[i];
+  T acc = x;
+#pragma unroll
+  for (int s = 1; s < 32; s <<= 1) {
+    acc = combine<RED>(acc, __shfl_xor_sync(0xffffffffu, acc, s));
+  }
+  const T a32 = acc;
+  buf[l] = acc;
+  __syncthreads();
+  acc = combine<RED>(acc, buf[l ^ 32]);
+  __syncthreads();
+  const T a64 = acc;
+  buf[l] = acc;
+  __syncthreads();
+  acc = combine<RED>(acc, buf[l ^ 64]);
+  const int code = hm[i];
+  out[i] = code == 32 ? a32 : code == 64 ? a64 : code == 128 ? acc : x;
+}
+
+// ---------------------------------------------------------------- launch
+template <typename T>
+int launch_xr_exp(const void* x2d, const void* bases, const void* plan,
+                  const void* w, void* out, long long npanels, int nwin,
+                  int mul_kind, double fill, cudaStream_t st) {
+  const T* xs = static_cast<const T*>(x2d);
+  const int* b = static_cast<const int*>(bases);
+  const uint8_t* pl = static_cast<const uint8_t*>(plan);
+  const T* ws = static_cast<const T*>(w);
+  T* o = static_cast<T*>(out);
+  const T f = static_cast<T>(fill);
+  const dim3 grid(static_cast<unsigned>(npanels));
+  switch (mul_kind) {
+    case MUL_NONE:
+      route_xr_exp_kernel<T, MUL_NONE><<<grid, THREADS, 0, st>>>(
+          xs, b, pl, ws, o, nwin, f);
+      break;
+    case MUL_MUL:
+      route_xr_exp_kernel<T, MUL_MUL><<<grid, THREADS, 0, st>>>(
+          xs, b, pl, ws, o, nwin, f);
+      break;
+    case MUL_ADD_SAT:
+      route_xr_exp_kernel<T, MUL_ADD_SAT><<<grid, THREADS, 0, st>>>(
+          xs, b, pl, ws, o, nwin, f);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_passa(const void* src, const void* bases, const void* plan,
+                 void* out, long long npanels, int nwin, double fill,
+                 cudaStream_t st) {
+  route_passa_kernel<T><<<static_cast<unsigned>(npanels), THREADS, 0, st>>>(
+      static_cast<const T*>(src), static_cast<const int*>(bases),
+      static_cast<const uint8_t*>(plan), static_cast<T*>(out), nwin,
+      static_cast<T>(fill));
+  return cudaGetLastError();
+}
+
+template <typename T, int RED>
+void launch_fold_kernel(const void* src, const void* bases, const void* plan,
+                        const void* dst, const void* seg, void* y,
+                        long long seg_rows, long long npanels, int nwin,
+                        double fill, cudaStream_t st) {
+  route_fold_kernel<T, RED><<<static_cast<unsigned>(npanels), THREADS, 0,
+                              st>>>(
+      static_cast<const T*>(src), static_cast<const int*>(bases),
+      static_cast<const uint8_t*>(plan), static_cast<const int*>(dst),
+      static_cast<const int*>(seg), static_cast<T*>(y), seg_rows, nwin,
+      static_cast<T>(fill));
+}
+
+template <typename T>
+int launch_fold(const void* src, const void* bases, const void* plan,
+                const void* dst, const void* seg, void* y, long long nrows,
+                long long seg_rows, long long npanels, int nwin, int red,
+                double fill, cudaStream_t st) {
+  if (red != RED_SUM && !std::is_same<T, int>::value) {
+    return cudaErrorInvalidValue;   // no float atomicMin/Max
+  }
+  const long long n = nrows * LANES;
+  const long long want = (n + THREADS - 1) / THREADS;
+  const unsigned blocks = static_cast<unsigned>(want < 65536 ? want : 65536);
+  if (n > 0) {
+    fill_kernel<T><<<blocks, THREADS, 0, st>>>(static_cast<T*>(y), n,
+                                                 static_cast<T>(fill));
+  }
+  if (npanels > 0) {
+    if (red == RED_SUM) {
+      launch_fold_kernel<T, RED_SUM>(src, bases, plan, dst, seg, y, seg_rows,
+                                     npanels, nwin, fill, st);
+    } else if constexpr (std::is_same<T, int>::value) {
+      if (red == RED_MIN) {
+        launch_fold_kernel<T, RED_MIN>(src, bases, plan, dst, seg, y,
+                                       seg_rows, npanels, nwin, fill, st);
+      } else if (red == RED_MAX) {
+        launch_fold_kernel<T, RED_MAX>(src, bases, plan, dst, seg, y,
+                                       seg_rows, npanels, nwin, fill, st);
+      } else {
+        return cudaErrorInvalidValue;
+      }
+    }
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_hub(const void* v, const void* hm, void* out, long long nrows,
+               int red, cudaStream_t st) {
+  const T* vs = static_cast<const T*>(v);
+  const uint8_t* h = static_cast<const uint8_t*>(hm);
+  T* o = static_cast<T*>(out);
+  const unsigned grid = static_cast<unsigned>(nrows);
+  switch (red) {
+    case RED_SUM:
+      hub_fold_kernel<T, RED_SUM><<<grid, LANES, 0, st>>>(vs, h, o);
+      break;
+    case RED_MIN:
+      hub_fold_kernel<T, RED_MIN><<<grid, LANES, 0, st>>>(vs, h, o);
+      break;
+    case RED_MAX:
+      hub_fold_kernel<T, RED_MAX><<<grid, LANES, 0, st>>>(vs, h, o);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int gt_route_xr_exp(const void* x2d, const void* bases, const void* plan,
+                    const void* w, void* out, long long npanels, int nwin,
+                    int dtype, int mul_kind, double fill, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case F32:
+      return launch_xr_exp<float>(x2d, bases, plan, w, out, npanels, nwin,
+                                  mul_kind, fill, st);
+    case F64:
+      return launch_xr_exp<double>(x2d, bases, plan, w, out, npanels, nwin,
+                                   mul_kind, fill, st);
+    case I32:
+      return launch_xr_exp<int>(x2d, bases, plan, w, out, npanels, nwin,
+                                mul_kind, fill, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+int gt_route_passa(const void* src, const void* bases, const void* plan,
+                   void* out, long long npanels, int nwin, int dtype,
+                   double fill, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case F32:
+      return launch_passa<float>(src, bases, plan, out, npanels, nwin, fill,
+                                 st);
+    case F64:
+      return launch_passa<double>(src, bases, plan, out, npanels, nwin, fill,
+                                  st);
+    case I32:
+      return launch_passa<int>(src, bases, plan, out, npanels, nwin, fill,
+                               st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+int gt_route_fold(const void* src, const void* bases, const void* plan,
+                  const void* dst, const void* seg, void* y, long long nrows,
+                  long long seg_rows, long long npanels, int nwin, int dtype,
+                  int reduce_kind, double fill, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case F32:
+      return launch_fold<float>(src, bases, plan, dst, seg, y, nrows,
+                                seg_rows, npanels, nwin, reduce_kind, fill,
+                                st);
+    case F64:
+      return launch_fold<double>(src, bases, plan, dst, seg, y, nrows,
+                                 seg_rows, npanels, nwin, reduce_kind, fill,
+                                 st);
+    case I32:
+      return launch_fold<int>(src, bases, plan, dst, seg, y, nrows, seg_rows,
+                              npanels, nwin, reduce_kind, fill, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+int gt_hub_fold(const void* v, const void* hm, void* out, long long nrows,
+                int dtype, int reduce_kind, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case F32:
+      return launch_hub<float>(v, hm, out, nrows, reduce_kind, st);
+    case F64:
+      return launch_hub<double>(v, hm, out, nrows, reduce_kind, st);
+    case I32:
+      return launch_hub<int>(v, hm, out, nrows, reduce_kind, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+const char* gt_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -1,0 +1,187 @@
+"""Tile construction: filtering, renumbering, compression (numpy).
+
+Counterpart of ``graphtap_tpu/format/tiles.py::build_tileset`` for one
+process and the CSC and TCSC formats: the same arrays, byte for byte,
+without the device placement (``device_arrays``) and without the
+multi-process OR/max/sum reductions, which are the identity on one
+process. DCSC and TCSC_CF are not ported yet. The engine moves the fields it
+needs to the device itself (``engine/executor.py``).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+
+from graphtap_tpu_torch import _host
+from graphtap_tpu_torch.config import Compression
+from graphtap_tpu_torch.parallel.layout import Partition
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclass
+class TileSet:
+    """Device-stacked (leading axis D = R*C), padded tile arrays."""
+
+    part: Partition
+    compression: Compression
+    has_weight: bool
+    Ep: int                      # padded edges per device
+    NR: int                      # padded segment-space size for the y reduction
+    nnz_total: int               # total (deduped) edge count across devices
+
+    rows: np.ndarray             # (D, Ep) int32, ⊕-segment ids, sorted ascending
+    cols: np.ndarray             # (D, Ep) int32, local col in [0, R*L)
+    weights: Optional[np.ndarray]  # (D, Ep) or None
+    nnz: np.ndarray              # (D, 1) int32 valid-edge counts
+    ja: np.ndarray               # (D, NR+1) int32 row pointer over valid edges
+    ir: Optional[np.ndarray]     # (D, NR) int32 renumbered->dense local row
+    iv_dense: Optional[np.ndarray]  # (D, C*L) int32 dense row -> renumbered id
+    nnzrows: np.ndarray          # (D, 1) int32 nnz rows of the row group
+    i_own: np.ndarray            # (D, L) bool — in-edge mask of the owner segment
+    j_own: np.ndarray            # (D, L) bool — out-edge mask of the owner segment
+    regular_own: np.ndarray      # (D, L) bool — i_own & j_own
+    source_own: np.ndarray       # (D, L) bool — i_own & ~j_own
+    sink_own: np.ndarray         # (D, L) bool — j_own & ~i_own
+    nnzcols: np.ndarray          # (D, 1) int32 nnz cols of the col group
+    jc: Optional[np.ndarray] = None   # DCSC's JC table; not ported (None)
+
+
+def build_tileset(
+    r: np.ndarray,
+    c: np.ndarray,
+    w: Optional[np.ndarray],
+    part: Partition,
+    compression: Compression = Compression.TCSC,
+    parallel_edges: bool = True,
+    edge_align: int = 1024,
+    weight_dtype=np.int32,
+) -> TileSet:
+    """Build the tiled, compressed representation from a host edge list
+    (global, already transformed row/col ids; ``w`` optional weights).
+    Dedup of parallel edges keeps the minimum weight."""
+    if compression not in (Compression.CSC, Compression.TCSC):
+        raise NotImplementedError(f"{compression} tiles are not ported yet")
+    R, C, L, D = part.R, part.C, part.L, part.D
+    r = np.asarray(r, dtype=np.int64)
+    c = np.asarray(c, dtype=np.int64)
+    if r.size and (r.max() >= part.n_pad or c.max() >= part.n_pad):
+        raise ValueError("vertex id exceeds padded space")
+
+    dev = part.edge_device(r, c)
+    lr = part.local_row(r)
+    lc = part.local_col(c)
+    i_e = dev // C  # mesh row of each edge
+    j_e = dev % C   # mesh col of each edge
+
+    # filtering: nnz-row mask per row group, nnz-col mask per col group
+    # (reference: filter_vertices, matrix.hpp:861-1122)
+    rows_mask = np.zeros((R, C * L), dtype=bool)
+    rows_mask[i_e, lr] = True
+    cols_mask = np.zeros((C, R * L), dtype=bool)
+    cols_mask[j_e, lc] = True
+
+    # prefix renumbering IV (reference: matrix.hpp:1044-1097)
+    iv = np.cumsum(rows_mask, axis=1, dtype=np.int64) - 1
+    nnzrows_grp = rows_mask.sum(axis=1).astype(np.int64)
+    nnzcols_grp = cols_mask.sum(axis=1).astype(np.int64)
+
+    renumber = compression == Compression.TCSC
+
+    # per-device binning (native counting sort when available)
+    native = _host.load("native")
+    if r.size and r.max() < (1 << 32) and c.max() < (1 << 32):
+        order, counts = native.bin_edges(r, c, part.L, R, C)
+    else:
+        order = np.argsort(dev, kind="stable")
+        counts = np.bincount(dev, minlength=D)
+    lr_s, lc_s = lr[order], lc[order]
+    w_s = w[order] if w is not None else None
+    ends = np.cumsum(counts)
+    starts = ends - counts
+
+    per_rows, per_cols, per_w, per_nnz = [], [], [], []
+    for b in range(D):
+        s, e = starts[b], ends[b]
+        blr, blc = lr_s[s:e], lc_s[s:e]
+        bw = w_s[s:e] if w_s is not None else None
+        o = np.lexsort((blc, blr))  # sort by destination row, then col
+        blr, blc = blr[o], blc[o]
+        bw = bw[o] if bw is not None else None
+        if not parallel_edges and blr.size:
+            # dedup on (row, col); keep min weight for determinism
+            key = blr * np.int64(R * L) + blc
+            if bw is not None:
+                o2 = np.lexsort((bw, key))
+                key2, blr, blc, bw = key[o2], blr[o2], blc[o2], bw[o2]
+                keep = np.concatenate(([True], key2[1:] != key2[:-1]))
+                blr, blc, bw = blr[keep], blc[keep], bw[keep]
+                o3 = np.lexsort((blc, blr))
+                blr, blc, bw = blr[o3], blc[o3], bw[o3]
+            else:
+                keep = np.concatenate(([True], key[1:] != key[:-1]))
+                blr, blc = blr[keep], blc[keep]
+        per_rows.append(blr)
+        per_cols.append(blc)
+        per_w.append(bw)
+        per_nnz.append(blr.size)
+
+    per_nnz_a = np.asarray(per_nnz, np.int64)
+    nnz_total = int(per_nnz_a.sum())
+    Ep = _round_up(int(max(int(per_nnz_a.max()) if per_nnz_a.size else 0, 1)),
+                   edge_align)
+    NR = _round_up(int(max(nnzrows_grp.max(), 1)), 128) if renumber \
+        else C * L
+
+    rows_arr = np.zeros((D, Ep), dtype=np.int32)
+    cols_arr = np.zeros((D, Ep), dtype=np.int32)
+    w_arr = np.zeros((D, Ep), dtype=weight_dtype) if w is not None else None
+    nnz_arr = np.zeros((D, 1), dtype=np.int32)
+    ja_arr = np.zeros((D, NR + 1), dtype=np.int32)
+    ir_arr = np.full((D, NR), C * L, dtype=np.int32) if renumber else None
+    iv_arr = np.full((D, C * L), -1, dtype=np.int32) if renumber else None
+    nnzrows_arr = np.zeros((D, 1), dtype=np.int32)
+    nnzcols_arr = np.zeros((D, 1), dtype=np.int32)
+
+    for b in range(D):
+        i, j = divmod(b, C)
+        n = per_nnz[b]
+        blr, blc, bw = per_rows[b], per_cols[b], per_w[b]
+        seg_ids = iv[i, blr] if renumber else blr
+        rows_arr[b, :n] = seg_ids
+        if n < Ep:  # pad with last valid id to keep sortedness
+            rows_arr[b, n:] = seg_ids[-1] if n else 0
+        cols_arr[b, :n] = blc
+        if w_arr is not None and bw is not None:
+            w_arr[b, :n] = bw
+        nnz_arr[b, 0] = n
+        nnzrows_arr[b, 0] = nnzrows_grp[i]
+        nnzcols_arr[b, 0] = nnzcols_grp[j]
+        ja_arr[b] = np.searchsorted(rows_arr[b, :n], np.arange(NR + 1))
+        if renumber:
+            nz = np.flatnonzero(rows_mask[i])
+            ir_arr[b, :nz.size] = nz
+            iv_arr[b] = np.where(rows_mask[i], iv[i], -1)
+
+    # owner-segment masks: device (i, j) owns segment s = j*R + i
+    i_own = np.zeros((D, L), dtype=bool)
+    j_own = np.zeros((D, L), dtype=bool)
+    for b in range(D):
+        i, j = divmod(b, C)
+        i_own[b] = rows_mask[i, j * L:(j + 1) * L]
+        j_own[b] = cols_mask[j, i * L:(i + 1) * L]
+
+    return TileSet(
+        part=part, compression=compression, has_weight=w is not None,
+        Ep=Ep, NR=NR, nnz_total=nnz_total,
+        rows=rows_arr, cols=cols_arr, weights=w_arr, nnz=nnz_arr,
+        ja=ja_arr, ir=ir_arr, iv_dense=iv_arr,
+        nnzrows=nnzrows_arr, i_own=i_own, j_own=j_own,
+        regular_own=i_own & j_own, source_own=i_own & ~j_own,
+        sink_own=j_own & ~i_own, nnzcols=nnzcols_arr,
+    )

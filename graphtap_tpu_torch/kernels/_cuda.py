@@ -1,0 +1,106 @@
+"""Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
+
+The kernels in ``csrc/*.cu`` expose plain ``extern "C"`` launchers, so
+they compile in seconds without PyTorch's headers. The library is built
+at first use into ``graphtap_tpu_torch/build/`` under a name keyed on the
+source bytes, so an edited source is never served by a stale build.
+Nothing here runs at import time: the CPU tests import every module on a
+machine with neither nvcc nor a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Optional
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD = PKG / "build"
+SOURCES = ("panel_route.cu",)
+ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+
+_lib: Optional[ctypes.CDLL] = None
+build_log = ""          # nvcc's output (ptxas register/smem report)
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_longlong
+_I32 = ctypes.c_int
+_F64 = ctypes.c_double
+# launcher name -> argtypes; every launcher returns cudaError_t as int
+_SIGNATURES = {
+    # x2d, bases, plan, w, out, npanels, nwin, dtype, mul_kind, fill, stream
+    "gt_route_xr_exp": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _F64,
+                        _P],
+    # src, bases, plan, out, npanels, nwin, dtype, fill, stream
+    "gt_route_passa": [_P, _P, _P, _P, _I64, _I32, _I32, _F64, _P],
+    # src, bases, plan, dst, seg, y, nrows, seg_rows, npanels, nwin,
+    # dtype, reduce_kind, fill, stream
+    "gt_route_fold": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32,
+                      _I32, _F64, _P],
+    # v, hub_mask, out, nrows, dtype, reduce_kind, stream
+    "gt_hub_fold": [_P, _P, _P, _I64, _I32, _I32, _P],
+}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                       "machine with the CUDA toolkit")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for s in SOURCES:
+        h.update((CSRC / s).read_bytes())
+    h.update(ARCH.encode())
+    return BUILD / f"libgt_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels (if this source version is not built yet)."""
+    global build_log
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler",
+           "-fPIC", "-Xptxas", "-v", "-o", str(tmp)]
+    cmd += [str(CSRC / s) for s in SOURCES]
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    build_log = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.gt_error_string.argtypes = [ctypes.c_int]
+        lib.gt_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a launcher reported a CUDA error (cudaGetLastError)."""
+    if rc != 0:
+        msg = library().gt_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")

@@ -1,0 +1,354 @@
+"""The v3 panel-route kernels: CUDA wrappers, plain torch versions, counts.
+
+Counterpart of ``graphtap_tpu/kernels/panel_kernels.py``. Each of the four
+Pallas kernels on the PageRank path has here
+
+  * a wrapper (``route_xr_exp``, ``route_passa``, ``route_fold``,
+    ``hub_fold``) that checks dtype, shape and contiguity, then runs the
+    plain version for a CPU tensor or launches the hand-written Hopper
+    kernel (``csrc/panel_route.cu``) for a CUDA tensor — never a fallback;
+  * a plain torch version (``*_plain``) of the same function, which the
+    CPU tests hold against the Pallas kernels and ``chip_smoke.py`` holds
+    against the CUDA kernels;
+  * a launch count in ``LAUNCHES``, incremented only where the wrapper
+    launches the CUDA kernel.
+
+Route semantics, shared by K1-K3. A panel's plan block is uint8 rows
+[idx1 (nsrc*8), sel_a (out), sel_b (out, two-layer only), idx3 (out)].
+For output slot (r, l): m = idx3[r,l] & 127; s = (idx3[r,l] >= 128 ?
+sel_b : sel_a)[r, m]; band = s >> 3, row = s & 7; the value is
+src_band[band][row, idx1[band*8+row, m]] if band < nsrc, else the fill
+(⊕-identity) — a band past the source is fill, never a wrapped read.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from graphtap_tpu_torch import _host
+from graphtap_tpu_torch.kernels import _cuda
+
+_pp = _host.load("panel_plan")
+LANES, PROWS, STRIPE, XROWS = _pp.LANES, _pp.PROWS, _pp.STRIPE, _pp.XROWS
+FOLD_SEG_ROWS = _pp.FOLD_SEG_ROWS
+
+# launches of each CUDA kernel (the plain versions are not counted)
+LAUNCHES = {"route_xr_exp": 0, "route_passa": 0, "route_fold": 0,
+            "hub_fold": 0}
+
+_DTYPES = {torch.float32: 0, torch.float64: 1, torch.int32: 2}
+_MUL_KINDS = {"none": 0, "mul": 1, "add_sat": 2}
+_REDUCE_KINDS = {"sum": 0, "min": 1, "max": 2}
+# the ⊕ kinds each value type takes on the CUDA side
+_REDUCE_OK = {torch.float32: ("sum",), torch.float64: ("sum",),
+              torch.int32: ("sum", "min", "max")}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ------------------------------------------------------------ plan packing
+def pack_route_plan(idx1, sel_a, sel_b, idx3, npanels: int, src_rows: int,
+                    out_rows: int = PROWS, two_layer: bool = True
+                    ) -> np.ndarray:
+    """Concatenate a route's per-panel plan arrays row-wise into one
+    uint8 stream: per panel [idx1 (src_rows), sel_a (out_rows),
+    sel_b (out_rows, two-layer only), idx3 (out_rows)]."""
+    pieces = [np.asarray(idx1).astype(np.uint8).reshape(
+        npanels, src_rows, LANES),
+        np.asarray(sel_a).astype(np.uint8).reshape(npanels, out_rows, LANES)]
+    if two_layer:
+        pieces.append(np.asarray(sel_b).astype(np.uint8).reshape(
+            npanels, out_rows, LANES))
+    pieces.append(np.asarray(idx3).astype(np.uint8).reshape(
+        npanels, out_rows, LANES))
+    return np.concatenate(pieces, axis=1).reshape(-1, LANES)
+
+
+def plan_rows(src_rows: int, out_rows: int = PROWS,
+              two_layer: bool = True) -> int:
+    return src_rows + (3 if two_layer else 2) * out_rows
+
+
+def xe_plan_rows(nwin: int) -> int:
+    """Rows per panel of the fused x->x_ext + expand plan (K1)."""
+    return plan_rows(nwin * STRIPE, XROWS, False) + plan_rows(XROWS)
+
+
+# --------------------------------------------------------- plain versions
+def _route(src, idx1, sel_a, sel_b, idx3, nsrc: int, fill):
+    """The 3-stage route of a batch of panels. src: (P, nsrc*8, 128)
+    source bands; idx1: (P, nsrc*8, 128); sel_a/sel_b/idx3: (P, out, 128)
+    uint8; sel_b None = one landing layer (the pick bit is ignored)."""
+    u = torch.gather(src, 2, idx1.long())           # stage 1: lane crossbar
+    fill_t = torch.tensor(fill, dtype=src.dtype, device=src.device)
+
+    def landing(sel):                               # stage 2: row + band
+        s = sel.long()
+        band = s >> 3
+        q = (band * STRIPE + (s & 7)).clamp(max=nsrc * STRIPE - 1)
+        return torch.where(band < nsrc, torch.gather(u, 1, q), fill_t)
+
+    m = (idx3 & 127).long()                         # stage 3: lane crossbar
+    out = torch.gather(landing(sel_a), 2, m)
+    if sel_b is not None:
+        out = torch.where(idx3 >= 128, torch.gather(landing(sel_b), 2, m),
+                          out)
+    return out
+
+
+def _split(plan, npanels: int, sizes):
+    """Per-panel row blocks of a packed plan stream."""
+    pk = plan[:npanels * sum(sizes)].view(npanels, sum(sizes), LANES)
+    return torch.split(pk, list(sizes), dim=1)
+
+
+def _windows(src2d, bases, npanels: int, nwin: int):
+    """Each panel's nwin 8-row windows of src2d at block indices bases."""
+    blocks = src2d.view(-1, STRIPE, LANES)
+    return blocks[bases[:npanels * nwin].long()].view(
+        npanels, nwin * STRIPE, LANES)
+
+
+def _mul(acc, weights, npanels: int, mul_kind: str, fill):
+    if weights is None or mul_kind == "none":
+        return acc
+    w = weights[:npanels * PROWS].view(npanels, PROWS, LANES)
+    if mul_kind == "mul":
+        return acc * w
+    fill_t = torch.tensor(fill, dtype=acc.dtype, device=acc.device)
+    return torch.where(acc >= fill_t, fill_t, acc + w)       # add_sat
+
+
+def route_xr_exp_plain(x2d, bases, plan, weights, fill, npanels: int,
+                       nwin: int, mul_kind: str = "none"):
+    sr = nwin * STRIPE
+    (xi1, xsa, xi3, ei1, esa, esb, ei3) = _split(
+        plan, npanels, (sr, XROWS, XROWS, XROWS, PROWS, PROWS, PROWS))
+    x_ext = _route(_windows(x2d, bases, npanels, nwin), xi1, xsa, None, xi3,
+                   nwin, fill)
+    acc = _route(x_ext, ei1, esa, esb, ei3, XROWS // STRIPE, fill)
+    return _mul(acc, weights, npanels, mul_kind, fill).reshape(-1, LANES)
+
+
+def route_passa_plain(stream0, bases, plan, fill, npanels: int, nwin: int):
+    sr = nwin * STRIPE
+    i1, sa, sb, i3 = _split(plan, npanels, (sr, PROWS, PROWS, PROWS))
+    return _route(_windows(stream0, bases, npanels, nwin), i1, sa, sb, i3,
+                  nwin, fill).reshape(-1, LANES)
+
+
+def _fold_rows(dst, seg, nrows: int):
+    seg_rows = min(nrows, FOLD_SEG_ROWS)
+    return seg.long().repeat_interleave(STRIPE) * seg_rows + dst.long()
+
+
+def route_fold_plain(stream0, bases, plan, dst, seg, nrows: int,
+                     reduce_kind: str, fill, npanels: int, nwin: int):
+    routed = route_passa_plain(stream0, bases, plan, fill, npanels, nwin)
+    bands = routed.view(npanels * STRIPE, STRIPE, LANES)
+    if reduce_kind == "sum":
+        parts = bands.sum(dim=1)
+    elif reduce_kind == "min":
+        parts = bands.amin(dim=1)
+    else:
+        parts = bands.amax(dim=1)
+    rows = _fold_rows(dst[:npanels * STRIPE], seg[:npanels], nrows)
+    y = torch.full((nrows, LANES), fill, dtype=stream0.dtype,
+                   device=stream0.device)
+    op = {"sum": "sum", "min": "amin", "max": "amax"}[reduce_kind]
+    return y.scatter_reduce_(0, rows[:, None].expand(-1, LANES), parts, op,
+                             include_self=True)
+
+
+def hub_fold_plain(y_mid, hub_mask, reduce_kind: str):
+    op = {"sum": torch.add, "min": torch.minimum,
+          "max": torch.maximum}[reduce_kind]
+    lane = torch.arange(LANES, device=y_mid.device)
+    out = acc = y_mid
+    for width, shifts in ((32, (1, 2, 4, 8, 16)), (64, (32,)), (128, (64,))):
+        for sh in shifts:
+            acc = op(acc, acc[:, lane ^ sh])
+        out = torch.where(hub_mask == width, acc, out)
+    return out
+
+
+# ------------------------------------------------------------- validation
+def _check_2d(name, t, dtype=None, min_rows=0):
+    if t.dim() != 2 or t.shape[1] != LANES:
+        raise ValueError(f"{name}: expected (rows, {LANES}), got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+    if dtype is not None and t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if t.shape[0] < min_rows:
+        raise ValueError(f"{name}: {t.shape[0]} rows < {min_rows}")
+
+
+def _check_idx(name, t, n, device):
+    if t.dim() != 1 or t.dtype != torch.int32 or not t.is_contiguous():
+        raise TypeError(f"{name}: expected a contiguous 1-D int32 tensor")
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, expected {device}")
+    if t.shape[0] < n:
+        raise ValueError(f"{name}: {t.shape[0]} entries < {n}")
+
+
+def _check_values(name, t, device):
+    if t.dtype not in _DTYPES:
+        raise TypeError(f"{name}: dtype {t.dtype} not in f32/f64/i32")
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, expected {device}")
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; anything else raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {t.device}")
+
+
+def _stream(t: torch.Tensor):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# --------------------------------------------------------------- wrappers
+def route_xr_exp(x2d, bases, plan, weights, fill, npanels: int, nwin: int,
+                 mul_kind: str = "none"):
+    """K1: x table -> (npanels*64, 128) contribution panels: the fused
+    single-layer x -> x_ext route of each panel's ``nwin`` x windows (at
+    block indices ``bases``), the two-layer expand route, then ⊗ with the
+    weight stream. Replaces ``panel_kernels.py::route_xr_exp``."""
+    _check_sources("x2d", x2d, bases, plan, npanels, nwin)
+    _check_2d("plan", plan, torch.uint8, npanels * xe_plan_rows(nwin))
+    if mul_kind not in _MUL_KINDS:
+        raise ValueError(f"mul_kind {mul_kind!r}")
+    if weights is not None:
+        _check_2d("weights", weights, x2d.dtype, npanels * PROWS)
+        _check_values("weights", weights, x2d.device)
+    if not _on_cuda(x2d):
+        return route_xr_exp_plain(x2d, bases, plan, weights, fill, npanels,
+                                  nwin, mul_kind)
+    lib = _cuda.library()
+    out = torch.empty((npanels * PROWS, LANES), dtype=x2d.dtype,
+                      device=x2d.device)
+    if npanels == 0:
+        return out
+    with torch.cuda.device(x2d.device):
+        rc = lib.gt_route_xr_exp(
+            x2d.data_ptr(), bases.data_ptr(), plan.data_ptr(),
+            None if weights is None else weights.data_ptr(), out.data_ptr(),
+            npanels, nwin, _DTYPES[x2d.dtype],
+            _MUL_KINDS[mul_kind] if weights is not None else 0, float(fill),
+            _stream(x2d))
+    LAUNCHES["route_xr_exp"] += 1
+    _cuda.check(rc, "route_xr_exp")
+    return out
+
+
+def route_passa(stream0, bases, plan, fill, npanels: int, nwin: int):
+    """K2: the corner turn — each panel's ``nwin`` 8-row windows of
+    ``stream0`` (at block indices ``bases``) routed two-layer into a
+    64-row panel. Replaces ``panel_kernels.py::route_passa``."""
+    _check_route_args(stream0, bases, plan, npanels, nwin)
+    if not _on_cuda(stream0):
+        return route_passa_plain(stream0, bases, plan, fill, npanels, nwin)
+    lib = _cuda.library()
+    out = torch.empty((npanels * PROWS, LANES), dtype=stream0.dtype,
+                      device=stream0.device)
+    if npanels == 0:
+        return out
+    with torch.cuda.device(stream0.device):
+        rc = lib.gt_route_passa(
+            stream0.data_ptr(), bases.data_ptr(), plan.data_ptr(),
+            out.data_ptr(), npanels, nwin, _DTYPES[stream0.dtype],
+            float(fill), _stream(stream0))
+    LAUNCHES["route_passa"] += 1
+    _cuda.check(rc, "route_passa")
+    return out
+
+
+def route_fold(stream0, bases, plan, dst, seg, nrows: int, reduce_kind: str,
+               fill, npanels: int, nwin: int):
+    """K3: route as K2, then ⊕-fold each routed 8-row band into row
+    ``seg[p]*min(nrows, 8192) + dst[p*8+ob]`` of an (nrows, 128) table
+    that starts at the ⊕-identity. Replaces ``panel_kernels.py::
+    route_fold``; its per-segment ``ini`` reset is implied, because the
+    whole table is filled before any fold (panels are segment-sorted)."""
+    _check_route_args(stream0, bases, plan, npanels, nwin)
+    _check_idx("dst", dst, npanels * STRIPE, stream0.device)
+    _check_idx("seg", seg, npanels, stream0.device)
+    if reduce_kind not in _REDUCE_OK[stream0.dtype]:
+        raise ValueError(f"route_fold: {reduce_kind} on {stream0.dtype}")
+    seg_rows = min(nrows, FOLD_SEG_ROWS)
+    if nrows % seg_rows:
+        raise ValueError(f"nrows {nrows} is not whole {seg_rows}-row "
+                         f"segments")
+    if not _on_cuda(stream0):
+        return route_fold_plain(stream0, bases, plan, dst, seg, nrows,
+                                reduce_kind, fill, npanels, nwin)
+    lib = _cuda.library()
+    y = torch.empty((nrows, LANES), dtype=stream0.dtype,
+                    device=stream0.device)
+    with torch.cuda.device(stream0.device):
+        rc = lib.gt_route_fold(
+            stream0.data_ptr(), bases.data_ptr(), plan.data_ptr(),
+            dst.data_ptr(), seg.data_ptr(), y.data_ptr(), nrows, seg_rows,
+            npanels, nwin, _DTYPES[stream0.dtype],
+            _REDUCE_KINDS[reduce_kind], float(fill), _stream(stream0))
+    LAUNCHES["route_fold"] += 1
+    _cuda.check(rc, "route_fold")
+    return y
+
+
+def hub_fold(y_mid, hub_mask, reduce_kind: str):
+    """K4: for each row whose hub code is 32, 64 or 128, every lane becomes
+    the ⊕ of its aligned group of that many lanes, by the xor butterfly
+    1, 2, 4, 8, 16 | 32 | 64; code-0 rows pass through. Replaces
+    ``panel_kernels.py::hub_fold``."""
+    _check_2d("y_mid", y_mid)
+    _check_values("y_mid", y_mid, y_mid.device)
+    _check_2d("hub_mask", hub_mask, torch.uint8)
+    if hub_mask.shape != y_mid.shape or hub_mask.device != y_mid.device:
+        raise ValueError("hub_mask must match y_mid's shape and device")
+    if reduce_kind not in _REDUCE_OK[y_mid.dtype]:
+        raise ValueError(f"hub_fold: {reduce_kind} on {y_mid.dtype}")
+    if not _on_cuda(y_mid):
+        return hub_fold_plain(y_mid, hub_mask, reduce_kind)
+    lib = _cuda.library()
+    out = torch.empty_like(y_mid)
+    if y_mid.shape[0] == 0:
+        return out
+    with torch.cuda.device(y_mid.device):
+        rc = lib.gt_hub_fold(y_mid.data_ptr(), hub_mask.data_ptr(),
+                             out.data_ptr(), y_mid.shape[0],
+                             _DTYPES[y_mid.dtype], _REDUCE_KINDS[reduce_kind],
+                             _stream(y_mid))
+    LAUNCHES["hub_fold"] += 1
+    _cuda.check(rc, "hub_fold")
+    return out
+
+
+def _check_sources(name, src, bases, plan, npanels, nwin):
+    """Checks shared by the routes: the windowed source, its block
+    indices and the plan stream (whose row count each caller checks)."""
+    _check_2d(name, src)
+    if src.shape[0] % STRIPE:
+        raise ValueError(f"{name} rows must be a multiple of 8")
+    _check_values(name, src, src.device)
+    _check_idx("bases", bases, npanels * nwin, src.device)
+    _check_2d("plan", plan, torch.uint8)
+    if plan.device != src.device:
+        raise ValueError(f"plan on {plan.device}, expected {src.device}")
+
+
+def _check_route_args(stream0, bases, plan, npanels, nwin):
+    _check_sources("stream0", stream0, bases, plan, npanels, nwin)
+    _check_2d("plan", plan, torch.uint8,
+              npanels * plan_rows(nwin * STRIPE))

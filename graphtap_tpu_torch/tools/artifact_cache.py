@@ -1,0 +1,90 @@
+"""On-disk cache of the port's host-built panel plans (``Spmv3Meta``).
+
+Plans are a pure function of the edge list, the ordering, the value dtype
+and the planner's code, and an RMAT-20 plan takes minutes to build, so
+they are memoized as ``.npz`` under ``.bench_cache/torch/``. The key names
+the generator parameters (scale, edge factor, seed), the ordering, the
+dtype and a hash of every source file the plan bytes depend on, so a plan
+built by older planner code is never served (a key that leaves out what
+the artifact depends on serves a wrong artifact).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+
+from graphtap_tpu_torch import _host
+from graphtap_tpu_torch.format.tiles import TileSet
+from graphtap_tpu_torch.kernels.panel_meta import (Spmv3Meta,
+                                                   build_spmv3_meta,
+                                                   validate_meta)
+
+DEFAULT_DIR = _host.REPO_ROOT / ".bench_cache" / "torch"
+_META = "__meta__"
+_SCALARS = ("NC", "nblocks", "dense_rows", "f2_rows", "exp_panels",
+            "pa_panels", "pa_nwin", "fix_panels", "fixr_nwin",
+            "fix2_chunks", "f2_panels", "f2_nwin", "nrb", "xext_rows",
+            "xr_nwin", "sx_rows", "has_w")
+# every file whose code decides the plan bytes
+_PLAN_SOURCES = (
+    _host.JAX_PKG / "kernels" / "panel_plan.py",
+    _host.JAX_PKG / "kernels" / "gather_plan.py",
+    _host.JAX_PKG / "native" / "route_solver.cpp",
+    Path(__file__).resolve().parent.parent / "kernels" / "panel_meta.py",
+    Path(__file__).resolve().parent.parent / "kernels" / "panel_kernels.py",
+)
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for p in _PLAN_SOURCES:
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def meta_key(scale: int, edge_factor: int, seed: int, ordering,
+             value_dtype) -> str:
+    return (f"spmv3_rmat{scale}_ef{edge_factor}_s{seed}_{ordering.value}_"
+            f"{np.dtype(value_dtype).name}_{source_hash()}")
+
+
+def save_spmv3_meta(meta: Spmv3Meta, path) -> None:
+    arrays = dict(meta.arrays)
+    scalars = {k: getattr(meta, k) for k in _SCALARS}
+    arrays[_META] = np.frombuffer(
+        json.dumps({k: (bool(v) if isinstance(v, (bool, np.bool_))
+                        else int(v)) for k, v in scalars.items()}).encode(),
+        dtype=np.uint8)
+    tmp = f"{path}.{os.getpid()}.tmp.npz"
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
+
+
+def load_spmv3_meta(path) -> Spmv3Meta:
+    with np.load(path) as z:
+        scalars = json.loads(bytes(z[_META]).decode())
+        arrays = {k: z[k] for k in z.files if k != _META}
+    meta = Spmv3Meta(arrays=arrays, **scalars)
+    validate_meta(meta)
+    return meta
+
+
+def cached_spmv3_meta(tiles: TileSet, scale: int, edge_factor: int,
+                      seed: int, ordering, value_dtype=np.float32,
+                      cache_dir: Optional[os.PathLike] = None) -> Spmv3Meta:
+    """The panel meta of an RMAT graph's tiles, from disk when cached."""
+    d = Path(cache_dir) if cache_dir is not None else DEFAULT_DIR
+    path = d / (meta_key(scale, edge_factor, seed, ordering, value_dtype)
+                + ".npz")
+    if path.exists():
+        return load_spmv3_meta(path)
+    meta = build_spmv3_meta(tiles, value_dtype=value_dtype)
+    d.mkdir(parents=True, exist_ok=True)
+    save_spmv3_meta(meta, path)
+    return meta

@@ -1,0 +1,223 @@
+"""The torch port's host layer: jax-free import, and partition, tiles and
+panel meta byte-identical to the JAX package's."""
+
+import os
+import subprocess
+import sys
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from graphtap_tpu.config import Compression as JCompression
+from graphtap_tpu.config import GraphConfig as JGraphConfig
+from graphtap_tpu.format.tiles import build_tileset as j_build_tileset
+from graphtap_tpu.ingest.graph import Graph as JGraph
+from graphtap_tpu.kernels.panel_engine import \
+    build_spmv3_meta as j_build_spmv3_meta
+from graphtap_tpu.parallel.layout import Partition as JPartition
+from graphtap_tpu.parallel.layout import make_mesh
+
+from graphtap_tpu_torch import Compression, Graph, GraphConfig, Ordering
+from graphtap_tpu_torch.format.tiles import build_tileset
+from graphtap_tpu_torch.ingest import rmat_edges
+from graphtap_tpu_torch.kernels.panel_meta import (build_spmv3_meta,
+                                                   validate_meta)
+from graphtap_tpu_torch.parallel.layout import Partition
+from graphtap_tpu_torch.tools import artifact_cache
+from graphtap_tpu_torch.tools.convert import state_from_numpy
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TILE_FIELDS = ("Ep", "NR", "nnz_total", "has_weight", "rows", "cols",
+               "weights", "nnz", "ja", "ir", "iv_dense", "nnzrows", "i_own",
+               "j_own", "regular_own", "source_own", "sink_own", "nnzcols",
+               "jc")
+META_SCALARS = artifact_cache._SCALARS
+
+
+def _same_array(a, b, what):
+    if a is None or b is None:
+        assert a is None and b is None, what
+        return
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.dtype == b.dtype and a.shape == b.shape, what
+    assert a.tobytes() == b.tobytes(), what
+
+
+def _random_weighted(n=2048, e=30000, seed=4):
+    rng = np.random.default_rng(seed)
+    r = rng.integers(0, n, size=e).astype(np.int64)
+    c = rng.integers(0, n, size=e).astype(np.int64)
+    hub = rng.random(e) < 0.2
+    c[hub] = rng.integers(0, 16, size=int(hub.sum()))
+    w = rng.integers(1, 129, size=e).astype(np.int32)
+    return r, c, w, n
+
+
+def test_import_without_jax_builds_meta():
+    """(a) with jax made unimportable, the port imports and plans."""
+    code = (
+        "import sys; sys.modules['jax'] = None\n"
+        "import numpy as np\n"
+        "import graphtap_tpu_torch as g\n"
+        "from graphtap_tpu_torch.ingest import rmat_edges\n"
+        "from graphtap_tpu_torch.kernels.panel_meta import build_spmv3_meta\n"
+        "r, c, _ = rmat_edges(8, 16, seed=1)\n"
+        "gr = g.Graph.from_edges(r, c, None, g.GraphConfig(\n"
+        "    num_vertices=256, transpose=True))\n"
+        "m = build_spmv3_meta(gr.tiled(), np.float32)\n"
+        "assert m.exp_panels > 0 and m.arrays['xe_plan'].dtype == np.uint8\n"
+        "bad = [k for k in sys.modules if k == 'graphtap_tpu'\n"
+        "       or k.startswith('graphtap_tpu.')\n"
+        "       or (k.startswith('jax') and sys.modules[k] is not None)]\n"
+        "assert not bad, bad\n"
+        "print('OK')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().endswith("OK")
+
+
+@pytest.mark.parametrize("nv,segment_align", [(1025, 1024), (5000, 1024),
+                                              (300, 128)])
+def test_partition_matches_jax(nv, segment_align):
+    p = Partition.build(nv, 1, 1, segment_align=segment_align)
+    q = JPartition.build(nv, 1, 1, segment_align=segment_align)
+    assert (p.nv, p.R, p.C, p.L) == (q.nv, q.R, q.C, q.L)
+    assert (p.n_pad, p.tile_rows, p.tile_cols) == \
+        (q.n_pad, q.tile_rows, q.tile_cols)
+    _same_array(p.owner_vids(), q.owner_vids(), "owner_vids")
+    v = np.arange(p.n_pad) * 2 + 1
+    _same_array(p.edge_device(v, v[::-1]), q.edge_device(v, v[::-1]), "dev")
+    _same_array(p.local_row(v), q.local_row(v), "local_row")
+    _same_array(p.local_col(v), q.local_col(v), "local_col")
+    with pytest.raises(NotImplementedError):
+        Partition.build(nv, 2, 2)
+
+
+def _jax_graph(r, c, w, cfg_kwargs):
+    mesh = make_mesh(jax.devices()[:1], shape=(1, 1))
+    return JGraph.from_edges(r, c, w, JGraphConfig(**cfg_kwargs), mesh=mesh)
+
+
+@pytest.mark.parametrize("case", ["pagerank_row", "pagerank_col",
+                                  "weighted_int32"])
+def test_tiles_and_meta_match_jax(case):
+    """(b) tiles and panel meta equal the JAX package's, byte for byte."""
+    if case == "weighted_int32":
+        r, c, w, n = _random_weighted()
+        cfg = dict(num_vertices=n, directed=True, transpose=False,
+                   parallel_edges=False)
+        ordering, dtype = Ordering.ROW, np.int32
+    else:
+        r, c, w = rmat_edges(10, 16, seed=1)
+        cfg = dict(num_vertices=1024, directed=True, transpose=True)
+        ordering = Ordering.COL if case == "pagerank_col" else Ordering.ROW
+        dtype = np.float32
+    g = Graph.from_edges(r, c, w, GraphConfig(**cfg))
+    jg = _jax_graph(r, c, w, cfg)
+    for nm in ("r", "c", "w"):
+        _same_array(getattr(g, nm), getattr(jg, nm), f"graph.{nm}")
+    ts = g.tiled(ordering)
+    from graphtap_tpu.config import Ordering as JOrdering
+    jts = jg.tiled(JOrdering(ordering.value))
+    for f in TILE_FIELDS:
+        a, b = getattr(ts, f), getattr(jts, f)
+        if isinstance(a, np.ndarray) or a is None:
+            _same_array(a, b, f)
+        else:
+            assert a == b, f
+    assert ts.compression.value == jts.compression.value
+    meta = build_spmv3_meta(ts, value_dtype=dtype)
+    jmeta = j_build_spmv3_meta(jts, value_dtype=dtype)
+    for k in META_SCALARS:
+        assert getattr(meta, k) == getattr(jmeta, k), k
+    assert sorted(meta.arrays) == sorted(jmeta.arrays)
+    for k in meta.arrays:
+        _same_array(meta.arrays[k], jmeta.arrays[k], k)
+    if case == "weighted_int32":
+        assert meta.has_w and meta.arrays["w_stream"].dtype == np.int32
+
+
+def test_build_tileset_matches_jax_csc():
+    """Plain CSC (no renumbering) tiles are byte-identical too."""
+    r, c, w, n = _random_weighted(n=1500, e=8000, seed=8)
+    p = Partition.build(n, 1, 1)
+    ts = build_tileset(r, c, w, p, compression=Compression.CSC)
+    jts = j_build_tileset(r, c, w, JPartition.build(n, 1, 1),
+                          compression=JCompression.CSC)
+    for f in TILE_FIELDS:
+        a, b = getattr(ts, f), getattr(jts, f)
+        if isinstance(a, np.ndarray) or a is None:
+            _same_array(a, b, f)
+        else:
+            assert a == b, f
+
+
+def test_validate_meta_rejects_out_of_range_indices():
+    r, c, _ = rmat_edges(8, 16, seed=1)
+    g = Graph.from_edges(r, c, None, GraphConfig(num_vertices=256,
+                                                 transpose=True))
+    meta = build_spmv3_meta(g.tiled(), np.float32)
+    bad = dict(meta.arrays)
+    bad["pa_bases"] = bad["pa_bases"].copy()
+    bad["pa_bases"][0, -1] = (meta.exp_panels + 1) * 8     # one past s0
+    with pytest.raises(ValueError, match="pa_bases"):
+        validate_meta(types.SimpleNamespace(**{**meta.__dict__,
+                                               "arrays": bad}))
+    bad = dict(meta.arrays)
+    bad["pa_plan"] = bad["pa_plan"].copy()
+    bad["pa_plan"][0, 0, 0] = 200                          # idx1 lane
+    with pytest.raises(ValueError, match="idx1"):
+        validate_meta(types.SimpleNamespace(**{**meta.__dict__,
+                                               "arrays": bad}))
+
+
+def test_run_pagerank_on_cuda_raises_without_cuda():
+    """(c) no silent CPU fallback: asking for the card without one raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from graphtap_tpu_torch.apps import run_pagerank
+    r, c, _ = rmat_edges(8, 16, seed=1)
+    g = Graph.from_edges(r, c, None, GraphConfig(num_vertices=256,
+                                                 transpose=True))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_pagerank(g, 20, torch.float32, kernel="panel", device="cuda")
+
+
+def test_artifact_cache_roundtrip_and_key(tmp_path):
+    r, c, _ = rmat_edges(8, 16, seed=1)
+    g = Graph.from_edges(r, c, None, GraphConfig(num_vertices=256,
+                                                 transpose=True))
+    ts = g.tiled()
+    m1 = artifact_cache.cached_spmv3_meta(ts, 8, 16, 1, Ordering.ROW,
+                                          np.float32, cache_dir=tmp_path)
+    files = list(tmp_path.iterdir())
+    assert len(files) == 1
+    m2 = artifact_cache.cached_spmv3_meta(ts, 8, 16, 1, Ordering.ROW,
+                                          np.float32, cache_dir=tmp_path)
+    for k in META_SCALARS:
+        assert getattr(m1, k) == getattr(m2, k), k
+    for k in m1.arrays:
+        _same_array(m1.arrays[k], m2.arrays[k], k)
+    keys = {artifact_cache.meta_key(8, 16, 1, Ordering.ROW, np.float32),
+            artifact_cache.meta_key(8, 16, 2, Ordering.ROW, np.float32),
+            artifact_cache.meta_key(8, 16, 1, Ordering.COL, np.float32),
+            artifact_cache.meta_key(8, 16, 1, Ordering.ROW, np.float64),
+            artifact_cache.meta_key(9, 16, 1, Ordering.ROW, np.float32),
+            artifact_cache.meta_key(8, 8, 1, Ordering.ROW, np.float32)}
+    assert len(keys) == 6
+    assert artifact_cache.source_hash() in files[0].name
+
+
+def test_state_from_numpy_layout():
+    st = state_from_numpy({"rank": np.arange(6.0).reshape(1, 6),
+                           "deg": np.ones((1, 6), np.int32)})
+    assert st["rank"].shape == (6,) and st["rank"].dtype == torch.float64
+    assert st["deg"].dtype == torch.int32
+    with pytest.raises(ValueError):
+        state_from_numpy({"rank": np.zeros((2, 6))})

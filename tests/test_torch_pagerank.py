@@ -1,0 +1,110 @@
+"""PageRank through the port, end to end on the CPU: the degree phase
+(scan) and 20 iterations on the panel pipeline (plain kernels), against
+the f64 NumPy golden model and the JAX package's run_pagerank."""
+
+import os
+import sys
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from graphtap_tpu.apps.pagerank import run_pagerank as j_run_pagerank
+from graphtap_tpu.config import GraphConfig as JGraphConfig
+from graphtap_tpu.ingest.graph import Graph as JGraph
+from graphtap_tpu.parallel.layout import make_mesh
+
+from graphtap_tpu_torch import (Compression, EngineConfig, Graph,
+                                GraphConfig, Ordering)
+from graphtap_tpu_torch.apps import PageRankProgram, run_pagerank
+from graphtap_tpu_torch.engine.executor import Executor
+from graphtap_tpu_torch.ingest import rmat_edges
+from graphtap_tpu_torch.tools.convert import state_from_numpy
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import golden  # noqa: E402
+
+ITERS = 20
+N = 1024
+CHECKSUM_RMAT10 = 708.7927994761114    # JAX panel path, 1x1 and 2x2 meshes
+
+
+@pytest.fixture(scope="module")
+def rmat10():
+    r, c, _ = rmat_edges(10, 16, seed=1)
+    g = Graph.from_edges(r, c, None, GraphConfig(num_vertices=N,
+                                                 transpose=True))
+    return r, c, g, golden.pagerank(r, c, N + 1, ITERS)
+
+
+@pytest.fixture(scope="module")
+def port_f64(rmat10):
+    return run_pagerank(rmat10[2], ITERS, torch.float64, kernel="panel")
+
+
+def test_pagerank_f64_matches_golden(rmat10, port_f64):
+    ex = port_f64
+    rank = ex.state_vector()["rank"]
+    assert np.abs(rank - rmat10[3]).max() <= 1e-12
+    checksum, reach = ex.checksum()
+    assert abs(checksum - CHECKSUM_RMAT10) <= 1e-9
+    assert reach == N + 1
+    assert ex.iteration == ITERS
+    assert "vid=0: Rank=" in ex.display(3)
+
+
+def test_pagerank_f64_matches_jax_panel(rmat10, port_f64):
+    r, c, _, _ = rmat10
+    jg = JGraph.from_edges(r, c, None,
+                           JGraphConfig(num_vertices=N, transpose=True),
+                           mesh=make_mesh(jax.devices()[:1], shape=(1, 1)))
+    jex = j_run_pagerank(jg, ITERS, jnp.float64, kernel="panel")
+    mine, theirs = port_f64.state_vector(), jex.state_vector()
+    np.testing.assert_array_equal(mine["degree"], theirs["degree"])
+    np.testing.assert_allclose(mine["rank"], theirs["rank"], rtol=1e-12,
+                               atol=0)
+    # the JAX executor's state carried over by tools/convert drives the
+    # same PageRank in the port: its handed-over degrees give the same ranks
+    pr = Executor(port_f64.graph, PageRankProgram(torch.float64),
+                  EngineConfig(stationary=True, ordering=Ordering.ROW),
+                  kernel="panel", plans=port_f64.meta)
+    deg = state_from_numpy({"degree": np.asarray(jex.state["degree"])})
+    pr.initialize(other=types.SimpleNamespace(state=deg))
+    pr.execute(ITERS)
+    assert torch.equal(pr.state["rank"], port_f64.state["rank"])
+
+
+def test_pagerank_f32_close_to_golden(rmat10):
+    ex = run_pagerank(rmat10[2], ITERS, torch.float32, kernel="panel")
+    rank = ex.state_vector()["rank"].astype(np.float64)
+    want = rmat10[3]
+    assert np.abs(rank - want).max() / np.abs(want).max() <= 1e-5
+    checksum, _ = ex.checksum()
+    assert abs(checksum - want.sum()) / want.sum() <= 1e-5
+
+
+def test_pagerank_scan_kernel_matches_panel(rmat10, port_f64):
+    ex = run_pagerank(rmat10[2], ITERS, torch.float64, kernel="scan")
+    np.testing.assert_allclose(ex.state_vector()["rank"],
+                               port_f64.state_vector()["rank"], rtol=1e-12,
+                               atol=0)
+
+
+def test_executor_lifecycle_errors(rmat10, port_f64):
+    g = rmat10[2]
+    with pytest.raises(NotImplementedError):
+        run_pagerank(g, 0, torch.float64)              # convergence mode
+    ex = Executor(g, PageRankProgram(torch.float64), kernel="scan")
+    ex.free()
+    with pytest.raises(RuntimeError, match="free"):
+        ex.execute(1)
+    with pytest.raises(NotImplementedError):
+        Executor(g, PageRankProgram(torch.float64), kernel="shuffle2")
+    csc = Graph.from_edges(rmat10[0], rmat10[1], None, GraphConfig(
+        num_vertices=N, transpose=True, compression=Compression.CSC))
+    with pytest.raises(NotImplementedError):
+        Executor(csc, PageRankProgram(torch.float64), kernel="scan")

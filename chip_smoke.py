@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the torch port's PageRank path once on one NVIDIA GPU (H100).
+"""Drive the torch port's PageRank and frontier paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -17,12 +17,26 @@ Phases, each printed as it runs; any failure exits non-zero:
               iterations through apps.run_pagerank(device="cuda") in f32;
               the checksum within 1e-4 relative of the f64 NumPy golden
               model (tests/golden.py), the launch counts of K1-K4.
+  3b. gated  the gated K1-K3 against their gated plain versions, bit for
+              bit, on RMAT-14 plans in int32 min (weighted add_sat through
+              sssp_config, unweighted through bfs_config), on a 2%, a 30%
+              (each a contiguous vertex range) and an empty frontier; and
+              the gated spmv3 against the static one, bit for bit.
   5. kernels  each kernel's time beside its plain version's at the RMAT-20
               shapes of the main path, and their largest difference
               (K3: max |diff| <= 1e-5 * max |plain|, f32).
+  6. bfs      RMAT-18 through bfs_config: apps.run_bfs(device="cuda") to
+              convergence, frontier-gated ("auto"); hops and parents equal
+              tests/golden.py::bfs bit for bit; every gated kernel
+              launched; each superstep's branch and time (CUDA events);
+              then re-initialized and run again warm. The gated kernels'
+              times at the shapes of BFS's first superstep.
+  7. cc/sssp  CC and SSSP at RMAT-18, each through its own config, to
+              convergence; labels and distances equal the golden models.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
-the kernels with their launches, errors and times.
+the kernels with their launches (from the PageRank path for K1-K4, from
+the BFS path for the gated rows), errors and times.
 """
 
 from __future__ import annotations
@@ -39,6 +53,12 @@ EDGE_FACTOR = 16
 SEED = 1
 ITERS = 20
 PARITY_SCALE = 14
+# BFS: the host planner (the JAX package's panel_plan.py) finds no
+# x->x_ext route for RMAT-20 through bfs_config at any quota rung
+# (RouteInfeasible), so BFS runs at RMAT-18, the scale of BENCH_SUITE.json
+FRONTIER_SCALE = 18
+SUITE_SCALE = 18             # CC and SSSP, their BENCH_SUITE.json scale
+GATED = ("route_xr_exp_gated", "route_passa_gated", "route_fold_gated")
 DEVICE = "cuda"
 GOLDEN_RTOL = 1e-4
 FOLD_RTOL = {"float32": 1e-5, "float64": 1e-12}
@@ -49,6 +69,9 @@ REPLACES = {
     "route_passa": "graphtap_tpu/kernels/panel_kernels.py:435",
     "route_fold": "graphtap_tpu/kernels/panel_kernels.py:331",
     "hub_fold": "graphtap_tpu/kernels/panel_kernels.py:507",
+    "route_xr_exp_gated": "graphtap_tpu/kernels/panel_kernels.py:226",
+    "route_passa_gated": "graphtap_tpu/kernels/panel_kernels.py:453",
+    "route_fold_gated": "graphtap_tpu/kernels/panel_kernels.py:356",
 }
 
 
@@ -198,6 +221,86 @@ def phase_parity(torch, np) -> None:
             raise AssertionError(f"spmv3 disagrees with numpy ({name_dt})")
 
 
+def _gated_calls(t, meta, sem, st, maps):
+    """(name, kernel call, plain call) for the gated K1-K3 of one SpMV on
+    its stage tensors ``st`` and gating maps ``maps``."""
+    from graphtap_tpu_torch.kernels import panel_kernels as pk
+    from graphtap_tpu_torch.kernels.panel_meta import fill_blocks
+    fill, kind = sem.identity, sem.reduce_kind
+    mul = "add_sat" if meta.has_w else "none"
+    xe_b, xe_q, pa_b, pa_q, fx_b, fx_q = maps
+    fb = fill_blocks(meta)
+    xe = (st["x2d"], xe_b, t["xe_plan"], t.get("w_stream"), fill,
+          meta.exp_panels + 1, meta.xr_nwin, mul)
+    pa = (st["s0"], pa_b, t["pa_plan"], fill, meta.pa_panels + 1,
+          meta.pa_nwin)
+    fx = (st["s1"], fx_b, t["fixr_plan"], t["fix_dst"], t["fixr_seg"],
+          meta.nrb, kind, fill, meta.fix_panels, meta.fixr_nwin)
+    return [("route_xr_exp_gated",
+             lambda: pk.route_xr_exp(*xe, plan_idx=xe_q,
+                                     fill_block=fb["xe_plan"]),
+             lambda: pk.route_xr_exp_plain(*xe, plan_idx=xe_q)),
+            ("route_passa_gated",
+             lambda: pk.route_passa(*pa, plan_idx=pa_q,
+                                    fill_block=fb["pa_plan"]),
+             lambda: pk.route_passa_plain(*pa, plan_idx=pa_q)),
+            ("route_fold_gated",
+             lambda: pk.route_fold(*fx, plan_idx=fx_q,
+                                   fill_block=fb["fixr_plan"]),
+             lambda: pk.route_fold_plain(*fx, plan_idx=fx_q))]
+
+
+def phase_gated_parity(torch, np) -> None:
+    from graphtap_tpu_torch import Graph
+    from graphtap_tpu_torch.apps import bfs_config, sssp_config
+    from graphtap_tpu_torch.ingest import rmat_edges
+    from graphtap_tpu_torch.kernels.panel_engine import spmv3_stages
+    from graphtap_tpu_torch.kernels.panel_meta import (build_spmv3_meta,
+                                                       fill_blocks)
+    from graphtap_tpu_torch.kernels.semiring import min_plus, min_select
+    from graphtap_tpu_torch.tools.convert import meta_from_numpy
+    rng = np.random.default_rng(SEED)
+    n = 1 << PARITY_SCALE
+    for weighted, cfg_fn, sem in ((True, sssp_config, min_plus()),
+                                  (False, bfs_config, min_select())):
+        r, c, w = rmat_edges(PARITY_SCALE, EDGE_FACTOR, seed=SEED,
+                             weighted=weighted)
+        g = Graph.from_edges(r, c, w, cfg_fn(n))
+        meta = build_spmv3_meta(g.tiled(), value_dtype=np.int32)
+        t = meta_from_numpy(meta.arrays, DEVICE)
+        nc, inf = g.part.tile_cols, sem.identity
+        for share in (0.02, 0.30, 0.0):
+            xv = np.full(nc, inf, np.int32)
+            k = int(nc * share)
+            lo = (nc - k) // 2
+            xv[lo:lo + k] = rng.integers(0, 1000, k)
+            x = torch.from_numpy(xv).to(DEVICE)
+            st = spmv3_stages(x, t, meta, sem, g.part.tile_rows, gate=True)
+            static = spmv3_stages(x, t, meta, sem, g.part.tile_rows)
+            maps = st["maps"]
+            fb = fill_blocks(meta)
+            # real panels gated off (the fill panels point at themselves)
+            off = [int((q[:n] == fb[nm]).sum()) for q, nm, n in zip(
+                maps[1::2], ("xe_plan", "pa_plan", "fixr_plan"),
+                (meta.exp_panels, meta.pa_panels, meta.fix_panels))]
+            tag = (f"{'weighted' if weighted else 'unweighted'} "
+                   f"{share:.0%} frontier")
+            for name, kern, plain in _gated_calls(t, meta, sem, st, maps):
+                a, b = kern(), plain()
+                ok = _same(a, b)
+                log(f"gated parity {tag} {name}: "
+                    f"{'ok' if ok else 'MISMATCH'}")
+                if not ok:
+                    raise AssertionError(f"{name} disagrees with its "
+                                         f"plain version ({tag})")
+            ok = _same(st["y"], static["y"])
+            log(f"gated parity {tag}: gated spmv3 vs static "
+                f"{'ok' if ok else 'MISMATCH'}; panels gated off (xe, pa, "
+                f"fixr) {off}")
+            if not ok:
+                raise AssertionError(f"gated spmv3 != static ({tag})")
+
+
 def _ms(fn, torch, reps: int) -> float:
     """Mean device time of one call (CUDA events over ``reps`` calls)."""
     fn()
@@ -212,12 +315,18 @@ def _ms(fn, torch, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _golden():
+    """tests/golden.py, the NumPy golden models (loaded by path)."""
+    from graphtap_tpu_torch import _host
+    return _host.load_file(os.path.join(ROOT, "tests", "golden.py"),
+                           "graphtap_tpu_torch._host.golden")
+
+
 def phase_main(torch, np):
     from graphtap_tpu_torch import GraphConfig, Graph
     from graphtap_tpu_torch.apps import run_pagerank
     from graphtap_tpu_torch.ingest import rmat_edges
     from graphtap_tpu_torch.kernels import panel_kernels as pk
-    from graphtap_tpu_torch import _host
     t0 = time.perf_counter()
     r, c, _ = rmat_edges(SCALE, EDGE_FACTOR, seed=SEED)
     n = 1 << SCALE
@@ -238,14 +347,11 @@ def phase_main(torch, np):
         f"{wall - tm['tiles'] - tm['plans'] - tm['upload'] - tm['execute']:.1f}"
         f" s; run_pagerank wall {wall:.1f} s")
     log(f"main: launches {launches}")
-    need = {"route_xr_exp": ITERS, "route_passa": ITERS,
-            "route_fold": 2 * ITERS, "hub_fold": ITERS}
-    for k, v in need.items():
-        if launches[k] < v:
-            raise AssertionError(f"{k} launched {launches[k]} < {v} times")
+    _need_launches("main", launches, {
+        "route_xr_exp": ITERS, "route_passa": ITERS,
+        "route_fold": 2 * ITERS, "hub_fold": ITERS})
     checksum, reach = ex.checksum()
-    golden = _host.load_file(os.path.join(ROOT, "tests", "golden.py"),
-                             "graphtap_tpu_torch._host.golden")
+    golden = _golden()
     gsum = float(golden.pagerank(r, c, n + 1, ITERS).sum())
     rel = abs(checksum - gsum) / abs(gsum)
     log(f"main: checksum {checksum!r} (reachable {reach}) vs f64 golden "
@@ -279,21 +385,165 @@ def phase_kernels(torch, ex, launches):
         if not ok:
             raise AssertionError(f"{name} at RMAT-{SCALE} shapes: max "
                                  f"|diff| {err} (max |plain| {scale})")
-        # in turns: plain, kernel, kernel, plain
-        p1 = _ms(plain, torch, 3)
-        k1 = _ms(kern, torch, 10)
-        k2 = _ms(kern, torch, 10)
-        p2 = _ms(plain, torch, 3)
-        row = rows.setdefault(name, {
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
-        row["max_abs_err"] = max(row["max_abs_err"], err)
-        row["ms"] += (k1 + k2) / 2
-        row["plain_ms"] += (p1 + p2) / 2
-        log(f"kernel {name}: {(k1 + k2) / 2:.4f} ms vs plain "
-            f"{(p1 + p2) / 2:.4f} ms, max |diff| {err!r}")
+        _time_row(torch, rows, name, kern, plain, err, launches[name])
     return list(rows.values())
+
+
+def _time_row(torch, rows, name, kern, plain, err, launches) -> None:
+    """Add one call's kernel and plain times (CUDA events, in turns:
+    plain, kernel, kernel, plain) to the kernels-line row ``name``."""
+    p1 = _ms(plain, torch, 3)
+    k1 = _ms(kern, torch, 10)
+    k2 = _ms(kern, torch, 10)
+    p2 = _ms(plain, torch, 3)
+    row = rows.setdefault(name, {
+        "name": name, "route": "cuda", "source": SOURCE,
+        "replaces": REPLACES[name], "launches": launches,
+        "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    row["ms"] += (k1 + k2) / 2
+    row["plain_ms"] += (p1 + p2) / 2
+    log(f"kernel {name}: {(k1 + k2) / 2:.4f} ms vs plain "
+        f"{(p1 + p2) / 2:.4f} ms, max |diff| {err!r}")
+
+
+def _need_launches(path, launches, need) -> None:
+    """Fail unless each kernel (or tuple of kernels, summed) of ``need``
+    was launched at least that many times on the path."""
+    for k, v in need.items():
+        got = sum(launches[n] for n in ((k,) if isinstance(k, str) else k))
+        if got < v:
+            raise AssertionError(f"{path}: {k} launched {got} < {v} times")
+
+
+def _log_supersteps(path, ex) -> None:
+    for i, s in enumerate(ex.supersteps):
+        log(f"{path}: superstep {i} "
+            f"{'gated' if s['gated'] else 'static'} {s['ms']:.4f} ms")
+
+
+def phase_bfs(torch, np):
+    """BFS on RMAT-FRONTIER_SCALE to convergence; returns the gated
+    kernels' rows of the kernels line."""
+    from graphtap_tpu_torch import Graph
+    from graphtap_tpu_torch.apps import bfs_config, run_bfs
+    from graphtap_tpu_torch.ingest import rmat_edges
+    from graphtap_tpu_torch.kernels import panel_kernels as pk
+    from graphtap_tpu_torch.kernels.panel_engine import spmv3_stages
+    t0 = time.perf_counter()
+    r, c, _ = rmat_edges(FRONTIER_SCALE, EDGE_FACTOR, seed=SEED)
+    n = 1 << FRONTIER_SCALE
+    g = Graph.from_edges(r, c, None, bfs_config(n))
+    log(f"bfs: edges RMAT-{FRONTIER_SCALE} E={r.size} (mirrored, no "
+        f"self-loops: {g.nedges}) in {time.perf_counter() - t0:.1f} s")
+    pk.reset_launches()
+    t0 = time.perf_counter()
+    ex = run_bfs(g, 0, kernel="panel", device=DEVICE)
+    wall = time.perf_counter() - t0
+    launches = dict(pk.LAUNCHES)
+    tm = ex.timings
+    log(f"bfs: tiles {tm['tiles']:.1f} s, plans {tm['plans']:.1f} s, "
+        f"upload {tm['upload']:.2f} s; run_bfs wall {wall:.1f} s, "
+        f"{ex.iteration} iterations in {tm['execute']:.4f} s (first)")
+    log(f"bfs: launches {launches}")
+    _log_supersteps("bfs", ex)
+    _need_launches("bfs", launches, {**{k: 1 for k in GATED},
+                                     "hub_fold": ex.iteration,
+                                     "route_fold": ex.iteration})
+    t0 = time.perf_counter()
+    parent, hops = _golden().bfs(r.astype(np.int64), c.astype(np.int64),
+                                 n + 1, 0)
+    sv = ex.state_vector()
+    ok = (np.array_equal(sv["hops"], hops)
+          and np.array_equal(sv["parent"], parent))
+    log(f"bfs: hops and parents vs golden.bfs "
+        f"{'equal' if ok else 'DIFFER'} (golden {time.perf_counter() - t0:.1f}"
+        f" s); checksum {ex.checksum()}")
+    if not ok:
+        raise AssertionError("BFS hops/parents differ from golden.bfs")
+    nnz = ex.tiles.nnz_total
+    ex.initialize()                      # warm re-run, as bench_suite.py
+    iters = ex.execute(0)
+    warm = ex.timings["execute"]
+    if not np.array_equal(ex.state_vector()["hops"], hops):
+        raise AssertionError("BFS warm re-run differs from golden.bfs")
+    log(f"bfs: warm re-run {iters} iterations in {warm:.4f} s, "
+        f"{nnz * iters / warm / 1e9:.4f} GTEPS (nnz x iterations / s), "
+        f"nnz {nnz}")
+    _log_supersteps("bfs warm", ex)
+    # the gated kernels at the shapes of BFS's first superstep
+    ex.initialize()
+    x = ex._messages(ex.state, ex.changed)
+    st = spmv3_stages(x, ex._dev, ex.meta, ex.program.semiring,
+                      ex.part.tile_rows, gate=True)
+    rows = {}
+    for name, kern, plain in _gated_calls(ex._dev, ex.meta,
+                                          ex.program.semiring, st,
+                                          st["maps"]):
+        a, b = kern(), plain()
+        if not _same(a, b):
+            raise AssertionError(f"{name} at the BFS shapes disagrees with "
+                                 f"its plain version")
+        err = float((a.double() - b.double()).abs().max())
+        _time_row(torch, rows, name, kern, plain, err, launches[name])
+    ex.free()
+    return list(rows.values())
+
+
+def phase_cc_sssp(torch, np) -> None:
+    from graphtap_tpu_torch import Graph
+    from graphtap_tpu_torch.apps import (cc_config, run_cc, run_sssp,
+                                         sssp_config)
+    from graphtap_tpu_torch.ingest import rmat_edges
+    from graphtap_tpu_torch.kernels import panel_kernels as pk
+    golden = _golden()
+    n = 1 << SUITE_SCALE
+    for app in ("cc", "sssp"):
+        t0 = time.perf_counter()
+        weighted = app == "sssp"
+        r, c, w = rmat_edges(SUITE_SCALE, EDGE_FACTOR, seed=SEED,
+                             weighted=weighted)
+        cfg = sssp_config(n) if weighted else cc_config(n)
+        g = Graph.from_edges(r, c, w, cfg)
+        edges_s = time.perf_counter() - t0
+        pk.reset_launches()
+        t0 = time.perf_counter()
+        ex = (run_sssp(g, 0, kernel="panel", device=DEVICE) if weighted
+              else run_cc(g, kernel="panel", device=DEVICE))
+        wall = time.perf_counter() - t0
+        launches = dict(pk.LAUNCHES)
+        _need_launches(app, launches, {
+            "hub_fold": ex.iteration, "route_fold": ex.iteration,
+            ("route_xr_exp", "route_xr_exp_gated"): ex.iteration,
+            ("route_passa", "route_passa_gated"): ex.iteration})
+        tm = ex.timings
+        log(f"{app}: RMAT-{SUITE_SCALE} edges {edges_s:.1f} s, tiles "
+            f"{tm['tiles']:.1f} s, plans {tm['plans']:.1f} s, upload "
+            f"{tm['upload']:.2f} s; {ex.iteration} iterations in "
+            f"{tm['execute']:.4f} s (first), wall {wall:.1f} s")
+        log(f"{app}: launches {launches}")
+        _log_supersteps(app, ex)
+        t0 = time.perf_counter()
+        r64, c64 = r.astype(np.int64), c.astype(np.int64)
+        if weighted:
+            want = golden.sssp(r64, c64, w.astype(np.int64), n + 1, 0)
+            got = ex.state_vector()["distance"]
+        else:
+            want = golden.cc(r64, c64, n + 1)
+            got = ex.state_vector()["label"]
+        ok = np.array_equal(got, want)
+        log(f"{app}: state vs golden.{app} {'equal' if ok else 'DIFFER'} "
+            f"(golden {time.perf_counter() - t0:.1f} s); checksum "
+            f"{ex.checksum()}")
+        if not ok:
+            raise AssertionError(f"{app} differs from golden.{app}")
+        nnz = ex.tiles.nnz_total
+        ex.initialize()
+        iters = ex.execute(0)
+        warm = ex.timings["execute"]
+        log(f"{app}: warm re-run {iters} iterations in {warm:.4f} s, "
+            f"{nnz * iters / warm / 1e9:.4f} GTEPS, nnz {nnz}")
+        ex.free()
 
 
 def main() -> int:
@@ -306,9 +556,16 @@ def main() -> int:
     phase_device(torch)
     phase_build()
     phase_parity(torch, np)
+    phase_gated_parity(torch, np)
     ex, launches = phase_main(torch, np)
     kernels = phase_kernels(torch, ex, launches)
-    log("ms per superstep; route_fold sums its fixr and fix2 calls")
+    ex.free()
+    del ex
+    kernels += phase_bfs(torch, np)
+    phase_cc_sssp(torch, np)
+    log("ms per superstep; route_fold sums its fixr and fix2 calls; the "
+        f"gated rows are timed at BFS's first superstep "
+        f"(RMAT-{FRONTIER_SCALE})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

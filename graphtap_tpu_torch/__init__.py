@@ -4,13 +4,16 @@ A port of ``graphtap_tpu`` (JAX, Pallas kernels for the TPU), which stays
 beside it as the reference. The port mirrors its layout: ``config``,
 ``parallel/layout``, ``ingest``, ``format/tiles``, ``kernels``,
 ``engine``, ``apps`` and ``tools``. Plain tensor code is torch; the Pallas
-kernels of the PageRank path are hand-written CUDA C++ for sm_90a
-(``csrc/``), each with a plain torch version beside it. The numpy-only
+kernels of the panel path (static and frontier-gated) are hand-written
+CUDA C++ for sm_90a (``csrc/``), each with a plain torch version beside
+it. The numpy-only
 host planner of the JAX package is reused byte for byte, loaded by path
 without jax (``_host.py``).
 
-This version runs the degree phase and fixed-iteration PageRank on one
-device (``apps.run_pagerank(..., device="cuda")``).
+This version runs on one device: the degree phase and PageRank, for a
+fixed count of iterations or to convergence (``apps.run_pagerank``), and
+BFS, CC and SSSP to convergence with frontier gating (``apps.run_bfs``,
+``run_cc``, ``run_sssp``).
 """
 
 from graphtap_tpu_torch.config import (Compression, EngineConfig,

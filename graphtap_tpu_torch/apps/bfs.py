@@ -1,0 +1,82 @@
+"""BFS: frontier-driven parent/hops via min-vid messages.
+
+Counterpart of ``graphtap_tpu/apps/bfs.py`` (reference: src/apps/bfs.h,
+bfs.cpp): messenger = vid, combiner = min, the applicator sets hops =
+iteration+1 and parent = y only for unvisited vertices
+(apply_depends_on_iter); nonstationary, undirected, self-loops and
+parallel edges removed, TCSC, run to convergence. The changed bitmap is
+the frontier, so the panel kernel runs frontier-gated.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from graphtap_tpu_torch.config import (Compression, EngineConfig,
+                                       GraphConfig, Ordering)
+from graphtap_tpu_torch.engine.executor import Executor
+from graphtap_tpu_torch.engine.program import VertexProgram
+from graphtap_tpu_torch.ingest.graph import Graph
+from graphtap_tpu_torch.kernels.semiring import INF_I32, min_select
+
+
+class BFSProgram(VertexProgram):
+    stationary = False
+    apply_depends_on_iter = True
+    value_dtype = torch.int32
+
+    def __init__(self, root: int = 0):
+        self.semiring = min_select()
+        self.root = root
+
+    def init(self, vids, i_mask, other):
+        is_root = vids == self.root
+        state = {
+            "vid": vids.astype(np.int32),
+            "parent": np.where(is_root, self.root, 0).astype(np.int32),
+            "hops": np.where(is_root, 0, INF_I32).astype(np.int32),
+        }
+        return state, is_root
+
+    def messenger(self, state):
+        return state["vid"]
+
+    def applicator(self, state, y, iteration):
+        newly = (state["hops"] == INF_I32) & (y != INF_I32)
+        hops = torch.where(newly, torch.full_like(state["hops"],
+                                                  iteration + 1),
+                           state["hops"])
+        parent = torch.where(newly, y, state["parent"])
+        return {"vid": state["vid"], "parent": parent, "hops": hops}, newly
+
+    def infinity(self):
+        return INF_I32
+
+    def get_state(self, state):
+        return state["hops"]
+
+    def format_state(self, row):
+        h = "INF" if row["hops"] == INF_I32 else row["hops"]
+        return f"Parent={row['parent']},Hops={h}"
+
+
+def bfs_config(num_vertices: int) -> GraphConfig:
+    """bfs.cpp:26-45 defaults."""
+    return GraphConfig(num_vertices=num_vertices, directed=False,
+                       transpose=False, self_loops=False, acyclic=False,
+                       parallel_edges=False, compression=Compression.TCSC)
+
+
+def run_bfs(graph: Graph, root: int = 0, kernel: str = "panel",
+            device="cpu") -> Executor:
+    """BFS from ``root`` to convergence on ``device`` ('panel': the
+    frontier-gated K1-K4 pipeline; 'scan'). ``graph`` is read through
+    ``bfs_config``."""
+    ex = Executor(graph, BFSProgram(root=root),
+                  EngineConfig(stationary=False, apply_depends_on_iter=True,
+                               ordering=Ordering.ROW),
+                  kernel=kernel, device=device)
+    ex.initialize()
+    ex.execute(0)
+    return ex

@@ -1,0 +1,67 @@
+"""Connected components via min-label propagation.
+
+Counterpart of ``graphtap_tpu/apps/cc.py`` (reference: src/apps/cc.h,
+cc.cpp): messenger = label, combiner = min, the applicator keeps the min
+and reports a change iff the label shrank; nonstationary, undirected,
+self-loops kept, parallel edges removed, TCSC, gather_depends_on_apply,
+run to convergence.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from graphtap_tpu_torch.config import (Compression, EngineConfig,
+                                       GraphConfig, Ordering)
+from graphtap_tpu_torch.engine.executor import Executor
+from graphtap_tpu_torch.engine.program import VertexProgram
+from graphtap_tpu_torch.ingest.graph import Graph
+from graphtap_tpu_torch.kernels.semiring import INF_I32, min_select
+
+
+class CCProgram(VertexProgram):
+    stationary = False
+    gather_depends_on_apply = True
+    value_dtype = torch.int32
+
+    def __init__(self):
+        self.semiring = min_select()
+
+    def init(self, vids, i_mask, other):
+        return {"label": vids.astype(np.int32)}, np.ones(vids.shape, bool)
+
+    def messenger(self, state):
+        return state["label"]
+
+    def applicator(self, state, y, iteration):
+        new = torch.minimum(state["label"], y)
+        return {"label": new}, new != state["label"]
+
+    def infinity(self):
+        return INF_I32
+
+    def get_state(self, state):
+        return state["label"]
+
+    def format_state(self, row):
+        return f"Label={row['label']}"
+
+
+def cc_config(num_vertices: int) -> GraphConfig:
+    """cc.cpp:25-43 defaults: undirected, keep self-loops, dedup parallel."""
+    return GraphConfig(num_vertices=num_vertices, directed=False,
+                       transpose=False, self_loops=True, acyclic=False,
+                       parallel_edges=False, compression=Compression.TCSC)
+
+
+def run_cc(graph: Graph, kernel: str = "panel", device="cpu") -> Executor:
+    """CC to convergence on ``device``; ``graph`` is read through
+    ``cc_config``."""
+    ex = Executor(graph, CCProgram(),
+                  EngineConfig(stationary=False, gather_depends_on_apply=True,
+                               ordering=Ordering.ROW),
+                  kernel=kernel, device=device)
+    ex.initialize()
+    ex.execute(0)
+    return ex

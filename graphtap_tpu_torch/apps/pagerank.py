@@ -70,12 +70,10 @@ def run_pagerank(graph: Graph, num_iterations: int = 0,
 
     The degree phase is one SpMV on the portable ``scan`` path (integer
     sums, exact in f32); PageRank runs ``num_iterations`` supersteps on
-    ``kernel`` ('panel': the K1-K4 pipeline; 'scan'). The degree phase's
-    tiles are freed before the PageRank plans are uploaded. Convergence
-    mode (num_iterations=0) is not ported yet and raises.
+    ``kernel`` ('panel': the K1-K4 pipeline; 'scan'), or, for
+    num_iterations=0, runs to tol-convergence. The degree phase's tiles
+    are freed before the PageRank plans are uploaded.
     """
-    if not num_iterations or num_iterations <= 0:
-        raise NotImplementedError("convergence mode is not ported yet")
     deg_ex = Executor(graph, DegreeProgram(value_dtype=value_dtype),
                       EngineConfig(stationary=True, ordering=Ordering.COL),
                       kernel="scan", device=device)

@@ -1,0 +1,80 @@
+"""SSSP: min-plus relaxation (the only weighted app).
+
+Counterpart of ``graphtap_tpu/apps/sssp.py`` (reference: src/apps/sssp.h,
+sssp.cpp): combiner y1 = min(y1, y2 + w), min-update applicator, the
+unweighted fallback y+1; nonstationary, directed with transpose flipped
+for a pull along in-edges, self-loops and parallel edges removed, TCSC,
+gather_depends_on_apply, run to convergence.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from graphtap_tpu_torch.config import (Compression, EngineConfig,
+                                       GraphConfig, Ordering)
+from graphtap_tpu_torch.engine.executor import Executor
+from graphtap_tpu_torch.engine.program import VertexProgram
+from graphtap_tpu_torch.ingest.graph import Graph
+from graphtap_tpu_torch.kernels.semiring import (INF_I32, min_plus,
+                                                 min_select)
+
+
+class SSSPProgram(VertexProgram):
+    stationary = False
+    gather_depends_on_apply = True
+    value_dtype = torch.int32
+
+    def __init__(self, root: int = 0, weighted: bool = True):
+        self.semiring = min_plus() if weighted else min_select()
+        self.weighted = weighted
+        self.root = root
+
+    def init(self, vids, i_mask, other):
+        is_root = vids == self.root
+        state = {"distance": np.where(is_root, 0, INF_I32).astype(np.int32)}
+        return state, is_root
+
+    def messenger(self, state):
+        return state["distance"]
+
+    def applicator(self, state, y, iteration):
+        if not self.weighted:
+            # unweighted fallback: hop count y+1 (reference: sssp.h:60-64)
+            y = torch.where(y >= INF_I32, y, y + 1)
+        new = torch.minimum(state["distance"], y)
+        return {"distance": new}, new != state["distance"]
+
+    def infinity(self):
+        return INF_I32
+
+    def get_state(self, state):
+        return state["distance"]
+
+    def format_state(self, row):
+        d = "INF" if row["distance"] == INF_I32 else row["distance"]
+        return f"Distance={d}"
+
+
+def sssp_config(num_vertices: int, weighted: bool = True) -> GraphConfig:
+    """sssp.cpp:26-45 defaults. Directed pull: the engine requirement
+    ``if(not stationary and directed) transpose = not transpose``
+    (sssp.cpp:37-38) flips transpose to True."""
+    return GraphConfig(num_vertices=num_vertices, directed=True,
+                       transpose=True, self_loops=False, acyclic=False,
+                       parallel_edges=False, has_weight=weighted,
+                       compression=Compression.TCSC)
+
+
+def run_sssp(graph: Graph, root: int = 0, weighted: bool = True,
+             kernel: str = "panel", device="cpu") -> Executor:
+    """SSSP from ``root`` to convergence on ``device``; ``graph`` is read
+    through ``sssp_config`` (with its weights when ``weighted``)."""
+    ex = Executor(graph, SSSPProgram(root=root, weighted=weighted),
+                  EngineConfig(stationary=False, gather_depends_on_apply=True,
+                               ordering=Ordering.ROW),
+                  kernel=kernel, device=device)
+    ex.initialize()
+    ex.execute(0)
+    return ex

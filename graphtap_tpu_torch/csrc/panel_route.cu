@@ -8,6 +8,18 @@
 //   K3 route_fold_kernel    replaces route_fold   (_route_fold_body, :276-404)
 //   K4 hub_fold_kernel      replaces hub_fold     (_hub_body, :488-528)
 //
+// K1-K3 each have a gated launch, the frontier-gated variant of the Pallas
+// kernels' plan_idx branch (:226-242, :356-372, :453-461): block p reads
+// plan block plan_idx[p] (and K1 its weight block there) instead of block
+// p; window bases, K3's dst and seg stay those of panel p. A block whose
+// plan_idx is the route's fill block (fill_block, an all-0xF8 plan that
+// routes pure ⊕-identity; validate_meta checks it on the host) skips its
+// gathers: K1 writes fill ⊗ w, K2 writes fill, K3 folds nothing (the
+// identity changes no y row). That is what the fill plan computes, so a
+// gated launch equals its plain version fed that plan; on the TPU the
+// same redirection makes the revolving buffers skip their fetches.
+// plan_idx == nullptr is the static launch, unchanged.
+//
 // What they compute. The host planner (panel_plan.py) turns the sparse
 // matrix into uint8 route plans over (64,128) panels. A route reads 8-row
 // source bands and, for output slot (r, l) of a panel:
@@ -112,6 +124,25 @@ __device__ __forceinline__ void atomic_combine(T* addr, T v) {
   }
 }
 
+// ⊗ of one contribution with its weight (MUL_NONE: none).
+template <typename T, int MUL>
+__device__ __forceinline__ T apply_mul(T v, const T* __restrict__ pw, int e,
+                                       T fill) {
+  if constexpr (MUL == MUL_MUL) {
+    return v * pw[e];
+  } else if constexpr (MUL == MUL_ADD_SAT) {
+    return add_sat<T>(v, pw[e], fill);
+  } else {
+    return v;
+  }
+}
+
+// Plan block of block p: p itself (static) or plan_idx[p] (gated).
+__device__ __forceinline__ long long plan_block(const int* __restrict__ pidx,
+                                                long long p) {
+  return pidx == nullptr ? p : static_cast<long long>(pidx[p]);
+}
+
 // ---------------------------------------------------------------- K1
 // x table -> (64,128) contribution panel per block: the single-layer
 // x -> x_ext route of the panel's nwin x windows into shared memory, the
@@ -123,12 +154,22 @@ __global__ void __launch_bounds__(THREADS)
 route_xr_exp_kernel(const T* __restrict__ x2d, const int* __restrict__ bases,
                     const uint8_t* __restrict__ plan,
                     const T* __restrict__ w, T* __restrict__ out, int nwin,
-                    T fill) {
+                    T fill, const int* __restrict__ plan_idx,
+                    int fill_block) {
   __shared__ T xe[XROWS * LANES];
   const long long p = blockIdx.x;
+  const long long q = plan_block(plan_idx, p);
+  T* po = out + p * PROWS * LANES;
+  const T* pw = (MUL == MUL_NONE) ? nullptr : w + q * PROWS * LANES;
+  if (plan_idx != nullptr && q == fill_block) {
+    for (int e = threadIdx.x; e < PROWS * LANES; e += blockDim.x) {
+      po[e] = apply_mul<T, MUL>(fill, pw, e, fill);
+    }
+    return;
+  }
   const int sr = nwin * STRIPE;
   const long long prows = sr + 3 * XROWS + 3 * PROWS;
-  const uint8_t* xr_idx1 = plan + p * prows * LANES;
+  const uint8_t* xr_idx1 = plan + q * prows * LANES;
   const uint8_t* xr_sela = xr_idx1 + sr * LANES;
   const uint8_t* xr_idx3 = xr_sela + XROWS * LANES;
   const uint8_t* ex_idx1 = xr_idx3 + XROWS * LANES;
@@ -149,17 +190,10 @@ route_xr_exp_kernel(const T* __restrict__ x2d, const int* __restrict__ bases,
   auto xe_row = [&](int band, int row) -> const T* {
     return xe + (band * STRIPE + row) * LANES;
   };
-  T* po = out + p * PROWS * LANES;
-  const T* pw = (MUL == MUL_NONE) ? nullptr : w + p * PROWS * LANES;
   for (int e = threadIdx.x; e < PROWS * LANES; e += blockDim.x) {
-    T v = route_slot<T>(ex_idx1, ex_sela, ex_selb, ex_idx3, e >> 7, e & 127,
-                        XROWS / STRIPE, fill, xe_row);
-    if constexpr (MUL == MUL_MUL) {
-      v = v * pw[e];
-    } else if constexpr (MUL == MUL_ADD_SAT) {
-      v = add_sat<T>(v, pw[e], fill);
-    }
-    po[e] = v;
+    const T v = route_slot<T>(ex_idx1, ex_sela, ex_selb, ex_idx3, e >> 7,
+                              e & 127, XROWS / STRIPE, fill, xe_row);
+    po[e] = apply_mul<T, MUL>(v, pw, e, fill);
   }
 }
 
@@ -171,11 +205,20 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
 route_passa_kernel(const T* __restrict__ src, const int* __restrict__ bases,
                    const uint8_t* __restrict__ plan, T* __restrict__ out,
-                   int nwin, T fill) {
+                   int nwin, T fill, const int* __restrict__ plan_idx,
+                   int fill_block) {
   const long long p = blockIdx.x;
+  const long long q = plan_block(plan_idx, p);
+  T* po = out + p * PROWS * LANES;
+  if (plan_idx != nullptr && q == fill_block) {
+    for (int e = threadIdx.x; e < PROWS * LANES; e += blockDim.x) {
+      po[e] = fill;
+    }
+    return;
+  }
   const int sr = nwin * STRIPE;
   const long long prows = sr + 3 * PROWS;
-  const uint8_t* idx1 = plan + p * prows * LANES;
+  const uint8_t* idx1 = plan + q * prows * LANES;
   const uint8_t* sel_a = idx1 + sr * LANES;
   const uint8_t* sel_b = sel_a + PROWS * LANES;
   const uint8_t* idx3 = sel_b + PROWS * LANES;
@@ -183,7 +226,6 @@ route_passa_kernel(const T* __restrict__ src, const int* __restrict__ bases,
   auto src_row = [&](int band, int row) -> const T* {
     return src + (static_cast<long long>(pb[band]) * STRIPE + row) * LANES;
   };
-  T* po = out + p * PROWS * LANES;
   for (int e = threadIdx.x; e < PROWS * LANES; e += blockDim.x) {
     po[e] = route_slot<T>(idx1, sel_a, sel_b, idx3, e >> 7, e & 127, nwin,
                           fill, src_row);
@@ -202,18 +244,21 @@ __global__ void fill_kernel(T* __restrict__ y, long long n, T v) {
 }
 
 // Route as K2, fold each routed 8-row band (ob) lane-wise in registers and
-// ⊕ it into y row seg[p]*seg_rows + dst[p*8+ob]. y holds the identity
+// ⊕ it into y row seg[p]*seg_rows + dst[p*8+ob] (panel p's, gated or not). y holds the identity
 // before the first block runs (fill_kernel on the same stream).
 template <typename T, int RED>
 __global__ void __launch_bounds__(THREADS)
 route_fold_kernel(const T* __restrict__ src, const int* __restrict__ bases,
                   const uint8_t* __restrict__ plan,
                   const int* __restrict__ dst, const int* __restrict__ seg,
-                  T* __restrict__ y, long long seg_rows, int nwin, T fill) {
+                  T* __restrict__ y, long long seg_rows, int nwin, T fill,
+                  const int* __restrict__ plan_idx, int fill_block) {
   const long long p = blockIdx.x;
+  const long long q = plan_block(plan_idx, p);
+  if (plan_idx != nullptr && q == fill_block) return;   // ⊕ identity
   const int sr = nwin * STRIPE;
   const long long prows = sr + 3 * PROWS;
-  const uint8_t* idx1 = plan + p * prows * LANES;
+  const uint8_t* idx1 = plan + q * prows * LANES;
   const uint8_t* sel_a = idx1 + sr * LANES;
   const uint8_t* sel_b = sel_a + PROWS * LANES;
   const uint8_t* idx3 = sel_b + PROWS * LANES;
@@ -272,7 +317,8 @@ hub_fold_kernel(const T* __restrict__ v, const uint8_t* __restrict__ hm,
 template <typename T>
 int launch_xr_exp(const void* x2d, const void* bases, const void* plan,
                   const void* w, void* out, long long npanels, int nwin,
-                  int mul_kind, double fill, cudaStream_t st) {
+                  int mul_kind, double fill, const int* pidx, int fill_block,
+                  cudaStream_t st) {
   const T* xs = static_cast<const T*>(x2d);
   const int* b = static_cast<const int*>(bases);
   const uint8_t* pl = static_cast<const uint8_t*>(plan);
@@ -283,15 +329,15 @@ int launch_xr_exp(const void* x2d, const void* bases, const void* plan,
   switch (mul_kind) {
     case MUL_NONE:
       route_xr_exp_kernel<T, MUL_NONE><<<grid, THREADS, 0, st>>>(
-          xs, b, pl, ws, o, nwin, f);
+          xs, b, pl, ws, o, nwin, f, pidx, fill_block);
       break;
     case MUL_MUL:
       route_xr_exp_kernel<T, MUL_MUL><<<grid, THREADS, 0, st>>>(
-          xs, b, pl, ws, o, nwin, f);
+          xs, b, pl, ws, o, nwin, f, pidx, fill_block);
       break;
     case MUL_ADD_SAT:
       route_xr_exp_kernel<T, MUL_ADD_SAT><<<grid, THREADS, 0, st>>>(
-          xs, b, pl, ws, o, nwin, f);
+          xs, b, pl, ws, o, nwin, f, pidx, fill_block);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -302,11 +348,11 @@ int launch_xr_exp(const void* x2d, const void* bases, const void* plan,
 template <typename T>
 int launch_passa(const void* src, const void* bases, const void* plan,
                  void* out, long long npanels, int nwin, double fill,
-                 cudaStream_t st) {
+                 const int* pidx, int fill_block, cudaStream_t st) {
   route_passa_kernel<T><<<static_cast<unsigned>(npanels), THREADS, 0, st>>>(
       static_cast<const T*>(src), static_cast<const int*>(bases),
       static_cast<const uint8_t*>(plan), static_cast<T*>(out), nwin,
-      static_cast<T>(fill));
+      static_cast<T>(fill), pidx, fill_block);
   return cudaGetLastError();
 }
 
@@ -314,20 +360,22 @@ template <typename T, int RED>
 void launch_fold_kernel(const void* src, const void* bases, const void* plan,
                         const void* dst, const void* seg, void* y,
                         long long seg_rows, long long npanels, int nwin,
-                        double fill, cudaStream_t st) {
+                        double fill, const int* pidx, int fill_block,
+                        cudaStream_t st) {
   route_fold_kernel<T, RED><<<static_cast<unsigned>(npanels), THREADS, 0,
                               st>>>(
       static_cast<const T*>(src), static_cast<const int*>(bases),
       static_cast<const uint8_t*>(plan), static_cast<const int*>(dst),
       static_cast<const int*>(seg), static_cast<T*>(y), seg_rows, nwin,
-      static_cast<T>(fill));
+      static_cast<T>(fill), pidx, fill_block);
 }
 
 template <typename T>
 int launch_fold(const void* src, const void* bases, const void* plan,
                 const void* dst, const void* seg, void* y, long long nrows,
                 long long seg_rows, long long npanels, int nwin, int red,
-                double fill, cudaStream_t st) {
+                double fill, const int* pidx, int fill_block,
+                cudaStream_t st) {
   if (red != RED_SUM && !std::is_same<T, int>::value) {
     return cudaErrorInvalidValue;   // no float atomicMin/Max
   }
@@ -341,14 +389,17 @@ int launch_fold(const void* src, const void* bases, const void* plan,
   if (npanels > 0) {
     if (red == RED_SUM) {
       launch_fold_kernel<T, RED_SUM>(src, bases, plan, dst, seg, y, seg_rows,
-                                     npanels, nwin, fill, st);
+                                     npanels, nwin, fill, pidx, fill_block,
+                                     st);
     } else if constexpr (std::is_same<T, int>::value) {
       if (red == RED_MIN) {
         launch_fold_kernel<T, RED_MIN>(src, bases, plan, dst, seg, y,
-                                       seg_rows, npanels, nwin, fill, st);
+                                       seg_rows, npanels, nwin, fill, pidx,
+                                       fill_block, st);
       } else if (red == RED_MAX) {
         launch_fold_kernel<T, RED_MAX>(src, bases, plan, dst, seg, y,
-                                       seg_rows, npanels, nwin, fill, st);
+                                       seg_rows, npanels, nwin, fill, pidx,
+                                       fill_block, st);
       } else {
         return cudaErrorInvalidValue;
       }
@@ -384,20 +435,24 @@ int launch_hub(const void* v, const void* hm, void* out, long long nrows,
 
 extern "C" {
 
+// plan_idx: nullptr for the static launch, else (npanels,) int32 plan
+// block per panel (gated); fill_block: the route's all-fill plan block.
 int gt_route_xr_exp(const void* x2d, const void* bases, const void* plan,
                     const void* w, void* out, long long npanels, int nwin,
-                    int dtype, int mul_kind, double fill, void* stream) {
+                    int dtype, int mul_kind, double fill,
+                    const void* plan_idx, int fill_block, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* pidx = static_cast<const int*>(plan_idx);
   switch (dtype) {
     case F32:
       return launch_xr_exp<float>(x2d, bases, plan, w, out, npanels, nwin,
-                                  mul_kind, fill, st);
+                                  mul_kind, fill, pidx, fill_block, st);
     case F64:
       return launch_xr_exp<double>(x2d, bases, plan, w, out, npanels, nwin,
-                                   mul_kind, fill, st);
+                                   mul_kind, fill, pidx, fill_block, st);
     case I32:
       return launch_xr_exp<int>(x2d, bases, plan, w, out, npanels, nwin,
-                                mul_kind, fill, st);
+                                mul_kind, fill, pidx, fill_block, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -405,18 +460,20 @@ int gt_route_xr_exp(const void* x2d, const void* bases, const void* plan,
 
 int gt_route_passa(const void* src, const void* bases, const void* plan,
                    void* out, long long npanels, int nwin, int dtype,
-                   double fill, void* stream) {
+                   double fill, const void* plan_idx, int fill_block,
+                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* pidx = static_cast<const int*>(plan_idx);
   switch (dtype) {
     case F32:
       return launch_passa<float>(src, bases, plan, out, npanels, nwin, fill,
-                                 st);
+                                 pidx, fill_block, st);
     case F64:
       return launch_passa<double>(src, bases, plan, out, npanels, nwin, fill,
-                                  st);
+                                  pidx, fill_block, st);
     case I32:
       return launch_passa<int>(src, bases, plan, out, npanels, nwin, fill,
-                               st);
+                               pidx, fill_block, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -425,20 +482,23 @@ int gt_route_passa(const void* src, const void* bases, const void* plan,
 int gt_route_fold(const void* src, const void* bases, const void* plan,
                   const void* dst, const void* seg, void* y, long long nrows,
                   long long seg_rows, long long npanels, int nwin, int dtype,
-                  int reduce_kind, double fill, void* stream) {
+                  int reduce_kind, double fill, const void* plan_idx,
+                  int fill_block, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* pidx = static_cast<const int*>(plan_idx);
   switch (dtype) {
     case F32:
       return launch_fold<float>(src, bases, plan, dst, seg, y, nrows,
                                 seg_rows, npanels, nwin, reduce_kind, fill,
-                                st);
+                                pidx, fill_block, st);
     case F64:
       return launch_fold<double>(src, bases, plan, dst, seg, y, nrows,
                                  seg_rows, npanels, nwin, reduce_kind, fill,
-                                 st);
+                                 pidx, fill_block, st);
     case I32:
       return launch_fold<int>(src, bases, plan, dst, seg, y, nrows, seg_rows,
-                              npanels, nwin, reduce_kind, fill, st);
+                              npanels, nwin, reduce_kind, fill, pidx,
+                              fill_block, st);
     default:
       return cudaErrorInvalidValue;
   }

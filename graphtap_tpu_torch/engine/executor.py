@@ -7,18 +7,26 @@ superstep is messenger -> exchange x -> combine (the SpMV) -> exchange y
 both exchanges are the identity; they assert the 1x1 layout instead of
 running a collective.
 
-Ported: fixed-iteration mode on TCSC tiles, the ``scan`` and ``panel``
+Ported: fixed-iteration and convergence mode on TCSC tiles, stationary
+and nonstationary programs (messages masked to the ⊕-identity outside the
+frontier, the panel pipeline frontier-gated), the ``scan`` and ``panel``
 kernels, ``initialize(other=)`` with the I-masked handoff, ``free()`` and
-the oracles (``state_vector``, ``checksum``, ``display``). Convergence
-mode, nonstationary programs, other tile formats (CSC, DCSC, TCSC_CF)
-and the mesh raise ``NotImplementedError`` until a later version ports
-them.
+the oracles (``state_vector``, ``checksum``, ``display``). Other tile
+formats (CSC, DCSC, TCSC_CF), the sparse exchange and the mesh raise
+``NotImplementedError`` until a later version ports them.
+
+Convergence mode (``execute(0)``, reference :407-441) runs supersteps
+until every vertex votes unchanged, then one flush: combine and apply on
+the last superstep's messages (:425-429). Each superstep reads the vote
+to the host once, and the panel kernel's "auto" gate reads its
+panel-activity vote once more; both are synchronizing reads.
 """
 
 from __future__ import annotations
 
+import os
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,7 +35,7 @@ from graphtap_tpu_torch.config import Compression, EngineConfig
 from graphtap_tpu_torch.engine.program import State, VertexProgram, \
     numpy_dtype
 from graphtap_tpu_torch.ingest.graph import Graph
-from graphtap_tpu_torch.kernels.panel_engine import spmv3_local
+from graphtap_tpu_torch.kernels.panel_engine import spmv3_stages
 from graphtap_tpu_torch.kernels.panel_meta import (Spmv3Meta,
                                                    build_spmv3_meta,
                                                    validate_meta)
@@ -35,6 +43,21 @@ from graphtap_tpu_torch.kernels.spmv import expand_compact, spmv_sorted_scan
 from graphtap_tpu_torch.tools.convert import meta_from_numpy
 
 KERNELS = ("scan", "panel")
+MAX_CONVERGENCE_ITERS = 1 << 20     # as the JAX package's executor
+GATE_ENV = "GRAPHTAP_PANEL_GATE"
+_GATE_MODES = {"auto": "auto", "1": True, "0": False}
+
+
+def gate_mode(value: Optional[str]):
+    """The panel gate of a ``GRAPHTAP_PANEL_GATE`` value: unset or "auto"
+    -> "auto" (the per-superstep panel-activity vote), "1" -> gated,
+    "0" -> static; anything else raises."""
+    if value is None:
+        return "auto"
+    if value not in _GATE_MODES:
+        raise ValueError(f"{GATE_ENV}={value!r}: expected one of "
+                         f"{sorted(_GATE_MODES)} or unset")
+    return _GATE_MODES[value]
 
 
 def _device(device) -> torch.device:
@@ -58,8 +81,15 @@ class Executor:
     (portable torch SpMV). ``plans``: a prebuilt ``Spmv3Meta`` of this
     graph's tiles for 'panel' (e.g. from ``tools/artifact_cache.py``),
     else built here.
+    ``GRAPHTAP_PANEL_GATE`` is read once, here (``gate_mode``); it sets
+    ``gate``, the panel pipeline's gating for nonstationary programs
+    (stationary ones always run it static).
     ``timings`` records the host phases and the last ``execute`` in
-    seconds (the latter after a device synchronize)."""
+    seconds (the latter after a device synchronize). ``supersteps`` lists
+    the last ``execute``'s supersteps: the branch each SpMV took
+    (``gated``: True/False on 'panel', None on 'scan') and, on a CUDA
+    device, its time by CUDA events (``ms``; None on the CPU); the flush
+    of convergence mode is not among them."""
 
     def __init__(self, graph: Graph, program: VertexProgram,
                  engine: Optional[EngineConfig] = None, kernel: str = "scan",
@@ -68,15 +98,17 @@ class Executor:
         if kernel not in KERNELS:
             raise NotImplementedError(f"kernel {kernel!r} is not ported; "
                                       f"use one of {KERNELS}")
-        if not program.stationary:
-            raise NotImplementedError("nonstationary programs are not "
-                                      "ported yet")
         if graph.config.compression != Compression.TCSC:
             raise NotImplementedError(
                 f"{graph.config.compression} tiles are not ported yet")
         self.graph = graph
         self.program = program
         self.engine = engine or EngineConfig(stationary=program.stationary)
+        if self.engine.sparse_exchange_capacity != 0:
+            raise NotImplementedError("the sparse exchange comes with the "
+                                      "mesh and is not ported yet")
+        mode = gate_mode(os.environ.get(GATE_ENV))
+        self.gate = False if program.stationary else mode
         self.kernel = kernel
         self.part = graph.part
         self.timings: Dict[str, float] = {}
@@ -100,6 +132,7 @@ class Executor:
         self.state: Optional[State] = None
         self.changed: Optional[torch.Tensor] = None
         self.iteration = 0
+        self.supersteps: List[Dict] = []
 
     # ------------------------------------------------------------------ util
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
@@ -164,16 +197,19 @@ class Executor:
             raise NotImplementedError("mesh exchange is not ported yet")
         return y_dense
 
-    def _combine(self, x: torch.Tensor) -> torch.Tensor:
-        """Tile SpMV -> the dense row block (C*L,) (reference: combine,
+    def _combine(self, x: torch.Tensor) -> Tuple[torch.Tensor,
+                                                 Optional[bool]]:
+        """Tile SpMV -> (the dense row block (C*L,), whether the panel
+        pipeline ran gated; None on 'scan') (reference: combine,
         vertex_program.hpp:1017-1573)."""
         sem, d = self.program.semiring, self._dev
         if self.kernel == "panel":
-            return spmv3_local(x, d, self.meta, sem,
-                               dense_len=self.part.tile_rows)
+            st = spmv3_stages(x, d, self.meta, sem,
+                              dense_len=self.part.tile_rows, gate=self.gate)
+            return st["y"], st["gated"]
         y = spmv_sorted_scan(x, d["rows"], d["cols"], d.get("weights"),
                              d["nnz"], d["ja"], sem)
-        return expand_compact(y, d["iv_dense"], sem)
+        return expand_compact(y, d["iv_dense"], sem), None
 
     def _apply(self, V: State, y_own: torch.Tensor,
                it: int) -> Tuple[State, torch.Tensor]:
@@ -185,34 +221,77 @@ class Executor:
         changed = changed & mask
         return V2, changed & (self._dev["vids"] < self.graph.nv)
 
-    def _superstep(self, V: State, it: int) -> Tuple[State, torch.Tensor]:
+    def _messages(self, V: State, C: torch.Tensor) -> torch.Tensor:
+        """Outgoing messages; a nonstationary program's are the
+        ⊕-identity outside the frontier C (reference :688-758)."""
         prog = self.program
         m = prog.messenger(V).to(prog.value_dtype)
-        x = self._exchange_x(m)
-        y_own = self._exchange_y(self._combine(x))
-        return self._apply(V, y_own, it)
+        if not prog.stationary:
+            m = torch.where(C, m, prog.semiring.identity_like(m.dtype,
+                                                              m.device))
+        return m
+
+    def _step(self, V: State, m: torch.Tensor, it: int
+              ) -> Tuple[State, torch.Tensor, Optional[bool]]:
+        """Exchange x, combine, exchange y, apply -> (V', C', gated)."""
+        y, gated = self._combine(self._exchange_x(m))
+        V2, C2 = self._apply(V, self._exchange_y(y), it)
+        return V2, C2, gated
+
+    def _superstep(self, V: State, C: torch.Tensor, it: int
+                   ) -> Tuple[State, torch.Tensor, torch.Tensor]:
+        """One superstep, recorded in ``supersteps``; returns (V', C', its
+        messages)."""
+        ev = None
+        if self.device.type == "cuda":
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        m = self._messages(V, C)
+        V2, C2, gated = self._step(V, m, it)
+        rec = {"gated": gated, "ms": None}
+        if ev is not None:
+            ev[1].record()
+            rec["events"] = ev
+        self.supersteps.append(rec)
+        return V2, C2, m
 
     # ------------------------------------------------------------------ API
     def execute(self, num_iterations: Optional[int] = None) -> int:
-        """Run ``num_iterations`` supersteps (reference: execute(),
-        :407-441); returns the iteration count. Ends with a device
-        synchronize, so ``timings['execute']`` is device time."""
+        """Run ``num_iterations`` supersteps, or, for 0, supersteps to
+        convergence and the flush (reference: execute(), :407-441);
+        returns the iteration count (the flush not counted). Ends with a
+        device synchronize, so ``timings['execute']`` is device time."""
         if self._dev is None:
             raise RuntimeError("execute() after free()")
         if self.state is None:
             self.initialize()
         niters = self.engine.num_iterations if num_iterations is None \
             else num_iterations
-        if not niters or niters <= 0:
-            raise NotImplementedError("convergence mode is not ported yet")
+        self.supersteps = []
         t0 = time.perf_counter()
         V, C = self.state, self.changed
-        for it in range(niters):
-            V, C = self._superstep(V, it)
+        if niters and niters > 0:
+            for it in range(niters):
+                V, C, _ = self._superstep(V, C, it)
+            self.iteration = niters
+        else:
+            it, converged = 0, False
+            while not converged and it < MAX_CONVERGENCE_ITERS:
+                V, C, m = self._superstep(V, C, it)
+                it += 1
+                converged = not bool(C.any())       # the vote: a host read
+            # one extra combine + apply on the last superstep's messages,
+            # to flush source/sink contributions (reference :425-429)
+            V, C, _ = self._step(V, m, it)
+            self.iteration = it
         self.state, self.changed = V, C
-        self.iteration = niters
         _sync(self.device)
         self.timings["execute"] = time.perf_counter() - t0
+        for rec in self.supersteps:
+            ev = rec.pop("events", None)
+            if ev is not None:
+                rec["ms"] = ev[0].elapsed_time(ev[1])
         return self.iteration
 
     # -------------------------------------------------------------- oracles

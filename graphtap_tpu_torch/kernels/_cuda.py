@@ -31,17 +31,22 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
 _F64 = ctypes.c_double
-# launcher name -> argtypes; every launcher returns cudaError_t as int
+# launcher name -> argtypes; every launcher returns cudaError_t as int.
+# plan_idx is NULL for a static launch, else the (npanels,) int32 plan
+# block of each panel (gated); fill_block is the route's all-fill block.
 _SIGNATURES = {
-    # x2d, bases, plan, w, out, npanels, nwin, dtype, mul_kind, fill, stream
+    # x2d, bases, plan, w, out, npanels, nwin, dtype, mul_kind, fill,
+    # plan_idx, fill_block, stream
     "gt_route_xr_exp": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _F64,
-                        _P],
-    # src, bases, plan, out, npanels, nwin, dtype, fill, stream
-    "gt_route_passa": [_P, _P, _P, _P, _I64, _I32, _I32, _F64, _P],
+                        _P, _I32, _P],
+    # src, bases, plan, out, npanels, nwin, dtype, fill, plan_idx,
+    # fill_block, stream
+    "gt_route_passa": [_P, _P, _P, _P, _I64, _I32, _I32, _F64, _P, _I32,
+                       _P],
     # src, bases, plan, dst, seg, y, nrows, seg_rows, npanels, nwin,
-    # dtype, reduce_kind, fill, stream
+    # dtype, reduce_kind, fill, plan_idx, fill_block, stream
     "gt_route_fold": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32,
-                      _I32, _F64, _P],
+                      _I32, _F64, _P, _I32, _P],
     # v, hub_mask, out, nrows, dtype, reduce_kind, stream
     "gt_hub_fold": [_P, _P, _P, _I64, _I32, _I32, _P],
 }

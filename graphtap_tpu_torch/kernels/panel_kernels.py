@@ -1,7 +1,7 @@
 """The v3 panel-route kernels: CUDA wrappers, plain torch versions, counts.
 
 Counterpart of ``graphtap_tpu/kernels/panel_kernels.py``. Each of the four
-Pallas kernels on the PageRank path has here
+Pallas kernels on the panel path has here
 
   * a wrapper (``route_xr_exp``, ``route_passa``, ``route_fold``,
     ``hub_fold``) that checks dtype, shape and contiguity, then runs the
@@ -12,6 +12,16 @@ Pallas kernels on the PageRank path has here
     against the CUDA kernels;
   * a launch count in ``LAUNCHES``, incremented only where the wrapper
     launches the CUDA kernel.
+
+K1-K3 also take ``plan_idx`` ((npanels,) int32, default None = static):
+the frontier-gated variant of the Pallas kernels' ``plan_idx`` branch,
+where panel i reads plan block ``plan_idx[i]`` (K1 also its weight block
+there) instead of block i; window bases, and K3's dst and seg, stay
+panel i's. Gated launches count under ``<name>_gated``. A gated call
+also names ``fill_block``, the route's all-fill plan block (sel all 0xF8,
+pure ⊕-identity output; ``panel_meta.fill_blocks``): the CUDA kernel
+skips the gathers of a panel pointed there, which computes what the plain
+version computes through that plan.
 
 Route semantics, shared by K1-K3. A panel's plan block is uint8 rows
 [idx1 (nsrc*8), sel_a (out), sel_b (out, two-layer only), idx3 (out)].
@@ -35,7 +45,8 @@ FOLD_SEG_ROWS = _pp.FOLD_SEG_ROWS
 
 # launches of each CUDA kernel (the plain versions are not counted)
 LAUNCHES = {"route_xr_exp": 0, "route_passa": 0, "route_fold": 0,
-            "hub_fold": 0}
+            "hub_fold": 0, "route_xr_exp_gated": 0, "route_passa_gated": 0,
+            "route_fold_gated": 0}
 
 _DTYPES = {torch.float32: 0, torch.float64: 1, torch.int32: 2}
 _MUL_KINDS = {"none": 0, "mul": 1, "add_sat": 2}
@@ -100,9 +111,19 @@ def _route(src, idx1, sel_a, sel_b, idx3, nsrc: int, fill):
     return out
 
 
-def _split(plan, npanels: int, sizes):
+def _blocks(a, npanels: int, rows: int, plan_idx):
+    """(npanels, rows, 128): the first npanels row blocks of ``a``, or,
+    gated, its blocks ``plan_idx[:npanels]``."""
+    if plan_idx is None:
+        return a[:npanels * rows].view(npanels, rows, LANES)
+    nblk = a.shape[0] // rows
+    return a[:nblk * rows].view(nblk, rows, LANES)[
+        plan_idx[:npanels].long()]
+
+
+def _split(plan, npanels: int, sizes, plan_idx=None):
     """Per-panel row blocks of a packed plan stream."""
-    pk = plan[:npanels * sum(sizes)].view(npanels, sum(sizes), LANES)
+    pk = _blocks(plan, npanels, sum(sizes), plan_idx)
     return torch.split(pk, list(sizes), dim=1)
 
 
@@ -113,10 +134,10 @@ def _windows(src2d, bases, npanels: int, nwin: int):
         npanels, nwin * STRIPE, LANES)
 
 
-def _mul(acc, weights, npanels: int, mul_kind: str, fill):
+def _mul(acc, weights, npanels: int, mul_kind: str, fill, plan_idx=None):
     if weights is None or mul_kind == "none":
         return acc
-    w = weights[:npanels * PROWS].view(npanels, PROWS, LANES)
+    w = _blocks(weights, npanels, PROWS, plan_idx)
     if mul_kind == "mul":
         return acc * w
     fill_t = torch.tensor(fill, dtype=acc.dtype, device=acc.device)
@@ -124,19 +145,23 @@ def _mul(acc, weights, npanels: int, mul_kind: str, fill):
 
 
 def route_xr_exp_plain(x2d, bases, plan, weights, fill, npanels: int,
-                       nwin: int, mul_kind: str = "none"):
+                       nwin: int, mul_kind: str = "none", plan_idx=None):
     sr = nwin * STRIPE
     (xi1, xsa, xi3, ei1, esa, esb, ei3) = _split(
-        plan, npanels, (sr, XROWS, XROWS, XROWS, PROWS, PROWS, PROWS))
+        plan, npanels, (sr, XROWS, XROWS, XROWS, PROWS, PROWS, PROWS),
+        plan_idx)
     x_ext = _route(_windows(x2d, bases, npanels, nwin), xi1, xsa, None, xi3,
                    nwin, fill)
     acc = _route(x_ext, ei1, esa, esb, ei3, XROWS // STRIPE, fill)
-    return _mul(acc, weights, npanels, mul_kind, fill).reshape(-1, LANES)
+    return _mul(acc, weights, npanels, mul_kind, fill,
+                plan_idx).reshape(-1, LANES)
 
 
-def route_passa_plain(stream0, bases, plan, fill, npanels: int, nwin: int):
+def route_passa_plain(stream0, bases, plan, fill, npanels: int, nwin: int,
+                      plan_idx=None):
     sr = nwin * STRIPE
-    i1, sa, sb, i3 = _split(plan, npanels, (sr, PROWS, PROWS, PROWS))
+    i1, sa, sb, i3 = _split(plan, npanels, (sr, PROWS, PROWS, PROWS),
+                            plan_idx)
     return _route(_windows(stream0, bases, npanels, nwin), i1, sa, sb, i3,
                   nwin, fill).reshape(-1, LANES)
 
@@ -147,8 +172,10 @@ def _fold_rows(dst, seg, nrows: int):
 
 
 def route_fold_plain(stream0, bases, plan, dst, seg, nrows: int,
-                     reduce_kind: str, fill, npanels: int, nwin: int):
-    routed = route_passa_plain(stream0, bases, plan, fill, npanels, nwin)
+                     reduce_kind: str, fill, npanels: int, nwin: int,
+                     plan_idx=None):
+    routed = route_passa_plain(stream0, bases, plan, fill, npanels, nwin,
+                               plan_idx)
     bands = routed.view(npanels * STRIPE, STRIPE, LANES)
     if reduce_kind == "sum":
         parts = bands.sum(dim=1)
@@ -218,13 +245,29 @@ def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _gate_args(name, plan_idx, fill_block, plan, prows: int, npanels: int,
+               device):
+    """Check a gated launch's plan_idx and fill_block; returns the
+    launcher's (plan_idx pointer, fill block, LAUNCHES key). The plan_idx
+    values are not read back (they come from arange/where over the
+    route's own blocks)."""
+    if plan_idx is None:
+        return None, -1, name
+    _check_idx("plan_idx", plan_idx, npanels, device)
+    if fill_block is None or not 0 <= fill_block < plan.shape[0] // prows:
+        raise ValueError(f"{name}: fill_block {fill_block} outside the "
+                         f"{plan.shape[0] // prows}-block plan")
+    return plan_idx.data_ptr(), int(fill_block), f"{name}_gated"
+
+
 # --------------------------------------------------------------- wrappers
 def route_xr_exp(x2d, bases, plan, weights, fill, npanels: int, nwin: int,
-                 mul_kind: str = "none"):
+                 mul_kind: str = "none", plan_idx=None, fill_block=None):
     """K1: x table -> (npanels*64, 128) contribution panels: the fused
     single-layer x -> x_ext route of each panel's ``nwin`` x windows (at
     block indices ``bases``), the two-layer expand route, then ⊗ with the
-    weight stream. Replaces ``panel_kernels.py::route_xr_exp``."""
+    weight stream. Replaces ``panel_kernels.py::route_xr_exp``, static
+    and gated (``plan_idx``)."""
     _check_sources("x2d", x2d, bases, plan, npanels, nwin)
     _check_2d("plan", plan, torch.uint8, npanels * xe_plan_rows(nwin))
     if mul_kind not in _MUL_KINDS:
@@ -232,9 +275,11 @@ def route_xr_exp(x2d, bases, plan, weights, fill, npanels: int, nwin: int,
     if weights is not None:
         _check_2d("weights", weights, x2d.dtype, npanels * PROWS)
         _check_values("weights", weights, x2d.device)
+    pidx, fblk, key = _gate_args("route_xr_exp", plan_idx, fill_block, plan,
+                                 xe_plan_rows(nwin), npanels, x2d.device)
     if not _on_cuda(x2d):
         return route_xr_exp_plain(x2d, bases, plan, weights, fill, npanels,
-                                  nwin, mul_kind)
+                                  nwin, mul_kind, plan_idx)
     lib = _cuda.library()
     out = torch.empty((npanels * PROWS, LANES), dtype=x2d.dtype,
                       device=x2d.device)
@@ -246,19 +291,25 @@ def route_xr_exp(x2d, bases, plan, weights, fill, npanels: int, nwin: int,
             None if weights is None else weights.data_ptr(), out.data_ptr(),
             npanels, nwin, _DTYPES[x2d.dtype],
             _MUL_KINDS[mul_kind] if weights is not None else 0, float(fill),
-            _stream(x2d))
-    LAUNCHES["route_xr_exp"] += 1
-    _cuda.check(rc, "route_xr_exp")
+            pidx, fblk, _stream(x2d))
+    LAUNCHES[key] += 1
+    _cuda.check(rc, key)
     return out
 
 
-def route_passa(stream0, bases, plan, fill, npanels: int, nwin: int):
+def route_passa(stream0, bases, plan, fill, npanels: int, nwin: int,
+                plan_idx=None, fill_block=None):
     """K2: the corner turn — each panel's ``nwin`` 8-row windows of
     ``stream0`` (at block indices ``bases``) routed two-layer into a
-    64-row panel. Replaces ``panel_kernels.py::route_passa``."""
+    64-row panel. Replaces ``panel_kernels.py::route_passa``, static and
+    gated (``plan_idx``)."""
     _check_route_args(stream0, bases, plan, npanels, nwin)
+    pidx, fblk, key = _gate_args("route_passa", plan_idx, fill_block, plan,
+                                 plan_rows(nwin * STRIPE), npanels,
+                                 stream0.device)
     if not _on_cuda(stream0):
-        return route_passa_plain(stream0, bases, plan, fill, npanels, nwin)
+        return route_passa_plain(stream0, bases, plan, fill, npanels, nwin,
+                                 plan_idx)
     lib = _cuda.library()
     out = torch.empty((npanels * PROWS, LANES), dtype=stream0.dtype,
                       device=stream0.device)
@@ -268,19 +319,21 @@ def route_passa(stream0, bases, plan, fill, npanels: int, nwin: int):
         rc = lib.gt_route_passa(
             stream0.data_ptr(), bases.data_ptr(), plan.data_ptr(),
             out.data_ptr(), npanels, nwin, _DTYPES[stream0.dtype],
-            float(fill), _stream(stream0))
-    LAUNCHES["route_passa"] += 1
-    _cuda.check(rc, "route_passa")
+            float(fill), pidx, fblk, _stream(stream0))
+    LAUNCHES[key] += 1
+    _cuda.check(rc, key)
     return out
 
 
 def route_fold(stream0, bases, plan, dst, seg, nrows: int, reduce_kind: str,
-               fill, npanels: int, nwin: int):
+               fill, npanels: int, nwin: int, plan_idx=None,
+               fill_block=None):
     """K3: route as K2, then ⊕-fold each routed 8-row band into row
     ``seg[p]*min(nrows, 8192) + dst[p*8+ob]`` of an (nrows, 128) table
     that starts at the ⊕-identity. Replaces ``panel_kernels.py::
-    route_fold``; its per-segment ``ini`` reset is implied, because the
-    whole table is filled before any fold (panels are segment-sorted)."""
+    route_fold``, static and gated (``plan_idx``; dst and seg stay panel
+    p's); its per-segment ``ini`` reset is implied, because the whole
+    table is filled before any fold (panels are segment-sorted)."""
     _check_route_args(stream0, bases, plan, npanels, nwin)
     _check_idx("dst", dst, npanels * STRIPE, stream0.device)
     _check_idx("seg", seg, npanels, stream0.device)
@@ -290,9 +343,12 @@ def route_fold(stream0, bases, plan, dst, seg, nrows: int, reduce_kind: str,
     if nrows % seg_rows:
         raise ValueError(f"nrows {nrows} is not whole {seg_rows}-row "
                          f"segments")
+    pidx, fblk, key = _gate_args("route_fold", plan_idx, fill_block, plan,
+                                 plan_rows(nwin * STRIPE), npanels,
+                                 stream0.device)
     if not _on_cuda(stream0):
         return route_fold_plain(stream0, bases, plan, dst, seg, nrows,
-                                reduce_kind, fill, npanels, nwin)
+                                reduce_kind, fill, npanels, nwin, plan_idx)
     lib = _cuda.library()
     y = torch.empty((nrows, LANES), dtype=stream0.dtype,
                     device=stream0.device)
@@ -301,9 +357,10 @@ def route_fold(stream0, bases, plan, dst, seg, nrows: int, reduce_kind: str,
             stream0.data_ptr(), bases.data_ptr(), plan.data_ptr(),
             dst.data_ptr(), seg.data_ptr(), y.data_ptr(), nrows, seg_rows,
             npanels, nwin, _DTYPES[stream0.dtype],
-            _REDUCE_KINDS[reduce_kind], float(fill), _stream(stream0))
-    LAUNCHES["route_fold"] += 1
-    _cuda.check(rc, "route_fold")
+            _REDUCE_KINDS[reduce_kind], float(fill), pidx, fblk,
+            _stream(stream0))
+    LAUNCHES[key] += 1
+    _cuda.check(rc, key)
     return y
 
 

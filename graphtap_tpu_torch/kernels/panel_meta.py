@@ -339,10 +339,19 @@ def _idx1_max(plan: np.ndarray, npanels: int, prows: int,
                for a, n in blocks)
 
 
+def fill_blocks(meta) -> Dict[str, int]:
+    """Each gated route's all-fill plan block: the trailing block that the
+    gated path points inactive panels at (``panel_engine._gating_maps``)."""
+    return {"xe_plan": meta.exp_panels, "pa_plan": meta.pa_panels,
+            "fixr_plan": meta.fix_panels}
+
+
 def validate_meta(meta) -> None:
     """Check every index the panel kernels follow, so no kernel can read
     or write out of bounds: window bases inside their source tables, idx1
-    lanes < 128, fold rows inside their tables. Raises ValueError."""
+    lanes < 128, fold rows inside their tables; and that each gated
+    route's fill block routes no source into any slot (so the CUDA
+    kernels may skip a gated-off panel's gathers). Raises ValueError."""
     a = {k: v[0] for k, v in meta.arrays.items()}
     if any(v.shape[0] != 1 for v in meta.arrays.values()):
         raise ValueError("meta: one device (D = 1) only")
@@ -365,7 +374,8 @@ def validate_meta(meta) -> None:
           (plan_rows(meta.xr_nwin * STRIPE, XROWS, False), XROWS)]),
         ("pa_plan", npa, plan_rows(meta.pa_nwin * STRIPE),
          [(0, meta.pa_nwin * STRIPE)]),
-        ("fixr_plan", meta.fix_panels, plan_rows(meta.fixr_nwin * STRIPE),
+        ("fixr_plan", meta.fix_panels + 1,
+         plan_rows(meta.fixr_nwin * STRIPE),
          [(0, meta.fixr_nwin * STRIPE)]),
         ("f2_plan", meta.f2_panels, plan_rows(meta.f2_nwin * STRIPE),
          [(0, meta.f2_nwin * STRIPE)]),
@@ -375,6 +385,18 @@ def validate_meta(meta) -> None:
             raise ValueError(f"meta: {nm} shorter than {npan} panels")
         if _idx1_max(a[nm], npan, prows, blocks) >= LANES:
             raise ValueError(f"meta: {nm} has an idx1 lane >= {LANES}")
+    # fill block: both landing layers (sel_a, sel_b: 2*PROWS rows) pick a
+    # band past the route's nsrc source bands in every slot
+    for nm, sel0, nsrc, prows in (
+            ("xe_plan", plan_rows(meta.xr_nwin * STRIPE, XROWS, False)
+             + XROWS, XROWS // STRIPE, xe_plan_rows(meta.xr_nwin)),
+            ("pa_plan", meta.pa_nwin * STRIPE, meta.pa_nwin,
+             plan_rows(meta.pa_nwin * STRIPE)),
+            ("fixr_plan", meta.fixr_nwin * STRIPE, meta.fixr_nwin,
+             plan_rows(meta.fixr_nwin * STRIPE))):
+        b0 = fill_blocks(meta)[nm] * prows + sel0
+        if np.any(a[nm][b0:b0 + 2 * PROWS] >> 3 < nsrc):
+            raise ValueError(f"meta: {nm} fill block routes a source")
     for nm_dst, nm_seg, npan, nrows in (
             ("fix_dst", "fixr_seg", meta.fix_panels, meta.nrb),
             ("fix2_dst", "f2_seg", meta.f2_panels, meta.f2_rows)):

@@ -1,16 +1,21 @@
 """On-disk cache of the port's host-built panel plans (``Spmv3Meta``).
 
-Plans are a pure function of the edge list, the ordering, the value dtype
-and the planner's code, and an RMAT-20 plan takes minutes to build, so
-they are memoized as ``.npz`` under ``.bench_cache/torch/``. The key names
-the generator parameters (scale, edge factor, seed), the ordering, the
-dtype and a hash of every source file the plan bytes depend on, so a plan
-built by older planner code is never served (a key that leaves out what
-the artifact depends on serves a wrong artifact).
+Plans are a pure function of the edge list, the graph's ingest config,
+the ordering, the value dtype and the planner's code, and an RMAT-20 plan
+takes minutes to build, so they are memoized as ``.npz`` under
+``.bench_cache/torch/``. The key names the generator parameters (scale,
+edge factor, seed), every field of the ``GraphConfig`` (BFS and CC read
+one RMAT edge list through different configs — self-loops dropped or
+kept — and get different plans), whether the tiles carry weights, the
+ordering, the dtype and a hash of every source file the plan bytes depend
+on, so a plan built by older planner code is never served (a key that
+leaves out what the artifact depends on serves a wrong artifact).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import enum
 import hashlib
 import json
 import os
@@ -48,10 +53,19 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def meta_key(scale: int, edge_factor: int, seed: int, ordering,
-             value_dtype) -> str:
-    return (f"spmv3_rmat{scale}_ef{edge_factor}_s{seed}_{ordering.value}_"
-            f"{np.dtype(value_dtype).name}_{source_hash()}")
+def config_hash(config) -> str:
+    """A short hash of every field of a ``GraphConfig``."""
+    fields = {k: (v.value if isinstance(v, enum.Enum) else v)
+              for k, v in dataclasses.asdict(config).items()}
+    return hashlib.sha256(json.dumps(fields, sort_keys=True).encode()
+                          ).hexdigest()[:12]
+
+
+def meta_key(scale: int, edge_factor: int, seed: int, config, ordering,
+             value_dtype, weighted: bool) -> str:
+    return (f"spmv3_rmat{scale}_ef{edge_factor}_s{seed}_"
+            f"cfg{config_hash(config)}_{'w' if weighted else 'nw'}_"
+            f"{ordering.value}_{np.dtype(value_dtype).name}_{source_hash()}")
 
 
 def save_spmv3_meta(meta: Spmv3Meta, path) -> None:
@@ -76,12 +90,14 @@ def load_spmv3_meta(path) -> Spmv3Meta:
 
 
 def cached_spmv3_meta(tiles: TileSet, scale: int, edge_factor: int,
-                      seed: int, ordering, value_dtype=np.float32,
+                      seed: int, config, ordering, value_dtype=np.float32,
                       cache_dir: Optional[os.PathLike] = None) -> Spmv3Meta:
-    """The panel meta of an RMAT graph's tiles, from disk when cached."""
+    """The panel meta of an RMAT graph's tiles (read through the
+    ``GraphConfig`` ``config``, tiled in ``ordering``), from disk when
+    cached."""
     d = Path(cache_dir) if cache_dir is not None else DEFAULT_DIR
-    path = d / (meta_key(scale, edge_factor, seed, ordering, value_dtype)
-                + ".npz")
+    path = d / (meta_key(scale, edge_factor, seed, config, ordering,
+                         value_dtype, tiles.weights is not None) + ".npz")
     if path.exists():
         return load_spmv3_meta(path)
     meta = build_spmv3_meta(tiles, value_dtype=value_dtype)

@@ -4,7 +4,9 @@ Marked ``gpu``: each test skips (with a reason) where torch sees no CUDA
 device, and runs on the card with
 ``python -m pytest tests/test_torch_cuda.py -q``. K1, K2 and K4 must match
 bit for bit; K3 bit for bit in int32 and within rtol 1e-5 (f32) / 1e-12
-(f64) in float sums, whose atomic adds run in no fixed order.
+(f64) in float sums, whose atomic adds run in no fixed order. The gated
+K1-K3 match bit for bit in int32 min, and BFS, CC and SSSP on the card
+equal the same runs on the CPU.
 """
 
 import numpy as np
@@ -12,12 +14,16 @@ import pytest
 import torch
 
 from graphtap_tpu_torch import Graph, GraphConfig
-from graphtap_tpu_torch.apps import run_pagerank
+from graphtap_tpu_torch.apps import (bfs_config, cc_config, run_bfs,
+                                     run_cc, run_pagerank, run_sssp,
+                                     sssp_config)
 from graphtap_tpu_torch.ingest import rmat_edges
 from graphtap_tpu_torch.kernels import panel_kernels as pk
 from graphtap_tpu_torch.kernels import semiring as tsr
+from graphtap_tpu_torch.kernels import panel_engine as tpe
 from graphtap_tpu_torch.kernels.panel_engine import spmv3_stages
-from graphtap_tpu_torch.kernels.panel_meta import build_spmv3_meta
+from graphtap_tpu_torch.kernels.panel_meta import (build_spmv3_meta,
+                                                   fill_blocks)
 from graphtap_tpu_torch.tools.convert import meta_from_numpy
 
 pytestmark = pytest.mark.gpu
@@ -54,7 +60,8 @@ def test_kernels_match_plain(cuda, dtype, weighted):
                       g.part.tile_rows)
     assert {k: pk.LAUNCHES[k] - before[k] for k in before} == {
         "route_xr_exp": 1, "route_passa": 1, "route_fold": 2,
-        "hub_fold": 1}
+        "hub_fold": 1, "route_xr_exp_gated": 0, "route_passa_gated": 0,
+        "route_fold_gated": 0}
     fill, kind = sem.identity, sem.reduce_kind
     mul = ("mul" if kind == "sum" else "add_sat") if weighted else "none"
     xe = (st["x2d"], t["xr_bases"], t["xe_plan"], t.get("w_stream"), fill,
@@ -104,3 +111,91 @@ def test_wrappers_reject_mixed_devices(cuda):
     with pytest.raises(ValueError):
         pk.route_passa(s0, t["pa_bases"], t["pa_plan"], 0.0,
                        meta.pa_panels + 1, meta.pa_nwin)
+
+
+@pytest.mark.parametrize("frontier", ["sparse", "empty"])
+@pytest.mark.parametrize("weighted", [True, False])
+def test_gated_kernels_match_plain(cuda, weighted, frontier):
+    """Gated K1-K3 at RMAT-12, int32 min: K1 on the real gating maps of a
+    2% frontier clustered mid-range (or an empty one); K2 and K3 with
+    about half the panels pointed at the fill block, so the kernels'
+    fill-block early exit is held against the plain version fed the
+    fill plan."""
+    sem = tsr.min_plus() if weighted else tsr.min_select()
+    inf = sem.identity
+    r, c, w = rmat_edges(12, 16, seed=1, weighted=weighted)
+    n = 1 << 12
+    cfg = sssp_config(n) if weighted else bfs_config(n)
+    g = Graph.from_edges(r, c, w, cfg)
+    meta = build_spmv3_meta(g.tiled(), value_dtype=np.int32)
+    t = meta_from_numpy(meta.arrays, cuda)
+    nc = g.part.tile_cols
+    rng = np.random.default_rng(2)
+    x = np.full(nc, inf, np.int32)
+    if frontier == "sparse":
+        x[nc // 2:nc // 2 + nc // 50] = rng.integers(0, 1000, nc // 50)
+    x2d = tpe.pad_x(torch.from_numpy(x).to(cuda), meta, inf)
+    xe_b, xe_q = tpe.gating_maps(tpe.window_activity(x2d, t, meta, inf),
+                                 t, meta)[:2]
+    fb = fill_blocks(meta)
+
+    def half_off(nq, fill):
+        q = np.arange(nq, dtype=np.int32)
+        q[rng.random(nq) < 0.5] = fill
+        return torch.from_numpy(q).to(cuda)
+
+    npa = meta.pa_panels + 1
+    pa_q = half_off(npa, fb["pa_plan"])
+    fx_q = half_off(meta.fix_panels, fb["fixr_plan"])
+    mul = "add_sat" if weighted else "none"
+    before = dict(pk.LAUNCHES)
+    xe = (x2d, xe_b, t["xe_plan"], t.get("w_stream"), inf,
+          meta.exp_panels + 1, meta.xr_nwin, mul)
+    s0 = pk.route_xr_exp(*xe, plan_idx=xe_q, fill_block=fb["xe_plan"])
+    assert torch.equal(s0, pk.route_xr_exp_plain(*xe, plan_idx=xe_q))
+    pa = (s0, t["pa_bases"], t["pa_plan"], inf, npa, meta.pa_nwin)
+    s1 = pk.route_passa(*pa, plan_idx=pa_q, fill_block=fb["pa_plan"])
+    assert torch.equal(s1, pk.route_passa_plain(*pa, plan_idx=pa_q))
+    fx = (s1, t["fixr_bases"], t["fixr_plan"], t["fix_dst"],
+          t["fixr_seg"], meta.nrb, "min", inf, meta.fix_panels,
+          meta.fixr_nwin)
+    y = pk.route_fold(*fx, plan_idx=fx_q, fill_block=fb["fixr_plan"])
+    assert torch.equal(y, pk.route_fold_plain(*fx, plan_idx=fx_q))
+    assert {k: pk.LAUNCHES[k] - before[k] for k in before} == {
+        "route_xr_exp": 0, "route_passa": 0, "route_fold": 0,
+        "hub_fold": 0, "route_xr_exp_gated": 1, "route_passa_gated": 1,
+        "route_fold_gated": 1}
+    # the gated SpMV equals the static one
+    xs = torch.from_numpy(x).to(cuda)
+    assert torch.equal(
+        tpe.spmv3_local(xs, t, meta, sem, g.part.tile_rows, gate=True),
+        tpe.spmv3_local(xs, t, meta, sem, g.part.tile_rows))
+
+
+@pytest.mark.parametrize("app", ["bfs", "cc", "sssp"])
+def test_apps_on_cuda_match_cpu(cuda, app):
+    n = 1 << 12
+    if app == "sssp":
+        r, c, w = rmat_edges(12, 16, seed=1, weighted=True)
+        g = Graph.from_edges(r, c, w, sssp_config(n))
+        run = lambda device: run_sssp(g, 0, kernel="panel", device=device)
+    else:
+        r, c, _ = rmat_edges(12, 16, seed=1)
+        if app == "bfs":
+            g = Graph.from_edges(r, c, None, bfs_config(n))
+            run = lambda device: run_bfs(g, 0, kernel="panel",
+                                         device=device)
+        else:
+            g = Graph.from_edges(r, c, None, cc_config(n))
+            run = lambda device: run_cc(g, kernel="panel", device=device)
+    before = dict(pk.LAUNCHES)
+    on_card = run(cuda)
+    assert pk.LAUNCHES["hub_fold"] > before["hub_fold"]
+    on_cpu = run("cpu")
+    assert on_card.iteration == on_cpu.iteration
+    assert [s["gated"] for s in on_card.supersteps] == \
+        [s["gated"] for s in on_cpu.supersteps]
+    assert all(s["ms"] > 0 for s in on_card.supersteps)
+    a, b = on_card.state_vector(), on_cpu.state_vector()
+    for k in b:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)

@@ -191,27 +191,64 @@ def test_run_pagerank_on_cuda_raises_without_cuda():
 
 def test_artifact_cache_roundtrip_and_key(tmp_path):
     r, c, _ = rmat_edges(8, 16, seed=1)
-    g = Graph.from_edges(r, c, None, GraphConfig(num_vertices=256,
-                                                 transpose=True))
+    cfg = GraphConfig(num_vertices=256, transpose=True)
+    g = Graph.from_edges(r, c, None, cfg)
     ts = g.tiled()
-    m1 = artifact_cache.cached_spmv3_meta(ts, 8, 16, 1, Ordering.ROW,
+    m1 = artifact_cache.cached_spmv3_meta(ts, 8, 16, 1, cfg, Ordering.ROW,
                                           np.float32, cache_dir=tmp_path)
     files = list(tmp_path.iterdir())
     assert len(files) == 1
-    m2 = artifact_cache.cached_spmv3_meta(ts, 8, 16, 1, Ordering.ROW,
+    m2 = artifact_cache.cached_spmv3_meta(ts, 8, 16, 1, cfg, Ordering.ROW,
                                           np.float32, cache_dir=tmp_path)
     for k in META_SCALARS:
         assert getattr(m1, k) == getattr(m2, k), k
     for k in m1.arrays:
         _same_array(m1.arrays[k], m2.arrays[k], k)
-    keys = {artifact_cache.meta_key(8, 16, 1, Ordering.ROW, np.float32),
-            artifact_cache.meta_key(8, 16, 2, Ordering.ROW, np.float32),
-            artifact_cache.meta_key(8, 16, 1, Ordering.COL, np.float32),
-            artifact_cache.meta_key(8, 16, 1, Ordering.ROW, np.float64),
-            artifact_cache.meta_key(9, 16, 1, Ordering.ROW, np.float32),
-            artifact_cache.meta_key(8, 8, 1, Ordering.ROW, np.float32)}
-    assert len(keys) == 6
+
+    def key(scale=8, ef=16, seed=1, config=cfg, ordering=Ordering.ROW,
+            dtype=np.float32, weighted=False):
+        return artifact_cache.meta_key(scale, ef, seed, config, ordering,
+                                       dtype, weighted)
+
+    keys = {key(), key(seed=2), key(ordering=Ordering.COL),
+            key(dtype=np.float64), key(scale=9), key(ef=8),
+            key(weighted=True),
+            key(config=GraphConfig(num_vertices=256, transpose=True,
+                                   self_loops=False))}
+    assert len(keys) == 8
     assert artifact_cache.source_hash() in files[0].name
+
+
+def test_artifact_cache_keys_on_graph_config(tmp_path):
+    """One RMAT edge list read through BFS's config (self-loops dropped)
+    and CC's (kept) gives two plans: each gets its own key, and the cache
+    serves each its own meta, byte-equal to a fresh build."""
+    from graphtap_tpu_torch.apps import bfs_config, cc_config
+    r, c, _ = rmat_edges(8, 16, seed=1)
+    n = 256
+    got = {}
+    for cfg_fn in (bfs_config, cc_config):
+        cfg = cfg_fn(n)
+        ts = Graph.from_edges(r, c, None, cfg).tiled()
+        got[cfg_fn.__name__] = (
+            ts, artifact_cache.meta_key(8, 16, 1, cfg, Ordering.ROW,
+                                        np.int32, False))
+        artifact_cache.cached_spmv3_meta(ts, 8, 16, 1, cfg, Ordering.ROW,
+                                         np.int32, cache_dir=tmp_path)
+    assert got["bfs_config"][1] != got["cc_config"][1]
+    assert len(list(tmp_path.iterdir())) == 2
+    assert got["bfs_config"][0].nnz_total != got["cc_config"][0].nnz_total
+    for cfg_fn in (bfs_config, cc_config):
+        ts = got[cfg_fn.__name__][0]
+        served = artifact_cache.cached_spmv3_meta(
+            ts, 8, 16, 1, cfg_fn(n), Ordering.ROW, np.int32,
+            cache_dir=tmp_path)
+        fresh = build_spmv3_meta(ts, value_dtype=np.int32)
+        for k in META_SCALARS:
+            assert getattr(served, k) == getattr(fresh, k), k
+        assert served.arrays.keys() == fresh.arrays.keys()
+        for k in fresh.arrays:
+            _same_array(served.arrays[k], fresh.arrays[k], k)
 
 
 def test_state_from_numpy_layout():

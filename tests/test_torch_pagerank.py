@@ -96,8 +96,10 @@ def test_pagerank_scan_kernel_matches_panel(rmat10, port_f64):
 
 def test_executor_lifecycle_errors(rmat10, port_f64):
     g = rmat10[2]
+    cf = Graph.from_edges(rmat10[0], rmat10[1], None, GraphConfig(
+        num_vertices=N, transpose=True, compression=Compression.TCSC_CF))
     with pytest.raises(NotImplementedError):
-        run_pagerank(g, 0, torch.float64)              # convergence mode
+        run_pagerank(cf, 0, torch.float64)             # TCSC_CF phases
     ex = Executor(g, PageRankProgram(torch.float64), kernel="scan")
     ex.free()
     with pytest.raises(RuntimeError, match="free"):

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the torch port's PageRank and frontier paths on one NVIDIA GPU.
+"""Drive the torch port's PageRank, shuffle and frontier paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -7,36 +8,51 @@ Phases, each printed as it runs; any failure exits non-zero:
 
   1. device   the card's name and power limit (nvidia-smi), torch, CUDA
               and nvcc versions; fails without CUDA.
-  2. build    nvcc builds the four panel-route kernels from csrc/.
-  3. parity   each kernel against its plain torch version on the card, on
-              RMAT-14 plans in f32 sum, f64 sum (weighted) and int32 min
-              (weighted). K1, K2, K4 bit for bit; K3 bit for bit in int32,
-              elementwise rtol 1e-5 (f32) / 1e-12 (f64): its atomic adds
-              reorder float sums.
-  4. main     RMAT-20 (edge factor 16, seed 1): degree (scan) + 20 PageRank
-              iterations through apps.run_pagerank(device="cuda") in f32;
-              the checksum within 1e-4 relative of the f64 NumPy golden
-              model (tests/golden.py), the launch counts of K1-K4.
+  2. build    nvcc builds the panel-route (K1-K4) and shuffle (K6-K8)
+              kernels from csrc/, one nvcc per source, in parallel.
+  3. parity   each panel kernel against its plain torch version on the
+              card, on RMAT-14 plans in f32 sum, f64 sum (weighted) and
+              int32 min (weighted). K1, K2, K4 bit for bit; K3 bit for bit
+              in int32, elementwise rtol 1e-5 (f32) / 1e-12 (f64): its
+              atomic adds reorder float sums.
   3b. gated  the gated K1-K3 against their gated plain versions, bit for
               bit, on RMAT-14 plans in int32 min (weighted add_sat through
               sssp_config, unweighted through bfs_config), on a 2%, a 30%
               (each a contiguous vertex range) and an empty frontier; and
               the gated spmv3 against the static one, bit for bit.
-  5. kernels  each kernel's time beside its plain version's at the RMAT-20
-              shapes of the main path, and their largest difference
-              (K3: max |diff| <= 1e-5 * max |plain|, f32).
+  3c. shuffle K6 (with its two dense-expansion calls), K7 and K8 against
+              their plain versions on RMAT-14 shuffle plans in f32 sum, f64
+              sum (weighted, mul), int32 min (weighted add_sat through
+              sssp_config) and int32 min (bfs_config); K6 and K7 bit for
+              bit, K8 bit for bit in int32 and within the rtol above in
+              float sums; the whole spmv_local against the plain pipeline.
+  4. main     RMAT-20 (edge factor 16, seed 1): degree on the shuffle
+              kernel (COL ordering) + 20 PageRank iterations on the panel
+              kernel through apps.run_pagerank(device="cuda") in f32; the
+              degrees equal tests/golden.py::degree bit for bit, the
+              checksum within 1e-4 relative of the f64 NumPy golden model;
+              the launch counts of K1-K4 and K6-K8.
+  5. kernels  each kernel's time beside its plain version's, its bound
+              and, where one PyTorch call computes the same function, that
+              call's time, at the RMAT-20 shapes of the main path (K1-K4:
+              the PageRank superstep; K6-K8: the degree SpMV), and their
+              largest difference (K3, K8: max |diff| <= 1e-5 * max
+              |plain|, f32).
   6. bfs      RMAT-18 through bfs_config: apps.run_bfs(device="cuda") to
               convergence, frontier-gated ("auto"); hops and parents equal
               tests/golden.py::bfs bit for bit; every gated kernel
               launched; each superstep's branch and time (CUDA events);
               then re-initialized and run again warm. The gated kernels'
-              times at the shapes of BFS's first superstep.
+              times at the shapes of BFS's first superstep. Then BFS on the
+              shuffle kernel: equal to golden, in as many iterations.
   7. cc/sssp  CC and SSSP at RMAT-18, each through its own config, to
-              convergence; labels and distances equal the golden models.
+              convergence, on the panel and then the shuffle kernel;
+              labels and distances equal the golden models, iteration
+              counts equal across the kernels.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
-the kernels with their launches (from the PageRank path for K1-K4, from
-the BFS path for the gated rows), errors and times.
+the kernels with their launches (from the PageRank path for K1-K4 and
+K6-K8, from the BFS path for the gated rows), errors, times and bounds.
 """
 
 from __future__ import annotations
@@ -59,11 +75,18 @@ PARITY_SCALE = 14
 FRONTIER_SCALE = 18
 SUITE_SCALE = 18             # CC and SSSP, their BENCH_SUITE.json scale
 GATED = ("route_xr_exp_gated", "route_passa_gated", "route_fold_gated")
+SHUFFLE = ("expand_stream", "group_stream", "grouped_reduce")
 DEVICE = "cuda"
 GOLDEN_RTOL = 1e-4
 FOLD_RTOL = {"float32": 1e-5, "float64": 1e-12}
 ROOT = os.path.dirname(os.path.abspath(__file__))
-SOURCE = "graphtap_tpu_torch/csrc/panel_route.cu"
+SOURCES = {"panel": "graphtap_tpu_torch/csrc/panel_route.cu",
+           "shuffle": "graphtap_tpu_torch/csrc/shuffle.cu"}
+# the card's published peaks (NVIDIA H100 SXM data sheet): memory bytes/s,
+# and non-tensor-core operations/s by value type
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {"float32": 67e12, "int32": 67e12, "float64": 34e12}
+DUMP = 4096                  # K8 library call: scratch slots for holes
 REPLACES = {
     "route_xr_exp": "graphtap_tpu/kernels/panel_kernels.py:217",
     "route_passa": "graphtap_tpu/kernels/panel_kernels.py:435",
@@ -72,6 +95,9 @@ REPLACES = {
     "route_xr_exp_gated": "graphtap_tpu/kernels/panel_kernels.py:226",
     "route_passa_gated": "graphtap_tpu/kernels/panel_kernels.py:453",
     "route_fold_gated": "graphtap_tpu/kernels/panel_kernels.py:356",
+    "expand_stream": "graphtap_tpu/kernels/shuffle_kernels.py:65",
+    "group_stream": "graphtap_tpu/kernels/shuffle_kernels.py:132",
+    "grouped_reduce": "graphtap_tpu/kernels/shuffle_kernels.py:204",
 }
 
 
@@ -105,7 +131,8 @@ def phase_build() -> None:
     entry = ""
     for line in _cuda.build_log.splitlines():
         if "Compiling entry" in line:       # mangled name: keep the kernel
-            entry = line.split("'")[1].split("_cu_")[-1][8:]
+            name = line.split("'")[1]
+            entry = name.split("_cu_")[-1][8:] if "_cu_" in name else name
         elif "registers" in line:
             log(f"  ptxas {entry}: {line.split(':', 1)[1].strip()}")
 
@@ -124,16 +151,43 @@ def _fold_ok(a, b, kind: str, rtol: float) -> bool:
     return bool(torch.all((a - b).abs() <= rtol * b.abs()))
 
 
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def _bound(nbytes: int, ops: int, dtype) -> tuple:
+    """(ms, "bytes" | "operations"): the least time the card could take
+    for a call that must move ``nbytes`` and do ``ops`` operations on
+    values of ``dtype``, at the published peaks."""
+    t_b = nbytes / PEAK_BYTES
+    t_o = ops / PEAK_OPS[str(dtype).split(".")[-1]]
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
 def _kernel_calls(t, meta, sem, st):
-    """(name, kernel call, plain call) for each launch of one SpMV, on the
-    stage tensors ``st`` of that SpMV (the kernels' own inputs)."""
+    """(name, kernel call, plain call, (bytes, ops)) for each launch of one
+    SpMV, on the stage tensors ``st`` of that SpMV (the kernels' own
+    inputs). Bytes count each input read once (the whole source table,
+    the panels' plan blocks, bases, dst and seg) and each output written
+    once; ops count the ⊗ and ⊕ the kernel must do."""
     from graphtap_tpu_torch.kernels import panel_kernels as pk
     fill, kind = sem.identity, sem.reduce_kind
     mul = ("mul" if kind == "sum" else "add_sat") if meta.has_w else "none"
+    es = st["x2d"].element_size()
+    panel = pk.PROWS * pk.LANES
     xe = (st["x2d"], t["xr_bases"], t["xe_plan"], t.get("w_stream"), fill,
           meta.exp_panels + 1, meta.xr_nwin, mul)
+    nxe = meta.exp_panels + 1
+    xe_w = (_nbytes(st["x2d"]) + 4 * nxe * meta.xr_nwin
+            + nxe * pk.xe_plan_rows(meta.xr_nwin) * pk.LANES
+            + nxe * panel * es * (2 if meta.has_w else 1),
+            nxe * panel if meta.has_w else 0)
     pa = (st["s0"], t["pa_bases"], t["pa_plan"], fill, meta.pa_panels + 1,
           meta.pa_nwin)
+    npa = meta.pa_panels + 1
+    pa_w = (_nbytes(st["s0"]) + 4 * npa * meta.pa_nwin
+            + npa * pk.plan_rows(meta.pa_nwin * pk.STRIPE) * pk.LANES
+            + npa * panel * es, 0)
     fx = (st["s1"], t["fixr_bases"], t["fixr_plan"], t["fix_dst"],
           t["fixr_seg"], meta.nrb, kind, fill, meta.fix_panels,
           meta.fixr_nwin)
@@ -141,16 +195,27 @@ def _kernel_calls(t, meta, sem, st):
     f2 = (st["y_hub"], t["f2_bases"], t["f2_plan"], t["fix2_dst"],
           t["f2_seg"], meta.f2_rows, kind, fill, meta.f2_panels,
           meta.f2_nwin)
+
+    def fold_work(src, npan, nwin, nrows):
+        return (_nbytes(src) + 4 * npan * nwin
+                + npan * pk.plan_rows(nwin * pk.STRIPE) * pk.LANES
+                + 4 * npan * (pk.STRIPE + 1) + nrows * pk.LANES * es,
+                npan * panel)
     return [("route_xr_exp", lambda: pk.route_xr_exp(*xe),
-             lambda: pk.route_xr_exp_plain(*xe)),
+             lambda: pk.route_xr_exp_plain(*xe), xe_w),
             ("route_passa", lambda: pk.route_passa(*pa),
-             lambda: pk.route_passa_plain(*pa)),
+             lambda: pk.route_passa_plain(*pa), pa_w),
             ("route_fold", lambda: pk.route_fold(*fx),
-             lambda: pk.route_fold_plain(*fx)),
+             lambda: pk.route_fold_plain(*fx),
+             fold_work(st["s1"], meta.fix_panels, meta.fixr_nwin, meta.nrb)),
             ("hub_fold", lambda: pk.hub_fold(*hb),
-             lambda: pk.hub_fold_plain(*hb)),
+             lambda: pk.hub_fold_plain(*hb),
+             (2 * _nbytes(st["y_mid"]) + _nbytes(t["hub_mask"]),
+              7 * st["y_mid"].numel())),
             ("route_fold", lambda: pk.route_fold(*f2),
-             lambda: pk.route_fold_plain(*f2))]
+             lambda: pk.route_fold_plain(*f2),
+             fold_work(st["y_hub"], meta.f2_panels, meta.f2_nwin,
+                       meta.f2_rows))]
 
 
 def phase_parity(torch, np) -> None:
@@ -181,7 +246,7 @@ def phase_parity(torch, np) -> None:
         x = torch.from_numpy(xv).to(DEVICE)
         st = spmv3_stages(x, t, meta, sem, g.part.tile_rows)
         name_dt = np.dtype(dtype).name
-        for name, kern, plain in _kernel_calls(t, meta, sem, st):
+        for name, kern, plain, _ in _kernel_calls(t, meta, sem, st):
             a, b = kern(), plain()
             ok = (_fold_ok(a, b, sem.reduce_kind, FOLD_RTOL.get(name_dt, 0))
                   if name == "route_fold" else _same(a, b))
@@ -221,15 +286,48 @@ def phase_parity(torch, np) -> None:
             raise AssertionError(f"spmv3 disagrees with numpy ({name_dt})")
 
 
+def _gated_work(src, bases, plan_idx, fill_block, nwin, prows, out_bytes,
+                w_block_bytes=0, extra_per_panel=0):
+    """(bytes, ops) a gated route call needs on this run's maps: the plan
+    (and weight) blocks of the distinct plan indices, the distinct source
+    windows and the bases of the panels not pointed at the fill block,
+    plan_idx itself, and the output."""
+    import torch
+    npan = plan_idx.numel()
+    live = plan_idx != fill_block
+    nlive = int(live.sum())
+    blocks = int(torch.unique(plan_idx).numel())
+    wins = bases.view(npan, nwin)[live]
+    nwins = int(torch.unique(wins).numel()) if nlive else 0
+    es = src.element_size()
+    return (blocks * (prows * 128 + w_block_bytes) + 4 * npan
+            + 4 * nlive * nwin + nwins * 8 * 128 * es
+            + nlive * extra_per_panel + out_bytes, 0)
+
+
 def _gated_calls(t, meta, sem, st, maps):
-    """(name, kernel call, plain call) for the gated K1-K3 of one SpMV on
-    its stage tensors ``st`` and gating maps ``maps``."""
+    """(name, kernel call, plain call, (bytes, ops)) for the gated K1-K3
+    of one SpMV on its stage tensors ``st`` and gating maps ``maps``."""
     from graphtap_tpu_torch.kernels import panel_kernels as pk
     from graphtap_tpu_torch.kernels.panel_meta import fill_blocks
     fill, kind = sem.identity, sem.reduce_kind
     mul = "add_sat" if meta.has_w else "none"
     xe_b, xe_q, pa_b, pa_q, fx_b, fx_q = maps
     fb = fill_blocks(meta)
+    es = st["x2d"].element_size()
+    panel = pk.PROWS * pk.LANES
+    nxe, npa = meta.exp_panels + 1, meta.pa_panels + 1
+    work = [
+        _gated_work(st["x2d"], xe_b, xe_q[:nxe], fb["xe_plan"],
+                    meta.xr_nwin, pk.xe_plan_rows(meta.xr_nwin),
+                    nxe * panel * es, panel * es if meta.has_w else 0),
+        _gated_work(st["s0"], pa_b, pa_q[:npa], fb["pa_plan"], meta.pa_nwin,
+                    pk.plan_rows(meta.pa_nwin * pk.STRIPE),
+                    npa * panel * es),
+        _gated_work(st["s1"], fx_b, fx_q[:meta.fix_panels], fb["fixr_plan"],
+                    meta.fixr_nwin, pk.plan_rows(meta.fixr_nwin * pk.STRIPE),
+                    meta.nrb * pk.LANES * es,
+                    extra_per_panel=4 * (pk.STRIPE + 1))]
     xe = (st["x2d"], xe_b, t["xe_plan"], t.get("w_stream"), fill,
           meta.exp_panels + 1, meta.xr_nwin, mul)
     pa = (st["s0"], pa_b, t["pa_plan"], fill, meta.pa_panels + 1,
@@ -239,15 +337,15 @@ def _gated_calls(t, meta, sem, st, maps):
     return [("route_xr_exp_gated",
              lambda: pk.route_xr_exp(*xe, plan_idx=xe_q,
                                      fill_block=fb["xe_plan"]),
-             lambda: pk.route_xr_exp_plain(*xe, plan_idx=xe_q)),
+             lambda: pk.route_xr_exp_plain(*xe, plan_idx=xe_q), work[0]),
             ("route_passa_gated",
              lambda: pk.route_passa(*pa, plan_idx=pa_q,
                                     fill_block=fb["pa_plan"]),
-             lambda: pk.route_passa_plain(*pa, plan_idx=pa_q)),
+             lambda: pk.route_passa_plain(*pa, plan_idx=pa_q), work[1]),
             ("route_fold_gated",
              lambda: pk.route_fold(*fx, plan_idx=fx_q,
                                    fill_block=fb["fixr_plan"]),
-             lambda: pk.route_fold_plain(*fx, plan_idx=fx_q))]
+             lambda: pk.route_fold_plain(*fx, plan_idx=fx_q), work[2])]
 
 
 def phase_gated_parity(torch, np) -> None:
@@ -285,7 +383,8 @@ def phase_gated_parity(torch, np) -> None:
                 (meta.exp_panels, meta.pa_panels, meta.fix_panels))]
             tag = (f"{'weighted' if weighted else 'unweighted'} "
                    f"{share:.0%} frontier")
-            for name, kern, plain in _gated_calls(t, meta, sem, st, maps):
+            for name, kern, plain, _ in _gated_calls(t, meta, sem, st,
+                                                     maps):
                 a, b = kern(), plain()
                 ok = _same(a, b)
                 log(f"gated parity {tag} {name}: "
@@ -299,6 +398,173 @@ def phase_gated_parity(torch, np) -> None:
                 f"fixr) {off}")
             if not ok:
                 raise AssertionError(f"gated spmv3 != static ({tag})")
+
+
+def _shuffle_calls(torch, t, meta, sem, st):
+    """(name, kernel call, plain call, (bytes, ops), library call or None)
+    for each launch group of one shuffle SpMV on its stage tensors ``st``:
+    K6 three times (the stream expand, the dense expansion's A and B
+    windows), K7 (all its passes), K8. Bytes count what this run's data
+    needs: K6 reads ev everywhere and slot, lane (and w) where ev is set,
+    the whole table, and writes every slot; K7 reads frag_dst, the
+    frag_idx rows of live fragments and the source values they name, and
+    writes the whole stream; K8 reads ev everywhere, lr and the value
+    where ev is set, chunk_block, and writes y. The library calls (one
+    PyTorch call each, on indices precomputed here): ``torch.take`` for
+    K6 (unweighted only) and for each K7 pass, ``torch.scatter_reduce``
+    for K8."""
+    from graphtap_tpu_torch.kernels import shuffle_kernels as sk
+    from graphtap_tpu_torch.kernels.shuffle_engine import mul_kind
+    from graphtap_tpu_torch.kernels.shuffle_plan import LANES, SUB, WROWS
+    fill, kind = sem.identity, sem.reduce_kind
+    mul = mul_kind(meta, sem)
+    es = st["x3d"].element_size()
+
+    def expand(tab, grp, slot, lane, ev, w, mk):
+        args = (tab, grp, slot, lane, ev, w, fill, mk)
+        valid = ev != 0
+        nvalid = int(valid.sum())
+        work = (_nbytes(tab) + _nbytes(grp) + _nbytes(ev)
+                + nvalid * (2 + (es if w is not None else 0))
+                + slot.numel() * es, nvalid if w is not None else 0)
+        lib = None
+        if w is None:
+            ext = torch.cat([tab.reshape(-1), tab.new_full((1,), fill)])
+            win = grp.long().repeat_interleave(SUB)[:, None]
+            src = torch.where(valid, (win * WROWS + slot.long()) * LANES
+                              + lane.long(), ext.numel() - 1)
+            lib = lambda: torch.take(ext, src)          # noqa: E731
+        return (lambda: sk.expand_stream(*args),
+                lambda: sk.expand_stream_plain(*args), work, lib)
+
+    calls = [("expand_stream", *expand(
+        st["x3d"], t["grp"], t["slot"], t["lane"], t["ev_x"],
+        t.get("w_stream"), mul))]
+    for half in ("a", "b"):
+        calls.append(("expand_stream", *expand(
+            st["ytab"], t[f"mexp_grp_{half}"], t[f"mexp_slot_{half}"],
+            t["mexp_lane"], t[f"mexp_ev_{half}"], None, "none")))
+    # K7: each pass's source and destination flat indices (the plain
+    # version's), for its bytes and for the library call
+    gargs = (st["contrib"], t["frag_dst"], t["frag_idx"],
+             meta.rows_per_super, meta.npasses, fill)
+    nsup, _, rps, smax = t["frag_dst"].shape
+    gbytes, bufs, takes = 0, [st["contrib"]], []
+    for p in range(meta.npasses):
+        d = t["frag_dst"][:, p]
+        idx = t["frag_idx"][:, p].reshape(nsup, rps, smax, LANES)
+        hit = (idx >= 0) & (d >= 0)[..., None]
+        gbytes += (_nbytes(d) + int((d >= 0).sum()) * LANES
+                   + int(hit.sum()) * es + _nbytes(st["contrib"]))
+        bufs.append(sk.group_pass_plain(bufs[-1], t["frag_dst"],
+                                        t["frag_idx"], p, rps, fill))
+        srow = torch.arange(nsup * rps, device=d.device).view(nsup, rps)
+        src = (srow[:, :, None, None] * LANES + idx.long())[hit]
+        drow = (torch.arange(nsup, device=d.device)[:, None, None] * rps
+                + d.long())
+        dst = (drow[..., None] * LANES
+               + torch.arange(LANES, device=d.device))[hit]
+        inv = torch.full((bufs[-1].numel(),), bufs[-1].numel(),
+                         dtype=torch.long, device=d.device)
+        inv[dst] = src
+        ext = torch.cat([bufs[-2].reshape(-1),
+                         bufs[-2].new_full((1,), fill)])
+        takes.append((ext, inv))
+        del idx, hit, src, dst
+    calls.append(("group_stream", lambda: sk.group_stream(*gargs),
+                  lambda: sk.group_stream_plain(*gargs), (gbytes, 0),
+                  lambda: [torch.take(e, i) for e, i in takes]))
+    rargs = (st["grouped"], t["lr"], t["ev_r"], t["chunk_block"],
+             meta.nblocks, kind, fill)
+    valid = t["ev_r"] != 0
+    nvalid = int(valid.sum())
+    blk = t["chunk_block"].long().repeat_interleave(8 * LANES).view(
+        -1, LANES)
+    # holes go to DUMP scratch slots past y, spread so that they do not
+    # all contend for one address
+    spread = torch.arange(valid.numel(), device=valid.device).view(
+        valid.shape) % DUMP
+    flat = torch.where(valid, blk * LANES + t["lr"].long(),
+                       meta.nblocks * LANES + spread).reshape(-1)
+    y0 = torch.full((meta.nblocks * LANES + DUMP,), fill,
+                    dtype=st["grouped"].dtype, device=flat.device)
+    op = {"sum": "sum", "min": "amin", "max": "amax"}[kind]
+    calls.append(("grouped_reduce", lambda: sk.grouped_reduce(*rargs),
+                  lambda: sk.grouped_reduce_plain(*rargs),
+                  (_nbytes(t["ev_r"]) + nvalid * (1 + es)
+                   + _nbytes(t["chunk_block"])
+                   + meta.nblocks * LANES * es, nvalid),
+                  lambda: torch.scatter_reduce(y0, 0, flat,
+                                               st["grouped"].reshape(-1),
+                                               op)))
+    return calls
+
+
+def _shuffle_ok(name, a, b, kind) -> bool:
+    """K6/K7 bit for bit; K8 bit for bit in int32, float sums
+    elementwise within rtol."""
+    if name == "grouped_reduce":
+        return _fold_ok(a, b, kind, FOLD_RTOL.get(str(b.dtype)[6:], 0))
+    return _same(a, b)
+
+
+def phase_shuffle_parity(torch, np) -> None:
+    from graphtap_tpu_torch import GraphConfig, Graph
+    from graphtap_tpu_torch.apps import bfs_config, sssp_config
+    from graphtap_tpu_torch.ingest import rmat_edges
+    from graphtap_tpu_torch.kernels.semiring import (INF_I32, min_plus,
+                                                     min_select, plus_times)
+    from graphtap_tpu_torch.kernels.shuffle_engine import (
+        build_shuffle_plans, spmv_stages)
+    from graphtap_tpu_torch.tools.convert import meta_from_numpy
+    rng = np.random.default_rng(SEED)
+    n = 1 << PARITY_SCALE
+    for tag, dtype, sem, weighted, cfg in (
+            ("f32 sum", np.float32, plus_times(), False,
+             GraphConfig(num_vertices=n, transpose=True)),
+            ("f64 sum weighted", np.float64, plus_times(), True,
+             GraphConfig(num_vertices=n, transpose=True)),
+            ("int32 min weighted (sssp_config)", np.int32, min_plus(), True,
+             sssp_config(n)),
+            ("int32 min (bfs_config)", np.int32, min_select(), False,
+             bfs_config(n))):
+        r, c, w = rmat_edges(PARITY_SCALE, EDGE_FACTOR, seed=SEED,
+                             weighted=weighted)
+        g = Graph.from_edges(r, c, w, cfg)
+        t0 = time.perf_counter()
+        meta = build_shuffle_plans(g.tiled(), value_dtype=dtype)
+        plan_s = time.perf_counter() - t0
+        t = meta_from_numpy(meta.arrays, DEVICE)
+        if dtype == np.int32:
+            xv = rng.integers(0, 1000, size=g.part.tile_cols).astype(dtype)
+            xv[rng.random(xv.size) < 0.3] = INF_I32
+        else:
+            xv = rng.random(g.part.tile_cols).astype(dtype)
+        x = torch.from_numpy(xv).to(DEVICE)
+        st = spmv_stages(x, t, meta, sem, g.part.tile_rows)
+        log(f"shuffle parity {tag}: plans {plan_s:.2f} s, {meta.nsupers} "
+            f"supers, {meta.npasses} passes, SMAX {meta.SMAX}")
+        for name, kern, plain, _, _ in _shuffle_calls(torch, t, meta, sem,
+                                                       st):
+            a, b = kern(), plain()
+            ok = _shuffle_ok(name, a, b, sem.reduce_kind)
+            err = float((a.double() - b.double()).abs().max()) \
+                if a.numel() else 0.0
+            log(f"shuffle parity {tag} {name}: "
+                f"{'ok' if ok else 'MISMATCH'} (max |diff| {err!r})")
+            if not ok:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version ({tag})")
+        # the whole SpMV against the plain pipeline (the CPU wrappers)
+        want = spmv_stages(x.cpu(), meta_from_numpy(meta.arrays, "cpu"),
+                           meta, sem, g.part.tile_rows)["y"]
+        ok = _fold_ok(st["y"].cpu(), want, sem.reduce_kind,
+                      FOLD_RTOL.get(np.dtype(dtype).name, 0))
+        log(f"shuffle parity {tag}: spmv_local vs plain pipeline "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"shuffle spmv_local disagrees with the "
+                                 f"plain pipeline ({tag})")
 
 
 def _ms(fn, torch, reps: int) -> float:
@@ -317,9 +583,12 @@ def _ms(fn, torch, reps: int) -> float:
 
 def _golden():
     """tests/golden.py, the NumPy golden models (loaded by path)."""
-    from graphtap_tpu_torch import _host
-    return _host.load_file(os.path.join(ROOT, "tests", "golden.py"),
-                           "graphtap_tpu_torch._host.golden")
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "golden", os.path.join(ROOT, "tests", "golden.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def phase_main(torch, np):
@@ -327,6 +596,7 @@ def phase_main(torch, np):
     from graphtap_tpu_torch.apps import run_pagerank
     from graphtap_tpu_torch.ingest import rmat_edges
     from graphtap_tpu_torch.kernels import panel_kernels as pk
+    from graphtap_tpu_torch.kernels import shuffle_kernels as sk
     t0 = time.perf_counter()
     r, c, _ = rmat_edges(SCALE, EDGE_FACTOR, seed=SEED)
     n = 1 << SCALE
@@ -335,23 +605,37 @@ def phase_main(torch, np):
     log(f"main: edges RMAT-{SCALE} E={r.size} in "
         f"{time.perf_counter() - t0:.1f} s")
     pk.reset_launches()
+    sk.reset_launches()
     t0 = time.perf_counter()
     ex = run_pagerank(g, ITERS, torch.float32, kernel="panel",
-                      device=DEVICE)
+                      device=DEVICE, degree_kernel="shuffle")
     wall = time.perf_counter() - t0
-    launches = dict(pk.LAUNCHES)
-    tm = ex.timings
+    launches = {**pk.LAUNCHES, **sk.LAUNCHES}
+    deg, tm = ex.degree_phase, ex.timings
+    dm = deg.timings
+    log(f"main: degree phase (shuffle) tiles {dm['tiles']:.1f} s, plans "
+        f"{dm['plans']:.2f} s ({deg.device_bytes} bytes on the device: "
+        f"{deg.device_bytes / 2**30:.3f} GiB), upload {dm['upload']:.2f} s, "
+        f"SpMV {dm['execute'] * 1e3:.3f} ms")
     log(f"main: PageRank tiles {tm['tiles']:.1f} s, plans "
         f"{tm['plans']:.1f} s, upload {tm['upload']:.2f} s")
-    log(f"main: degree phase + PageRank setup "
-        f"{wall - tm['tiles'] - tm['plans'] - tm['upload'] - tm['execute']:.1f}"
-        f" s; run_pagerank wall {wall:.1f} s")
+    log(f"main: run_pagerank wall {wall:.1f} s")
     log(f"main: launches {launches}")
     _need_launches("main", launches, {
         "route_xr_exp": ITERS, "route_passa": ITERS,
-        "route_fold": 2 * ITERS, "hub_fold": ITERS})
-    checksum, reach = ex.checksum()
+        "route_fold": 2 * ITERS, "hub_fold": ITERS,
+        "expand_stream": 3, "group_stream": 1, "grouped_reduce": 1})
     golden = _golden()
+    want = golden.degree(r, c, n + 1)
+    got = deg.state_vector()["degree"]
+    ok = (got.dtype == np.float32
+          and np.array_equal(got.astype(np.int64), want)
+          and np.array_equal(got, want.astype(np.float32)))
+    log(f"main: degrees (shuffle) vs golden.degree "
+        f"{'equal' if ok else 'DIFFER'}; sum {float(got.sum())!r}")
+    if not ok:
+        raise AssertionError("degree phase differs from golden.degree")
+    checksum, reach = ex.checksum()
     gsum = float(golden.pagerank(r, c, n + 1, ITERS).sum())
     rel = abs(checksum - gsum) / abs(gsum)
     log(f"main: checksum {checksum!r} (reachable {reach}) vs f64 golden "
@@ -365,10 +649,11 @@ def phase_main(torch, np):
     log(f"main: {ITERS} iterations {first:.4f} s first, {warm:.4f} s warm; "
         f"{nnz * ITERS / warm / 1e9:.4f} GTEPS warm "
         f"({nnz * ITERS / first / 1e9:.4f} first), nnz {nnz}")
-    return ex, launches
+    return g, ex, launches
 
 
 def phase_kernels(torch, ex, launches):
+    """The panel kernels at the shapes of a PageRank superstep."""
     from graphtap_tpu_torch.kernels.panel_engine import spmv3_stages
     from graphtap_tpu_torch.tools.convert import meta_from_numpy
     meta, sem = ex.meta, ex.program.semiring
@@ -376,7 +661,7 @@ def phase_kernels(torch, ex, launches):
     x = ex.program.messenger(ex.state).to(torch.float32)
     st = spmv3_stages(x, t, meta, sem, ex.part.tile_rows)
     rows = {}
-    for name, kern, plain in _kernel_calls(t, meta, sem, st):
+    for name, kern, plain, work in _kernel_calls(t, meta, sem, st):
         a, b = kern(), plain()
         err = float((a.double() - b.double()).abs().max())
         scale = float(b.double().abs().max())
@@ -385,26 +670,83 @@ def phase_kernels(torch, ex, launches):
         if not ok:
             raise AssertionError(f"{name} at RMAT-{SCALE} shapes: max "
                                  f"|diff| {err} (max |plain| {scale})")
-        _time_row(torch, rows, name, kern, plain, err, launches[name])
+        _time_row(torch, rows, name, kern, plain, err, launches[name],
+                  _bound(*work, x.dtype))
     return list(rows.values())
 
 
-def _time_row(torch, rows, name, kern, plain, err, launches) -> None:
-    """Add one call's kernel and plain times (CUDA events, in turns:
-    plain, kernel, kernel, plain) to the kernels-line row ``name``."""
+def phase_shuffle_kernels(torch, np, g, launches):
+    """K6-K8 at the shapes of the main path's degree SpMV (its plans
+    rebuilt here: the degree phase freed its own before PageRank's
+    upload)."""
+    from graphtap_tpu_torch import Ordering
+    from graphtap_tpu_torch.kernels.semiring import plus_times
+    from graphtap_tpu_torch.kernels.shuffle_engine import (
+        build_shuffle_plans, spmv_stages)
+    from graphtap_tpu_torch.tools.convert import meta_from_numpy
+    t0 = time.perf_counter()
+    tiles = g.tiled(Ordering.COL)
+    meta = build_shuffle_plans(tiles, value_dtype=np.float32)
+    log(f"kernels: degree shuffle plans rebuilt in "
+        f"{time.perf_counter() - t0:.1f} s (tiles included): "
+        f"{meta.nsupers} supers of {meta.rows_per_super} rows, "
+        f"{meta.npasses} passes, SMAX {meta.SMAX}, {meta.nblocks} y blocks")
+    t = meta_from_numpy(meta.arrays, DEVICE)
+    sem = plus_times()
+    x = torch.ones(g.part.tile_cols, dtype=torch.float32, device=DEVICE)
+    st = spmv_stages(x, t, meta, sem, g.part.tile_rows)
+    rows = {}
+    for name, kern, plain, work, lib in _shuffle_calls(torch, t, meta, sem,
+                                                        st):
+        a, b = kern(), plain()
+        err = float((a.double() - b.double()).abs().max())
+        if not _shuffle_ok(name, a, b, "sum"):
+            raise AssertionError(f"{name} at RMAT-{SCALE} degree shapes: "
+                                 f"max |diff| {err}")
+        got = lib()
+        got = got[-1] if isinstance(got, list) else got
+        if not _same(got.view(-1)[:a.numel()].view(a.shape), a):
+            raise AssertionError(f"{name}: the library call computes "
+                                 f"another function")
+        _time_row(torch, rows, name, kern, plain, err, launches[name],
+                  _bound(*work, x.dtype), lib)
+    del t, st
+    return list(rows.values())
+
+
+def _time_row(torch, rows, name, kern, plain, err, launches, bound,
+              library=None) -> None:
+    """Add one call's kernel, plain and library times (CUDA events, in
+    turns: plain, library, kernel, kernel, library, plain) and its bound
+    to the kernels-line row ``name``."""
     p1 = _ms(plain, torch, 3)
+    l1 = _ms(library, torch, 10) if library else None
     k1 = _ms(kern, torch, 10)
     k2 = _ms(kern, torch, 10)
+    l2 = _ms(library, torch, 10) if library else None
     p2 = _ms(plain, torch, 3)
+    source = SOURCES["shuffle" if name in SHUFFLE else "panel"]
     row = rows.setdefault(name, {
-        "name": name, "route": "cuda", "source": SOURCE,
+        "name": name, "route": "cuda", "source": source,
         "replaces": REPLACES[name], "launches": launches,
-        "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
+        "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+        "bound_by": bound[1], "library_ms": 0.0 if library else None})
     row["max_abs_err"] = max(row["max_abs_err"], err)
     row["ms"] += (k1 + k2) / 2
     row["plain_ms"] += (p1 + p2) / 2
+    row["bound_ms"] += bound[0]
+    if bound[1] == "operations":
+        row["bound_by"] = "operations"
+    lib_txt = ""
+    if library:
+        if row["library_ms"] is None:
+            raise AssertionError(f"{name}: a library time for only some "
+                                 f"of its calls")
+        row["library_ms"] += (l1 + l2) / 2
+        lib_txt = f", library {(l1 + l2) / 2:.4f} ms"
     log(f"kernel {name}: {(k1 + k2) / 2:.4f} ms vs plain "
-        f"{(p1 + p2) / 2:.4f} ms, max |diff| {err!r}")
+        f"{(p1 + p2) / 2:.4f} ms{lib_txt}, bound {bound[0]:.4f} ms "
+        f"({bound[1]}), max |diff| {err!r}")
 
 
 def _need_launches(path, launches, need) -> None:
@@ -418,8 +760,8 @@ def _need_launches(path, launches, need) -> None:
 
 def _log_supersteps(path, ex) -> None:
     for i, s in enumerate(ex.supersteps):
-        log(f"{path}: superstep {i} "
-            f"{'gated' if s['gated'] else 'static'} {s['ms']:.4f} ms")
+        branch = {True: "gated", False: "static"}.get(s["gated"], ex.kernel)
+        log(f"{path}: superstep {i} {branch} {s['ms']:.4f} ms")
 
 
 def phase_bfs(torch, np):
@@ -477,17 +819,65 @@ def phase_bfs(torch, np):
     st = spmv3_stages(x, ex._dev, ex.meta, ex.program.semiring,
                       ex.part.tile_rows, gate=True)
     rows = {}
-    for name, kern, plain in _gated_calls(ex._dev, ex.meta,
-                                          ex.program.semiring, st,
-                                          st["maps"]):
+    for name, kern, plain, work in _gated_calls(ex._dev, ex.meta,
+                                                ex.program.semiring, st,
+                                                st["maps"]):
         a, b = kern(), plain()
         if not _same(a, b):
             raise AssertionError(f"{name} at the BFS shapes disagrees with "
                                  f"its plain version")
         err = float((a.double() - b.double()).abs().max())
-        _time_row(torch, rows, name, kern, plain, err, launches[name])
+        _time_row(torch, rows, name, kern, plain, err, launches[name],
+                  _bound(*work, x.dtype))
+    panel_iters, panel_warm = iters, warm
     ex.free()
+    del ex, st
+    _run_on_shuffle(torch, np, "bfs", lambda: run_bfs(
+        g, 0, kernel="shuffle", device=DEVICE), {"hops": hops,
+                                                 "parent": parent},
+        panel_iters, panel_warm)
     return list(rows.values())
+
+
+def _run_on_shuffle(torch, np, app, run, want, panel_iters, panel_warm):
+    """Run ``app`` to convergence on the shuffle kernel: its state equals
+    the golden ``want`` bit for bit, in the panel run's iteration count;
+    then warm, re-initialized, beside the panel run's warm seconds."""
+    from graphtap_tpu_torch.kernels import shuffle_kernels as sk
+    sk.reset_launches()
+    t0 = time.perf_counter()
+    ex = run()
+    wall = time.perf_counter() - t0
+    launches = dict(sk.LAUNCHES)
+    _need_launches(f"{app} shuffle", launches, {
+        "expand_stream": 3 * ex.iteration, "group_stream": ex.iteration,
+        "grouped_reduce": ex.iteration})
+    sv = ex.state_vector()
+    ok = all(np.array_equal(sv[k], v) for k, v in want.items())
+    tm = ex.timings
+    log(f"{app} shuffle: tiles {tm['tiles']:.1f} s, plans "
+        f"{tm['plans']:.2f} s ({ex.device_bytes} bytes on the device), "
+        f"upload {tm['upload']:.2f} s; {ex.iteration} iterations in "
+        f"{tm['execute']:.4f} s (first), wall {wall:.1f} s; launches "
+        f"{launches}; state vs golden {'equal' if ok else 'DIFFER'}")
+    if not ok:
+        raise AssertionError(f"{app} on shuffle differs from golden")
+    if ex.iteration != panel_iters:
+        raise AssertionError(f"{app}: {ex.iteration} iterations on shuffle, "
+                             f"{panel_iters} on panel")
+    _log_supersteps(f"{app} shuffle", ex)
+    ex.initialize()
+    iters = ex.execute(0)
+    warm = ex.timings["execute"]
+    if not all(np.array_equal(ex.state_vector()[k], v)
+               for k, v in want.items()):
+        raise AssertionError(f"{app} shuffle warm re-run differs")
+    _log_supersteps(f"{app} shuffle warm", ex)
+    nnz = ex.tiles.nnz_total
+    log(f"{app}: seconds to convergence, warm: shuffle {warm:.4f} s "
+        f"({nnz * iters / warm / 1e9:.4f} GTEPS) vs panel "
+        f"{panel_warm:.4f} s, {iters} iterations")
+    ex.free()
 
 
 def phase_cc_sssp(torch, np) -> None:
@@ -544,6 +934,13 @@ def phase_cc_sssp(torch, np) -> None:
         log(f"{app}: warm re-run {iters} iterations in {warm:.4f} s, "
             f"{nnz * iters / warm / 1e9:.4f} GTEPS, nnz {nnz}")
         ex.free()
+        del ex
+        key = "distance" if weighted else "label"
+        _run_on_shuffle(torch, np, app, (
+            lambda: run_sssp(g, 0, kernel="shuffle", device=DEVICE))
+            if weighted else (lambda: run_cc(g, kernel="shuffle",
+                                             device=DEVICE)),
+            {key: want}, iters, warm)
 
 
 def main() -> int:
@@ -557,15 +954,22 @@ def main() -> int:
     phase_build()
     phase_parity(torch, np)
     phase_gated_parity(torch, np)
-    ex, launches = phase_main(torch, np)
+    phase_shuffle_parity(torch, np)
+    g, ex, launches = phase_main(torch, np)
     kernels = phase_kernels(torch, ex, launches)
     ex.free()
     del ex
+    kernels += phase_shuffle_kernels(torch, np, g, launches)
+    del g
     kernels += phase_bfs(torch, np)
     phase_cc_sssp(torch, np)
-    log("ms per superstep; route_fold sums its fixr and fix2 calls; the "
-        f"gated rows are timed at BFS's first superstep "
-        f"(RMAT-{FRONTIER_SCALE})")
+    log("ms per call group of one SpMV: route_fold sums its fixr and fix2 "
+        "calls, expand_stream its three calls, group_stream its passes; "
+        "the static panel rows at a PageRank superstep, the shuffle rows "
+        f"at the degree SpMV (RMAT-{SCALE}), the gated rows at BFS's first "
+        f"superstep (RMAT-{FRONTIER_SCALE}); bound_ms from the published "
+        "peaks (3.35 TB/s; 67/34 TOP/s f32-int32/f64 outside the tensor "
+        "cores)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

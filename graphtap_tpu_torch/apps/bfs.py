@@ -69,9 +69,10 @@ def bfs_config(num_vertices: int) -> GraphConfig:
 
 
 def run_bfs(graph: Graph, root: int = 0, kernel: str = "panel",
-            device="cpu") -> Executor:
-    """BFS from ``root`` to convergence on ``device`` ('panel': the
-    frontier-gated K1-K4 pipeline; 'scan'). ``graph`` is read through
+            device="cuda") -> Executor:
+    """BFS from ``root`` to convergence on ``device`` ('cuda' unless the
+    caller passes 'cpu'; ``kernel`` 'panel': the frontier-gated K1-K4
+    pipeline; 'shuffle': K6-K8; 'scan'). ``graph`` is read through
     ``bfs_config``."""
     ex = Executor(graph, BFSProgram(root=root),
                   EngineConfig(stationary=False, apply_depends_on_iter=True,

@@ -55,9 +55,10 @@ def cc_config(num_vertices: int) -> GraphConfig:
                        parallel_edges=False, compression=Compression.TCSC)
 
 
-def run_cc(graph: Graph, kernel: str = "panel", device="cpu") -> Executor:
-    """CC to convergence on ``device``; ``graph`` is read through
-    ``cc_config``."""
+def run_cc(graph: Graph, kernel: str = "panel", device="cuda") -> Executor:
+    """CC to convergence on ``device`` ('cuda' unless the caller passes
+    'cpu'; ``kernel`` 'panel', 'shuffle' or 'scan'); ``graph`` is read
+    through ``cc_config``."""
     ex = Executor(graph, CCProgram(),
                   EngineConfig(stationary=False, gather_depends_on_apply=True,
                                ordering=Ordering.ROW),

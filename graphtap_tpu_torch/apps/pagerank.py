@@ -65,18 +65,23 @@ class PageRankProgram(VertexProgram):
 
 def run_pagerank(graph: Graph, num_iterations: int = 0,
                  value_dtype: torch.dtype = torch.float32,
-                 kernel: str = "panel", device="cpu") -> Executor:
-    """The pr.cpp pipeline on a loaded (transposed) graph, on ``device``.
+                 kernel: str = "panel", device="cuda",
+                 degree_kernel: str = "shuffle") -> Executor:
+    """The pr.cpp pipeline on a loaded (transposed) graph, on ``device``
+    ('cuda' unless the caller passes 'cpu').
 
-    The degree phase is one SpMV on the portable ``scan`` path (integer
-    sums, exact in f32); PageRank runs ``num_iterations`` supersteps on
-    ``kernel`` ('panel': the K1-K4 pipeline; 'scan'), or, for
-    num_iterations=0, runs to tol-convergence. The degree phase's tiles
-    are freed before the PageRank plans are uploaded.
+    The degree phase is one SpMV on ``degree_kernel`` ('shuffle': the v1
+    K6-K8 pipeline, which plans in seconds, as the JAX bench composes it
+    at RMAT-20; 'scan'; 'panel'), integer sums, exact in f32; PageRank
+    runs ``num_iterations`` supersteps on ``kernel`` ('panel': the K1-K4
+    pipeline; 'shuffle'; 'scan'), or, for num_iterations=0, runs to
+    tol-convergence. The degree phase's tiles and plans are freed before
+    the PageRank plans are uploaded; its executor, with its state, is the
+    returned executor's ``degree_phase``.
     """
     deg_ex = Executor(graph, DegreeProgram(value_dtype=value_dtype),
                       EngineConfig(stationary=True, ordering=Ordering.COL),
-                      kernel="scan", device=device)
+                      kernel=degree_kernel, device=device)
     deg_ex.initialize()
     deg_ex.execute(1)
     deg_ex.free()
@@ -84,6 +89,7 @@ def run_pagerank(graph: Graph, num_iterations: int = 0,
     pr_ex = Executor(graph, PageRankProgram(value_dtype=value_dtype),
                      EngineConfig(stationary=True, ordering=Ordering.ROW),
                      kernel=kernel, device=device)
+    pr_ex.degree_phase = deg_ex
     pr_ex.initialize(other=deg_ex)
     pr_ex.execute(num_iterations)
     return pr_ex

@@ -68,9 +68,11 @@ def sssp_config(num_vertices: int, weighted: bool = True) -> GraphConfig:
 
 
 def run_sssp(graph: Graph, root: int = 0, weighted: bool = True,
-             kernel: str = "panel", device="cpu") -> Executor:
-    """SSSP from ``root`` to convergence on ``device``; ``graph`` is read
-    through ``sssp_config`` (with its weights when ``weighted``)."""
+             kernel: str = "panel", device="cuda") -> Executor:
+    """SSSP from ``root`` to convergence on ``device`` ('cuda' unless the
+    caller passes 'cpu'; ``kernel`` 'panel', 'shuffle' or 'scan');
+    ``graph`` is read through ``sssp_config`` (with its weights when
+    ``weighted``)."""
     ex = Executor(graph, SSSPProgram(root=root, weighted=weighted),
                   EngineConfig(stationary=False, gather_depends_on_apply=True,
                                ordering=Ordering.ROW),

@@ -56,17 +56,15 @@
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
+using namespace gt;
+
 namespace {
 
-constexpr int LANES = 128;
 constexpr int STRIPE = 8;
 constexpr int PROWS = 64;   // rows of a contribution / corner-turn panel
 constexpr int XROWS = 32;   // rows of an x_ext panel
-constexpr int THREADS = 256;
-
-enum Dtype { F32 = 0, F64 = 1, I32 = 2 };
-enum MulKind { MUL_NONE = 0, MUL_MUL = 1, MUL_ADD_SAT = 2 };
-enum ReduceKind { RED_SUM = 0, RED_MIN = 1, RED_MAX = 2 };
 
 // One output slot (r, l) of a route. src_row(band, row) points at the 128
 // values of source row `row` of band `band`. sel_b == nullptr is a
@@ -87,54 +85,6 @@ __device__ __forceinline__ T route_slot(const uint8_t* __restrict__ idx1,
   const int row = s & 7;
   const int lane = idx1[(band * STRIPE + row) * LANES + m];
   return src_row(band, row)[lane];
-}
-
-// min-plus ⊗: INF stays INF, so INF + w never wraps (panel_kernels.py:134).
-template <typename T>
-__device__ __forceinline__ T add_sat(T acc, T w, T fill) {
-  return acc >= fill ? fill : acc + w;
-}
-template <>
-__device__ __forceinline__ int add_sat<int>(int acc, int w, int fill) {
-  // below INF the sum is the Pallas kernel's int32 add (two's complement)
-  return acc >= fill ? fill
-                     : static_cast<int>(static_cast<unsigned>(acc) +
-                                        static_cast<unsigned>(w));
-}
-
-template <int RED, typename T>
-__device__ __forceinline__ T combine(T a, T b) {
-  if constexpr (RED == RED_SUM) {
-    return a + b;
-  } else if constexpr (RED == RED_MIN) {
-    return a < b ? a : b;
-  } else {
-    return a > b ? a : b;
-  }
-}
-
-template <int RED, typename T>
-__device__ __forceinline__ void atomic_combine(T* addr, T v) {
-  if constexpr (RED == RED_SUM) {
-    atomicAdd(addr, v);
-  } else if constexpr (RED == RED_MIN) {
-    atomicMin(addr, v);
-  } else {
-    atomicMax(addr, v);
-  }
-}
-
-// ⊗ of one contribution with its weight (MUL_NONE: none).
-template <typename T, int MUL>
-__device__ __forceinline__ T apply_mul(T v, const T* __restrict__ pw, int e,
-                                       T fill) {
-  if constexpr (MUL == MUL_MUL) {
-    return v * pw[e];
-  } else if constexpr (MUL == MUL_ADD_SAT) {
-    return add_sat<T>(v, pw[e], fill);
-  } else {
-    return v;
-  }
 }
 
 // Plan block of block p: p itself (static) or plan_idx[p] (gated).
@@ -233,16 +183,6 @@ route_passa_kernel(const T* __restrict__ src, const int* __restrict__ bases,
 }
 
 // ---------------------------------------------------------------- K3
-template <typename T>
-__global__ void fill_kernel(T* __restrict__ y, long long n, T v) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride) {
-    y[i] = v;
-  }
-}
-
 // Route as K2, fold each routed 8-row band (ob) lane-wise in registers and
 // ⊕ it into y row seg[p]*seg_rows + dst[p*8+ob] (panel p's, gated or not). y holds the identity
 // before the first block runs (fill_kernel on the same stream).
@@ -379,13 +319,8 @@ int launch_fold(const void* src, const void* bases, const void* plan,
   if (red != RED_SUM && !std::is_same<T, int>::value) {
     return cudaErrorInvalidValue;   // no float atomicMin/Max
   }
-  const long long n = nrows * LANES;
-  const long long want = (n + THREADS - 1) / THREADS;
-  const unsigned blocks = static_cast<unsigned>(want < 65536 ? want : 65536);
-  if (n > 0) {
-    fill_kernel<T><<<blocks, THREADS, 0, st>>>(static_cast<T*>(y), n,
-                                                 static_cast<T>(fill));
-  }
+  launch_fill<T>(static_cast<T*>(y), nrows * LANES, static_cast<T>(fill),
+                 st);
   if (npanels > 0) {
     if (red == RED_SUM) {
       launch_fold_kernel<T, RED_SUM>(src, bases, plan, dst, seg, y, seg_rows,

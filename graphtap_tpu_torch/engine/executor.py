@@ -9,11 +9,11 @@ running a collective.
 
 Ported: fixed-iteration and convergence mode on TCSC tiles, stationary
 and nonstationary programs (messages masked to the ⊕-identity outside the
-frontier, the panel pipeline frontier-gated), the ``scan`` and ``panel``
-kernels, ``initialize(other=)`` with the I-masked handoff, ``free()`` and
-the oracles (``state_vector``, ``checksum``, ``display``). Other tile
-formats (CSC, DCSC, TCSC_CF), the sparse exchange and the mesh raise
-``NotImplementedError`` until a later version ports them.
+frontier, the panel pipeline frontier-gated), the ``scan``, ``panel`` and
+``shuffle`` kernels, ``initialize(other=)`` with the I-masked handoff,
+``free()`` and the oracles (``state_vector``, ``checksum``, ``display``).
+Other tile formats (CSC, DCSC, TCSC_CF), the sparse exchange and the mesh
+raise ``NotImplementedError`` until a later version ports them.
 
 Convergence mode (``execute(0)``, reference :407-441) runs supersteps
 until every vertex votes unchanged, then one flush: combine and apply on
@@ -39,10 +39,16 @@ from graphtap_tpu_torch.kernels.panel_engine import spmv3_stages
 from graphtap_tpu_torch.kernels.panel_meta import (Spmv3Meta,
                                                    build_spmv3_meta,
                                                    validate_meta)
+from graphtap_tpu_torch.kernels.shuffle_engine import (
+    ShufflePlans, build_shuffle_plans, spmv_local, validate_shuffle_plans)
 from graphtap_tpu_torch.kernels.spmv import expand_compact, spmv_sorted_scan
 from graphtap_tpu_torch.tools.convert import meta_from_numpy
 
-KERNELS = ("scan", "panel")
+KERNELS = ("scan", "panel", "shuffle")
+# kernel -> (plans type, build function, validator)
+_PLANNERS = {"panel": (Spmv3Meta, build_spmv3_meta, validate_meta),
+             "shuffle": (ShufflePlans, build_shuffle_plans,
+                         validate_shuffle_plans)}
 MAX_CONVERGENCE_ITERS = 1 << 20     # as the JAX package's executor
 GATE_ENV = "GRAPHTAP_PANEL_GATE"
 _GATE_MODES = {"auto": "auto", "1": True, "0": False}
@@ -77,23 +83,27 @@ def _sync(device: torch.device) -> None:
 class Executor:
     """Runs one VertexProgram over one TileSet on one device.
 
-    ``kernel``: 'panel' (the v3 panel-route pipeline, K1-K4) or 'scan'
-    (portable torch SpMV). ``plans``: a prebuilt ``Spmv3Meta`` of this
-    graph's tiles for 'panel' (e.g. from ``tools/artifact_cache.py``),
-    else built here.
+    ``kernel``: 'panel' (the v3 panel-route pipeline, K1-K4), 'shuffle'
+    (the v1 shuffle pipeline, K6-K8; TCSC only, never gated) or 'scan'
+    (portable torch SpMV). ``plans``: prebuilt plans of this graph's tiles
+    (a ``Spmv3Meta`` for 'panel', a ``ShufflePlans`` for 'shuffle', e.g.
+    from ``tools/artifact_cache.py``), validated here, else built here.
+    ``device``: 'cuda' (the default) or 'cpu', where the kernels run
+    their plain versions; without CUDA a 'cuda' executor raises.
     ``GRAPHTAP_PANEL_GATE`` is read once, here (``gate_mode``); it sets
     ``gate``, the panel pipeline's gating for nonstationary programs
     (stationary ones always run it static).
     ``timings`` records the host phases and the last ``execute`` in
     seconds (the latter after a device synchronize). ``supersteps`` lists
     the last ``execute``'s supersteps: the branch each SpMV took
-    (``gated``: True/False on 'panel', None on 'scan') and, on a CUDA
-    device, its time by CUDA events (``ms``; None on the CPU); the flush
-    of convergence mode is not among them."""
+    (``gated``: True/False on 'panel', None on 'scan' and 'shuffle') and,
+    on a CUDA device, its time by CUDA events (``ms``; None on the CPU);
+    the flush of convergence mode is not among them. ``device_bytes`` is
+    the size of the arrays uploaded for the superstep (tiles or plans)."""
 
     def __init__(self, graph: Graph, program: VertexProgram,
                  engine: Optional[EngineConfig] = None, kernel: str = "scan",
-                 plans: Optional[Spmv3Meta] = None, device="cpu"):
+                 plans=None, device="cuda"):
         self.device = _device(device)
         if kernel not in KERNELS:
             raise NotImplementedError(f"kernel {kernel!r} is not ported; "
@@ -115,18 +125,25 @@ class Executor:
         t0 = time.perf_counter()
         self.tiles = graph.tiled(self.engine.ordering)
         self.timings["tiles"] = time.perf_counter() - t0
-        self.meta: Optional[Spmv3Meta] = None
-        if kernel == "panel":
+        self.meta = None
+        if kernel in _PLANNERS:
+            kind, build, validate = _PLANNERS[kernel]
             t0 = time.perf_counter()
             if plans is None:
-                plans = build_spmv3_meta(
-                    self.tiles, value_dtype=numpy_dtype(program.value_dtype))
+                plans = build(self.tiles,
+                              value_dtype=numpy_dtype(program.value_dtype))
+            elif not isinstance(plans, kind):
+                raise TypeError(f"kernel {kernel!r} takes {kind.__name__} "
+                                f"plans, got {type(plans).__name__}")
             else:
-                validate_meta(plans)
+                validate(plans)
             self.meta = plans
             self.timings["plans"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         self._dev = self._upload()
+        self.device_bytes = sum(v.numel() * v.element_size()
+                                for v in self._dev.values()
+                                if isinstance(v, torch.Tensor))
         _sync(self.device)
         self.timings["upload"] = time.perf_counter() - t0
         self.state: Optional[State] = None
@@ -144,7 +161,7 @@ class Executor:
         ts = self.tiles
         dev = {"i_own": self._tensor(ts.i_own[0]),
                "vids": self._tensor(self.part.owner_vids()[0])}
-        if self.kernel == "panel":
+        if self.kernel in _PLANNERS:
             dev.update(meta_from_numpy(self.meta.arrays, self.device))
             return dev
         n = int(ts.nnz[0, 0])
@@ -200,13 +217,17 @@ class Executor:
     def _combine(self, x: torch.Tensor) -> Tuple[torch.Tensor,
                                                  Optional[bool]]:
         """Tile SpMV -> (the dense row block (C*L,), whether the panel
-        pipeline ran gated; None on 'scan') (reference: combine,
+        pipeline ran gated; None on 'scan' and 'shuffle', which are never
+        gated, as in the JAX package) (reference: combine,
         vertex_program.hpp:1017-1573)."""
         sem, d = self.program.semiring, self._dev
         if self.kernel == "panel":
             st = spmv3_stages(x, d, self.meta, sem,
                               dense_len=self.part.tile_rows, gate=self.gate)
             return st["y"], st["gated"]
+        if self.kernel == "shuffle":
+            return spmv_local(x, d, self.meta, sem,
+                              dense_len=self.part.tile_rows), None
         y = spmv_sorted_scan(x, d["rows"], d["cols"], d.get("weights"),
                              d["nnz"], d["ja"], sem)
         return expand_compact(y, d["iv_dense"], sem), None

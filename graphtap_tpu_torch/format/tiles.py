@@ -15,7 +15,7 @@ from typing import Optional
 
 import numpy as np
 
-from graphtap_tpu_torch import _host
+from graphtap_tpu_torch import native
 from graphtap_tpu_torch.config import Compression
 from graphtap_tpu_torch.parallel.layout import Partition
 
@@ -94,7 +94,6 @@ def build_tileset(
     renumber = compression == Compression.TCSC
 
     # per-device binning (native counting sort when available)
-    native = _host.load("native")
     if r.size and r.max() < (1 << 32) and c.max() < (1 << 32):
         order, counts = native.bin_edges(r, c, part.L, R, C)
     else:

@@ -13,9 +13,9 @@ from typing import Optional
 
 import numpy as np
 
-from graphtap_tpu_torch import _host
 from graphtap_tpu_torch.config import Compression, GraphConfig, Ordering
 from graphtap_tpu_torch.format.tiles import TileSet, build_tileset
+from graphtap_tpu_torch.ingest.io import apply_transforms
 from graphtap_tpu_torch.parallel.layout import Partition
 
 
@@ -42,7 +42,7 @@ class Graph:
     def from_edges(cls, r, c, w, config: GraphConfig) -> "Graph":
         """Build from an in-memory raw edge list (e.g. the RMAT generator),
         applying the config's read-time transforms."""
-        r, c, w = _host.load("io").apply_transforms(
+        r, c, w = apply_transforms(
             np.asarray(r), np.asarray(c), None if w is None else np.asarray(w),
             directed=config.directed, transpose=config.transpose,
             self_loops=config.self_loops, acyclic=config.acyclic)

@@ -3,7 +3,8 @@
 The kernels in ``csrc/*.cu`` expose plain ``extern "C"`` launchers, so
 they compile in seconds without PyTorch's headers. The library is built
 at first use into ``graphtap_tpu_torch/build/`` under a name keyed on the
-source bytes, so an edited source is never served by a stale build.
+source and header bytes, so an edited source is never served by a stale
+build: one nvcc per source, all started together, then one link.
 Nothing here runs at import time: the CPU tests import every module on a
 machine with neither nvcc nor a card.
 """
@@ -21,7 +22,8 @@ from typing import Optional
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
-SOURCES = ("panel_route.cu",)
+SOURCES = ("panel_route.cu", "shuffle.cu")
+HEADERS = ("common.cuh",)
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _lib: Optional[ctypes.CDLL] = None
@@ -49,6 +51,17 @@ _SIGNATURES = {
                       _I32, _F64, _P, _I32, _P],
     # v, hub_mask, out, nrows, dtype, reduce_kind, stream
     "gt_hub_fold": [_P, _P, _P, _I64, _I32, _I32, _P],
+    # x3d, grp, slot, lane, ev, w, out, rows, dtype, mul_kind, fill, stream
+    "gt_expand_stream": [_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _F64,
+                         _P],
+    # in, frag_dst, frag_idx, out, nsupers, rps, npasses, pass, smax,
+    # dtype, fill, stream
+    "gt_group_pass": [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32,
+                      _F64, _P],
+    # c, lr, ev, chunk_block, y, nchunks, nblocks, dtype, reduce_kind,
+    # identity, stream
+    "gt_grouped_reduce": [_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _F64,
+                          _P],
 }
 
 
@@ -64,7 +77,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for s in SOURCES:
+    for s in SOURCES + HEADERS:
         h.update((CSRC / s).read_bytes())
     h.update(ARCH.encode())
     return BUILD / f"libgt_kernels_{h.hexdigest()[:16]}.so"
@@ -77,14 +90,33 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler",
-           "-fPIC", "-Xptxas", "-v", "-o", str(tmp)]
-    cmd += [str(CSRC / s) for s in SOURCES]
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
+    procs = [subprocess.Popen(
+        [nvcc, ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+         "-v", "-c", "-o", str(o), str(CSRC / s)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for s, o in zip(SOURCES, objs)]
+    logs, failed = [], []
+    for s, p in zip(SOURCES, procs):
+        logs.append(p.communicate(timeout=600)[0])
+        if p.returncode != 0:
+            failed.append(s)
+    tmp = BUILD / f"{tag}.so.tmp"
+    if not failed:
+        res = subprocess.run([nvcc, ARCH, "-shared", "-o", str(tmp),
+                              *map(str, objs)], capture_output=True,
+                             text=True, timeout=300)
+        logs.append(res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append("link")
+    for o in objs:
+        o.unlink(missing_ok=True)
+    build_log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n"
+                           f"{build_log}")
     os.replace(tmp, out)
     return out
 

@@ -36,12 +36,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from graphtap_tpu_torch import _host
 from graphtap_tpu_torch.kernels import _cuda
-
-_pp = _host.load("panel_plan")
-LANES, PROWS, STRIPE, XROWS = _pp.LANES, _pp.PROWS, _pp.STRIPE, _pp.XROWS
-FOLD_SEG_ROWS = _pp.FOLD_SEG_ROWS
+from graphtap_tpu_torch.kernels.panel_plan import (FOLD_SEG_ROWS, LANES,
+                                                   PROWS, STRIPE, XROWS)
 
 # launches of each CUDA kernel (the plain versions are not counted)
 LAUNCHES = {"route_xr_exp": 0, "route_passa": 0, "route_fold": 0,

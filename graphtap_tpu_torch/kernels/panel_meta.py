@@ -3,9 +3,9 @@ package's.
 
 Counterpart of ``graphtap_tpu/kernels/panel_engine.py::build_spmv3_meta``
 and its helpers, without jax: one device, so the multi-process maxima are
-the device's own values. The plans come from the JAX package's
-``panel_plan.py`` itself (loaded by path), so the CUDA kernels read the
-very bytes the Pallas kernels read. ``validate_meta`` checks every index
+the device's own values. The plans come from ``kernels/panel_plan.py``,
+the port's unchanged copy of the JAX package's planner, so the CUDA
+kernels read the very bytes the Pallas kernels read. ``validate_meta`` checks every index
 a kernel follows, once, before any plan reaches the card.
 """
 
@@ -16,13 +16,12 @@ from typing import Dict, List
 
 import numpy as np
 
-from graphtap_tpu_torch import _host
 from graphtap_tpu_torch.format.tiles import TileSet
+from graphtap_tpu_torch.kernels import panel_plan as _pp
 from graphtap_tpu_torch.kernels.panel_kernels import (
     FOLD_SEG_ROWS, LANES, PROWS, STRIPE, XROWS, pack_route_plan, plan_rows,
     xe_plan_rows)
 
-_pp = _host.load("panel_plan")
 RoutePlan = _pp.RoutePlan
 
 

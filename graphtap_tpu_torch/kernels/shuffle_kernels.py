@@ -1,0 +1,253 @@
+"""The v1 shuffle-SpMV kernels: CUDA wrappers, plain torch versions, counts.
+
+Counterpart of ``graphtap_tpu/kernels/shuffle_kernels.py``. Each of its
+three Pallas kernels has here
+
+  * a wrapper (``expand_stream``, ``group_stream``, ``grouped_reduce``)
+    that checks dtype, shape, device and contiguity, then runs the plain
+    version for a CPU tensor or launches the hand-written Hopper kernel
+    (``csrc/shuffle.cu``) for a CUDA tensor — never a fallback;
+  * a plain torch version (``*_plain``) of the same function, which the
+    CPU tests hold against the Pallas kernels and ``chip_smoke.py`` holds
+    against the CUDA kernels;
+  * a launch count in ``LAUNCHES``, incremented only where the wrapper
+    launches the CUDA kernel (``group_stream``: once per radix pass).
+
+The plans come from ``kernels/shuffle_plan.py``; ``shuffle_engine.
+validate_shuffle_plans`` checks every index the kernels follow before a
+plan reaches the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from graphtap_tpu_torch.kernels import _cuda
+from graphtap_tpu_torch.kernels.panel_kernels import (_DTYPES, _MUL_KINDS,
+                                                      _REDUCE_KINDS,
+                                                      _REDUCE_OK, _on_cuda,
+                                                      _stream)
+from graphtap_tpu_torch.kernels.shuffle_plan import LANES, RED_ROWS, SUB, \
+    WROWS
+
+# launches of each CUDA kernel (the plain versions are not counted)
+LAUNCHES = {"expand_stream": 0, "group_stream": 0, "grouped_reduce": 0}
+
+_SCATTER_OPS = {"sum": "sum", "min": "amin", "max": "amax"}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# --------------------------------------------------------- plain versions
+def expand_stream_plain(x3d, grp, slot, lane, evalid, weights, fill,
+                        mul_kind: str = "none"):
+    """out[r, l] = ev[r, l] ? x3d[grp[r // 8], slot[r, l], lane[r, l]] ⊗
+    w[r, l] : fill."""
+    rows = slot.shape[0]
+    win = grp[:rows // SUB].long().repeat_interleave(SUB)
+    src = (win[:, None] * WROWS + slot.long()) * LANES + lane.long()
+    acc = x3d.reshape(-1)[src]
+    f = torch.tensor(fill, dtype=acc.dtype, device=acc.device)
+    if mul_kind == "mul":
+        acc = acc * weights
+    elif mul_kind == "add_sat":
+        acc = torch.where(acc >= f, f, acc + weights)
+    return torch.where(evalid != 0, acc, f)
+
+
+def group_pass_plain(buf, frag_dst, frag_idx, p: int, rows_per_super: int,
+                     fill):
+    """Radix pass ``p`` over every super: out[s, frag_dst[s,p,r,j], l] =
+    buf[s, r, frag_idx[s,p,r,j*128+l]] where both are >= 0; every other
+    slot holds ``fill``."""
+    nsup, _, rps, smax = frag_dst.shape
+    d = frag_dst[:, p].long()                              # (S, rps, smax)
+    idx = frag_idx[:, p].reshape(nsup, rps, smax, LANES).long()
+    hit = (idx >= 0) & (d >= 0)[..., None]
+    srow = (torch.arange(nsup, device=buf.device)[:, None] * rps
+            + torch.arange(rps, device=buf.device)[None, :])
+    src = (srow[:, :, None, None] * LANES + idx)[hit]
+    lane = torch.arange(LANES, device=buf.device)
+    drow = torch.arange(nsup, device=buf.device)[:, None, None] * rps + d
+    dst = (drow[..., None] * LANES + lane)[hit]
+    out = torch.full_like(buf, fill)
+    out.view(-1)[dst] = buf.reshape(-1)[src]
+    return out
+
+
+def group_stream_plain(contrib, frag_dst, frag_idx, rows_per_super: int,
+                       npasses: int, fill):
+    buf = contrib
+    for p in range(npasses):
+        buf = group_pass_plain(buf, frag_dst, frag_idx, p, rows_per_super,
+                               fill)
+    return buf
+
+
+def grouped_reduce_plain(contrib, lr, evalid, chunk_block, nblocks: int,
+                         reduce_kind: str, identity):
+    """y (nblocks, 128) starts at the identity; each stream element of
+    chunk i (8 rows) with ev set is ⊕-folded into y[chunk_block[i],
+    lr]."""
+    n = chunk_block.shape[0] * RED_ROWS * LANES
+    keep = evalid.reshape(-1)[:n] != 0
+    blk = chunk_block.long().repeat_interleave(RED_ROWS * LANES)[keep]
+    flat = blk * LANES + lr.reshape(-1)[:n][keep].long()
+    y = torch.full((nblocks * LANES,), identity, dtype=contrib.dtype,
+                   device=contrib.device)
+    y.scatter_reduce_(0, flat, contrib.reshape(-1)[:n][keep],
+                      _SCATTER_OPS[reduce_kind], include_self=True)
+    return y.view(nblocks, LANES)
+
+
+# ------------------------------------------------------------- validation
+def _check(name, t, dtype, shape=None, device=None):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor")
+    if dtype is not None and t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name} on {t.device}, expected {device}")
+
+
+def _check_values(name, t):
+    if t.dtype not in _DTYPES:
+        raise TypeError(f"{name}: dtype {t.dtype} not in f32/f64/i32")
+
+
+def _check_rows(name, t, device, rows=None):
+    if t.dim() != 2 or t.shape[1] != LANES or (rows is not None
+                                               and t.shape[0] != rows):
+        want = f"({rows if rows is not None else 'rows'}, {LANES})"
+        raise ValueError(f"{name}: expected {want}, got {tuple(t.shape)}")
+    _check(name, t, None, device=device)
+
+
+# --------------------------------------------------------------- wrappers
+def expand_stream(x3d, grp, slot, lane, evalid, weights, fill,
+                  mul_kind: str = "none"):
+    """K6: x table (Sx3, 64, 128) -> (rows, 128) per-edge contributions,
+    each the x value at (window grp[r//8], slot, lane) ⊗ its weight, or
+    the fill where ev is 0. ``mul_kind``: 'none' | 'mul' | 'add_sat'
+    (saturating at the fill). Replaces ``shuffle_kernels.py::
+    expand_stream``."""
+    if x3d.dim() != 3 or x3d.shape[1:] != (WROWS, LANES):
+        raise ValueError(f"x3d: expected (windows, {WROWS}, {LANES}), got "
+                         f"{tuple(x3d.shape)}")
+    _check("x3d", x3d, None)
+    _check_values("x3d", x3d)
+    dev = x3d.device
+    _check_rows("slot", slot, dev)
+    rows = slot.shape[0]
+    if rows % SUB:
+        raise ValueError(f"slot: {rows} rows, not whole {SUB}-row steps")
+    for nm, t in (("slot", slot), ("lane", lane), ("evalid", evalid)):
+        _check(nm, t, torch.int8, (rows, LANES), dev)
+    _check("grp", grp, torch.int32, (rows // SUB,), dev)
+    if mul_kind not in _MUL_KINDS:
+        raise ValueError(f"mul_kind {mul_kind!r}")
+    if (weights is None) != (mul_kind == "none"):
+        raise ValueError(f"mul_kind {mul_kind!r} with weights "
+                         f"{'absent' if weights is None else 'given'}")
+    if weights is not None:
+        _check("weights", weights, x3d.dtype, (rows, LANES), dev)
+    if not _on_cuda(x3d):
+        return expand_stream_plain(x3d, grp, slot, lane, evalid, weights,
+                                   fill, mul_kind)
+    lib = _cuda.library()
+    out = torch.empty((rows, LANES), dtype=x3d.dtype, device=dev)
+    if rows == 0:
+        return out
+    with torch.cuda.device(dev):
+        rc = lib.gt_expand_stream(
+            x3d.data_ptr(), grp.data_ptr(), slot.data_ptr(), lane.data_ptr(),
+            evalid.data_ptr(), None if weights is None else
+            weights.data_ptr(), out.data_ptr(), rows, _DTYPES[x3d.dtype],
+            _MUL_KINDS[mul_kind], float(fill), _stream(x3d))
+    LAUNCHES["expand_stream"] += 1
+    _cuda.check(rc, "expand_stream")
+    return out
+
+
+def group_stream(contrib, frag_dst, frag_idx, rows_per_super: int,
+                 npasses: int, fill):
+    """K7: regroup the (nsupers * rps, 128) contribution stream by
+    destination row block, one launch per radix pass; each pass output
+    starts at ``fill``, so unwritten lanes (holes the reduce plan masks)
+    hold the ⊕-identity. frag_dst (nsupers, npasses, rps, SMAX) int32,
+    frag_idx (nsupers, npasses, rps, SMAX*128) int8, -1 = idle. Every
+    (row, lane) is written at most once per super and pass
+    (``validate_shuffle_plans``), so the parallel scatter equals the
+    Pallas kernel's sequential one. Replaces ``shuffle_kernels.py::
+    group_stream``."""
+    _check_values("contrib", contrib)
+    dev = contrib.device
+    if frag_dst.dim() != 4:
+        raise ValueError("frag_dst: expected (nsupers, npasses, rps, SMAX)")
+    nsup, npl, rps, smax = frag_dst.shape
+    if rps != rows_per_super or npl < npasses:
+        raise ValueError(f"frag_dst {tuple(frag_dst.shape)}: rps "
+                         f"{rows_per_super}, {npasses} passes expected")
+    _check_rows("contrib", contrib, dev, nsup * rps)
+    _check("frag_dst", frag_dst, torch.int32, device=dev)
+    _check("frag_idx", frag_idx, torch.int8, (nsup, npl, rps, smax * LANES),
+           dev)
+    if not _on_cuda(contrib):
+        return group_stream_plain(contrib, frag_dst, frag_idx,
+                                  rows_per_super, npasses, fill)
+    lib = _cuda.library()
+    buf = contrib
+    for p in range(npasses):
+        out = torch.empty_like(contrib)
+        with torch.cuda.device(dev):
+            rc = lib.gt_group_pass(
+                buf.data_ptr(), frag_dst.data_ptr(), frag_idx.data_ptr(),
+                out.data_ptr(), nsup, rps, npl, p, smax,
+                _DTYPES[contrib.dtype], float(fill), _stream(contrib))
+        LAUNCHES["group_stream"] += 1
+        _cuda.check(rc, "group_stream")
+        buf = out
+    return buf
+
+
+def grouped_reduce(contrib, lr, evalid, chunk_block, nblocks: int,
+                   reduce_kind: str, identity):
+    """K8: ⊕-fold a row-block-grouped stream into (nblocks, 128) that
+    starts at the identity: each 8-row chunk i folds its valid elements
+    into row chunk_block[i], lane lr. Float sums run in no fixed order on
+    the card. Replaces ``shuffle_kernels.py::grouped_reduce``."""
+    _check_values("contrib", contrib)
+    dev = contrib.device
+    _check("chunk_block", chunk_block, torch.int32, device=dev)
+    if chunk_block.dim() != 1:
+        raise ValueError("chunk_block: expected a 1-D tensor")
+    rows = chunk_block.shape[0] * RED_ROWS
+    _check_rows("contrib", contrib, dev, rows)
+    _check("lr", lr, torch.int8, (rows, LANES), dev)
+    _check("evalid", evalid, torch.int8, (rows, LANES), dev)
+    if reduce_kind not in _REDUCE_OK[contrib.dtype]:
+        raise ValueError(f"grouped_reduce: {reduce_kind} on {contrib.dtype}")
+    if nblocks < 1:
+        raise ValueError(f"nblocks {nblocks}")
+    if not _on_cuda(contrib):
+        return grouped_reduce_plain(contrib, lr, evalid, chunk_block,
+                                    nblocks, reduce_kind, identity)
+    lib = _cuda.library()
+    y = torch.empty((nblocks, LANES), dtype=contrib.dtype, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.gt_grouped_reduce(
+            contrib.data_ptr(), lr.data_ptr(), evalid.data_ptr(),
+            chunk_block.data_ptr(), y.data_ptr(), chunk_block.shape[0],
+            nblocks, _DTYPES[contrib.dtype], _REDUCE_KINDS[reduce_kind],
+            float(identity), _stream(contrib))
+    LAUNCHES["grouped_reduce"] += 1
+    _cuda.check(rc, "grouped_reduce")
+    return y

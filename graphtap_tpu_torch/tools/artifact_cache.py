@@ -1,9 +1,11 @@
-"""On-disk cache of the port's host-built panel plans (``Spmv3Meta``).
+"""On-disk cache of the port's host-built plans: the panel meta
+(``Spmv3Meta``) and the v1 shuffle plans (``ShufflePlans``).
 
 Plans are a pure function of the edge list, the graph's ingest config,
-the ordering, the value dtype and the planner's code, and an RMAT-20 plan
-takes minutes to build, so they are memoized as ``.npz`` under
-``.bench_cache/torch/``. The key names the generator parameters (scale,
+the ordering, the value dtype and the planner's code, and an RMAT-20 panel
+plan takes minutes to build, so they are memoized as ``.npz`` under
+``graphtap_tpu_torch/build/plan_cache/``. The key names the generator
+parameters (scale,
 edge factor, seed), every field of the ``GraphConfig`` (BFS and CC read
 one RMAT edge list through different configs — self-loops dropped or
 kept — and get different plans), whether the tiles carry weights, the
@@ -24,31 +26,38 @@ from typing import Optional
 
 import numpy as np
 
-from graphtap_tpu_torch import _host
 from graphtap_tpu_torch.format.tiles import TileSet
 from graphtap_tpu_torch.kernels.panel_meta import (Spmv3Meta,
                                                    build_spmv3_meta,
                                                    validate_meta)
+from graphtap_tpu_torch.kernels.shuffle_engine import (
+    ShufflePlans, build_shuffle_plans, validate_shuffle_plans)
 
-DEFAULT_DIR = _host.REPO_ROOT / ".bench_cache" / "torch"
+PKG = Path(__file__).resolve().parent.parent
+DEFAULT_DIR = PKG / "build" / "plan_cache"
 _META = "__meta__"
 _SCALARS = ("NC", "nblocks", "dense_rows", "f2_rows", "exp_panels",
             "pa_panels", "pa_nwin", "fix_panels", "fixr_nwin",
             "fix2_chunks", "f2_panels", "f2_nwin", "nrb", "xext_rows",
             "xr_nwin", "sx_rows", "has_w")
-# every file whose code decides the plan bytes
-_PLAN_SOURCES = (
-    _host.JAX_PKG / "kernels" / "panel_plan.py",
-    _host.JAX_PKG / "kernels" / "gather_plan.py",
-    _host.JAX_PKG / "native" / "route_solver.cpp",
-    Path(__file__).resolve().parent.parent / "kernels" / "panel_meta.py",
-    Path(__file__).resolve().parent.parent / "kernels" / "panel_kernels.py",
-)
+# every file whose code decides the plan bytes, per plan kind
+_PLAN_SOURCES = {
+    "spmv3": (PKG / "kernels" / "panel_plan.py",
+              PKG / "kernels" / "gather_plan.py",
+              PKG / "native" / "route_solver.cpp",
+              PKG / "kernels" / "panel_meta.py",
+              PKG / "kernels" / "panel_kernels.py"),
+    "shuffle": (PKG / "kernels" / "shuffle_plan.py",
+                PKG / "kernels" / "shuffle_engine.py",
+                PKG / "kernels" / "shuffle_kernels.py"),
+}
+_SHUFFLE_SCALARS = tuple(f.name for f in dataclasses.fields(ShufflePlans)
+                         if f.name != "arrays")
 
 
-def source_hash() -> str:
+def source_hash(kind: str = "spmv3") -> str:
     h = hashlib.sha256()
-    for p in _PLAN_SOURCES:
+    for p in _PLAN_SOURCES[kind]:
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
@@ -62,15 +71,16 @@ def config_hash(config) -> str:
 
 
 def meta_key(scale: int, edge_factor: int, seed: int, config, ordering,
-             value_dtype, weighted: bool) -> str:
-    return (f"spmv3_rmat{scale}_ef{edge_factor}_s{seed}_"
+             value_dtype, weighted: bool, kind: str = "spmv3") -> str:
+    return (f"{kind}_rmat{scale}_ef{edge_factor}_s{seed}_"
             f"cfg{config_hash(config)}_{'w' if weighted else 'nw'}_"
-            f"{ordering.value}_{np.dtype(value_dtype).name}_{source_hash()}")
+            f"{ordering.value}_{np.dtype(value_dtype).name}_"
+            f"{source_hash(kind)}")
 
 
-def save_spmv3_meta(meta: Spmv3Meta, path) -> None:
+def _save(meta, scalar_names, path) -> None:
     arrays = dict(meta.arrays)
-    scalars = {k: getattr(meta, k) for k in _SCALARS}
+    scalars = {k: getattr(meta, k) for k in scalar_names}
     arrays[_META] = np.frombuffer(
         json.dumps({k: (bool(v) if isinstance(v, (bool, np.bool_))
                         else int(v)) for k, v in scalars.items()}).encode(),
@@ -80,12 +90,48 @@ def save_spmv3_meta(meta: Spmv3Meta, path) -> None:
     os.replace(tmp, path)
 
 
-def load_spmv3_meta(path) -> Spmv3Meta:
+def _load(cls, validate, path):
     with np.load(path) as z:
         scalars = json.loads(bytes(z[_META]).decode())
         arrays = {k: z[k] for k in z.files if k != _META}
-    meta = Spmv3Meta(arrays=arrays, **scalars)
-    validate_meta(meta)
+    meta = cls(arrays=arrays, **scalars)
+    validate(meta)
+    return meta
+
+
+def save_spmv3_meta(meta: Spmv3Meta, path) -> None:
+    _save(meta, _SCALARS, path)
+
+
+def load_spmv3_meta(path) -> Spmv3Meta:
+    return _load(Spmv3Meta, validate_meta, path)
+
+
+def save_shuffle_plans(meta: ShufflePlans, path) -> None:
+    _save(meta, _SHUFFLE_SCALARS, path)
+
+
+def load_shuffle_plans(path) -> ShufflePlans:
+    return _load(ShufflePlans, validate_shuffle_plans, path)
+
+
+_KINDS = {"spmv3": (build_spmv3_meta, save_spmv3_meta, load_spmv3_meta),
+          "shuffle": (build_shuffle_plans, save_shuffle_plans,
+                      load_shuffle_plans)}
+
+
+def _cached(kind, tiles, scale, edge_factor, seed, config, ordering,
+            value_dtype, cache_dir):
+    build, save, load = _KINDS[kind]
+    d = Path(cache_dir) if cache_dir is not None else DEFAULT_DIR
+    path = d / (meta_key(scale, edge_factor, seed, config, ordering,
+                         value_dtype, tiles.weights is not None, kind)
+                + ".npz")
+    if path.exists():
+        return load(path)
+    meta = build(tiles, value_dtype=value_dtype)
+    d.mkdir(parents=True, exist_ok=True)
+    save(meta, path)
     return meta
 
 
@@ -95,12 +141,15 @@ def cached_spmv3_meta(tiles: TileSet, scale: int, edge_factor: int,
     """The panel meta of an RMAT graph's tiles (read through the
     ``GraphConfig`` ``config``, tiled in ``ordering``), from disk when
     cached."""
-    d = Path(cache_dir) if cache_dir is not None else DEFAULT_DIR
-    path = d / (meta_key(scale, edge_factor, seed, config, ordering,
-                         value_dtype, tiles.weights is not None) + ".npz")
-    if path.exists():
-        return load_spmv3_meta(path)
-    meta = build_spmv3_meta(tiles, value_dtype=value_dtype)
-    d.mkdir(parents=True, exist_ok=True)
-    save_spmv3_meta(meta, path)
-    return meta
+    return _cached("spmv3", tiles, scale, edge_factor, seed, config,
+                   ordering, value_dtype, cache_dir)
+
+
+def cached_shuffle_plans(tiles: TileSet, scale: int, edge_factor: int,
+                         seed: int, config, ordering, value_dtype=np.float32,
+                         cache_dir: Optional[os.PathLike] = None
+                         ) -> ShufflePlans:
+    """The v1 shuffle plans of an RMAT graph's tiles, keyed as
+    ``cached_spmv3_meta`` keys the panel meta, from disk when cached."""
+    return _cached("shuffle", tiles, scale, edge_factor, seed, config,
+                   ordering, value_dtype, cache_dir)

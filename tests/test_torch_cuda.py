@@ -6,7 +6,9 @@ device, and runs on the card with
 bit for bit; K3 bit for bit in int32 and within rtol 1e-5 (f32) / 1e-12
 (f64) in float sums, whose atomic adds run in no fixed order. The gated
 K1-K3 match bit for bit in int32 min, and BFS, CC and SSSP on the card
-equal the same runs on the CPU.
+equal the same runs on the CPU. The shuffle kernels K6 and K7 match
+bit for bit, K8 bit for bit in int32 and within the rtol above in float
+sums (shared and global atomics, no fixed order).
 """
 
 import numpy as np
@@ -19,11 +21,14 @@ from graphtap_tpu_torch.apps import (bfs_config, cc_config, run_bfs,
                                      sssp_config)
 from graphtap_tpu_torch.ingest import rmat_edges
 from graphtap_tpu_torch.kernels import panel_kernels as pk
+from graphtap_tpu_torch.kernels import shuffle_kernels as sk
 from graphtap_tpu_torch.kernels import semiring as tsr
 from graphtap_tpu_torch.kernels import panel_engine as tpe
 from graphtap_tpu_torch.kernels.panel_engine import spmv3_stages
 from graphtap_tpu_torch.kernels.panel_meta import (build_spmv3_meta,
                                                    fill_blocks)
+from graphtap_tpu_torch.kernels.shuffle_engine import (build_shuffle_plans,
+                                                       mul_kind, spmv_stages)
 from graphtap_tpu_torch.tools.convert import meta_from_numpy
 
 pytestmark = pytest.mark.gpu
@@ -95,7 +100,8 @@ def test_pagerank_on_cuda_matches_cpu(cuda):
                                                  transpose=True))
     on_card = run_pagerank(g, 20, torch.float64, kernel="panel",
                            device=cuda)
-    on_cpu = run_pagerank(g, 20, torch.float64, kernel="panel")
+    on_cpu = run_pagerank(g, 20, torch.float64, kernel="panel",
+                          device="cpu")
     np.testing.assert_allclose(on_card.state_vector()["rank"],
                                on_cpu.state_vector()["rank"], rtol=1e-12,
                                atol=0)
@@ -196,6 +202,87 @@ def test_apps_on_cuda_match_cpu(cuda, app):
     assert [s["gated"] for s in on_card.supersteps] == \
         [s["gated"] for s in on_cpu.supersteps]
     assert all(s["ms"] > 0 for s in on_card.supersteps)
+    a, b = on_card.state_vector(), on_cpu.state_vector()
+    for k in b:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.parametrize("case", ["f32_sum", "f64_sum_w", "i32_min_w",
+                                  "i32_min"])
+def test_shuffle_kernels_match_plain(cuda, case):
+    """K6 (with its two dense-expansion calls), K7 and K8 at RMAT-12
+    against their plain versions on the card, and the whole SpMV."""
+    n = 1 << 12
+    weighted = case.endswith("_w")
+    r, c, w = rmat_edges(12, 16, seed=3, weighted=weighted)
+    if case.startswith("i32"):
+        dtype = np.int32
+        sem = tsr.min_plus() if weighted else tsr.min_select()
+        cfg = sssp_config(n) if weighted else bfs_config(n)
+    else:
+        dtype = np.float32 if case == "f32_sum" else np.float64
+        sem = tsr.plus_times()
+        cfg = GraphConfig(num_vertices=n, transpose=True)
+    g = Graph.from_edges(r, c, w, cfg)
+    meta = build_shuffle_plans(g.tiled(), value_dtype=dtype)
+    t = meta_from_numpy(meta.arrays, cuda)
+    rng = np.random.default_rng(1)
+    if dtype == np.int32:
+        x = rng.integers(0, 1000, size=g.part.tile_cols).astype(dtype)
+        x[rng.random(x.size) < 0.3] = tsr.INF_I32
+    else:
+        x = rng.random(g.part.tile_cols).astype(dtype)
+    fill, kind = sem.identity, sem.reduce_kind
+    before = dict(sk.LAUNCHES)
+    st = spmv_stages(torch.from_numpy(x).to(cuda), t, meta, sem,
+                     g.part.tile_rows)
+    assert {k: sk.LAUNCHES[k] - before[k] for k in before} == {
+        "expand_stream": 3, "group_stream": meta.npasses,
+        "grouped_reduce": 1}
+    assert torch.equal(st["contrib"], sk.expand_stream_plain(
+        st["x3d"], t["grp"], t["slot"], t["lane"], t["ev_x"],
+        t.get("w_stream"), fill, mul_kind(meta, sem)))
+    for half in ("a", "b"):
+        assert torch.equal(st["y" + half], sk.expand_stream_plain(
+            st["ytab"], t[f"mexp_grp_{half}"], t[f"mexp_slot_{half}"],
+            t["mexp_lane"], t[f"mexp_ev_{half}"], None, fill))
+    assert torch.equal(st["grouped"], sk.group_stream_plain(
+        st["contrib"], t["frag_dst"], t["frag_idx"], meta.rows_per_super,
+        meta.npasses, fill))
+    want = sk.grouped_reduce_plain(st["grouped"], t["lr"], t["ev_r"],
+                                   t["chunk_block"], meta.nblocks, kind,
+                                   fill)
+    if st["y_blocks"].dtype.is_floating_point:
+        torch.testing.assert_close(st["y_blocks"], want,
+                                   rtol=FOLD_RTOL[want.dtype], atol=0)
+    else:
+        assert torch.equal(st["y_blocks"], want)
+    cpu = spmv_stages(torch.from_numpy(x), meta_from_numpy(meta.arrays,
+                                                           "cpu"),
+                      meta, sem, g.part.tile_rows)["y"]
+    if cpu.dtype.is_floating_point:
+        torch.testing.assert_close(st["y"].cpu(), cpu,
+                                   rtol=FOLD_RTOL[cpu.dtype], atol=0)
+    else:
+        assert torch.equal(st["y"].cpu(), cpu)
+
+
+@pytest.mark.parametrize("app", ["bfs", "cc", "sssp"])
+def test_apps_shuffle_on_cuda_match_cpu(cuda, app):
+    n = 1 << 12
+    weighted = app == "sssp"
+    r, c, w = rmat_edges(12, 16, seed=1, weighted=weighted)
+    cfg = {"bfs": bfs_config, "cc": cc_config, "sssp": sssp_config}[app](n)
+    g = Graph.from_edges(r, c, w, cfg)
+    run = {"bfs": lambda d: run_bfs(g, 0, kernel="shuffle", device=d),
+           "cc": lambda d: run_cc(g, kernel="shuffle", device=d),
+           "sssp": lambda d: run_sssp(g, 0, kernel="shuffle", device=d)}[app]
+    before = dict(sk.LAUNCHES)
+    on_card = run(cuda)
+    assert sk.LAUNCHES["grouped_reduce"] - before["grouped_reduce"] == \
+        on_card.iteration + 1                     # + the flush
+    on_cpu = run("cpu")
+    assert on_card.iteration == on_cpu.iteration
     a, b = on_card.state_vector(), on_cpu.state_vector()
     for k in b:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)

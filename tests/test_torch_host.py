@@ -189,6 +189,93 @@ def test_run_pagerank_on_cuda_raises_without_cuda():
         run_pagerank(g, 20, torch.float32, kernel="panel", device="cuda")
 
 
+@pytest.mark.parametrize("entry", ["Executor", "run_pagerank", "run_bfs",
+                                   "run_cc", "run_sssp"])
+def test_entry_points_default_to_cuda(entry):
+    """Every entry point runs on the card unless told 'cpu': without CUDA
+    a call with the default device raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from graphtap_tpu_torch import apps
+    from graphtap_tpu_torch.engine.executor import Executor
+    r, c, _ = rmat_edges(8, 16, seed=1)
+    g = Graph.from_edges(r, c, None, apps.bfs_config(256))
+    call = {"Executor": lambda: Executor(g, apps.BFSProgram(0)),
+            "run_pagerank": lambda: apps.run_pagerank(g, 2),
+            "run_bfs": lambda: apps.run_bfs(g, 0),
+            "run_cc": lambda: apps.run_cc(g),
+            "run_sssp": lambda: apps.run_sssp(g, 0, weighted=False)}[entry]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
+
+
+def test_copied_package_runs_alone(tmp_path):
+    """The port copied alone (no graphtap_tpu/ beside it), with jax made
+    unimportable and an audit hook that fails any open of a path under
+    the repository's graphtap_tpu/: it imports, builds its own native
+    library, plans a panel meta and a shuffle plan, and runs the scan
+    SpMV."""
+    import shutil
+    shutil.copytree(os.path.join(REPO, "graphtap_tpu_torch"),
+                    tmp_path / "graphtap_tpu_torch",
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    jax_pkg = os.path.join(REPO, "graphtap_tpu")
+    code = (
+        "import os, sys\n"
+        "sys.modules['jax'] = None\n"
+        f"JAX_PKG = {jax_pkg!r}\n"
+        "def hook(event, args):\n"
+        "    if event == 'open' and isinstance(args[0], (str, bytes)):\n"
+        "        p = os.path.abspath(os.fsdecode(args[0]))\n"
+        "        if p == JAX_PKG or p.startswith(JAX_PKG + os.sep):\n"
+        "            raise RuntimeError('opened ' + p)\n"
+        "sys.addaudithook(hook)\n"
+        "import numpy as np, torch\n"
+        "import graphtap_tpu_torch as g\n"
+        "assert os.path.dirname(g.__file__).startswith(os.getcwd())\n"
+        "from graphtap_tpu_torch import native\n"
+        "from graphtap_tpu_torch.ingest import rmat_edges\n"
+        "from graphtap_tpu_torch.kernels.panel_meta import build_spmv3_meta\n"
+        "from graphtap_tpu_torch.kernels.shuffle_engine import "
+        "build_shuffle_plans\n"
+        "from graphtap_tpu_torch.kernels.semiring import plus_times\n"
+        "from graphtap_tpu_torch.kernels.spmv import (expand_compact,\n"
+        "    spmv_sorted_scan)\n"
+        "r, c, _ = rmat_edges(8, 16, seed=1)\n"
+        "gr = g.Graph.from_edges(r, c, None, g.GraphConfig(\n"
+        "    num_vertices=256, transpose=True))\n"
+        "ts = gr.tiled()\n"
+        "m = build_spmv3_meta(ts, np.float32)\n"
+        "assert m.exp_panels > 0\n"
+        "s = build_shuffle_plans(ts, np.float32)\n"
+        "assert s.arrays['frag_idx'].dtype == np.int8\n"
+        "import shutil\n"
+        "has_cxx = shutil.which(os.environ.get('CXX', 'g++')) is not None\n"
+        "assert native.available() == has_cxx\n"
+        "assert native.library_path().startswith(os.getcwd())\n"
+        "n = int(ts.nnz[0, 0])\n"
+        "T = lambda a: torch.from_numpy(np.ascontiguousarray(a))\n"
+        "x = torch.ones(gr.part.tile_cols)\n"
+        "y = spmv_sorted_scan(x, T(ts.rows[0].astype(np.int64)),\n"
+        "                     T(ts.cols[0].astype(np.int64)), None, n,\n"
+        "                     T(ts.ja[0]), plus_times())\n"
+        "y = expand_compact(y, T(ts.iv_dense[0]), plus_times())\n"
+        "assert int(y.sum()) == n\n"
+        "bad = [k for k in sys.modules if k == 'graphtap_tpu'\n"
+        "       or k.startswith('graphtap_tpu.')\n"
+        "       or (k.startswith('jax') and sys.modules[k] is not None)]\n"
+        "assert not bad, bad\n"
+        "print('OK')\n")
+    env = dict(os.environ, PYTHONPATH=str(tmp_path))
+    res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().endswith("OK")
+    if shutil.which(os.environ.get("CXX", "g++")):      # built its own
+        assert list((tmp_path / "graphtap_tpu_torch" / "build").glob(
+            "libgraphtap_host_*.so"))
+
+
 def test_artifact_cache_roundtrip_and_key(tmp_path):
     r, c, _ = rmat_edges(8, 16, seed=1)
     cfg = GraphConfig(num_vertices=256, transpose=True)

@@ -55,10 +55,10 @@ def _graph(app, edges):
 
 def _run(app, g, kernel):
     if app == "bfs":
-        return run_bfs(g, 0, kernel=kernel)
+        return run_bfs(g, 0, kernel=kernel, device="cpu")
     if app == "cc":
-        return run_cc(g, kernel=kernel)
-    return run_sssp(g, 0, kernel=kernel)
+        return run_cc(g, kernel=kernel, device="cpu")
+    return run_sssp(g, 0, kernel=kernel, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -112,7 +112,8 @@ def _same_states(port_ex, jax_ex):
 def test_bfs_panel_matches_jax_panel(edges):
     jex = jbfs.run_bfs(_jax_graph(edges, jbfs.bfs_config), 0,
                        kernel="panel")
-    _same_states(run_bfs(_graph("bfs", edges), 0, kernel="panel"), jex)
+    _same_states(run_bfs(_graph("bfs", edges), 0, kernel="panel",
+                         device="cpu"), jex)
 
 
 @pytest.mark.parametrize("app", ["cc", "sssp"])
@@ -133,7 +134,7 @@ def test_gate_switch(edges, monkeypatch):
             monkeypatch.delenv(GATE_ENV, raising=False)
         else:
             monkeypatch.setenv(GATE_ENV, value)
-        ex = run_bfs(g, 0, kernel="panel")
+        ex = run_bfs(g, 0, kernel="panel", device="cpu")
         states[value] = ex.state_vector()
         branches[value] = {s["gated"] for s in ex.supersteps}
     for value in ("1", "auto", None):
@@ -142,11 +143,11 @@ def test_gate_switch(edges, monkeypatch):
     assert branches["0"] == {False} and branches["1"] == {True}
     monkeypatch.setenv(GATE_ENV, "yes")
     with pytest.raises(ValueError, match=GATE_ENV):
-        Executor(g, BFSProgram(0), kernel="panel")
+        Executor(g, BFSProgram(0), kernel="panel", device="cpu")
     # read once, at construction: a later change does not reach the run
     monkeypatch.setenv(GATE_ENV, "1")
     ex = Executor(g, BFSProgram(0), EngineConfig(stationary=False),
-                  kernel="panel")
+                  kernel="panel", device="cpu")
     monkeypatch.setenv(GATE_ENV, "bogus")
     ex.execute(0)
     assert {s["gated"] for s in ex.supersteps} == {True}
@@ -155,7 +156,7 @@ def test_gate_switch(edges, monkeypatch):
 def test_nonstationary_fixed_iterations_and_limits(edges, golden_states):
     g = _graph("bfs", edges)
     ex = Executor(g, BFSProgram(0), EngineConfig(stationary=False),
-                  kernel="panel")
+                  kernel="panel", device="cpu")
     ex.execute(2)                        # two levels, no vote, no flush
     hops = ex.state_vector()["hops"]
     want = golden_states["bfs"]["hops"]
@@ -163,7 +164,7 @@ def test_nonstationary_fixed_iterations_and_limits(edges, golden_states):
                                                  golden.INF))
     with pytest.raises(NotImplementedError, match="sparse exchange"):
         Executor(g, BFSProgram(0), EngineConfig(
-            stationary=False, sparse_exchange_capacity=256))
+            stationary=False, sparse_exchange_capacity=256), device="cpu")
 
 
 def test_pagerank_converges_like_jax_scan():
@@ -175,7 +176,7 @@ def test_pagerank_converges_like_jax_scan():
                            mesh=make_mesh(jax.devices()[:1], shape=(1, 1)))
     jex = j_run_pagerank(jg, 0, jnp.float64, kernel="scan")
     for kernel in ("scan", "panel"):
-        ex = run_pagerank(g, 0, torch.float64, kernel=kernel)
+        ex = run_pagerank(g, 0, torch.float64, kernel=kernel, device="cpu")
         assert ex.iteration == jex.iteration > 1
         np.testing.assert_allclose(ex.state_vector()["rank"],
                                    np.asarray(jex.state_vector()["rank"]),

@@ -43,7 +43,8 @@ def rmat10():
 
 @pytest.fixture(scope="module")
 def port_f64(rmat10):
-    return run_pagerank(rmat10[2], ITERS, torch.float64, kernel="panel")
+    return run_pagerank(rmat10[2], ITERS, torch.float64, kernel="panel",
+                        device="cpu")
 
 
 def test_pagerank_f64_matches_golden(rmat10, port_f64):
@@ -71,7 +72,7 @@ def test_pagerank_f64_matches_jax_panel(rmat10, port_f64):
     # same PageRank in the port: its handed-over degrees give the same ranks
     pr = Executor(port_f64.graph, PageRankProgram(torch.float64),
                   EngineConfig(stationary=True, ordering=Ordering.ROW),
-                  kernel="panel", plans=port_f64.meta)
+                  kernel="panel", plans=port_f64.meta, device="cpu")
     deg = state_from_numpy({"degree": np.asarray(jex.state["degree"])})
     pr.initialize(other=types.SimpleNamespace(state=deg))
     pr.execute(ITERS)
@@ -79,7 +80,8 @@ def test_pagerank_f64_matches_jax_panel(rmat10, port_f64):
 
 
 def test_pagerank_f32_close_to_golden(rmat10):
-    ex = run_pagerank(rmat10[2], ITERS, torch.float32, kernel="panel")
+    ex = run_pagerank(rmat10[2], ITERS, torch.float32, kernel="panel",
+                      device="cpu")
     rank = ex.state_vector()["rank"].astype(np.float64)
     want = rmat10[3]
     assert np.abs(rank - want).max() / np.abs(want).max() <= 1e-5
@@ -88,7 +90,8 @@ def test_pagerank_f32_close_to_golden(rmat10):
 
 
 def test_pagerank_scan_kernel_matches_panel(rmat10, port_f64):
-    ex = run_pagerank(rmat10[2], ITERS, torch.float64, kernel="scan")
+    ex = run_pagerank(rmat10[2], ITERS, torch.float64, kernel="scan",
+                      device="cpu")
     np.testing.assert_allclose(ex.state_vector()["rank"],
                                port_f64.state_vector()["rank"], rtol=1e-12,
                                atol=0)
@@ -99,14 +102,17 @@ def test_executor_lifecycle_errors(rmat10, port_f64):
     cf = Graph.from_edges(rmat10[0], rmat10[1], None, GraphConfig(
         num_vertices=N, transpose=True, compression=Compression.TCSC_CF))
     with pytest.raises(NotImplementedError):
-        run_pagerank(cf, 0, torch.float64)             # TCSC_CF phases
-    ex = Executor(g, PageRankProgram(torch.float64), kernel="scan")
+        run_pagerank(cf, 0, torch.float64, device="cpu")   # TCSC_CF
+    ex = Executor(g, PageRankProgram(torch.float64), kernel="scan",
+                  device="cpu")
     ex.free()
     with pytest.raises(RuntimeError, match="free"):
         ex.execute(1)
     with pytest.raises(NotImplementedError):
-        Executor(g, PageRankProgram(torch.float64), kernel="shuffle2")
+        Executor(g, PageRankProgram(torch.float64), kernel="shuffle2",
+                 device="cpu")
     csc = Graph.from_edges(rmat10[0], rmat10[1], None, GraphConfig(
         num_vertices=N, transpose=True, compression=Compression.CSC))
     with pytest.raises(NotImplementedError):
-        Executor(csc, PageRankProgram(torch.float64), kernel="scan")
+        Executor(csc, PageRankProgram(torch.float64), kernel="scan",
+                 device="cpu")

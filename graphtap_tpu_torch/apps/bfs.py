@@ -72,7 +72,8 @@ def run_bfs(graph: Graph, root: int = 0, kernel: str = "panel",
             device="cuda") -> Executor:
     """BFS from ``root`` to convergence on ``device`` ('cuda' unless the
     caller passes 'cpu'; ``kernel`` 'panel': the frontier-gated K1-K4
-    pipeline; 'shuffle': K6-K8; 'scan'). ``graph`` is read through
+    pipeline; 'shuffle': K6-K8; 'shuffle2': K9 and K8; 'onehot': K5;
+    'segment' or 'scan': plain torch). ``graph`` is read through
     ``bfs_config``."""
     ex = Executor(graph, BFSProgram(root=root),
                   EngineConfig(stationary=False, apply_depends_on_iter=True,

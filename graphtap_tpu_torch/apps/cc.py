@@ -57,7 +57,8 @@ def cc_config(num_vertices: int) -> GraphConfig:
 
 def run_cc(graph: Graph, kernel: str = "panel", device="cuda") -> Executor:
     """CC to convergence on ``device`` ('cuda' unless the caller passes
-    'cpu'; ``kernel`` 'panel', 'shuffle' or 'scan'); ``graph`` is read
+    'cpu'; ``kernel`` any of ``Executor``'s: 'panel', 'shuffle',
+    'shuffle2', 'onehot', 'segment' or 'scan'); ``graph`` is read
     through ``cc_config``."""
     ex = Executor(graph, CCProgram(),
                   EngineConfig(stationary=False, gather_depends_on_apply=True,

@@ -72,10 +72,11 @@ def run_pagerank(graph: Graph, num_iterations: int = 0,
 
     The degree phase is one SpMV on ``degree_kernel`` ('shuffle': the v1
     K6-K8 pipeline, which plans in seconds, as the JAX bench composes it
-    at RMAT-20; 'scan'; 'panel'), integer sums, exact in f32; PageRank
-    runs ``num_iterations`` supersteps on ``kernel`` ('panel': the K1-K4
-    pipeline; 'shuffle'; 'scan'), or, for num_iterations=0, runs to
-    tol-convergence. The degree phase's tiles and plans are freed before
+    at RMAT-20; or any other kernel of ``Executor``), integer sums, exact
+    in f32; PageRank runs ``num_iterations`` supersteps on ``kernel``
+    ('panel': the K1-K4 pipeline; 'shuffle': K6-K8; 'shuffle2': the v2
+    K9 + K8 pipeline; 'onehot': K5; 'segment' or 'scan': plain torch), or,
+    for num_iterations=0, runs to tol-convergence. The degree phase's tiles and plans are freed before
     the PageRank plans are uploaded; its executor, with its state, is the
     returned executor's ``degree_phase``.
     """

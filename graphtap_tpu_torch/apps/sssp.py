@@ -70,7 +70,9 @@ def sssp_config(num_vertices: int, weighted: bool = True) -> GraphConfig:
 def run_sssp(graph: Graph, root: int = 0, weighted: bool = True,
              kernel: str = "panel", device="cuda") -> Executor:
     """SSSP from ``root`` to convergence on ``device`` ('cuda' unless the
-    caller passes 'cpu'; ``kernel`` 'panel', 'shuffle' or 'scan');
+    caller passes 'cpu'; ``kernel`` any of ``Executor``'s: 'panel',
+    'shuffle', 'shuffle2' (its ⊗ is K9's add_sat), 'onehot', 'segment' or
+    'scan');
     ``graph`` is read through ``sssp_config`` (with its weights when
     ``weighted``)."""
     ex = Executor(graph, SSSPProgram(root=root, weighted=weighted),

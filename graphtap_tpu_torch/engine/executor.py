@@ -9,11 +9,12 @@ running a collective.
 
 Ported: fixed-iteration and convergence mode on TCSC tiles, stationary
 and nonstationary programs (messages masked to the ⊕-identity outside the
-frontier, the panel pipeline frontier-gated), the ``scan``, ``panel`` and
-``shuffle`` kernels, ``initialize(other=)`` with the I-masked handoff,
-``free()`` and the oracles (``state_vector``, ``checksum``, ``display``).
-Other tile formats (CSC, DCSC, TCSC_CF), the sparse exchange and the mesh
-raise ``NotImplementedError`` until a later version ports them.
+frontier, the panel pipeline frontier-gated), every kernel choice of the
+JAX executor (``KERNELS``), ``initialize(other=)`` with the I-masked
+handoff, ``free()`` and the oracles (``state_vector``, ``checksum``,
+``display``). An unknown kernel name raises ``ValueError``. Other tile
+formats (CSC, DCSC, TCSC_CF), the sparse exchange and the mesh raise
+``NotImplementedError`` until a later version ports them.
 
 Convergence mode (``execute(0)``, reference :407-441) runs supersteps
 until every vertex votes unchanged, then one flush: combine and apply on
@@ -35,20 +36,32 @@ from graphtap_tpu_torch.config import Compression, EngineConfig
 from graphtap_tpu_torch.engine.program import State, VertexProgram, \
     numpy_dtype
 from graphtap_tpu_torch.ingest.graph import Graph
+from graphtap_tpu_torch.kernels.gather_engine import (Spmv2Meta,
+                                                      build_spmv2_meta,
+                                                      spmv2_local,
+                                                      validate_spmv2_meta)
+from graphtap_tpu_torch.kernels.onehot_spmv import (PallasPlan,
+                                                    build_onehot_plan,
+                                                    spmv_onehot,
+                                                    validate_pallas_plan)
 from graphtap_tpu_torch.kernels.panel_engine import spmv3_stages
 from graphtap_tpu_torch.kernels.panel_meta import (Spmv3Meta,
                                                    build_spmv3_meta,
                                                    validate_meta)
 from graphtap_tpu_torch.kernels.shuffle_engine import (
     ShufflePlans, build_shuffle_plans, spmv_local, validate_shuffle_plans)
-from graphtap_tpu_torch.kernels.spmv import expand_compact, spmv_sorted_scan
+from graphtap_tpu_torch.kernels.spmv import (expand_compact, spmv_segment,
+                                             spmv_sorted_scan)
 from graphtap_tpu_torch.tools.convert import meta_from_numpy
 
-KERNELS = ("scan", "panel", "shuffle")
+KERNELS = ("scan", "segment", "onehot", "shuffle", "shuffle2", "panel")
 # kernel -> (plans type, build function, validator)
 _PLANNERS = {"panel": (Spmv3Meta, build_spmv3_meta, validate_meta),
              "shuffle": (ShufflePlans, build_shuffle_plans,
-                         validate_shuffle_plans)}
+                         validate_shuffle_plans),
+             "shuffle2": (Spmv2Meta, build_spmv2_meta, validate_spmv2_meta),
+             "onehot": (PallasPlan, build_onehot_plan,
+                        validate_pallas_plan)}
 MAX_CONVERGENCE_ITERS = 1 << 20     # as the JAX package's executor
 GATE_ENV = "GRAPHTAP_PANEL_GATE"
 _GATE_MODES = {"auto": "auto", "1": True, "0": False}
@@ -84,10 +97,14 @@ class Executor:
     """Runs one VertexProgram over one TileSet on one device.
 
     ``kernel``: 'panel' (the v3 panel-route pipeline, K1-K4), 'shuffle'
-    (the v1 shuffle pipeline, K6-K8; TCSC only, never gated) or 'scan'
-    (portable torch SpMV). ``plans``: prebuilt plans of this graph's tiles
-    (a ``Spmv3Meta`` for 'panel', a ``ShufflePlans`` for 'shuffle', e.g.
-    from ``tools/artifact_cache.py``), validated here, else built here.
+    (the v1 shuffle pipeline, K6-K8), 'shuffle2' (the v2 windowed-gather
+    pipeline, K9 and K8), 'onehot' (the blocked one-hot reduce, K5, after
+    a torch gather and ⊗), 'segment' or 'scan' (portable torch SpMVs);
+    only 'panel' is ever gated, as in the JAX package. ``plans``: prebuilt
+    plans of this graph's tiles (a ``Spmv3Meta`` for 'panel', a
+    ``ShufflePlans`` for 'shuffle', a ``Spmv2Meta`` for 'shuffle2', a
+    ``PallasPlan`` for 'onehot', e.g. from ``tools/artifact_cache.py``),
+    validated here, else built here.
     ``device``: 'cuda' (the default) or 'cpu', where the kernels run
     their plain versions; without CUDA a 'cuda' executor raises.
     ``GRAPHTAP_PANEL_GATE`` is read once, here (``gate_mode``); it sets
@@ -96,7 +113,7 @@ class Executor:
     ``timings`` records the host phases and the last ``execute`` in
     seconds (the latter after a device synchronize). ``supersteps`` lists
     the last ``execute``'s supersteps: the branch each SpMV took
-    (``gated``: True/False on 'panel', None on 'scan' and 'shuffle') and,
+    (``gated``: True/False on 'panel', None on the other kernels) and,
     on a CUDA device, its time by CUDA events (``ms``; None on the CPU);
     the flush of convergence mode is not among them. ``device_bytes`` is
     the size of the arrays uploaded for the superstep (tiles or plans)."""
@@ -106,8 +123,8 @@ class Executor:
                  plans=None, device="cuda"):
         self.device = _device(device)
         if kernel not in KERNELS:
-            raise NotImplementedError(f"kernel {kernel!r} is not ported; "
-                                      f"use one of {KERNELS}")
+            raise ValueError(f"unknown kernel {kernel!r}; use one of "
+                             f"{KERNELS}")
         if graph.config.compression != Compression.TCSC:
             raise NotImplementedError(
                 f"{graph.config.compression} tiles are not ported yet")
@@ -135,6 +152,8 @@ class Executor:
             elif not isinstance(plans, kind):
                 raise TypeError(f"kernel {kernel!r} takes {kind.__name__} "
                                 f"plans, got {type(plans).__name__}")
+            elif kernel == "onehot":
+                validate(plans, self.part.tile_cols)
             else:
                 validate(plans)
             self.meta = plans
@@ -163,6 +182,8 @@ class Executor:
                "vids": self._tensor(self.part.owner_vids()[0])}
         if self.kernel in _PLANNERS:
             dev.update(meta_from_numpy(self.meta.arrays, self.device))
+            if self.kernel == "onehot":
+                dev["iv_dense"] = self._tensor(ts.iv_dense[0])
             return dev
         n = int(ts.nnz[0, 0])
         dev.update(rows=self._tensor(ts.rows[0].astype(np.int64)),
@@ -217,19 +238,26 @@ class Executor:
     def _combine(self, x: torch.Tensor) -> Tuple[torch.Tensor,
                                                  Optional[bool]]:
         """Tile SpMV -> (the dense row block (C*L,), whether the panel
-        pipeline ran gated; None on 'scan' and 'shuffle', which are never
+        pipeline ran gated; None on the other kernels, which are never
         gated, as in the JAX package) (reference: combine,
         vertex_program.hpp:1017-1573)."""
-        sem, d = self.program.semiring, self._dev
+        sem, d, n = self.program.semiring, self._dev, self.part.tile_rows
         if self.kernel == "panel":
-            st = spmv3_stages(x, d, self.meta, sem,
-                              dense_len=self.part.tile_rows, gate=self.gate)
+            st = spmv3_stages(x, d, self.meta, sem, dense_len=n,
+                              gate=self.gate)
             return st["y"], st["gated"]
         if self.kernel == "shuffle":
-            return spmv_local(x, d, self.meta, sem,
-                              dense_len=self.part.tile_rows), None
-        y = spmv_sorted_scan(x, d["rows"], d["cols"], d.get("weights"),
-                             d["nnz"], d["ja"], sem)
+            return spmv_local(x, d, self.meta, sem, dense_len=n), None
+        if self.kernel == "shuffle2":
+            return spmv2_local(x, d, self.meta, sem, dense_len=n), None
+        if self.kernel == "onehot":
+            y = spmv_onehot(x, d, self.meta, sem, self.tiles.NR)
+        elif self.kernel == "segment":
+            y = spmv_segment(x, d["rows"], d["cols"], d.get("weights"),
+                             d["nnz"], self.tiles.NR, sem)
+        else:
+            y = spmv_sorted_scan(x, d["rows"], d["cols"], d.get("weights"),
+                                 d["nnz"], d["ja"], sem)
         return expand_compact(y, d["iv_dense"], sem), None
 
     def _apply(self, V: State, y_own: torch.Tensor,

@@ -22,7 +22,7 @@ from typing import Optional
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
-SOURCES = ("panel_route.cu", "shuffle.cu")
+SOURCES = ("panel_route.cu", "shuffle.cu", "gather.cu", "onehot.cu")
 HEADERS = ("common.cuh",)
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
@@ -62,6 +62,13 @@ _SIGNATURES = {
     # identity, stream
     "gt_grouped_reduce": [_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _F64,
                           _P],
+    # src, wsel, base, nact, cidx, meta, w, out, nsteps, nsub, block_rows,
+    # dtype, mul_kind, fill, stream
+    "gt_windowed_gather": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32,
+                           _I32, _I32, _F64, _P],
+    # contrib, lrows, chunk_block, y, nchunks, nblocks, dtype, reduce_kind,
+    # identity, stream
+    "gt_segment_reduce": [_P, _P, _P, _P, _I64, _I64, _I32, _I32, _F64, _P],
 }
 
 

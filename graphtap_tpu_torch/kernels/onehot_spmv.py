@@ -1,0 +1,240 @@
+"""The blocked one-hot SpMV reduce: host plan, CUDA wrapper, plain torch
+version, count.
+
+Counterpart of ``graphtap_tpu/kernels/pallas_spmv.py`` (the port has no
+Pallas; the name says what it computes). The ⊕-fold
+``y[row] ⊕= contrib[e]`` over row-sorted edges (reference:
+vertex_program.hpp:1162-1185) runs over a host regrouping of the edges by
+128-row destination block (``RB``), each block's run padded to whole
+chunks of ``CHUNK`` contributions:
+
+  * ``PallasPlan`` / ``build_pallas_plan``: the port's copy of the plan,
+    numpy only, byte-identical to the JAX package's;
+  * ``segment_reduce`` (K5): the wrapper, which checks dtype, shape,
+    device and contiguity, then runs the plain version for a CPU tensor or
+    launches the hand-written Hopper kernel (``csrc/onehot.cu``) for a
+    CUDA tensor — never a fallback; ``segment_reduce_plain`` is its plain
+    torch version and ``LAUNCHES`` its launch count;
+  * ``spmv_onehot``: the gather of x by the plan's cols, ⊗ by its weights
+    and the mask of padding to the ⊕-identity (plain torch, as the JAX
+    package leaves them to XLA), then K5.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from graphtap_tpu_torch.format.tiles import TileSet
+from graphtap_tpu_torch.kernels import _cuda
+from graphtap_tpu_torch.kernels.panel_kernels import (_DTYPES,
+                                                      _REDUCE_KINDS,
+                                                      _REDUCE_OK, _on_cuda,
+                                                      _stream)
+from graphtap_tpu_torch.kernels.semiring import Semiring
+from graphtap_tpu_torch.kernels.shuffle_kernels import (_SCATTER_OPS,
+                                                        _check,
+                                                        _check_values)
+
+RB = 128          # rows per block = lane width
+CHUNK = 2048      # contributions per chunk
+
+# launches of the CUDA kernel (the plain version is not counted)
+LAUNCHES = {"segment_reduce": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+@dataclass
+class PallasPlan:
+    """Host-side edge regrouping for the blocked reduce (arrays
+    device-stacked, leading D axis, like TileSet fields)."""
+    Ep: int                   # padded edge-array length (multiple of CHUNK)
+    nblocks: int              # number of RB-row blocks (NR rounded up)
+    nchunks: int              # Ep // CHUNK
+    lrows: np.ndarray         # (D, Ep) int32 row offset within block [0, RB)
+    cols: np.ndarray          # (D, Ep) int32 local col (for the x gather)
+    weights: Optional[np.ndarray]  # (D, Ep) or None
+    evalid: np.ndarray        # (D, Ep) bool — real edge vs block padding
+    chunk_block: np.ndarray   # (D, nchunks) int32 row block of each chunk
+
+    @property
+    def arrays(self) -> Dict[str, np.ndarray]:
+        """The arrays the one-hot superstep reads, as the JAX executor
+        uploads them (``_tile_pytree``)."""
+        out = {"oh_lrows": self.lrows, "oh_cols": self.cols,
+               "oh_evalid": self.evalid.astype(np.int8),
+               "oh_chunk_block": self.chunk_block}
+        if self.weights is not None:
+            out["oh_w"] = self.weights
+        return out
+
+
+def build_pallas_plan(rows: np.ndarray, cols: np.ndarray,
+                      weights: Optional[np.ndarray], nnz: np.ndarray,
+                      NR: int) -> PallasPlan:
+    """Regroup per-device row-sorted edge arrays into block-chunked form.
+
+    ``rows``/``cols``/``weights``: (D, Ep_in); ``nnz``: (D, 1) valid counts.
+    """
+    D = rows.shape[0]
+    nblocks = -(-NR // RB)
+    per_dev = []
+    max_len = 1
+    for b in range(D):
+        n = int(nnz[b, 0])
+        r = rows[b, :n].astype(np.int64)
+        blk = r // RB
+        # pad each block's edge run to a multiple of CHUNK
+        counts = np.bincount(blk, minlength=nblocks)
+        padded = ((counts + CHUNK - 1) // CHUNK) * CHUNK
+        # blocks with zero edges get zero chunks
+        total = int(padded.sum())
+        max_len = max(max_len, total)
+        per_dev.append((n, r, blk, counts, padded))
+
+    Ep = ((max_len + CHUNK - 1) // CHUNK) * CHUNK
+    nchunks = Ep // CHUNK
+
+    lrows = np.zeros((D, Ep), dtype=np.int32)
+    cols_out = np.zeros((D, Ep), dtype=np.int32)
+    w_out = np.zeros((D, Ep), dtype=weights.dtype) \
+        if weights is not None else None
+    evalid = np.zeros((D, Ep), dtype=bool)
+    chunk_block = np.zeros((D, nchunks), dtype=np.int32)
+
+    for b in range(D):
+        n, r, blk, counts, padded = per_dev[b]
+        starts_in = np.concatenate([[0], np.cumsum(counts)])
+        starts_out = np.concatenate([[0], np.cumsum(padded)])
+        # vectorized placement: output position of edge e
+        pos = starts_out[blk] + (np.arange(n) - starts_in[blk])
+        lrows[b, pos] = (r % RB).astype(np.int32)
+        cols_out[b, pos] = cols[b, :n]
+        if w_out is not None:
+            w_out[b, pos] = weights[b, :n]
+        evalid[b, pos] = True
+        # chunk -> block map; trailing (all-padding) chunks point at the
+        # last real block and contribute identity
+        nch = (padded // CHUNK)
+        cb = np.repeat(np.arange(nblocks), nch)
+        chunk_block[b, :cb.size] = cb
+        if cb.size < nchunks:
+            chunk_block[b, cb.size:] = cb[-1] if cb.size else 0
+
+    return PallasPlan(Ep=Ep, nblocks=nblocks, nchunks=nchunks,
+                      lrows=lrows, cols=cols_out, weights=w_out,
+                      evalid=evalid, chunk_block=chunk_block)
+
+
+def build_onehot_plan(tiles: TileSet, value_dtype=None) -> PallasPlan:
+    """The one-hot plan of one device's tiles, validated (``value_dtype``
+    is unused: the plan keeps the tiles' weight type, as the JAX
+    executor's does)."""
+    if tiles.part.D != 1:
+        raise NotImplementedError("the one-hot plan of a mesh is not "
+                                  "ported yet")
+    plan = build_pallas_plan(tiles.rows, tiles.cols, tiles.weights,
+                             tiles.nnz, tiles.NR)
+    validate_pallas_plan(plan, tiles.part.tile_cols)
+    return plan
+
+
+def validate_pallas_plan(plan: PallasPlan, ncols: int) -> None:
+    """Check every index the one-hot SpMV follows: lrows in [0, 128),
+    chunk_block below nblocks, cols in [0, ncols), and the shapes. Raises
+    ValueError."""
+    ep, nch = plan.Ep, plan.nchunks
+    if plan.lrows.shape[0] != 1:
+        raise ValueError("one-hot plan: one device (D = 1) only")
+    if ep != nch * CHUNK or plan.nblocks < 1:
+        raise ValueError(f"one-hot plan: Ep {ep}, {nch} chunks, "
+                         f"{plan.nblocks} blocks")
+    for nm, a, shape in (("lrows", plan.lrows, (1, ep)),
+                         ("cols", plan.cols, (1, ep)),
+                         ("evalid", plan.evalid, (1, ep)),
+                         ("chunk_block", plan.chunk_block, (1, nch))) + (
+            (("weights", plan.weights, (1, ep)),)
+            if plan.weights is not None else ()):
+        if a.shape != shape:
+            raise ValueError(f"one-hot plan: {nm} shape {a.shape}, "
+                             f"expected {shape}")
+    for nm, a, hi in (("lrows", plan.lrows, RB),
+                      ("chunk_block", plan.chunk_block, plan.nblocks),
+                      ("cols", plan.cols, ncols)):
+        if a.size and (int(a.min()) < 0 or int(a.max()) >= hi):
+            raise ValueError(f"one-hot plan: {nm} outside [0, {hi})")
+
+
+# --------------------------------------------------------- plain version
+def segment_reduce_plain(contrib, lrows, chunk_block, nblocks: int, NR: int,
+                         reduce_kind: str, identity):
+    """y (nblocks, 128) starts at the identity; every contribution e of
+    chunk i is ⊕-folded into y[chunk_block[i], lrows[e]]; returns
+    y.reshape(-1)[:NR]."""
+    dst = (chunk_block.long().repeat_interleave(CHUNK) * RB
+           + lrows.long())
+    y = torch.full((nblocks * RB,), identity, dtype=contrib.dtype,
+                   device=contrib.device)
+    y.scatter_reduce_(0, dst, contrib, _SCATTER_OPS[reduce_kind],
+                      include_self=True)
+    return y[:NR]
+
+
+# ---------------------------------------------------------------- wrapper
+def segment_reduce(contrib, lrows, chunk_block, nblocks: int, NR: int,
+                   reduce_kind: str, identity):
+    """K5: ⊕-fold the chunked contributions (Ep,) into the compact row
+    space (NR,). Padding must carry the ⊕-identity (``spmv_onehot`` masks
+    it); the kernel reads no validity mask, as the Pallas one reads none.
+    Float sums run in no fixed order on the card. Replaces
+    ``pallas_spmv.py::pallas_segment_reduce``."""
+    _check_values("contrib", contrib)
+    dev = contrib.device
+    _check("chunk_block", chunk_block, torch.int32, device=dev)
+    if chunk_block.dim() != 1:
+        raise ValueError("chunk_block: expected a 1-D tensor")
+    ep = chunk_block.shape[0] * CHUNK
+    _check("contrib", contrib, None, (ep,), dev)
+    _check("lrows", lrows, torch.int32, (ep,), dev)
+    if reduce_kind not in _REDUCE_OK[contrib.dtype]:
+        raise ValueError(f"segment_reduce: {reduce_kind} on {contrib.dtype}")
+    if not 0 <= NR <= nblocks * RB:
+        raise ValueError(f"NR {NR} outside [0, {nblocks * RB}]")
+    if not _on_cuda(contrib):
+        return segment_reduce_plain(contrib, lrows, chunk_block, nblocks,
+                                    NR, reduce_kind, identity)
+    lib = _cuda.library()
+    y = torch.empty((nblocks * RB,), dtype=contrib.dtype, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.gt_segment_reduce(
+            contrib.data_ptr(), lrows.data_ptr(), chunk_block.data_ptr(),
+            y.data_ptr(), chunk_block.shape[0], nblocks,
+            _DTYPES[contrib.dtype], _REDUCE_KINDS[reduce_kind],
+            float(identity), _stream(contrib))
+    LAUNCHES["segment_reduce"] += 1
+    _cuda.check(rc, "segment_reduce")
+    return y[:NR]
+
+
+def onehot_contrib(x: torch.Tensor, t: Dict[str, torch.Tensor],
+                   semiring: Semiring) -> torch.Tensor:
+    """Per-slot x[cols] ⊗ w, the padding slots the ⊕-identity."""
+    c = semiring.mul(torch.index_select(x, 0, t["oh_cols"]), t.get("oh_w"))
+    return torch.where(t["oh_evalid"] != 0, c,
+                       semiring.identity_like(c.dtype, c.device))
+
+
+def spmv_onehot(x: torch.Tensor, t: Dict[str, torch.Tensor],
+                plan: PallasPlan, semiring: Semiring,
+                NR: int) -> torch.Tensor:
+    """One-device one-hot SpMV: x (NC,) -> the compact y (NR,)."""
+    return segment_reduce(onehot_contrib(x, t, semiring), t["oh_lrows"],
+                          t["oh_chunk_block"], plan.nblocks, NR,
+                          semiring.reduce_kind, semiring.identity)

@@ -1,9 +1,11 @@
 """On-disk cache of the port's host-built plans: the panel meta
-(``Spmv3Meta``) and the v1 shuffle plans (``ShufflePlans``).
+(``Spmv3Meta``), the v1 shuffle plans (``ShufflePlans``) and the v2
+windowed-gather plans (``Spmv2Meta``). The one-hot plan builds in about a
+second and is not cached.
 
 Plans are a pure function of the edge list, the graph's ingest config,
 the ordering, the value dtype and the planner's code, and an RMAT-20 panel
-plan takes minutes to build, so they are memoized as ``.npz`` under
+or v2 plan takes minutes to build, so they are memoized as ``.npz`` under
 ``graphtap_tpu_torch/build/plan_cache/``. The key names the generator
 parameters (scale,
 edge factor, seed), every field of the ``GraphConfig`` (BFS and CC read
@@ -27,6 +29,9 @@ from typing import Optional
 import numpy as np
 
 from graphtap_tpu_torch.format.tiles import TileSet
+from graphtap_tpu_torch.kernels.gather_engine import (Spmv2Meta,
+                                                      build_spmv2_meta,
+                                                      validate_spmv2_meta)
 from graphtap_tpu_torch.kernels.panel_meta import (Spmv3Meta,
                                                    build_spmv3_meta,
                                                    validate_meta)
@@ -50,9 +55,18 @@ _PLAN_SOURCES = {
     "shuffle": (PKG / "kernels" / "shuffle_plan.py",
                 PKG / "kernels" / "shuffle_engine.py",
                 PKG / "kernels" / "shuffle_kernels.py"),
+    "spmv2": (PKG / "kernels" / "gather_plan.py",
+              PKG / "kernels" / "gather_engine.py",
+              PKG / "kernels" / "gather_kernels.py"),
 }
-_SHUFFLE_SCALARS = tuple(f.name for f in dataclasses.fields(ShufflePlans)
-                         if f.name != "arrays")
+
+
+def _scalar_names(cls):
+    return tuple(f.name for f in dataclasses.fields(cls) if f.name != "arrays")
+
+
+_SHUFFLE_SCALARS = _scalar_names(ShufflePlans)
+_SPMV2_SCALARS = _scalar_names(Spmv2Meta)   # nsub, out_rows: per-stage dicts
 
 
 def source_hash(kind: str = "spmv3") -> str:
@@ -78,13 +92,18 @@ def meta_key(scale: int, edge_factor: int, seed: int, config, ordering,
             f"{source_hash(kind)}")
 
 
+def _plain(v):
+    """A scalar (or a dict of them) as JSON takes it."""
+    if isinstance(v, dict):
+        return {k: _plain(x) for k, x in v.items()}
+    return bool(v) if isinstance(v, (bool, np.bool_)) else int(v)
+
+
 def _save(meta, scalar_names, path) -> None:
     arrays = dict(meta.arrays)
-    scalars = {k: getattr(meta, k) for k in scalar_names}
-    arrays[_META] = np.frombuffer(
-        json.dumps({k: (bool(v) if isinstance(v, (bool, np.bool_))
-                        else int(v)) for k, v in scalars.items()}).encode(),
-        dtype=np.uint8)
+    scalars = {k: _plain(getattr(meta, k)) for k in scalar_names}
+    arrays[_META] = np.frombuffer(json.dumps(scalars).encode(),
+                                  dtype=np.uint8)
     tmp = f"{path}.{os.getpid()}.tmp.npz"
     np.savez(tmp, **arrays)
     os.replace(tmp, path)
@@ -115,9 +134,18 @@ def load_shuffle_plans(path) -> ShufflePlans:
     return _load(ShufflePlans, validate_shuffle_plans, path)
 
 
+def save_spmv2_meta(meta: Spmv2Meta, path) -> None:
+    _save(meta, _SPMV2_SCALARS, path)
+
+
+def load_spmv2_meta(path) -> Spmv2Meta:
+    return _load(Spmv2Meta, validate_spmv2_meta, path)
+
+
 _KINDS = {"spmv3": (build_spmv3_meta, save_spmv3_meta, load_spmv3_meta),
           "shuffle": (build_shuffle_plans, save_shuffle_plans,
-                      load_shuffle_plans)}
+                      load_shuffle_plans),
+          "spmv2": (build_spmv2_meta, save_spmv2_meta, load_spmv2_meta)}
 
 
 def _cached(kind, tiles, scale, edge_factor, seed, config, ordering,
@@ -152,4 +180,13 @@ def cached_shuffle_plans(tiles: TileSet, scale: int, edge_factor: int,
     """The v1 shuffle plans of an RMAT graph's tiles, keyed as
     ``cached_spmv3_meta`` keys the panel meta, from disk when cached."""
     return _cached("shuffle", tiles, scale, edge_factor, seed, config,
+                   ordering, value_dtype, cache_dir)
+
+
+def cached_spmv2_meta(tiles: TileSet, scale: int, edge_factor: int,
+                      seed: int, config, ordering, value_dtype=np.float32,
+                      cache_dir: Optional[os.PathLike] = None) -> Spmv2Meta:
+    """The v2 windowed-gather plans of an RMAT graph's tiles, keyed as
+    ``cached_spmv3_meta`` keys the panel meta, from disk when cached."""
+    return _cached("spmv2", tiles, scale, edge_factor, seed, config,
                    ordering, value_dtype, cache_dir)

@@ -8,7 +8,9 @@ bit for bit; K3 bit for bit in int32 and within rtol 1e-5 (f32) / 1e-12
 K1-K3 match bit for bit in int32 min, and BFS, CC and SSSP on the card
 equal the same runs on the CPU. The shuffle kernels K6 and K7 match
 bit for bit, K8 bit for bit in int32 and within the rtol above in float
-sums (shared and global atomics, no fixed order).
+sums (shared and global atomics, no fixed order). The windowed gathers K9
+and K10 match bit for bit; the one-hot reduce K5 bit for bit in int32 and
+within the rtol above in float sums.
 """
 
 import numpy as np
@@ -20,10 +22,18 @@ from graphtap_tpu_torch.apps import (bfs_config, cc_config, run_bfs,
                                      run_cc, run_pagerank, run_sssp,
                                      sssp_config)
 from graphtap_tpu_torch.ingest import rmat_edges
+from graphtap_tpu_torch.kernels import gather_kernels as gk
+from graphtap_tpu_torch.kernels import onehot_spmv as oh
 from graphtap_tpu_torch.kernels import panel_kernels as pk
 from graphtap_tpu_torch.kernels import shuffle_kernels as sk
 from graphtap_tpu_torch.kernels import semiring as tsr
 from graphtap_tpu_torch.kernels import panel_engine as tpe
+from graphtap_tpu_torch.kernels.gather_engine import (STAGES,
+                                                      build_spmv2_meta,
+                                                      spmv2_stages,
+                                                      stage_plan,
+                                                      stage_src_rows)
+from graphtap_tpu_torch.kernels.gather_plan import build_gather_plan
 from graphtap_tpu_torch.kernels.panel_engine import spmv3_stages
 from graphtap_tpu_torch.kernels.panel_meta import (build_spmv3_meta,
                                                    fill_blocks)
@@ -281,6 +291,133 @@ def test_apps_shuffle_on_cuda_match_cpu(cuda, app):
     on_card = run(cuda)
     assert sk.LAUNCHES["grouped_reduce"] - before["grouped_reduce"] == \
         on_card.iteration + 1                     # + the flush
+    on_cpu = run("cpu")
+    assert on_card.iteration == on_cpu.iteration
+    a, b = on_card.state_vector(), on_cpu.state_vector()
+    for k in b:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def _case_graph(case, n=1 << 12):
+    """(graph, value dtype, semiring) of a parity case at RMAT-12."""
+    weighted = case.endswith("_w")
+    r, c, w = rmat_edges(12, 16, seed=3, weighted=weighted)
+    if case.startswith("i32"):
+        sem = tsr.min_plus() if weighted else tsr.min_select()
+        cfg = sssp_config(n) if weighted else bfs_config(n)
+        return Graph.from_edges(r, c, w, cfg), np.int32, sem
+    dtype = np.float32 if case == "f32_sum" else np.float64
+    return (Graph.from_edges(r, c, w, GraphConfig(num_vertices=n,
+                                                  transpose=True)),
+            dtype, tsr.plus_times())
+
+
+def _x(g, dtype, seed=1):
+    rng = np.random.default_rng(seed)
+    if dtype == np.int32:
+        x = rng.integers(0, 1000, size=g.part.tile_cols).astype(dtype)
+        x[rng.random(x.size) < 0.3] = tsr.INF_I32
+        return x
+    return rng.random(g.part.tile_cols).astype(dtype)
+
+
+def _close(got, want):
+    if got.dtype.is_floating_point:
+        torch.testing.assert_close(got, want, rtol=FOLD_RTOL[got.dtype],
+                                   atol=0)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["f32_sum", "f64_sum_w", "i32_min_w",
+                                  "i32_min"])
+def test_gather_kernels_match_plain(cuda, case):
+    """K9 at each of its six stage calls and K8 at RMAT-12 against their
+    plain versions on the card, and the whole v2 SpMV against the CPU."""
+    g, dtype, sem = _case_graph(case)
+    meta = build_spmv2_meta(g.tiled(), value_dtype=dtype)
+    t = meta_from_numpy(meta.arrays, cuda)
+    x = _x(g, dtype)
+    fill = sem.identity
+    before = {**gk.LAUNCHES, **sk.LAUNCHES}
+    st = spmv2_stages(torch.from_numpy(x).to(cuda), t, meta, sem,
+                      g.part.tile_rows)
+    after = {**gk.LAUNCHES, **sk.LAUNCHES}
+    assert after["windowed_gather"] - before["windowed_gather"] == 6
+    assert after["grouped_reduce"] - before["grouped_reduce"] == 1
+    srcs = dict(zip(STAGES, ["x2d", "exp", "p0", "p1", "p2", "y_blocks"]))
+    for k in STAGES:
+        w = t.get("w_stream") if k == "exp" else None
+        mk = mul_kind(meta, sem) if k == "exp" else "none"
+        assert torch.equal(st[k], gk.windowed_gather_plain(
+            st[srcs[k]], *stage_plan(t, k), w, fill, meta.nsub[k], mk)), k
+    _close(st["y_blocks"], sk.grouped_reduce_plain(
+        st["p3"], t["lr"], t["ev_r"], t["chunk_block"], meta.nblocks,
+        sem.reduce_kind, fill))
+    cpu = spmv2_stages(torch.from_numpy(x), meta_from_numpy(meta.arrays,
+                                                            "cpu"),
+                       meta, sem, g.part.tile_rows)["y"]
+    _close(st["y"].cpu(), cpu)
+
+
+def test_windowed_gather64_matches_plain(cuda):
+    """K10 on the mx stage of an RMAT-12 v2 plan, re-planned with 64-row
+    steps from the stage's own source index."""
+    g, dtype, sem = _case_graph("f32_sum")
+    meta = build_spmv2_meta(g.tiled(), value_dtype=dtype)
+    t = meta_from_numpy(meta.arrays, "cpu")
+    src_of = gk.gather_index(*stage_plan(t, "mx"),
+                             meta.nsub["mx"]).reshape(-1).numpy()
+    rows = gk.seg_round_rows64(meta.out_rows["mx"])
+    src_of = np.concatenate([src_of, np.full(rows * 128 - src_of.size, -1)])
+    plan = build_gather_plan(stage_src_rows(meta, "mx"), rows, src_of,
+                             block_rows=gk.BLK64)
+    src = torch.rand(stage_src_rows(meta, "mx"), 128, device=cuda)
+    args = [torch.from_numpy(a).to(cuda) for a in (
+        plan.wsel, plan.base, plan.nact, plan.cidx, plan.meta)]
+    before = gk.LAUNCHES["windowed_gather64"]
+    got = gk.windowed_gather64(src, *args, -1.0, plan.nsub)
+    assert gk.LAUNCHES["windowed_gather64"] == before + 1
+    assert torch.equal(got, gk.windowed_gather64_plain(src, *args, -1.0,
+                                                       plan.nsub))
+    valid = torch.from_numpy(src_of >= 0).to(cuda)
+    idx = torch.from_numpy(src_of).to(cuda)
+    assert torch.equal(got.view(-1)[valid], src.view(-1)[idx[valid]])
+
+
+@pytest.mark.parametrize("case", ["f32_sum", "f64_sum_w", "i32_min_w",
+                                  "i32_min"])
+def test_onehot_matches_plain(cuda, case):
+    """K5 at RMAT-12 against its plain version on the card, and the whole
+    one-hot SpMV against the CPU."""
+    g, dtype, sem = _case_graph(case)
+    ts = g.tiled()
+    plan = oh.build_onehot_plan(ts)
+    t = meta_from_numpy(plan.arrays, cuda)
+    x = torch.from_numpy(_x(g, dtype)).to(cuda)
+    c = oh.onehot_contrib(x, t, sem)
+    args = (c, t["oh_lrows"], t["oh_chunk_block"], plan.nblocks, ts.NR,
+            sem.reduce_kind, sem.identity)
+    before = oh.LAUNCHES["segment_reduce"]
+    got = oh.segment_reduce(*args)
+    assert oh.LAUNCHES["segment_reduce"] == before + 1
+    _close(got, oh.segment_reduce_plain(*args))
+    cpu = oh.spmv_onehot(x.cpu(), meta_from_numpy(plan.arrays, "cpu"), plan,
+                         sem, ts.NR)
+    _close(oh.spmv_onehot(x, t, plan, sem, ts.NR).cpu(), cpu)
+
+
+@pytest.mark.parametrize("kernel", ["shuffle2", "onehot"])
+@pytest.mark.parametrize("app", ["bfs", "sssp"])
+def test_apps_new_kernels_on_cuda_match_cpu(cuda, app, kernel):
+    n = 1 << 12
+    weighted = app == "sssp"
+    r, c, w = rmat_edges(12, 16, seed=1, weighted=weighted)
+    g = Graph.from_edges(r, c, w, (sssp_config if weighted
+                                   else bfs_config)(n))
+    run = {"bfs": lambda d: run_bfs(g, 0, kernel=kernel, device=d),
+           "sssp": lambda d: run_sssp(g, 0, kernel=kernel, device=d)}[app]
+    on_card = run(cuda)
     on_cpu = run("cpu")
     assert on_card.iteration == on_cpu.iteration
     a, b = on_card.state_vector(), on_cpu.state_vector()

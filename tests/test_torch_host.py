@@ -213,8 +213,8 @@ def test_copied_package_runs_alone(tmp_path):
     """The port copied alone (no graphtap_tpu/ beside it), with jax made
     unimportable and an audit hook that fails any open of a path under
     the repository's graphtap_tpu/: it imports, builds its own native
-    library, plans a panel meta and a shuffle plan, and runs the scan
-    SpMV."""
+    library, plans a panel meta, a shuffle plan, a v2 meta and a one-hot
+    plan, and runs the scan SpMV."""
     import shutil
     shutil.copytree(os.path.join(REPO, "graphtap_tpu_torch"),
                     tmp_path / "graphtap_tpu_torch",
@@ -249,6 +249,14 @@ def test_copied_package_runs_alone(tmp_path):
         "assert m.exp_panels > 0\n"
         "s = build_shuffle_plans(ts, np.float32)\n"
         "assert s.arrays['frag_idx'].dtype == np.int8\n"
+        "from graphtap_tpu_torch.kernels.gather_engine import "
+        "build_spmv2_meta\n"
+        "from graphtap_tpu_torch.kernels.onehot_spmv import "
+        "build_onehot_plan\n"
+        "v2 = build_spmv2_meta(ts, np.float32)\n"
+        "assert v2.arrays['exp_meta'].dtype == np.uint8\n"
+        "oh = build_onehot_plan(ts)\n"
+        "assert int(oh.evalid.sum()) == int(ts.nnz[0, 0])\n"
         "import shutil\n"
         "has_cxx = shutil.which(os.environ.get('CXX', 'g++')) is not None\n"
         "assert native.available() == has_cxx\n"

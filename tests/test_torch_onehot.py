@@ -1,0 +1,323 @@
+"""The port's one-hot path on the CPU: its one-hot plan byte-identical to
+the JAX package's; the plain K5 against the Pallas kernel in interpret
+mode; the one-hot SpMV against the JAX executor's; and PageRank, BFS, CC
+and SSSP through ``Executor(kernel="onehot")`` against ``tests/golden.py``
+and the JAX onehot executor. Inputs come from numpy seeds and
+``rmat_edges(10, 16, seed=1)``.
+
+Tolerances: K5 matches bit for bit in int32 min and max; in float sums
+within rtol 1e-5 (f32) elementwise, 1e-12 (f64), since only the order of
+the additions differs (the Pallas kernel sums each 2048-slot chunk, then
+adds the chunks in grid order)."""
+
+import dataclasses
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+
+from graphtap_tpu.apps import sssp as jsssp
+from graphtap_tpu.apps.pagerank import run_pagerank as j_run_pagerank
+from graphtap_tpu.config import GraphConfig as JGraphConfig
+from graphtap_tpu.config import Ordering as JOrdering
+from graphtap_tpu.ingest.graph import Graph as JGraph
+from graphtap_tpu.kernels import pallas_spmv as jps
+from graphtap_tpu.kernels import semiring as jsr
+from graphtap_tpu.kernels.spmv import expand_compact as j_expand_compact
+from graphtap_tpu.parallel.layout import make_mesh
+
+from graphtap_tpu_torch import Graph, GraphConfig
+from graphtap_tpu_torch.apps import (PageRankProgram, bfs_config, cc_config,
+                                     run_bfs, run_cc, run_pagerank, run_sssp,
+                                     sssp_config)
+from graphtap_tpu_torch.engine.executor import Executor
+from graphtap_tpu_torch.ingest import rmat_edges
+from graphtap_tpu_torch.kernels import onehot_spmv as oh
+from graphtap_tpu_torch.kernels import semiring as tsr
+from graphtap_tpu_torch.kernels.spmv import expand_compact
+from graphtap_tpu_torch.tools.convert import meta_from_numpy
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import golden  # noqa: E402
+
+INF = tsr.INF_I32
+NEG_INF = -INF - 1
+N = 1024
+ITERS = 20
+JAX_ITERS = 3
+SUM_RTOL = {np.float32: 1e-5, np.float64: 1e-12}
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _jmesh():
+    return make_mesh(jax.devices()[:1], shape=(1, 1))
+
+
+def _semirings(name):
+    """(port, JAX) semirings by name; 'max' is a max-select pair."""
+    if name != "max":
+        return getattr(tsr, name)(), getattr(jsr, name)()
+    return (tsr.Semiring(name="max_select", add=torch.maximum,
+                         mul=lambda x, w: x, identity=NEG_INF,
+                         reduce_kind="max"),
+            jsr.Semiring(name="max_select", add=jnp.maximum,
+                         mul=lambda x, w: x, identity=NEG_INF,
+                         reduce_kind="max"))
+
+
+def _graphs(weighted):
+    r, c, w = rmat_edges(10, 16, seed=1, weighted=weighted)
+    if weighted:
+        cfg, jcfg = sssp_config(N), jsssp.sssp_config(N)
+    else:
+        cfg = GraphConfig(num_vertices=N, transpose=True)
+        jcfg = JGraphConfig(num_vertices=N, transpose=True)
+    return (Graph.from_edges(r, c, w, cfg),
+            JGraph.from_edges(r, c, w, jcfg, mesh=_jmesh()))
+
+
+# --------------------------------------------------------- (a) the plan
+@pytest.mark.parametrize("weighted", [False, True])
+def test_pallas_plan_matches_jax(weighted):
+    g, jg = _graphs(weighted)
+    ts, jts = g.tiled(), jg.tiled(JOrdering.ROW)
+    plan = oh.build_onehot_plan(ts)
+    jplan = jps.build_pallas_plan(jts.rows, jts.cols, jts.weights, jts.nnz,
+                                  jts.NR)
+    for k in ("Ep", "nblocks", "nchunks"):
+        assert getattr(plan, k) == getattr(jplan, k), k
+    for k in ("lrows", "cols", "weights", "evalid", "chunk_block"):
+        a, b = getattr(plan, k), getattr(jplan, k)
+        if b is None:
+            assert a is None, k
+            continue
+        assert a.dtype == b.dtype and a.shape == b.shape, k
+        assert a.tobytes() == b.tobytes(), k
+    assert ("oh_w" in plan.arrays) == weighted
+    assert plan.arrays["oh_evalid"].dtype == np.int8
+
+
+# --------------------------------------------- (b) K5 against Pallas
+@pytest.mark.parametrize("kind", ["sum", "min", "max"])
+def test_plain_segment_reduce_matches_pallas(kind):
+    rng = np.random.default_rng({"sum": 1, "min": 2, "max": 3}[kind])
+    NR, E = 1000, 30000
+    rows = np.sort(rng.integers(0, NR, E)).astype(np.int32)
+    plan = oh.build_pallas_plan(rows[None], np.zeros((1, E), np.int32), None,
+                                np.array([[E]], np.int32), NR)
+    sem, jsem = _semirings({"sum": "plus_times", "min": "min_select",
+                            "max": "max"}[kind])
+    dtype = np.float32 if kind == "sum" else np.int32
+    contrib = np.full(plan.Ep, sem.identity, dtype=dtype)
+    ev = plan.evalid[0]
+    contrib[ev] = (rng.random(E) if kind == "sum"
+                   else rng.integers(-1000, 1000, E)).astype(dtype)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jps.pallas_segment_reduce(
+            jnp.asarray(contrib), jnp.asarray(plan.lrows[0]),
+            jnp.asarray(plan.chunk_block[0]), plan.nblocks, NR, jsem))
+    got = oh.segment_reduce(_t(contrib), _t(plan.lrows[0]),
+                            _t(plan.chunk_block[0]), plan.nblocks, NR, kind,
+                            sem.identity).numpy()
+    assert got.dtype == want.dtype and got.shape == (NR,)
+    if kind == "sum":
+        np.testing.assert_allclose(got, want, rtol=SUM_RTOL[np.float32],
+                                   atol=0)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+# ------------------------------------- (c) the one-hot SpMV against JAX
+@pytest.mark.parametrize("case", ["sum_f64", "sum_f64_weighted",
+                                  "min_int32_weighted", "max_int32"])
+def test_spmv_onehot_matches_jax(case):
+    """The port's one-hot SpMV (gather, ⊗, mask, K5, expand) against the
+    JAX onehot executor's combine (executor.py:203-221) on the same plan
+    arrays."""
+    weighted = "weighted" in case
+    g, jg = _graphs(weighted and case.startswith("min"))
+    if case == "sum_f64_weighted":        # PR config with float weights
+        r, c, _ = rmat_edges(10, 16, seed=1)
+        w = np.random.default_rng(9).random(r.size)
+        cfg = GraphConfig(num_vertices=N, transpose=True)
+        g = Graph.from_edges(r, c, w, cfg)
+        jg = JGraph.from_edges(r, c, w, JGraphConfig(num_vertices=N,
+                                                     transpose=True),
+                               mesh=_jmesh())
+    ts, jts = g.tiled(), jg.tiled(JOrdering.ROW)
+    sem, jsem = _semirings({"sum_f64": "plus_times",
+                            "sum_f64_weighted": "plus_times",
+                            "min_int32_weighted": "min_plus",
+                            "max_int32": "max"}[case])
+    rng = np.random.default_rng(7)
+    nc = g.part.tile_cols
+    if case.startswith("sum"):
+        x = rng.random(nc)
+    else:
+        x = rng.integers(-1000 if case == "max_int32" else 0, 1000,
+                         nc).astype(np.int32)
+        x[rng.random(nc) < 0.3] = sem.identity
+    plan = oh.build_onehot_plan(ts)
+    t = meta_from_numpy(plan.arrays, "cpu")
+    y = oh.spmv_onehot(_t(x), t, plan, sem, ts.NR)
+    got = expand_compact(y, _t(ts.iv_dense[0]), sem).numpy()
+    jplan = jps.build_pallas_plan(jts.rows, jts.cols, jts.weights, jts.nnz,
+                                  jts.NR)
+    xv = jnp.take(jnp.asarray(x), jnp.asarray(jplan.cols[0]), axis=0)
+    wv = jnp.asarray(jplan.weights[0]) if jplan.weights is not None \
+        else None
+    contrib = jsem.mul(xv, wv)
+    contrib = jnp.where(jnp.asarray(jplan.evalid[0]), contrib,
+                        jsem.identity_like(contrib.dtype))
+    yc = jps.pallas_segment_reduce(
+        contrib, jnp.asarray(jplan.lrows[0]),
+        jnp.asarray(jplan.chunk_block[0]), jplan.nblocks, jts.NR, jsem,
+        interpret=True)
+    want = np.asarray(j_expand_compact(yc, jnp.asarray(jts.iv_dense[0]),
+                                       jsem))
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if case.startswith("sum"):
+        np.testing.assert_allclose(got, want, rtol=SUM_RTOL[np.float64],
+                                   atol=0)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+# ------------------------------------------ (d) the apps through onehot
+@pytest.fixture(scope="module")
+def pr_graph():
+    r, c, _ = rmat_edges(10, 16, seed=1)
+    return r, c, Graph.from_edges(r, c, None, GraphConfig(num_vertices=N,
+                                                          transpose=True))
+
+
+def test_pagerank_onehot_matches_golden_and_jax(pr_graph):
+    r, c, g = pr_graph
+    ex = run_pagerank(g, ITERS, torch.float64, kernel="onehot",
+                      degree_kernel="onehot", device="cpu")
+    assert isinstance(ex.meta, oh.PallasPlan) and ex.device_bytes > 0
+    assert ex.degree_phase.kernel == "onehot"
+    np.testing.assert_array_equal(ex.degree_phase.state_vector()["degree"],
+                                  golden.degree(r, c, N + 1).astype(
+                                      np.float64))
+    np.testing.assert_allclose(ex.state_vector()["rank"],
+                               golden.pagerank(r, c, N + 1, ITERS),
+                               rtol=1e-10, atol=0)
+    jg = JGraph.from_edges(r, c, None, JGraphConfig(num_vertices=N,
+                                                    transpose=True),
+                           mesh=_jmesh())
+    jex = j_run_pagerank(jg, JAX_ITERS, jnp.float64, kernel="onehot")
+    mine = run_pagerank(g, JAX_ITERS, torch.float64, kernel="onehot",
+                        degree_kernel="onehot", device="cpu")
+    np.testing.assert_allclose(mine.state_vector()["rank"],
+                               np.asarray(jex.state_vector()["rank"]),
+                               rtol=1e-10, atol=0)
+
+
+@pytest.mark.parametrize("app", ["bfs", "cc", "sssp"])
+def test_apps_onehot_match_golden(app):
+    if app == "sssp":
+        r, c, w = rmat_edges(10, 16, seed=1, weighted=True)
+        ex = run_sssp(Graph.from_edges(r, c, w, sssp_config(N)), 0,
+                      kernel="onehot", device="cpu")
+        want = {"distance": golden.sssp(r, c, w.astype(np.int64), N + 1, 0)}
+    else:
+        r, c, _ = rmat_edges(10, 16, seed=1)
+        if app == "bfs":
+            ex = run_bfs(Graph.from_edges(r, c, None, bfs_config(N)), 0,
+                         kernel="onehot", device="cpu")
+            parent, hops = golden.bfs(r, c, N + 1, 0)
+            want = {"parent": parent, "hops": hops}
+        else:
+            ex = run_cc(Graph.from_edges(r, c, None, cc_config(N)),
+                        kernel="onehot", device="cpu")
+            want = {"label": golden.cc(r, c, N + 1)}
+    sv = ex.state_vector()
+    for k, v in want.items():
+        np.testing.assert_array_equal(sv[k], v, err_msg=k)
+    assert ex.iteration == len(ex.supersteps) > 1
+    assert all(s["gated"] is None for s in ex.supersteps)
+    if app == "bfs":
+        assert ex.checksum() == (1304.0, 886)
+
+
+# ------------------------------------------------ (e) input checks
+@pytest.fixture(scope="module")
+def small():
+    r, c, _ = rmat_edges(8, 16, seed=1)
+    g = Graph.from_edges(r, c, None, GraphConfig(num_vertices=256,
+                                                 transpose=True))
+    plan = oh.build_onehot_plan(g.tiled())
+    t = meta_from_numpy(plan.arrays, "cpu")
+    contrib = oh.onehot_contrib(torch.rand(g.part.tile_cols), t,
+                                tsr.plus_times())
+    return g, plan, t, contrib
+
+
+def test_segment_reduce_rejects_bad_inputs(small):
+    g, plan, t, c = small
+    lr, cb = t["oh_lrows"], t["oh_chunk_block"]
+    nr = g.tiled().NR
+    with pytest.raises(ValueError, match="contrib"):
+        oh.segment_reduce(c[:-1], lr, cb, plan.nblocks, nr, "sum", 0.0)
+    with pytest.raises(TypeError, match="dtype"):
+        oh.segment_reduce(c.half(), lr, cb, plan.nblocks, nr, "sum", 0.0)
+    with pytest.raises(TypeError, match="lrows"):
+        oh.segment_reduce(c, lr.long(), cb, plan.nblocks, nr, "sum", 0.0)
+    with pytest.raises(TypeError, match="chunk_block"):
+        oh.segment_reduce(c, lr, cb.long(), plan.nblocks, nr, "sum", 0.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        oh.segment_reduce(torch.stack([c, c], 1)[:, 0], lr, cb,
+                          plan.nblocks, nr, "sum", 0.0)
+    with pytest.raises(ValueError, match="segment_reduce"):
+        oh.segment_reduce(c, lr, cb, plan.nblocks, nr, "min", 0.0)
+    with pytest.raises(ValueError, match="NR"):
+        oh.segment_reduce(c, lr, cb, plan.nblocks, plan.nblocks * 128 + 1,
+                          "sum", 0.0)
+    # no launch was counted: the CPU runs the plain version
+    before = dict(oh.LAUNCHES)
+    oh.segment_reduce(c, lr, cb, plan.nblocks, nr, "sum", 0.0)
+    assert oh.LAUNCHES == before
+
+
+def _bad(plan, key, edit):
+    a = getattr(plan, key).copy()
+    edit(a[0])
+    return dataclasses.replace(plan, **{key: a})
+
+
+@pytest.mark.parametrize("key,edit,match", [
+    ("lrows", lambda a: a.__setitem__(0, 128), "lrows"),
+    ("lrows", lambda a: a.__setitem__(-1, -1), "lrows"),
+    ("chunk_block", lambda a: a.__setitem__(0, 10 ** 6), "chunk_block"),
+    ("cols", lambda a: a.__setitem__(3, 10 ** 6), "cols"),
+])
+def test_validate_rejects_out_of_range(small, key, edit, match):
+    g, plan, _, _ = small
+    nc = g.part.tile_cols
+    oh.validate_pallas_plan(plan, nc)
+    with pytest.raises(ValueError, match=match):
+        oh.validate_pallas_plan(_bad(plan, key, edit), nc)
+
+
+def test_executor_onehot_plans_type_and_reuse(small):
+    g, plan, _, _ = small
+    with pytest.raises(TypeError, match="PallasPlan"):
+        Executor(g, PageRankProgram(torch.float32), kernel="onehot",
+                 plans=object(), device="cpu")
+    ex = Executor(g, PageRankProgram(torch.float32), kernel="onehot",
+                  plans=plan, device="cpu")
+    assert ex.meta is plan and "iv_dense" in ex._dev
+    bad = _bad(plan, "lrows", lambda a: a.__setitem__(0, 200))
+    with pytest.raises(ValueError, match="lrows"):
+        Executor(g, PageRankProgram(torch.float32), kernel="onehot",
+                 plans=bad, device="cpu")

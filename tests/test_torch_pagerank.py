@@ -108,8 +108,8 @@ def test_executor_lifecycle_errors(rmat10, port_f64):
     ex.free()
     with pytest.raises(RuntimeError, match="free"):
         ex.execute(1)
-    with pytest.raises(NotImplementedError):
-        Executor(g, PageRankProgram(torch.float64), kernel="shuffle2",
+    with pytest.raises(ValueError, match="unknown kernel"):
+        Executor(g, PageRankProgram(torch.float64), kernel="shuffle9",
                  device="cpu")
     csc = Graph.from_edges(rmat10[0], rmat10[1], None, GraphConfig(
         num_vertices=N, transpose=True, compression=Compression.CSC))

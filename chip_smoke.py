@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the torch port's PageRank, shuffle, shuffle2, one-hot and frontier
-paths on one NVIDIA GPU.
+"""Drive the torch port's PageRank (TCSC and TCSC_CF), staged-panel,
+shuffle, shuffle2, one-hot and frontier paths, and its PageRank mains, on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,9 +9,9 @@ Phases, each printed as it runs; any failure exits non-zero:
 
   1. device   the card's name and power limit (nvidia-smi), torch, CUDA
               and nvcc versions; fails without CUDA.
-  2. build    nvcc builds the panel-route (K1-K4), shuffle (K6-K8),
-              windowed-gather (K9, K10) and one-hot (K5) kernels from
-              csrc/, one nvcc per source, in parallel.
+  2. build    nvcc builds the panel-route (K1-K4, K11-K13), shuffle
+              (K6-K8), windowed-gather (K9, K10) and one-hot (K5) kernels
+              from csrc/, one nvcc per source, in parallel.
   3. parity   each panel kernel against its plain torch version on the
               card, on RMAT-14 plans in f32 sum, f64 sum (weighted) and
               int32 min (weighted). K1, K2, K4 bit for bit; K3 bit for bit
@@ -49,6 +50,16 @@ Phases, each printed as it runs; any failure exits non-zero:
               precomputed from the plan for K1, K2 (unweighted), K6, K7;
               torch.scatter_reduce for K8, and for K3 when no source slot
               of its route feeds two (row, lane) slots (checked here).
+  5b. staged  the staged SpMV (kernels/panel_engine.py::spmv3_staged) on
+              the main path's own RMAT-20 panel meta and PageRank x, with
+              K12 on its stack1: K2 single-layer, K11, K2 x2, K13, K4, K3;
+              every one launched; K11's s0 equal to K1's bit for bit; the
+              staged y_mid and y within K3's tolerance of the fused ones
+              (max |diff| <= 1e-5 x max |fused|, f32); K12's rows scattered
+              by chunk_dst with ⊕ equal to K13's y_mid at that tolerance.
+              Then the kernel rows of K2 single-layer, K11, K12 and K13,
+              with torch.take (K2, K11), view(-1, 8, 128).sum(1) (K12) and
+              one scatter_reduce (K13) as their library calls.
   4b. paths   RMAT-20 PageRank, 20 iterations in f32, on shuffle2 (its
               executor built here and handed the main phase's shuffle
               degrees, as bench.py composes BENCH_KERNEL=shuffle2) and on
@@ -73,17 +84,33 @@ Phases, each printed as it runs; any failure exits non-zero:
               convergence, on the panel and then the shuffle, shuffle2 and
               onehot kernels (SSSP on shuffle2 takes K9's add_sat);
               labels and distances equal the golden models, iteration
-              counts equal across the kernels.
+              counts equal across the kernels. On the SSSP panel meta the
+              staged SpMV (int32 min, add_sat) equals the fused one bit
+              for bit, and K12's rows scattered by chunk_dst equal K13's.
+  8. cf       RMAT-20 PageRank in pr.cpp's config (transposed, TCSC_CF,
+              f32, 20 iterations): the degree phase on shuffle, then the
+              first/middle/last phases on onehot and on panel (the panel
+              phase plans built in worker processes), each checksum within
+              1e-4 relative of the f64 golden, per-phase superstep ms;
+              then convergence runs (execute(0)) on onehot: f32 capped at
+              CONVERGE_CAP iterations and logged (its vote need not
+              settle), f64 against the TCSC one, which must settle under
+              the cap with ranks within 2e-5.
+  9. cli      an RMAT-14 binary edge file (io.write_binary), then
+              `python3 -m graphtap_tpu_torch.apps.pr <file> 16384 20` and
+              the same with pr1, as subprocesses on the card: the five
+              oracle lines, the checksum within 1e-4 of the golden.
 
-Two worker processes, started after the build and stopped at exit, plan
-the RMAT-20 v2 (ROW) and degree shuffle (COL) plans into
-graphtap_tpu_torch/build/smoke_plans/ while the card runs phases 3 to 5;
-phases 5 and 4b read them back.
+Five worker processes, started after the build and stopped at exit, plan
+the RMAT-20 v2 (ROW), degree shuffle (COL) and the three TCSC_CF panel
+phase plans into graphtap_tpu_torch/build/smoke_plans/ while the card
+runs phases 3 to 5; phases 5, 4b and 8 read them back.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches (from the PageRank paths for K1-K9, from
-the BFS path for the gated rows; K10 has none), errors, times, bounds and
-library times.
+the staged path for K11-K13 and K2's single-layer form, from the BFS path
+for the gated rows; K10 has none), errors, times, bounds and library
+times.
 """
 
 from __future__ import annotations
@@ -106,6 +133,8 @@ PARITY_SCALE = 14
 # (RouteInfeasible), so BFS runs at RMAT-18, the scale of BENCH_SUITE.json
 FRONTIER_SCALE = 18
 SUITE_SCALE = 18             # CC and SSSP, their BENCH_SUITE.json scale
+CLI_SCALE = 14               # the pr / pr1 mains' edge file
+CONVERGE_CAP = 2000          # iterations a smoke convergence run may take
 GATED = ("route_xr_exp_gated", "route_passa_gated", "route_fold_gated")
 OTHER_PATHS = ("shuffle", "shuffle2", "onehot")   # apps beside panel
 SHUFFLE = ("expand_stream", "group_stream", "grouped_reduce")
@@ -113,7 +142,14 @@ SHUFFLE = ("expand_stream", "group_stream", "grouped_reduce")
 PATH_LAUNCHES = {"shuffle": {"expand_stream": 3, "group_stream": 1,
                              "grouped_reduce": 1},
                  "shuffle2": {"windowed_gather": 6, "grouped_reduce": 1},
-                 "onehot": {"segment_reduce": 1}}
+                 "onehot": {"segment_reduce": 1},
+                 "panel": {"route_xr_exp": 1, "route_passa": 1,
+                           "route_fold": 2, "hub_fold": 1}}
+# one staged SpMV and K12 on its stack1
+STAGED_LAUNCHES = {"route_passa_single": 1, "route_expand": 1,
+                   "route_passa": 2, "colsum_chunks": 1, "hub_fold": 1,
+                   "route_fold": 1, "fold_stripes": 1}
+CF_PHASES = ("first", "middle", "last")
 DEVICE = "cuda"
 GOLDEN_RTOL = 1e-4
 FOLD_RTOL = {"float32": 1e-5, "float64": 1e-12}
@@ -128,8 +164,10 @@ PEAK_BYTES = 3.35e12
 PEAK_OPS = {"float32": 67e12, "int32": 67e12, "float64": 34e12}
 DUMP = 4096                  # K8 library call: scratch slots for holes
 # RMAT-20 plans built ahead, in worker processes, while the card runs the
-# earlier phases: (plan kind, ordering) of the PageRank graph
-PREBUILD = (("spmv2", "ROW"), ("shuffle", "COL"))
+# earlier phases: (plan kind, ordering, tile phase) of the PageRank graph
+# (the TCSC_CF phases: of the graph in pr.cpp's TCSC_CF config)
+PREBUILD = (("spmv2", "ROW", "main"), ("shuffle", "COL", "main"),
+            *(("spmv3", "ROW", ph) for ph in CF_PHASES))
 PLAN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "graphtap_tpu_torch", "build", "smoke_plans")
 _PREBUILT = {}               # PREBUILD entry -> AsyncResult of _prebuild
@@ -147,6 +185,10 @@ REPLACES = {
     "windowed_gather": "graphtap_tpu/kernels/gather_kernels.py:102",
     "windowed_gather64": "graphtap_tpu/kernels/gather_kernels.py:166",
     "segment_reduce": "graphtap_tpu/kernels/pallas_spmv.py:165",
+    "route_passa_single": "graphtap_tpu/kernels/panel_kernels.py:435",
+    "route_expand": "graphtap_tpu/kernels/panel_kernels.py:407",
+    "fold_stripes": "graphtap_tpu/kernels/panel_kernels.py:543",
+    "colsum_chunks": "graphtap_tpu/kernels/panel_kernels.py:577",
 }
 
 
@@ -283,15 +325,15 @@ def _take_call(torch, src, idx, fill):
 
 
 def _fold_library(torch, src, bases, plan, dst, seg, nrows, kind, fill,
-                  npanels, nwin):
+                  npanels, nwin, plan_idx=None):
     """(one torch.scatter_reduce computing K3 on these inputs, or None;
     the most (row, lane) slots one source slot feeds). K3 routes the
     source, then ⊕-folds each 8-row band into y row dst; one scatter over
     a destination per source slot computes it only if no source slot is
-    routed twice."""
+    routed twice. ``plan_idx``: the gated launch's plan map."""
     from graphtap_tpu_torch.kernels import panel_kernels as pk
     routed = pk.route_passa_plain(_slot_ids(torch, src), bases, plan, -1,
-                                  npanels, nwin)
+                                  npanels, nwin, plan_idx)
     live = routed >= 0
     mult = int(torch.bincount(routed[live].long()).max()) if bool(
         live.any()) else 0
@@ -470,6 +512,34 @@ def _gated_calls(t, meta, sem, st, maps):
              lambda: pk.route_fold(*fx, plan_idx=fx_q,
                                    fill_block=fb["fixr_plan"]),
              lambda: pk.route_fold_plain(*fx, plan_idx=fx_q), work[2])]
+
+
+def _gated_libraries(torch, t, meta, sem, st, maps):
+    """The library call of each of _gated_calls' calls, in its order:
+    torch.take over the index precomputed from the gated maps for K1
+    (unweighted) and K2, one torch.scatter_reduce for K3 where no source
+    slot is routed twice (_fold_library), else None."""
+    from graphtap_tpu_torch.kernels import panel_kernels as pk
+    fill, kind = sem.identity, sem.reduce_kind
+    xe_b, xe_q, pa_b, pa_q, fx_b, fx_q = maps
+    k1 = None
+    if not meta.has_w:
+        idx = pk.route_xr_exp_plain(
+            _slot_ids(torch, st["x2d"]), xe_b, t["xe_plan"], None, -1,
+            meta.exp_panels + 1, meta.xr_nwin, plan_idx=xe_q)
+        k1 = _take_call(torch, st["x2d"], idx, fill)
+    idx = pk.route_passa_plain(_slot_ids(torch, st["s0"]), pa_b,
+                               t["pa_plan"], -1, meta.pa_panels + 1,
+                               meta.pa_nwin, plan_idx=pa_q)
+    k2 = _take_call(torch, st["s0"], idx, fill)
+    k3, mult = _fold_library(torch, st["s1"], fx_b, t["fixr_plan"],
+                             t["fix_dst"], t["fixr_seg"], meta.nrb, kind,
+                             fill, meta.fix_panels, meta.fixr_nwin,
+                             plan_idx=fx_q)
+    log(f"kernels: gated route_fold's source slots each feed at most {mult}"
+        f" (row, lane) slots: library call "
+        f"{'torch.scatter_reduce' if k3 else 'none'}")
+    return [k1, k2, k3]
 
 
 def phase_gated_parity(torch, np) -> None:
@@ -895,46 +965,51 @@ def phase_gather_parity(torch, np) -> None:
                                  f"plain one ({tag})")
 
 
-def _pagerank_graph(scale):
-    """(r, c, graph) of the RMAT PageRank graph."""
-    from graphtap_tpu_torch import GraphConfig, Graph
+def _pagerank_graph(scale, cf=False):
+    """(r, c, graph) of the RMAT PageRank graph: transposed, TCSC, or
+    TCSC_CF (pr.cpp's config) for ``cf``."""
+    from graphtap_tpu_torch import Compression, GraphConfig, Graph
     from graphtap_tpu_torch.ingest import rmat_edges
     r, c, _ = rmat_edges(scale, EDGE_FACTOR, seed=SEED)
+    comp = Compression.TCSC_CF if cf else Compression.TCSC
     return r, c, Graph.from_edges(r, c, None, GraphConfig(
-        num_vertices=1 << scale, transpose=True))
+        num_vertices=1 << scale, transpose=True, compression=comp))
 
 
-def _prebuild(kind, ordering, scale, plan_dir):
+def _prebuild(kind, ordering, phase, scale, plan_dir):
     """Worker process: build the PageRank graph's ``kind`` plans in
-    ``ordering`` (f32) into ``plan_dir``; returns the seconds it took
+    ``ordering`` (f32) into ``plan_dir``, of its main tiles or (in the
+    TCSC_CF config) of the TCSC_CF ``phase``; returns the seconds it took
     (tiles included)."""
     import numpy as np
     from graphtap_tpu_torch import Ordering
     from graphtap_tpu_torch.tools import artifact_cache as ac
-    g = _pagerank_graph(scale)[2]
+    g = _pagerank_graph(scale, cf=phase != "main")[2]
     t0 = time.perf_counter()
-    build = {"spmv2": ac.cached_spmv2_meta,
+    build = {"spmv2": ac.cached_spmv2_meta, "spmv3": ac.cached_spmv3_meta,
              "shuffle": ac.cached_shuffle_plans}[kind]
-    build(g.tiled(Ordering[ordering]), scale, EDGE_FACTOR, SEED, g.config,
-          Ordering[ordering], np.float32, cache_dir=plan_dir)
+    o = Ordering[ordering]
+    tiles = g.tiled(o) if phase == "main" else g.tiled_cf(o)[phase]
+    build(tiles, scale, EDGE_FACTOR, SEED, g.config, o, np.float32,
+          cache_dir=plan_dir, phase=phase)
     return time.perf_counter() - t0
 
 
-def _prebuilt(kind, ordering, config):
+def _prebuilt(kind, ordering, config, phase="main"):
     """The plans _prebuild made (waiting for its worker), read back from
     PLAN_DIR."""
     import numpy as np
     from graphtap_tpu_torch import Ordering
     from graphtap_tpu_torch.tools import artifact_cache as ac
-    secs = _PREBUILT[kind, ordering].get(timeout=1200)
+    secs = _PREBUILT[kind, ordering, phase].get(timeout=1200)
     key = ac.meta_key(SCALE, EDGE_FACTOR, SEED, config, Ordering[ordering],
-                      np.float32, False, kind)
+                      np.float32, False, kind, phase)
     t0 = time.perf_counter()
-    load = {"spmv2": ac.load_spmv2_meta,
+    load = {"spmv2": ac.load_spmv2_meta, "spmv3": ac.load_spmv3_meta,
             "shuffle": ac.load_shuffle_plans}[kind]
     meta = load(os.path.join(PLAN_DIR, key + ".npz"))
-    log(f"plans: RMAT-{SCALE} {kind} ({ordering}) built in a worker "
-        f"process in {secs:.1f} s (tiles included), read back in "
+    log(f"plans: RMAT-{SCALE} {kind} ({ordering}, {phase}) built in a "
+        f"worker process in {secs:.1f} s (tiles included), read back in "
         f"{time.perf_counter() - t0:.1f} s")
     return meta
 
@@ -1018,7 +1093,7 @@ def phase_main(torch, np):
         f"{nnz * ITERS / warm / 1e9:.4f} GTEPS warm "
         f"({nnz * ITERS / first / 1e9:.4f} first), nnz {nnz}")
     ref = {"degree": want, "checksum": gsum,
-           "gteps": nnz * ITERS / warm / 1e9}
+           "gteps": nnz * ITERS / warm / 1e9, "edges": (r, c)}
     return g, ex, launches, ref
 
 
@@ -1049,6 +1124,163 @@ def phase_kernels(torch, ex, launches):
                                  f"another function")
         _time_row(torch, rows, name, kern, plain, err, launches[name],
                   _bound(*work, x.dtype), lib)
+    return list(rows.values())
+
+
+def _scaled_ok(a, b, kind, rtol) -> bool:
+    """Float sums held as phase 5 holds K3 at RMAT-20 (max |diff| <= rtol x
+    max |b|: hub rows sum ~1e5 terms in no fixed order); the rest bit for
+    bit."""
+    if kind != "sum" or not b.dtype.is_floating_point:
+        return _same(a, b)
+    return bool((a.double() - b.double()).abs().max()
+                <= rtol * b.double().abs().max())
+
+
+def _staged_checks(torch, tag, st, fused, folded, t, sem) -> None:
+    """K11's s0 equals K1's bit for bit; the staged y_mid and y equal the
+    fused ones (int32 bit for bit, f32 within K3's tolerance); K12's rows
+    scattered by chunk_dst with ⊕ equal K13's y_mid."""
+    kind, fill = sem.reduce_kind, sem.identity
+    rtol = FOLD_RTOL["float32"]
+    rows = t["chunk_dst"].long()[:, None].expand(-1, folded.shape[1])
+    op = {"sum": "sum", "min": "amin", "max": "amax"}[kind]
+    scattered = torch.full(st["y_mid"].shape, fill, dtype=folded.dtype,
+                           device=folded.device).scatter_reduce_(
+        0, rows, folded, op)
+    pairs = {"s0 (K11) vs K1's": (st["s0"], fused["s0"]),
+             "y_mid vs fused": (st["y_mid"], fused["y_mid"]),
+             "y vs fused": (st["y"], fused["y"]),
+             "K12 scattered vs K13": (scattered, st["y_mid"])}
+    for what, (x, y) in pairs.items():
+        ok = (_same(x, y) if what.startswith("s0")
+              else _scaled_ok(x, y, kind, rtol))
+        diff = float((x.double() - y.double()).abs().max())
+        log(f"{tag}: {what} {'ok' if ok else 'MISMATCH'} (max |diff| "
+            f"{diff!r})")
+        if not ok:
+            raise AssertionError(f"{tag}: {what} disagrees")
+
+
+def _staged_calls(torch, t, meta, sem, st):
+    """(name, kernel call, plain call, (bytes, ops), library call) of K2's
+    single-layer form, K11, K12 and K13 on the staged stage tensors
+    ``st``. Bytes: each input read once (the whole source table, the
+    panels' plan blocks, bases, chunk_dst), each output written once; ops:
+    the ⊗ (none unweighted) and ⊕ the call must do. Library calls:
+    torch.take over the index precomputed from the plan (K2, K11;
+    unweighted), view(-1, 8, 128) reduced over dim 1 (K12), one
+    scatter_reduce over repeat_interleave(chunk_dst, 8) (K13)."""
+    from graphtap_tpu_torch.kernels import panel_kernels as pk
+    fill, kind = sem.identity, sem.reduce_kind
+    es = st["x2d"].element_size()
+    nxe = meta.exp_panels + 1
+    xr_rows = pk.plan_rows(meta.xr_nwin * pk.STRIPE, pk.XROWS, False)
+    xr = (st["x2d"], t["xr_bases"], t["xr_plan"], fill, nxe, meta.xr_nwin)
+    one = dict(out_rows=pk.XROWS, two_layer=False)
+    idx = pk.route_passa_plain(_slot_ids(torch, st["x2d"]), *xr[1:3], -1,
+                               *xr[4:], **one)
+    calls = [("route_passa_single", lambda: pk.route_passa(*xr, **one),
+              lambda: pk.route_passa_plain(*xr, **one),
+              (_nbytes(st["x2d"]) + 4 * nxe * meta.xr_nwin
+               + nxe * xr_rows * pk.LANES + _nbytes(st["x_ext"]), 0),
+              _take_call(torch, st["x2d"], idx, fill))]
+    w = t.get("w_stream")
+    mk = ("mul" if kind == "sum" else "add_sat") if meta.has_w else "none"
+    ex = (st["x_ext"], t["exp_plan"], w, fill, nxe, mk)
+    lib = None
+    if w is None:
+        idx = pk.route_expand_plain(_slot_ids(torch, st["x_ext"]),
+                                    t["exp_plan"], None, -1, nxe)
+        lib = _take_call(torch, st["x_ext"], idx, fill)
+    calls.append(("route_expand", lambda: pk.route_expand(*ex),
+                  lambda: pk.route_expand_plain(*ex),
+                  (_nbytes(st["x_ext"]) + _nbytes(t["exp_plan"][
+                      :nxe * pk.plan_rows(pk.XROWS)])
+                   + (_nbytes(w[:nxe * pk.PROWS]) if w is not None else 0)
+                   + _nbytes(st["s0"]),
+                   st["s0"].numel() if w is not None else 0), lib))
+    stack1, npan = st["stack1"], meta.fix_panels
+    red = {"sum": lambda v: v.sum(1), "min": lambda v: v.amin(1),
+           "max": lambda v: v.amax(1)}[kind]
+    calls.append(("fold_stripes",
+                  lambda: pk.fold_stripes(stack1, kind, npan),
+                  lambda: pk.fold_stripes_plain(stack1, kind, npan),
+                  (_nbytes(stack1) + _nbytes(stack1) // pk.STRIPE,
+                   stack1.numel() * 7 // 8),
+                  lambda: red(stack1.view(-1, pk.STRIPE, pk.LANES))))
+    cs = (stack1, t["chunk_dst"], meta.nrb, kind, fill)
+    dest = (t["chunk_dst"].long().repeat_interleave(pk.STRIPE)[:, None]
+            * pk.LANES + torch.arange(pk.LANES, device=stack1.device)
+            ).reshape(-1)
+    y0 = torch.full((meta.nrb * pk.LANES,), fill, dtype=stack1.dtype,
+                    device=stack1.device)
+    op = {"sum": "sum", "min": "amin", "max": "amax"}[kind]
+    calls.append(("colsum_chunks", lambda: pk.colsum_chunks(*cs),
+                  lambda: pk.colsum_chunks_plain(*cs),
+                  (_nbytes(stack1) + _nbytes(t["chunk_dst"])
+                   + meta.nrb * pk.LANES * es, stack1.numel()),
+                  lambda: torch.scatter_reduce(y0, 0, dest,
+                                               stack1.reshape(-1), op
+                                               ).view(meta.nrb, pk.LANES)))
+    return calls
+
+
+def _staged_row(torch, rows, call, launches, dtype) -> None:
+    """Check one staged call against its plain version (K12 elementwise
+    within rtol 1e-6, K13 as K3, the rest bit for bit) and its library
+    call (the take calls against the kernel bit for bit, K12 and K13
+    against the plain version at those tolerances), then time it."""
+    name, kern, plain, work, lib = call
+    a, b = kern(), plain()
+    err = float((a.double() - b.double()).abs().max())
+
+    def ok(x, y):
+        if name == "fold_stripes" and y.dtype.is_floating_point:
+            return bool(torch.all((x.double() - y.double()).abs()
+                                  <= 1e-6 * y.double().abs()))
+        if name == "colsum_chunks":
+            return _scaled_ok(x, y, "sum", FOLD_RTOL["float32"])
+        return _same(x, y)
+    log(f"kernels staged {name}: {'ok' if ok(a, b) else 'MISMATCH'} (max "
+        f"|diff| {err!r})")
+    if not ok(a, b):
+        raise AssertionError(f"{name} disagrees with its plain version")
+    if lib is not None and not ok(lib(), b if name in (
+            "fold_stripes", "colsum_chunks") else a):
+        raise AssertionError(f"{name}: the library call computes another "
+                             f"function")
+    _time_row(torch, rows, name, kern, plain, err, launches,
+              _bound(*work, dtype), lib)
+
+
+def phase_staged(torch, ex):
+    """The staged SpMV on the main path's RMAT-20 panel meta and PageRank
+    x, K12 on its stack1; then the rows of K2 single-layer, K11-K13."""
+    from graphtap_tpu_torch.kernels import panel_kernels as pk
+    from graphtap_tpu_torch.kernels.panel_engine import (
+        spmv3_staged_stages, spmv3_stages, staged_tables)
+    from graphtap_tpu_torch.tools.convert import meta_from_numpy
+    meta, sem = ex.meta, ex.program.semiring
+    t0 = time.perf_counter()
+    t = staged_tables(meta_from_numpy(meta.arrays, DEVICE), meta)
+    torch.cuda.synchronize()
+    log(f"staged: tables (xe_plan halves, chunk_dst) uploaded in "
+        f"{time.perf_counter() - t0:.2f} s")
+    x = ex.program.messenger(ex.state).to(torch.float32)
+    n = ex.part.tile_rows
+    fused = spmv3_stages(x, t, meta, sem, n)
+    _reset_all_launches()
+    st = spmv3_staged_stages(x, t, meta, sem, n)
+    folded = pk.fold_stripes(st["stack1"], sem.reduce_kind, meta.fix_panels)
+    launches = _all_launches()
+    log(f"staged: launches {({k: v for k, v in launches.items() if v})}")
+    _need_launches("staged", launches, STAGED_LAUNCHES)
+    _staged_checks(torch, f"staged RMAT-{SCALE} f32", st, fused, folded, t,
+                   sem)
+    rows = {}
+    for call in _staged_calls(torch, t, meta, sem, st):
+        _staged_row(torch, rows, call, launches[call[0]], x.dtype)
     return list(rows.values())
 
 
@@ -1314,16 +1546,20 @@ def phase_bfs(torch, np):
     st = spmv3_stages(x, ex._dev, ex.meta, ex.program.semiring,
                       ex.part.tile_rows, gate=True)
     rows = {}
-    for name, kern, plain, work in _gated_calls(ex._dev, ex.meta,
-                                                ex.program.semiring, st,
-                                                st["maps"]):
+    sem = ex.program.semiring
+    for (name, kern, plain, work), lib in zip(
+            _gated_calls(ex._dev, ex.meta, sem, st, st["maps"]),
+            _gated_libraries(torch, ex._dev, ex.meta, sem, st, st["maps"])):
         a, b = kern(), plain()
         if not _same(a, b):
             raise AssertionError(f"{name} at the BFS shapes disagrees with "
                                  f"its plain version")
+        if lib is not None and not _same(lib(), a):
+            raise AssertionError(f"{name}: the library call computes "
+                                 f"another function")
         err = float((a.double() - b.double()).abs().max())
         _time_row(torch, rows, name, kern, plain, err, launches[name],
-                  _bound(*work, x.dtype))
+                  _bound(*work, x.dtype), lib)
     panel_iters, panel_warm = iters, warm
     ex.free()
     del ex, st
@@ -1442,6 +1678,8 @@ def phase_cc_sssp(torch, np) -> None:
             f"{ex.checksum()}")
         if not ok:
             raise AssertionError(f"{app} differs from golden.{app}")
+        if weighted:
+            _staged_int32(torch, np, ex)
         nnz = ex.tiles.nnz_total
         ex.initialize()
         iters = ex.execute(0)
@@ -1457,6 +1695,185 @@ def phase_cc_sssp(torch, np) -> None:
                 if weighted else (lambda: run_cc(g, kernel=kernel,
                                                  device=DEVICE)),
                 {key: want}, iters, warm)
+
+
+def _staged_int32(torch, np, ex) -> None:
+    """The staged SpMV on an SSSP panel meta (int32 min, add_sat ⊗) and a
+    random x (30% at INF) against the fused one, bit for bit; K12's rows
+    scattered by chunk_dst against K13's y_mid."""
+    from graphtap_tpu_torch.kernels import panel_kernels as pk
+    from graphtap_tpu_torch.kernels.panel_engine import (
+        spmv3_staged_stages, spmv3_stages, staged_tables)
+    from graphtap_tpu_torch.kernels.semiring import INF_I32
+    meta, sem = ex.meta, ex.program.semiring
+    t = staged_tables(ex._dev, meta)
+    rng = np.random.default_rng(SEED)
+    xv = rng.integers(0, 1000, size=ex.part.tile_cols).astype(np.int32)
+    xv[rng.random(xv.size) < 0.3] = INF_I32
+    x = torch.from_numpy(xv).to(DEVICE)
+    n = ex.part.tile_rows
+    fused = spmv3_stages(x, t, meta, sem, n)
+    st = spmv3_staged_stages(x, t, meta, sem, n)
+    folded = pk.fold_stripes(st["stack1"], sem.reduce_kind, meta.fix_panels)
+    _staged_checks(torch, f"staged RMAT-{SUITE_SCALE} sssp int32 min", st,
+                   fused, folded, t, sem)
+
+
+def _phase_ms(ex) -> str:
+    """The superstep times of the last execute, by tile phase."""
+    by = {}
+    for rec in ex.supersteps:
+        by.setdefault(rec["phase"], []).append(rec["ms"])
+    return "; ".join(f"{ph} {len(v)} x {sum(v) / len(v):.4f} ms (min "
+                     f"{min(v):.4f}, max {max(v):.4f})"
+                     for ph, v in by.items())
+
+
+def phase_cf(torch, np, g, ref, main_meta) -> None:
+    """RMAT-20 PageRank in pr.cpp's config (TCSC_CF, f32): the degree
+    phase on shuffle, 20 iterations on onehot and on panel; convergence
+    runs on onehot, f32 capped and logged, f64 against the TCSC one."""
+    from graphtap_tpu_torch import (Compression, EngineConfig, Graph,
+                                    GraphConfig, Ordering)
+    from graphtap_tpu_torch.apps import DegreeProgram, PageRankProgram
+    from graphtap_tpu_torch.engine import executor
+    from graphtap_tpu_torch.engine.executor import Executor
+    r, c = ref["edges"]
+    gcf = Graph.from_edges(r, c, None, GraphConfig(
+        num_vertices=1 << SCALE, transpose=True,
+        compression=Compression.TCSC_CF))
+    # the degree phase runs the main tiles, which TCSC_CF renumbers as
+    # TCSC does (byte for byte: tests/test_torch_cf.py), so the worker's
+    # COL shuffle plans of the TCSC graph are this graph's too
+    t0 = time.perf_counter()
+    deg = Executor(gcf, DegreeProgram(torch.float32),
+                   EngineConfig(stationary=True, ordering=Ordering.COL),
+                   kernel="shuffle", plans=_prebuilt("shuffle", "COL",
+                                                     g.config),
+                   device=DEVICE)
+    deg.initialize()
+    deg.execute(1)
+    deg.free()
+    got = deg.state_vector()["degree"]
+    if not np.array_equal(got, ref["degree"].astype(np.float32)):
+        raise AssertionError("cf: degrees differ from golden.degree")
+    log(f"cf: degree phase (shuffle) equal to golden.degree; tiles "
+        f"{deg.timings['tiles']:.1f} s, wall "
+        f"{time.perf_counter() - t0:.1f} s")
+    pr_cfg = EngineConfig(stationary=True, ordering=Ordering.ROW)
+
+    def run(kernel, **kw):
+        _reset_all_launches()
+        t0 = time.perf_counter()
+        ex = Executor(gcf, PageRankProgram(torch.float32), pr_cfg,
+                      kernel=kernel, device=DEVICE, **kw)
+        ex.initialize(other=deg)
+        ex.execute(ITERS)
+        wall = time.perf_counter() - t0
+        tm = ex.timings
+        log(f"cf {kernel}: main tiles {tm['tiles']:.1f} s, plans "
+            f"{tm.get('plans', 0.0):.1f} s; CF tiles {tm['cf_tiles']:.1f} "
+            f"s, phase plans {tm['cf_plans']:.1f} s, upload "
+            f"{tm['cf_upload']:.2f} s ({ex.device_bytes} bytes on the "
+            f"device, main and phases); wall {wall:.1f} s")
+        log(f"cf {kernel}: phase nnz first {ex._phases['first'][0].nnz_total}"
+            f", middle {ex._phases['middle'][0].nnz_total}, last "
+            f"{ex._phases['last'][0].nnz_total} of {ex.tiles.nnz_total}")
+        log(f"cf {kernel}: supersteps {_phase_ms(ex)}")
+        _pagerank_checks(np, f"cf {kernel}", ex, ref,
+                         {k: v for k, v in _all_launches().items() if v},
+                         {k: v * ITERS
+                          for k, v in PATH_LAUNCHES[kernel].items()})
+        log(f"cf {kernel}: warm supersteps {_phase_ms(ex)}")
+        return ex
+
+    ex = run("onehot")
+    # f32 ranks near 1800 have an ulp of 1.2e-4 > tol 1e-5, and K5's float
+    # atomics sum in no fixed order, so the f32 vote need not settle (ROADMAP
+    # F8): the f32 run is capped and logged; the check runs in f64
+    cap = executor.MAX_CONVERGENCE_ITERS
+    executor.MAX_CONVERGENCE_ITERS = CONVERGE_CAP
+    try:
+        ex.initialize(other=deg)
+        it32 = ex.execute(0)
+        log(f"cf onehot convergence f32: {it32} iterations (cap "
+            f"{CONVERGE_CAP}) + flush in {ex.timings['execute']:.4f} s; "
+            f"{int(ex.changed.sum())} vertices changed in the flush")
+        ex.free()
+        conv = {}
+        for tag, graph in (("cf", gcf), ("tcsc", g)):
+            e = Executor(graph, PageRankProgram(torch.float64), pr_cfg,
+                         kernel="onehot", device=DEVICE)
+            e.initialize(other=deg)
+            conv[tag] = (e.execute(0), e)
+            if conv[tag][0] >= CONVERGE_CAP:
+                raise AssertionError(f"{tag} f64 convergence: no vote "
+                                     f"settled in {CONVERGE_CAP} iterations")
+            log(f"{tag} onehot convergence f64: {conv[tag][0]} iterations + "
+                f"flush in {e.timings['execute']:.4f} s; supersteps "
+                f"{_phase_ms(e)}")
+    finally:
+        executor.MAX_CONVERGENCE_ITERS = cap
+    (it_cf, ecf), (it_t, etc) = conv["cf"], conv["tcsc"]
+    diff = float(np.abs(ecf.state_vector()["rank"]
+                        - etc.state_vector()["rank"]).max())
+    log(f"cf onehot convergence vs TCSC (f64): {it_cf} vs {it_t} "
+        f"iterations, max |rank diff| {diff!r} (limit 2e-05)")
+    if not diff <= 2e-5:
+        raise AssertionError(f"cf convergence differs from TCSC by {diff}")
+    ecf.free()
+    etc.free()
+    del ex, ecf, etc, conv
+    plans = {ph: _prebuilt("spmv3", "ROW", gcf.config, ph)
+             for ph in CF_PHASES}
+    run("panel", plans=main_meta, phase_plans=plans).free()
+
+
+def phase_cli(torch, np) -> None:
+    """The pr and pr1 mains as subprocesses on the card, on an RMAT-14
+    binary edge file: the five oracle lines, the checksum against the f64
+    golden."""
+    from graphtap_tpu_torch.ingest import rmat_edges
+    from graphtap_tpu_torch.ingest.io import write_binary
+    r, c, _ = rmat_edges(CLI_SCALE, EDGE_FACTOR, seed=SEED)
+    n = 1 << CLI_SCALE
+    path = os.path.join(os.path.dirname(PLAN_DIR), f"rmat{CLI_SCALE}.bin")
+    write_binary(path, r, c)
+    gsum = float(_golden().pagerank(r, c, n + 1, ITERS).sum())
+    names = ["end-to-end time", "Execute time", "Iterations",
+             "Value checksum", "Reachable vertices"]
+    procs = {}
+    try:
+        for app in ("pr", "pr1"):
+            procs[app] = subprocess.Popen(
+                [sys.executable, "-m", f"graphtap_tpu_torch.apps.{app}", path,
+                 str(n), str(ITERS)], cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True,
+                env=dict(os.environ, PYTHONPATH=ROOT))
+        for app, p in procs.items():
+            out, err = p.communicate(timeout=600)
+            if p.returncode:
+                raise AssertionError(f"cli {app}: exit {p.returncode}: "
+                                     f"{err[-3000:]}")
+            lines = out.strip().splitlines()
+            for ln in lines:
+                log(f"cli {app}: {ln}")
+            heads = [ln.split(":")[0] for ln in lines[-5:]]
+            if heads != [f"{app} {names[0]}"] + names[1:]:
+                raise AssertionError(f"cli {app}: not the five oracle lines")
+            checksum = float(lines[-2].split(":")[1])
+            rel = abs(checksum - gsum) / gsum
+            log(f"cli {app}: checksum vs f64 golden {gsum!r}: rel err "
+                f"{rel:.3e}")
+            if not (rel < GOLDEN_RTOL and lines[-3].split(":")[1].strip()
+                    == str(ITERS)):
+                raise AssertionError(f"cli {app}: checksum rel err {rel}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        os.remove(path)
 
 
 T_START = time.perf_counter()
@@ -1490,14 +1907,19 @@ def _phases(torch, np) -> int:
     phase_gather_parity(torch, np)
     g, ex, launches, ref = phase_main(torch, np)
     kernels = phase_kernels(torch, ex, launches)
+    kernels += phase_staged(torch, ex)
+    main_meta = ex.meta
     ex.free()
     deg_ex = ex.degree_phase
     del ex
     kernels += phase_shuffle_kernels(torch, np, g, launches)
     kernels += phase_new_paths(torch, np, g, deg_ex, ref)
-    del g, deg_ex
+    del deg_ex
+    phase_cf(torch, np, g, ref, main_meta)
+    del g, main_meta
     kernels += phase_bfs(torch, np)
     phase_cc_sssp(torch, np)
+    phase_cli(torch, np)
     log("ms per call group of one SpMV: route_fold sums its fixr and fix2 "
         "calls, expand_stream its three calls, group_stream its passes, "
         "windowed_gather its six stage calls; the static panel rows at a "

@@ -4,20 +4,22 @@ A port of ``graphtap_tpu`` (JAX, Pallas kernels for the TPU), which stays
 beside it as the reference. The port mirrors its layout: ``config``,
 ``parallel/layout``, ``ingest``, ``format/tiles``, ``kernels``,
 ``engine``, ``apps`` and ``tools``. Plain tensor code is torch; the Pallas
-kernels of the panel path (static and frontier-gated) and of the v1
-shuffle path are hand-written CUDA C++ for sm_90a (``csrc/``), each with a
-plain torch version beside it. The numpy-only host planner is the port's
-own copy of the JAX package's (``config.py``, ``ingest/rmat.py``,
-``ingest/io.py``, ``kernels/{panel,gather,shuffle}_plan.py`` and the
-C++ sources under ``native/``, built into ``build/`` at first use), so
-its plan bytes equal the JAX package's and nothing of that package is
-read.
+kernels (the panel path, static, frontier-gated and staged; the v1
+shuffle, v2 windowed-gather and one-hot paths) are hand-written CUDA C++
+for sm_90a (``csrc/``), each with a plain torch version beside it. The
+numpy-only host planner is the port's own copy of the JAX package's
+(``config.py``, ``ingest/rmat.py``, ``ingest/io.py``,
+``kernels/{panel,gather,shuffle}_plan.py`` and the C++ sources under
+``native/``, built into ``build/`` at first use), so its plan bytes equal
+the JAX package's and nothing of that package is read.
 
 This version runs on one device: the degree phase and PageRank, for a
-fixed count of iterations or to convergence (``apps.run_pagerank``), and
-BFS, CC and SSSP to convergence with frontier gating (``apps.run_bfs``,
-``run_cc``, ``run_sssp``). Entry points run on the card
-(``device="cuda"``) unless the caller passes ``device="cpu"``.
+fixed count of iterations or to convergence, on TCSC or TCSC_CF tiles
+(``apps.run_pagerank``, ``run_pagerank_two_load``; the ``apps.pr``,
+``pr1`` and ``deg`` mains), and BFS, CC and SSSP to convergence with
+frontier gating (``apps.run_bfs``, ``run_cc``, ``run_sssp``). Entry
+points run on the card (``device="cuda"``) unless the caller passes
+``device="cpu"``.
 """
 
 from graphtap_tpu_torch.config import (Compression, EngineConfig,

@@ -1,0 +1,62 @@
+"""Shared CLI harness for the app mains.
+
+Counterpart of ``graphtap_tpu/apps/_cli.py``: the reference binaries' argv
+(reference: README.md:7-10, ``bin/pr <file> <nvertices> [<iters|root>]``)
+and their five oracle lines (graphtap.slurm:101-104; formats from
+Env::print_time env.hpp:130-133, checksum vertex_program.hpp:1944-1958):
+
+    <App> end-to-end time: <f> seconds
+    Execute time: <f> seconds
+    Iterations: <n>
+    Value checksum: <v>
+    Reachable vertices: <n>
+
+Usage: ``python -m graphtap_tpu_torch.apps.pr <file> <nvertices> [<iters>]``
+(``pr1`` and ``deg`` alike). ``--device`` is ``cuda`` unless the caller
+asks for ``cpu``. ``--kernel``: ``auto`` (the default) is the panel
+pipeline on the card and the portable scan kernel on the CPU, as the JAX
+package's ``auto`` picks its chip's fast kernel; or any name of
+``engine.executor.KERNELS``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+from graphtap_tpu_torch.engine.executor import KERNELS
+
+
+def app_main(name: str, run, third_arg: str = "iters", default_third=0,
+             argv=None):
+    """Parse the reference-style argv, run the app, print the oracle
+    lines. ``run(graph_path, nvertices, third, kernel, device)`` must
+    return (the finished Executor, its execute seconds)."""
+    p = argparse.ArgumentParser(prog=f"graphtap_tpu_torch.apps.{name}")
+    p.add_argument("file")
+    p.add_argument("nvertices", type=int)
+    p.add_argument(third_arg, type=int, nargs="?", default=default_third)
+    p.add_argument("--kernel", default="auto", choices=("auto",) + KERNELS)
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    args = p.parse_args(argv)
+    if args.kernel == "auto":
+        args.kernel = "panel" if args.device == "cuda" else "scan"
+
+    t0 = time.perf_counter()
+    ex, t_exec = run(args.file, args.nvertices, getattr(args, third_arg),
+                     args.kernel, args.device)
+    t_total = time.perf_counter() - t0
+
+    checksum, reachable = ex.checksum()
+    print(f"{name} end-to-end time: {t_total:f} seconds")
+    print(f"Execute time: {t_exec:f} seconds")
+    print(f"Iterations: {ex.iteration}")
+    print(f"Value checksum: {checksum:f}")
+    print(f"Reachable vertices: {reachable}")
+    return ex
+
+
+def timed(fn, *a, **kw):
+    t0 = time.perf_counter()
+    out = fn(*a, **kw)
+    return out, time.perf_counter() - t0

@@ -1,7 +1,8 @@
 """Degree: one plus-times superstep with unit messages.
 
 Counterpart of ``graphtap_tpu/apps/degree.py`` (reference: src/apps/deg.h:
-messenger = 1, combiner = +, applicator stores y, never 'changed').
+messenger = 1, combiner = +, applicator stores y, never 'changed'; deg.cpp:
+stationary, TCSC, ROW ordering, one iteration).
 """
 
 from __future__ import annotations
@@ -9,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from graphtap_tpu_torch.config import EngineConfig, Ordering
+from graphtap_tpu_torch.engine.executor import Executor
 from graphtap_tpu_torch.engine.program import VertexProgram, numpy_dtype
 from graphtap_tpu_torch.kernels.semiring import plus_times
 
@@ -38,3 +41,16 @@ class DegreeProgram(VertexProgram):
     def format_state(self, row):
         return f"Degree={row['degree']}"
 
+
+def run_degree(graph, value_dtype: torch.dtype = torch.float32,
+               ordering: Ordering = Ordering.ROW, kernel: str = "shuffle",
+               device="cuda") -> Executor:
+    """Out-degree of the stored matrix (deg.cpp: directed, untransposed,
+    ROW ordering: y[src] = the count of its out-edges), one superstep on
+    ``kernel``, on ``device``."""
+    ex = Executor(graph, DegreeProgram(value_dtype=value_dtype),
+                  EngineConfig(stationary=True, ordering=ordering),
+                  kernel=kernel, device=device)
+    ex.initialize()
+    ex.execute(1)
+    return ex

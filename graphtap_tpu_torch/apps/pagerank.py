@@ -4,7 +4,9 @@ Counterpart of ``graphtap_tpu/apps/pagerank.py`` (reference: src/apps/pr.h,
 pr.cpp): one load of Aᵀ (transpose=True); the degree phase on the COL
 ordering (out-degree of A), then PageRank on the ROW ordering, with the
 degree handed over only where the I bit (in-edge mask) is set
-(vertex_program.hpp:476-483).
+(vertex_program.hpp:476-483). pr.cpp loads with TCSC_CF, whose PageRank
+runs the first/middle/last phases (``engine/executor.py``).
+``run_pagerank_two_load`` is pr1.cpp's variant: two loads of plain TCSC.
 """
 
 from __future__ import annotations
@@ -12,12 +14,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from graphtap_tpu_torch.config import EngineConfig, Ordering
+from graphtap_tpu_torch.config import (Compression, EngineConfig,
+                                       GraphConfig, Ordering)
 from graphtap_tpu_torch.engine.executor import Executor
 from graphtap_tpu_torch.engine.program import VertexProgram, numpy_dtype
 from graphtap_tpu_torch.ingest.graph import Graph
 from graphtap_tpu_torch.kernels.semiring import plus_times
-from graphtap_tpu_torch.apps.degree import DegreeProgram
+from graphtap_tpu_torch.apps.degree import run_degree
 
 ALPHA = 0.15   # reference: pr.h:13
 TOL = 1e-5     # reference: pr.h:12
@@ -76,17 +79,39 @@ def run_pagerank(graph: Graph, num_iterations: int = 0,
     in f32; PageRank runs ``num_iterations`` supersteps on ``kernel``
     ('panel': the K1-K4 pipeline; 'shuffle': K6-K8; 'shuffle2': the v2
     K9 + K8 pipeline; 'onehot': K5; 'segment' or 'scan': plain torch), or,
-    for num_iterations=0, runs to tol-convergence. The degree phase's tiles and plans are freed before
-    the PageRank plans are uploaded; its executor, with its state, is the
-    returned executor's ``degree_phase``.
+    for num_iterations=0, runs to tol-convergence. The degree phase's
+    tiles and plans are freed before the PageRank plans are uploaded; its
+    executor, with its state, is the returned executor's ``degree_phase``.
     """
-    deg_ex = Executor(graph, DegreeProgram(value_dtype=value_dtype),
-                      EngineConfig(stationary=True, ordering=Ordering.COL),
-                      kernel=degree_kernel, device=device)
-    deg_ex.initialize()
-    deg_ex.execute(1)
-    deg_ex.free()
+    deg_ex = run_degree(graph, value_dtype, Ordering.COL, degree_kernel,
+                        device)
+    return _ranks(graph, deg_ex, num_iterations, value_dtype, kernel, device)
 
+
+def run_pagerank_two_load(path: str, num_vertices: int,
+                          num_iterations: int = 0,
+                          value_dtype: torch.dtype = torch.float32,
+                          kernel: str = "panel", device="cuda",
+                          degree_kernel: str = "shuffle") -> Executor:
+    """pr1.cpp: load the edge-list file twice with plain TCSC, untransposed
+    for the degree phase (``run_degree``, ROW ordering, on
+    ``degree_kernel``; the JAX package's ``run_degree_for_handoff``) and
+    transposed for PageRank on ``kernel`` (pr1.cpp:32-53), on ``device``."""
+    cfg_deg = GraphConfig(num_vertices=num_vertices, directed=True,
+                          transpose=False, compression=Compression.TCSC)
+    cfg_pr = GraphConfig(num_vertices=num_vertices, directed=True,
+                         transpose=True, compression=Compression.TCSC)
+    deg_ex = run_degree(Graph.load(path, cfg_deg), value_dtype,
+                        kernel=degree_kernel, device=device)
+    return _ranks(Graph.load(path, cfg_pr), deg_ex, num_iterations,
+                  value_dtype, kernel, device)
+
+
+def _ranks(graph: Graph, deg_ex: Executor, num_iterations: int, value_dtype,
+           kernel: str, device) -> Executor:
+    """Free the degree phase's arrays, then run PageRank on the ROW
+    ordering of ``graph`` from its handed-over state."""
+    deg_ex.free()
     pr_ex = Executor(graph, PageRankProgram(value_dtype=value_dtype),
                      EngineConfig(stationary=True, ordering=Ordering.ROW),
                      kernel=kernel, device=device)
@@ -94,3 +119,4 @@ def run_pagerank(graph: Graph, num_iterations: int = 0,
     pr_ex.initialize(other=deg_ex)
     pr_ex.execute(num_iterations)
     return pr_ex
+

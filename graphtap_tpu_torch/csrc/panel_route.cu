@@ -1,12 +1,24 @@
 // Hopper (sm_90a) kernels of the v3 panel-route SpMV pipeline.
 //
-// Hand-written CUDA C++ counterparts of the four Pallas kernels that carry
-// a PageRank superstep in graphtap_tpu/kernels/panel_kernels.py:
+// Hand-written CUDA C++ counterparts of the Pallas kernels of
+// graphtap_tpu/kernels/panel_kernels.py:
 //
-//   K1 route_xr_exp_kernel  replaces route_xr_exp (_xr_exp_body, :140-273)
-//   K2 route_passa_kernel   replaces route_passa  (_route_body, :80-137, :435-485)
-//   K3 route_fold_kernel    replaces route_fold   (_route_fold_body, :276-404)
-//   K4 hub_fold_kernel      replaces hub_fold     (_hub_body, :488-528)
+//   K1  route_xr_exp_kernel   replaces route_xr_exp  (_xr_exp_body, :140-273)
+//   K2  route_passa_kernel    replaces route_passa   (_route_body, :80-137,
+//                             :435-485), two-layer 64-row and single-layer
+//                             32-row (out_rows, two_layer)
+//   K3  route_fold_kernel     replaces route_fold    (_route_fold_body,
+//                             :276-404)
+//   K4  hub_fold_kernel       replaces hub_fold      (_hub_body, :488-528)
+//   K11 route_expand_kernel   replaces route_expand  (_route_body, :407-432)
+//   K12 fold_stripes_kernel   replaces fold_stripes  (_fold_body, :531-554)
+//   K13 colsum_chunks_kernel  replaces colsum_chunks (_chunk_body, :557-593)
+//
+// K1-K4 carry the fused PageRank superstep; K2 single-layer, K11, K12 and
+// K13 are the staged (unfused) pipeline's: x -> x_ext (K2 single-layer),
+// x_ext -> contributions (K11, the second half of K1), the corner turn and
+// the fixr route (K2), the chunk fold (K13); K12 is the per-panel 8-row
+// fold (pass B).
 //
 // K1-K3 each have a gated launch, the frontier-gated variant of the Pallas
 // kernels' plan_idx branch (:226-242, :356-372, :453-461): block p reads
@@ -22,14 +34,15 @@
 //
 // What they compute. The host planner (panel_plan.py) turns the sparse
 // matrix into uint8 route plans over (64,128) panels. A route reads 8-row
-// source bands and, for output slot (r, l) of a panel:
+// source bands and, for output slot (r, l):
 //   m = idx3[r,l] & 127; s = (idx3[r,l] >= 128 ? sel_b : sel_a)[r, m];
 //   band = s >> 3, row = s & 7;
 //   out = band < nsrc ? src_band[band][row, idx1[band*8+row, m]] : fill.
-// On the TPU that is three crossbar stages over registers; here it is three
-// dependent byte loads and one value load per output. The plans are the
-// same bytes the Pallas kernels read, so each kernel can be checked against
-// its twin.
+// A single-layer route (the x -> x_ext route) has no sel_b and ignores the
+// pick bit. On the TPU that is three crossbar stages over registers; here
+// it is three dependent byte loads and one value load per output. The
+// plans are the same bytes the Pallas kernels read, so each kernel can be
+// checked against its twin.
 //
 // What bounds them on the card: memory traffic and latency, not arithmetic.
 // Per output each route reads 3 plan bytes plus one value; the value and
@@ -38,15 +51,21 @@
 // and by the plan stream (~0.4-0.5 KB of plan per 4 KB f32 panel). The
 // design keeps it simple: one thread block per panel, 256 threads striding
 // over its slots, so neighbouring threads read neighbouring plan bytes and
-// write neighbouring outputs (coalesced). K1 keeps its 32x128 x_ext panel
-// in shared memory between its two routes, so x_ext never goes to device
-// memory. K3 folds each routed 8-row band in registers and adds it to the
-// y table with one atomic per lane (f32/f64 atomicAdd, int32 atomicMin/Max)
-// after a fill pass sets the whole table to the identity; blocks run in any
-// order, so a float sum rounds in another order than the TPU's grid loop.
-// K4 runs one 128-thread block per row: warp shuffles for the xor shifts
-// 1..16 and shared memory for 32 and 64, in the Pallas kernel's order, so
-// it is bit-exact. All element offsets are 64-bit.
+// write neighbouring outputs (coalesced). One device function routes a
+// panel (route_panel) for K1's two stages, K2 and K11, and one expands an
+// x_ext panel held in shared memory (expand_panel) for K1 and K11: K1
+// builds its 32x128 x_ext panel there, so x_ext never goes to device
+// memory; K11 loads it there from the x_ext table. K3 folds each routed
+// 8-row band in registers and adds it to the y table with one atomic per
+// lane (f32/f64 atomicAdd, int32 atomicMin/Max) after a fill pass sets the
+// whole table to the identity; blocks run in any order, so a float sum
+// rounds in another order than the TPU's grid loop. K13 does the same for
+// the staged chunks, one thread per (chunk, lane). K12 needs no atomics:
+// one thread per output folds its 8 rows in order. K12 and K13 move each
+// byte once and are bound by device memory. K4 runs one 128-thread block
+// per row: warp shuffles for the xor shifts 1..16 and shared memory for 32
+// and 64, in the Pallas kernel's order, so it is bit-exact. All element
+// offsets are 64-bit.
 //
 // The launchers are extern "C" (bound with ctypes), launch on the caller's
 // stream, allocate nothing, and return cudaGetLastError().
@@ -87,6 +106,62 @@ __device__ __forceinline__ T route_slot(const uint8_t* __restrict__ idx1,
   return src_row(band, row)[lane];
 }
 
+// One panel's packed plan block: [idx1 (src_rows), sel_a (out_rows),
+// sel_b (out_rows, two-layer only), idx3 (out_rows)].
+struct Route {
+  const uint8_t* idx1;
+  const uint8_t* sel_a;
+  const uint8_t* sel_b;     // nullptr: single landing layer
+  const uint8_t* idx3;
+};
+
+__host__ __device__ __forceinline__ long long route_rows(int src_rows,
+                                                         int out_rows,
+                                                         bool two_layer) {
+  return src_rows + (two_layer ? 3LL : 2LL) * out_rows;
+}
+
+__device__ __forceinline__ Route route_at(const uint8_t* blk, int src_rows,
+                                          int out_rows, bool two_layer) {
+  Route r;
+  r.idx1 = blk;
+  r.sel_a = blk + static_cast<long long>(src_rows) * LANES;
+  r.sel_b = two_layer ? r.sel_a + out_rows * LANES : nullptr;
+  r.idx3 = r.sel_a + (two_layer ? 2 : 1) * out_rows * LANES;
+  return r;
+}
+
+// Rows of an expand-route plan block (two-layer, x_ext source, 64 out).
+constexpr int EX_PROWS = XROWS + 3 * PROWS;
+
+// Route all out_rows x 128 slots of one panel; store(e, v) takes slot e.
+template <typename T, typename SrcRow, typename Store>
+__device__ __forceinline__ void route_panel(const Route& rt, int out_rows,
+                                            int nsrc, T fill, SrcRow src_row,
+                                            Store store) {
+  for (int e = threadIdx.x; e < out_rows * LANES; e += blockDim.x) {
+    store(e, route_slot<T>(rt.idx1, rt.sel_a, rt.sel_b, rt.idx3, e >> 7,
+                           e & 127, nsrc, fill, src_row));
+  }
+}
+
+// The expand route of one panel (K1's second stage, and K11): the 32-row
+// x_ext panel xe (4 source bands, in shared memory) routed two-layer into
+// the 64-row panel po, then ⊗ with the panel's weights pw.
+template <typename T, int MUL>
+__device__ __forceinline__ void expand_panel(const uint8_t* ex_blk,
+                                             const T* xe,
+                                             const T* __restrict__ pw,
+                                             T* __restrict__ po, T fill) {
+  const Route ex = route_at(ex_blk, XROWS, PROWS, true);
+  auto xe_row = [&](int band, int row) -> const T* {
+    return xe + (band * STRIPE + row) * LANES;
+  };
+  route_panel<T>(ex, PROWS, XROWS / STRIPE, fill, xe_row, [&](int e, T v) {
+    po[e] = apply_mul<T, MUL>(v, pw, e, fill);
+  });
+}
+
 // Plan block of block p: p itself (static) or plan_idx[p] (gated).
 __device__ __forceinline__ long long plan_block(const int* __restrict__ pidx,
                                                 long long p) {
@@ -118,74 +193,77 @@ route_xr_exp_kernel(const T* __restrict__ x2d, const int* __restrict__ bases,
     return;
   }
   const int sr = nwin * STRIPE;
-  const long long prows = sr + 3 * XROWS + 3 * PROWS;
-  const uint8_t* xr_idx1 = plan + q * prows * LANES;
-  const uint8_t* xr_sela = xr_idx1 + sr * LANES;
-  const uint8_t* xr_idx3 = xr_sela + XROWS * LANES;
-  const uint8_t* ex_idx1 = xr_idx3 + XROWS * LANES;
-  const uint8_t* ex_sela = ex_idx1 + XROWS * LANES;
-  const uint8_t* ex_selb = ex_sela + PROWS * LANES;
-  const uint8_t* ex_idx3 = ex_selb + PROWS * LANES;
+  const long long xr_rows = route_rows(sr, XROWS, false);
+  const uint8_t* blk = plan + q * (xr_rows + EX_PROWS) * LANES;
   const int* pb = bases + p * nwin;
-
   auto x_row = [&](int band, int row) -> const T* {
     return x2d + (static_cast<long long>(pb[band]) * STRIPE + row) * LANES;
   };
+  route_panel<T>(route_at(blk, sr, XROWS, false), XROWS, nwin, fill, x_row,
+                 [&](int e, T v) { xe[e] = v; });
+  __syncthreads();
+  expand_panel<T, MUL>(blk + xr_rows * LANES, xe, pw, po, fill);
+}
+
+// ---------------------------------------------------------------- K11
+// x_ext table (npanels*32, 128) -> (64,128) contribution panel per block:
+// the panel's own x_ext block loaded into shared memory, then K1's expand
+// stage. Plan rows per panel: [idx1 (32), sel_a (64), sel_b (64),
+// idx3 (64)].
+template <typename T, int MUL>
+__global__ void __launch_bounds__(THREADS)
+route_expand_kernel(const T* __restrict__ x_ext,
+                    const uint8_t* __restrict__ plan,
+                    const T* __restrict__ w, T* __restrict__ out, T fill) {
+  __shared__ T xe[XROWS * LANES];
+  const long long p = blockIdx.x;
+  const T* src = x_ext + p * XROWS * LANES;
   for (int e = threadIdx.x; e < XROWS * LANES; e += blockDim.x) {
-    xe[e] = route_slot<T>(xr_idx1, xr_sela, nullptr, xr_idx3, e >> 7,
-                          e & 127, nwin, fill, x_row);
+    xe[e] = src[e];
   }
   __syncthreads();
-
-  auto xe_row = [&](int band, int row) -> const T* {
-    return xe + (band * STRIPE + row) * LANES;
-  };
-  for (int e = threadIdx.x; e < PROWS * LANES; e += blockDim.x) {
-    const T v = route_slot<T>(ex_idx1, ex_sela, ex_selb, ex_idx3, e >> 7,
-                              e & 127, XROWS / STRIPE, fill, xe_row);
-    po[e] = apply_mul<T, MUL>(v, pw, e, fill);
-  }
+  const T* pw = (MUL == MUL_NONE) ? nullptr : w + p * PROWS * LANES;
+  expand_panel<T, MUL>(plan + p * EX_PROWS * LANES, xe, pw,
+                       out + p * PROWS * LANES, fill);
 }
 
 // ---------------------------------------------------------------- K2
 // Corner turn: the panel's nwin 8-row windows of src (block indices
-// bases[p*nwin + band]) routed two-layer into a 64-row panel.
-// Plan rows per panel: [idx1 (nwin*8), sel_a (64), sel_b (64), idx3 (64)].
+// bases[p*nwin + band]) routed into an out_rows-row panel: two-layer
+// (64 rows; plan [idx1 (nwin*8), sel_a, sel_b, idx3]) or single-layer
+// (the x -> x_ext route, 32 rows; plan [idx1, sel_a, idx3]).
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 route_passa_kernel(const T* __restrict__ src, const int* __restrict__ bases,
                    const uint8_t* __restrict__ plan, T* __restrict__ out,
-                   int nwin, T fill, const int* __restrict__ plan_idx,
-                   int fill_block) {
+                   int nwin, int out_rows, bool two_layer, T fill,
+                   const int* __restrict__ plan_idx, int fill_block) {
   const long long p = blockIdx.x;
   const long long q = plan_block(plan_idx, p);
-  T* po = out + p * PROWS * LANES;
+  T* po = out + p * out_rows * LANES;
   if (plan_idx != nullptr && q == fill_block) {
-    for (int e = threadIdx.x; e < PROWS * LANES; e += blockDim.x) {
+    for (int e = threadIdx.x; e < out_rows * LANES; e += blockDim.x) {
       po[e] = fill;
     }
     return;
   }
   const int sr = nwin * STRIPE;
-  const long long prows = sr + 3 * PROWS;
-  const uint8_t* idx1 = plan + q * prows * LANES;
-  const uint8_t* sel_a = idx1 + sr * LANES;
-  const uint8_t* sel_b = sel_a + PROWS * LANES;
-  const uint8_t* idx3 = sel_b + PROWS * LANES;
+  const Route rt = route_at(
+      plan + q * route_rows(sr, out_rows, two_layer) * LANES, sr, out_rows,
+      two_layer);
   const int* pb = bases + p * nwin;
   auto src_row = [&](int band, int row) -> const T* {
     return src + (static_cast<long long>(pb[band]) * STRIPE + row) * LANES;
   };
-  for (int e = threadIdx.x; e < PROWS * LANES; e += blockDim.x) {
-    po[e] = route_slot<T>(idx1, sel_a, sel_b, idx3, e >> 7, e & 127, nwin,
-                          fill, src_row);
-  }
+  route_panel<T>(rt, out_rows, nwin, fill, src_row,
+                 [&](int e, T v) { po[e] = v; });
 }
 
 // ---------------------------------------------------------------- K3
 // Route as K2, fold each routed 8-row band (ob) lane-wise in registers and
-// ⊕ it into y row seg[p]*seg_rows + dst[p*8+ob] (panel p's, gated or not). y holds the identity
-// before the first block runs (fill_kernel on the same stream).
+// ⊕ it into y row seg[p]*seg_rows + dst[p*8+ob] (panel p's, gated or not).
+// y holds the identity before the first block runs (fill_kernel on the same
+// stream).
 template <typename T, int RED>
 __global__ void __launch_bounds__(THREADS)
 route_fold_kernel(const T* __restrict__ src, const int* __restrict__ bases,
@@ -197,11 +275,8 @@ route_fold_kernel(const T* __restrict__ src, const int* __restrict__ bases,
   const long long q = plan_block(plan_idx, p);
   if (plan_idx != nullptr && q == fill_block) return;   // ⊕ identity
   const int sr = nwin * STRIPE;
-  const long long prows = sr + 3 * PROWS;
-  const uint8_t* idx1 = plan + q * prows * LANES;
-  const uint8_t* sel_a = idx1 + sr * LANES;
-  const uint8_t* sel_b = sel_a + PROWS * LANES;
-  const uint8_t* idx3 = sel_b + PROWS * LANES;
+  const Route rt = route_at(plan + q * route_rows(sr, PROWS, true) * LANES,
+                            sr, PROWS, true);
   const int* pb = bases + p * nwin;
   auto src_row = [&](int band, int row) -> const T* {
     return src + (static_cast<long long>(pb[band]) * STRIPE + row) * LANES;
@@ -210,13 +285,13 @@ route_fold_kernel(const T* __restrict__ src, const int* __restrict__ bases,
   for (int t = threadIdx.x; t < STRIPE * LANES; t += blockDim.x) {
     const int ob = t >> 7;
     const int l = t & 127;
-    T acc = route_slot<T>(idx1, sel_a, sel_b, idx3, ob * STRIPE, l, nwin,
-                          fill, src_row);
+    T acc = route_slot<T>(rt.idx1, rt.sel_a, rt.sel_b, rt.idx3, ob * STRIPE,
+                          l, nwin, fill, src_row);
 #pragma unroll
     for (int r = 1; r < STRIPE; ++r) {
-      acc = combine<RED>(acc, route_slot<T>(idx1, sel_a, sel_b, idx3,
-                                            ob * STRIPE + r, l, nwin, fill,
-                                            src_row));
+      acc = combine<RED>(acc, route_slot<T>(rt.idx1, rt.sel_a, rt.sel_b,
+                                            rt.idx3, ob * STRIPE + r, l,
+                                            nwin, fill, src_row));
     }
     const long long row = seg_base + dst[p * STRIPE + ob];
     atomic_combine<RED>(y + row * LANES + l, acc);
@@ -253,6 +328,50 @@ hub_fold_kernel(const T* __restrict__ v, const uint8_t* __restrict__ hm,
   out[i] = code == 32 ? a32 : code == 64 ? a64 : code == 128 ? acc : x;
 }
 
+// ---------------------------------------------------------------- K12
+// Pass B: output row r (row d of panel r/8) is the ⊕ of input rows
+// r*8 .. r*8+7, folded in that order. One thread per output slot.
+template <typename T, int RED>
+__global__ void __launch_bounds__(THREADS)
+fold_stripes_kernel(const T* __restrict__ s1, T* __restrict__ out,
+                    long long n) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += stride) {
+    const T* src = s1 + (i >> 7) * STRIPE * LANES + (i & 127);
+    T acc = src[0];
+#pragma unroll
+    for (int k = 1; k < STRIPE; ++k) acc = combine<RED>(acc, src[k * LANES]);
+    out[i] = acc;
+  }
+}
+
+// ---------------------------------------------------------------- K13
+// Chunk fold: chunk c (rows c*8 .. c*8+7 of ystack) folded lane-wise in
+// registers and ⊕-ed into y row chunk_dst[c] with one atomic per lane. One
+// thread per (chunk, lane), two chunks per 256-thread block. y holds the
+// identity before the first block runs (fill_kernel on the same stream).
+template <typename T, int RED>
+__global__ void __launch_bounds__(THREADS)
+colsum_chunks_kernel(const T* __restrict__ ystack,
+                     const int* __restrict__ chunk_dst, T* __restrict__ y,
+                     long long n) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += stride) {
+    const long long c = i >> 7;
+    const int l = static_cast<int>(i & 127);
+    const T* src = ystack + c * STRIPE * LANES + l;
+    T acc = src[0];
+#pragma unroll
+    for (int k = 1; k < STRIPE; ++k) acc = combine<RED>(acc, src[k * LANES]);
+    atomic_combine<RED>(y + static_cast<long long>(chunk_dst[c]) * LANES + l,
+                        acc);
+  }
+}
+
 // ---------------------------------------------------------------- launch
 template <typename T>
 int launch_xr_exp(const void* x2d, const void* bases, const void* plan,
@@ -286,13 +405,100 @@ int launch_xr_exp(const void* x2d, const void* bases, const void* plan,
 }
 
 template <typename T>
+int launch_expand(const void* x_ext, const void* plan, const void* w,
+                  void* out, long long npanels, int mul_kind, double fill,
+                  cudaStream_t st) {
+  const T* xs = static_cast<const T*>(x_ext);
+  const uint8_t* pl = static_cast<const uint8_t*>(plan);
+  const T* ws = static_cast<const T*>(w);
+  T* o = static_cast<T*>(out);
+  const T f = static_cast<T>(fill);
+  const dim3 grid(static_cast<unsigned>(npanels));
+  switch (mul_kind) {
+    case MUL_NONE:
+      route_expand_kernel<T, MUL_NONE><<<grid, THREADS, 0, st>>>(xs, pl, ws,
+                                                                 o, f);
+      break;
+    case MUL_MUL:
+      route_expand_kernel<T, MUL_MUL><<<grid, THREADS, 0, st>>>(xs, pl, ws, o,
+                                                                f);
+      break;
+    case MUL_ADD_SAT:
+      route_expand_kernel<T, MUL_ADD_SAT><<<grid, THREADS, 0, st>>>(
+          xs, pl, ws, o, f);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
 int launch_passa(const void* src, const void* bases, const void* plan,
-                 void* out, long long npanels, int nwin, double fill,
-                 const int* pidx, int fill_block, cudaStream_t st) {
+                 void* out, long long npanels, int nwin, int out_rows,
+                 int two_layer, double fill, const int* pidx, int fill_block,
+                 cudaStream_t st) {
   route_passa_kernel<T><<<static_cast<unsigned>(npanels), THREADS, 0, st>>>(
       static_cast<const T*>(src), static_cast<const int*>(bases),
       static_cast<const uint8_t*>(plan), static_cast<T*>(out), nwin,
-      static_cast<T>(fill), pidx, fill_block);
+      out_rows, two_layer != 0, static_cast<T>(fill), pidx, fill_block);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_fold_stripes(const void* s1, void* out, long long nrows_out,
+                        int red, cudaStream_t st) {
+  const long long n = nrows_out * LANES;
+  if (n == 0) return cudaGetLastError();
+  const T* src = static_cast<const T*>(s1);
+  T* o = static_cast<T*>(out);
+  switch (red) {
+    case RED_SUM:
+      fold_stripes_kernel<T, RED_SUM><<<stride_blocks(n), THREADS, 0, st>>>(
+          src, o, n);
+      break;
+    case RED_MIN:
+      fold_stripes_kernel<T, RED_MIN><<<stride_blocks(n), THREADS, 0, st>>>(
+          src, o, n);
+      break;
+    case RED_MAX:
+      fold_stripes_kernel<T, RED_MAX><<<stride_blocks(n), THREADS, 0, st>>>(
+          src, o, n);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_colsum(const void* ystack, const void* chunk_dst, void* y,
+                  long long nchunks, long long nblocks, int red,
+                  double identity, cudaStream_t st) {
+  if (red != RED_SUM && !std::is_same<T, int>::value) {
+    return cudaErrorInvalidValue;   // no float atomicMin/Max
+  }
+  T* yt = static_cast<T*>(y);
+  launch_fill<T>(yt, nblocks * LANES, static_cast<T>(identity), st);
+  const long long n = nchunks * LANES;
+  if (n > 0) {
+    const T* src = static_cast<const T*>(ystack);
+    const int* d = static_cast<const int*>(chunk_dst);
+    if (red == RED_SUM) {
+      colsum_chunks_kernel<T, RED_SUM><<<stride_blocks(n), THREADS, 0, st>>>(
+          src, d, yt, n);
+    } else if constexpr (std::is_same<T, int>::value) {
+      if (red == RED_MIN) {
+        colsum_chunks_kernel<T, RED_MIN>
+            <<<stride_blocks(n), THREADS, 0, st>>>(src, d, yt, n);
+      } else if (red == RED_MAX) {
+        colsum_chunks_kernel<T, RED_MAX>
+            <<<stride_blocks(n), THREADS, 0, st>>>(src, d, yt, n);
+      } else {
+        return cudaErrorInvalidValue;
+      }
+    }
+  }
   return cudaGetLastError();
 }
 
@@ -393,22 +599,80 @@ int gt_route_xr_exp(const void* x2d, const void* bases, const void* plan,
   }
 }
 
+// out_rows: 64 (two_layer = 1, the corner turn and the fixr route) or 32
+// (two_layer = 0, the x -> x_ext route).
 int gt_route_passa(const void* src, const void* bases, const void* plan,
-                   void* out, long long npanels, int nwin, int dtype,
-                   double fill, const void* plan_idx, int fill_block,
-                   void* stream) {
+                   void* out, long long npanels, int nwin, int out_rows,
+                   int two_layer, int dtype, double fill,
+                   const void* plan_idx, int fill_block, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* pidx = static_cast<const int*>(plan_idx);
   switch (dtype) {
     case F32:
-      return launch_passa<float>(src, bases, plan, out, npanels, nwin, fill,
-                                 pidx, fill_block, st);
+      return launch_passa<float>(src, bases, plan, out, npanels, nwin,
+                                 out_rows, two_layer, fill, pidx, fill_block,
+                                 st);
     case F64:
-      return launch_passa<double>(src, bases, plan, out, npanels, nwin, fill,
-                                  pidx, fill_block, st);
+      return launch_passa<double>(src, bases, plan, out, npanels, nwin,
+                                  out_rows, two_layer, fill, pidx,
+                                  fill_block, st);
     case I32:
-      return launch_passa<int>(src, bases, plan, out, npanels, nwin, fill,
-                               pidx, fill_block, st);
+      return launch_passa<int>(src, bases, plan, out, npanels, nwin,
+                               out_rows, two_layer, fill, pidx, fill_block,
+                               st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+int gt_route_expand(const void* x_ext, const void* plan, const void* w,
+                    void* out, long long npanels, int dtype, int mul_kind,
+                    double fill, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case F32:
+      return launch_expand<float>(x_ext, plan, w, out, npanels, mul_kind,
+                                  fill, st);
+    case F64:
+      return launch_expand<double>(x_ext, plan, w, out, npanels, mul_kind,
+                                   fill, st);
+    case I32:
+      return launch_expand<int>(x_ext, plan, w, out, npanels, mul_kind, fill,
+                                st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+int gt_fold_stripes(const void* s1, void* out, long long nrows_out,
+                    int dtype, int reduce_kind, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case F32:
+      return launch_fold_stripes<float>(s1, out, nrows_out, reduce_kind, st);
+    case F64:
+      return launch_fold_stripes<double>(s1, out, nrows_out, reduce_kind, st);
+    case I32:
+      return launch_fold_stripes<int>(s1, out, nrows_out, reduce_kind, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+int gt_colsum_chunks(const void* ystack, const void* chunk_dst, void* y,
+                     long long nchunks, long long nblocks, int dtype,
+                     int reduce_kind, double identity, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case F32:
+      return launch_colsum<float>(ystack, chunk_dst, y, nchunks, nblocks,
+                                  reduce_kind, identity, st);
+    case F64:
+      return launch_colsum<double>(ystack, chunk_dst, y, nchunks, nblocks,
+                                   reduce_kind, identity, st);
+    case I32:
+      return launch_colsum<int>(ystack, chunk_dst, y, nchunks, nblocks,
+                                reduce_kind, identity, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -7,14 +7,29 @@ superstep is messenger -> exchange x -> combine (the SpMV) -> exchange y
 both exchanges are the identity; they assert the 1x1 layout instead of
 running a collective.
 
-Ported: fixed-iteration and convergence mode on TCSC tiles, stationary
-and nonstationary programs (messages masked to the ⊕-identity outside the
-frontier, the panel pipeline frontier-gated), every kernel choice of the
-JAX executor (``KERNELS``), ``initialize(other=)`` with the I-masked
-handoff, ``free()`` and the oracles (``state_vector``, ``checksum``,
-``display``). An unknown kernel name raises ``ValueError``. Other tile
-formats (CSC, DCSC, TCSC_CF), the sparse exchange and the mesh raise
-``NotImplementedError`` until a later version ports them.
+Ported: fixed-iteration and convergence mode on TCSC and TCSC_CF tiles,
+stationary and nonstationary programs (messages masked to the
+⊕-identity outside the frontier, the panel pipeline frontier-gated),
+every kernel choice of the JAX executor (``KERNELS``),
+``initialize(other=)`` with the I-masked handoff, ``free()`` and the
+oracles (``state_vector``, ``checksum``, ``display``). An unknown kernel
+name raises ``ValueError``. Other tile formats (CSC, DCSC), the sparse
+exchange and the mesh raise ``NotImplementedError`` until a later version
+ports them.
+
+TCSC_CF (computation filtering, reference: spmv_stationary's phase
+gating, vertex_program.hpp:1243-1320; apply :1671-1692) runs three edge
+subsets of the matrix (``format/tiles.py::build_cf_tilesets``) as phases,
+each with its own plans and apply mask: "first" (regular rows, all
+columns; applies to regular rows), "middle" (regular rows x regular
+columns; regular rows) and "last" (all but regular-row x sink-col;
+regular and source rows). A fixed run of n > 1 iterations is first,
+middle for iterations 1 .. n-2, last; convergence mode is first, middle
+steps until the vote (which the middle mask limits to regular rows), then
+the flush on "last" with the stale messages (executor.py:608-710 of the
+JAX package). A 1-iteration run, such as the degree phase, runs the
+main tiles ("main", applied under the I mask as TCSC is). The phase
+tiles and plans are built at the first run that needs them.
 
 Convergence mode (``execute(0)``, reference :407-441) runs supersteps
 until every vertex votes unchanged, then one flush: combine and apply on
@@ -35,6 +50,7 @@ import torch
 from graphtap_tpu_torch.config import Compression, EngineConfig
 from graphtap_tpu_torch.engine.program import State, VertexProgram, \
     numpy_dtype
+from graphtap_tpu_torch.format.tiles import TileSet
 from graphtap_tpu_torch.ingest.graph import Graph
 from graphtap_tpu_torch.kernels.gather_engine import (Spmv2Meta,
                                                       build_spmv2_meta,
@@ -63,6 +79,7 @@ _PLANNERS = {"panel": (Spmv3Meta, build_spmv3_meta, validate_meta),
              "onehot": (PallasPlan, build_onehot_plan,
                         validate_pallas_plan)}
 MAX_CONVERGENCE_ITERS = 1 << 20     # as the JAX package's executor
+CF_PHASES = ("first", "middle", "last")
 GATE_ENV = "GRAPHTAP_PANEL_GATE"
 _GATE_MODES = {"auto": "auto", "1": True, "0": False}
 
@@ -88,6 +105,11 @@ def _device(device) -> torch.device:
     return dev
 
 
+def _nbytes(dev: Dict) -> int:
+    return sum(v.numel() * v.element_size() for v in dev.values()
+               if isinstance(v, torch.Tensor))
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -104,30 +126,41 @@ class Executor:
     plans of this graph's tiles (a ``Spmv3Meta`` for 'panel', a
     ``ShufflePlans`` for 'shuffle', a ``Spmv2Meta`` for 'shuffle2', a
     ``PallasPlan`` for 'onehot', e.g. from ``tools/artifact_cache.py``),
-    validated here, else built here.
+    validated here, else built here. ``phase_plans``: on a TCSC_CF graph,
+    prebuilt plans of the "first", "middle" and "last" phase tiles (any
+    of them; the rest are built), validated as ``plans`` is.
     ``device``: 'cuda' (the default) or 'cpu', where the kernels run
     their plain versions; without CUDA a 'cuda' executor raises.
     ``GRAPHTAP_PANEL_GATE`` is read once, here (``gate_mode``); it sets
     ``gate``, the panel pipeline's gating for nonstationary programs
     (stationary ones always run it static).
     ``timings`` records the host phases and the last ``execute`` in
-    seconds (the latter after a device synchronize). ``supersteps`` lists
-    the last ``execute``'s supersteps: the branch each SpMV took
-    (``gated``: True/False on 'panel', None on the other kernels) and,
-    on a CUDA device, its time by CUDA events (``ms``; None on the CPU);
-    the flush of convergence mode is not among them. ``device_bytes`` is
-    the size of the arrays uploaded for the superstep (tiles or plans)."""
+    seconds (the latter after a device synchronize; the TCSC_CF phases'
+    tiles, plans and upload under ``cf_tiles``, ``cf_plans``,
+    ``cf_upload``). ``supersteps`` lists the last ``execute``'s
+    supersteps: the tile phase each ran (``phase``: "main", or a TCSC_CF
+    phase), the branch its SpMV took (``gated``: True/False on 'panel',
+    None on the other kernels) and, on a CUDA device, its time by CUDA
+    events (``ms``; None on the CPU); the flush of convergence mode is not
+    among them. ``device_bytes`` is the size of the arrays uploaded for
+    the superstep (tiles or plans), those of the TCSC_CF phases included
+    once they are built."""
 
     def __init__(self, graph: Graph, program: VertexProgram,
                  engine: Optional[EngineConfig] = None, kernel: str = "scan",
-                 plans=None, device="cuda"):
+                 plans=None, device="cuda", phase_plans=None):
         self.device = _device(device)
         if kernel not in KERNELS:
             raise ValueError(f"unknown kernel {kernel!r}; use one of "
                              f"{KERNELS}")
-        if graph.config.compression != Compression.TCSC:
-            raise NotImplementedError(
-                f"{graph.config.compression} tiles are not ported yet")
+        comp = graph.config.compression
+        if comp not in (Compression.TCSC, Compression.TCSC_CF):
+            raise NotImplementedError(f"{comp} tiles are not ported yet")
+        self.is_cf = comp == Compression.TCSC_CF
+        if phase_plans and (not self.is_cf
+                            or set(phase_plans) - set(CF_PHASES)):
+            raise ValueError(f"phase_plans: {sorted(phase_plans)}; only a "
+                             f"TCSC_CF graph takes plans of {CF_PHASES}")
         self.graph = graph
         self.program = program
         self.engine = engine or EngineConfig(stationary=program.stationary)
@@ -139,32 +172,22 @@ class Executor:
         self.kernel = kernel
         self.part = graph.part
         self.timings: Dict[str, float] = {}
+        self._phase_plans = dict(phase_plans or {})
         t0 = time.perf_counter()
         self.tiles = graph.tiled(self.engine.ordering)
         self.timings["tiles"] = time.perf_counter() - t0
-        self.meta = None
-        if kernel in _PLANNERS:
-            kind, build, validate = _PLANNERS[kernel]
-            t0 = time.perf_counter()
-            if plans is None:
-                plans = build(self.tiles,
-                              value_dtype=numpy_dtype(program.value_dtype))
-            elif not isinstance(plans, kind):
-                raise TypeError(f"kernel {kernel!r} takes {kind.__name__} "
-                                f"plans, got {type(plans).__name__}")
-            elif kernel == "onehot":
-                validate(plans, self.part.tile_cols)
-            else:
-                validate(plans)
-            self.meta = plans
+        t0 = time.perf_counter()
+        self.meta = self._plans(self.tiles, plans)
+        if self.meta is not None:
             self.timings["plans"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        self._dev = self._upload()
-        self.device_bytes = sum(v.numel() * v.element_size()
-                                for v in self._dev.values()
-                                if isinstance(v, torch.Tensor))
+        self._dev = self._upload(self.tiles, self.meta)
+        self.device_bytes = _nbytes(self._dev)
         _sync(self.device)
         self.timings["upload"] = time.perf_counter() - t0
+        # tile phase -> (tiles, plans, device arrays); the TCSC_CF phases
+        # join at the first run that needs them (_cf_phases)
+        self._phases = {"main": (self.tiles, self.meta, self._dev)}
         self.state: Optional[State] = None
         self.changed: Optional[torch.Tensor] = None
         self.iteration = 0
@@ -174,25 +197,68 @@ class Executor:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    def _upload(self) -> Dict[str, torch.Tensor]:
+    def _plans(self, tiles: TileSet, plans):
+        """The kernel's plans of ``tiles``: ``plans`` validated, or built;
+        None for the kernels that read the tiles themselves."""
+        if self.kernel not in _PLANNERS:
+            return None
+        kind, build, validate = _PLANNERS[self.kernel]
+        if plans is None:
+            return build(tiles,
+                         value_dtype=numpy_dtype(self.program.value_dtype))
+        if not isinstance(plans, kind):
+            raise TypeError(f"kernel {self.kernel!r} takes {kind.__name__} "
+                            f"plans, got {type(plans).__name__}")
+        if self.kernel == "onehot":
+            validate(plans, self.part.tile_cols)
+        else:
+            validate(plans)
+        return plans
+
+    def _upload(self, tiles: TileSet, meta) -> Dict[str, torch.Tensor]:
         """The device-resident arrays the superstep reads (device 0 of the
         tiles' leading device axis)."""
-        ts = self.tiles
-        dev = {"i_own": self._tensor(ts.i_own[0]),
+        dev = {"i_own": self._tensor(tiles.i_own[0]),
                "vids": self._tensor(self.part.owner_vids()[0])}
         if self.kernel in _PLANNERS:
-            dev.update(meta_from_numpy(self.meta.arrays, self.device))
+            dev.update(meta_from_numpy(meta.arrays, self.device))
             if self.kernel == "onehot":
-                dev["iv_dense"] = self._tensor(ts.iv_dense[0])
+                dev["iv_dense"] = self._tensor(tiles.iv_dense[0])
             return dev
-        n = int(ts.nnz[0, 0])
-        dev.update(rows=self._tensor(ts.rows[0].astype(np.int64)),
-                   cols=self._tensor(ts.cols[0].astype(np.int64)),
-                   ja=self._tensor(ts.ja[0]), nnz=n,
-                   iv_dense=self._tensor(ts.iv_dense[0]))
-        if ts.weights is not None:
-            dev["weights"] = self._tensor(ts.weights[0])
+        n = int(tiles.nnz[0, 0])
+        dev.update(rows=self._tensor(tiles.rows[0].astype(np.int64)),
+                   cols=self._tensor(tiles.cols[0].astype(np.int64)),
+                   ja=self._tensor(tiles.ja[0]), nnz=n,
+                   iv_dense=self._tensor(tiles.iv_dense[0]))
+        if tiles.weights is not None:
+            dev["weights"] = self._tensor(tiles.weights[0])
         return dev
+
+    def _cf_phases(self) -> None:
+        """Build and upload the TCSC_CF phases once (reference:
+        compressed_column.hpp:606-1120): each phase's tiles, plans and
+        apply mask (regular rows for first and middle, regular | source
+        rows for last)."""
+        if "first" in self._phases:
+            return
+        t0 = time.perf_counter()
+        cf = self.graph.tiled_cf(self.engine.ordering)
+        self.timings["cf_tiles"] = time.perf_counter() - t0
+        full = cf["full"]
+        masks = {"first": full.regular_own, "middle": full.regular_own,
+                 "last": full.regular_own | full.source_own}
+        self.timings["cf_plans"] = self.timings["cf_upload"] = 0.0
+        for ph in CF_PHASES:
+            t0 = time.perf_counter()
+            meta = self._plans(cf[ph], self._phase_plans.pop(ph, None))
+            t1 = time.perf_counter()
+            dev = self._upload(cf[ph], meta)
+            dev["apply_mask"] = self._tensor(masks[ph][0])
+            self.device_bytes += _nbytes(dev)
+            _sync(self.device)
+            self.timings["cf_plans"] += t1 - t0
+            self.timings["cf_upload"] += time.perf_counter() - t1
+            self._phases[ph] = (cf[ph], meta, dev)
 
     # ------------------------------------------------------------- lifecycle
     def initialize(self, other: Optional["Executor"] = None) -> None:
@@ -213,12 +279,14 @@ class Executor:
         self.iteration = 0
 
     def free(self) -> None:
-        """Release the device-resident tiles and plans (reference:
-        Vertex_Program::free(), vertex_program.hpp:47-54). The state stays,
-        so a successor can still ``initialize(other=self)``; ``execute``
-        after ``free`` raises."""
+        """Release the device-resident tiles and plans of every phase
+        (reference: Vertex_Program::free(), vertex_program.hpp:47-54). The
+        state stays, so a successor can still ``initialize(other=self)``;
+        ``execute`` after ``free`` raises."""
         self._dev = None
         self.meta = None
+        self._phases = None
+        self._phase_plans = {}
 
     # ------------------------------------------------------------- superstep
     def _exchange_x(self, m: torch.Tensor) -> torch.Tensor:
@@ -235,37 +303,39 @@ class Executor:
             raise NotImplementedError("mesh exchange is not ported yet")
         return y_dense
 
-    def _combine(self, x: torch.Tensor) -> Tuple[torch.Tensor,
-                                                 Optional[bool]]:
-        """Tile SpMV -> (the dense row block (C*L,), whether the panel
-        pipeline ran gated; None on the other kernels, which are never
-        gated, as in the JAX package) (reference: combine,
+    def _combine(self, x: torch.Tensor, phase: str
+                 ) -> Tuple[torch.Tensor, Optional[bool]]:
+        """Tile SpMV of ``phase``'s tiles -> (the dense row block (C*L,),
+        whether the panel pipeline ran gated; None on the other kernels,
+        which are never gated, as in the JAX package) (reference: combine,
         vertex_program.hpp:1017-1573)."""
-        sem, d, n = self.program.semiring, self._dev, self.part.tile_rows
+        tiles, meta, d = self._phases[phase]
+        sem, n = self.program.semiring, self.part.tile_rows
         if self.kernel == "panel":
-            st = spmv3_stages(x, d, self.meta, sem, dense_len=n,
-                              gate=self.gate)
+            st = spmv3_stages(x, d, meta, sem, dense_len=n, gate=self.gate)
             return st["y"], st["gated"]
         if self.kernel == "shuffle":
-            return spmv_local(x, d, self.meta, sem, dense_len=n), None
+            return spmv_local(x, d, meta, sem, dense_len=n), None
         if self.kernel == "shuffle2":
-            return spmv2_local(x, d, self.meta, sem, dense_len=n), None
+            return spmv2_local(x, d, meta, sem, dense_len=n), None
         if self.kernel == "onehot":
-            y = spmv_onehot(x, d, self.meta, sem, self.tiles.NR)
+            y = spmv_onehot(x, d, meta, sem, tiles.NR)
         elif self.kernel == "segment":
             y = spmv_segment(x, d["rows"], d["cols"], d.get("weights"),
-                             d["nnz"], self.tiles.NR, sem)
+                             d["nnz"], tiles.NR, sem)
         else:
             y = spmv_sorted_scan(x, d["rows"], d["cols"], d.get("weights"),
                                  d["nnz"], d["ja"], sem)
         return expand_compact(y, d["iv_dense"], sem), None
 
-    def _apply(self, V: State, y_own: torch.Tensor,
-               it: int) -> Tuple[State, torch.Tensor]:
+    def _apply(self, V: State, y_own: torch.Tensor, it: int,
+               phase: str) -> Tuple[State, torch.Tensor]:
         """(reference: apply_*, vertex_program.hpp:1610-1802): TCSC applies
-        only where the I bit is set (:1655-1670)."""
+        only where the I bit is set (:1655-1670); a TCSC_CF phase where
+        its apply mask is (:1671-1692)."""
         V2, changed = self.program.applicator(V, y_own, it)
-        mask = self._dev["i_own"]
+        d = self._phases[phase][2]
+        mask = d.get("apply_mask", self._dev["i_own"])
         V2 = {k: torch.where(mask, v2, V[k]) for k, v2 in V2.items()}
         changed = changed & mask
         return V2, changed & (self._dev["vids"] < self.graph.nv)
@@ -280,14 +350,14 @@ class Executor:
                                                               m.device))
         return m
 
-    def _step(self, V: State, m: torch.Tensor, it: int
+    def _step(self, V: State, m: torch.Tensor, it: int, phase: str
               ) -> Tuple[State, torch.Tensor, Optional[bool]]:
         """Exchange x, combine, exchange y, apply -> (V', C', gated)."""
-        y, gated = self._combine(self._exchange_x(m))
-        V2, C2 = self._apply(V, self._exchange_y(y), it)
+        y, gated = self._combine(self._exchange_x(m), phase)
+        V2, C2 = self._apply(V, self._exchange_y(y), it, phase)
         return V2, C2, gated
 
-    def _superstep(self, V: State, C: torch.Tensor, it: int
+    def _superstep(self, V: State, C: torch.Tensor, it: int, phase: str
                    ) -> Tuple[State, torch.Tensor, torch.Tensor]:
         """One superstep, recorded in ``supersteps``; returns (V', C', its
         messages)."""
@@ -297,8 +367,8 @@ class Executor:
                   torch.cuda.Event(enable_timing=True))
             ev[0].record()
         m = self._messages(V, C)
-        V2, C2, gated = self._step(V, m, it)
-        rec = {"gated": gated, "ms": None}
+        V2, C2, gated = self._step(V, m, it, phase)
+        rec = {"phase": phase, "gated": gated, "ms": None}
         if ev is not None:
             ev[1].record()
             rec["events"] = ev
@@ -309,30 +379,39 @@ class Executor:
     def execute(self, num_iterations: Optional[int] = None) -> int:
         """Run ``num_iterations`` supersteps, or, for 0, supersteps to
         convergence and the flush (reference: execute(), :407-441);
-        returns the iteration count (the flush not counted). Ends with a
-        device synchronize, so ``timings['execute']`` is device time."""
+        returns the iteration count (the flush not counted). On a TCSC_CF
+        graph every run but a 1-iteration one runs the CF phases. Ends
+        with a device synchronize, so ``timings['execute']`` is device
+        time (the CF phases' first build is not in it)."""
         if self._dev is None:
             raise RuntimeError("execute() after free()")
         if self.state is None:
             self.initialize()
         niters = self.engine.num_iterations if num_iterations is None \
             else num_iterations
+        cf = self.is_cf and (not niters or niters > 1)
+        if cf:
+            self._cf_phases()
         self.supersteps = []
         t0 = time.perf_counter()
         V, C = self.state, self.changed
         if niters and niters > 0:
             for it in range(niters):
-                V, C, _ = self._superstep(V, C, it)
+                phase = ("main" if not cf else "first" if it == 0
+                         else "last" if it == niters - 1 else "middle")
+                V, C, _ = self._superstep(V, C, it, phase)
             self.iteration = niters
         else:
             it, converged = 0, False
             while not converged and it < MAX_CONVERGENCE_ITERS:
-                V, C, m = self._superstep(V, C, it)
+                phase = ("main" if not cf else "first" if it == 0
+                         else "middle")
+                V, C, m = self._superstep(V, C, it, phase)
                 it += 1
                 converged = not bool(C.any())       # the vote: a host read
             # one extra combine + apply on the last superstep's messages,
             # to flush source/sink contributions (reference :425-429)
-            V, C, _ = self._step(V, m, it)
+            V, C, _ = self._step(V, m, it, "last" if cf else "main")
             self.iteration = it
         self.state, self.changed = V, C
         _sync(self.device)

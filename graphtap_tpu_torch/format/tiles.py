@@ -1,11 +1,14 @@
 """Tile construction: filtering, renumbering, compression (numpy).
 
-Counterpart of ``graphtap_tpu/format/tiles.py::build_tileset`` for one
-process and the CSC and TCSC formats: the same arrays, byte for byte,
-without the device placement (``device_arrays``) and without the
-multi-process OR/max/sum reductions, which are the identity on one
-process. DCSC and TCSC_CF are not ported yet. The engine moves the fields it
-needs to the device itself (``engine/executor.py``).
+Counterpart of ``graphtap_tpu/format/tiles.py`` (``build_tileset``,
+``classify_vertices``, ``build_cf_tilesets``) for one process and the CSC,
+TCSC and TCSC_CF formats: the same arrays, byte for byte, without the
+device placement (``device_arrays``) and without the multi-process
+OR/max/sum reductions, which are the identity on one process. TCSC_CF
+renumbers rows as TCSC does; its first/middle/last edge subsets are
+``build_cf_tilesets``'s, and the engine runs them as phases
+(``engine/executor.py``). DCSC is not ported yet. The engine moves the
+fields it needs to the device itself.
 """
 
 from __future__ import annotations
@@ -52,6 +55,58 @@ class TileSet:
     jc: Optional[np.ndarray] = None   # DCSC's JC table; not ported (None)
 
 
+def classify_vertices(r: np.ndarray, c: np.ndarray, n_pad: int):
+    """Vertex classes over the stored matrix (reference:
+    classify_vertices, matrix.hpp:1125-1282): regular = row and col
+    present, source rows = rows without cols, sink cols = cols without
+    rows."""
+    has_row = np.zeros(n_pad, dtype=bool)
+    has_col = np.zeros(n_pad, dtype=bool)
+    has_row[np.asarray(r, np.int64)] = True
+    has_col[np.asarray(c, np.int64)] = True
+    return {"regular": has_row & has_col,
+            "source_row": has_row & ~has_col,
+            "sink_col": has_col & ~has_row}
+
+
+def build_cf_tilesets(r: np.ndarray, c: np.ndarray, w: Optional[np.ndarray],
+                      part: Partition, parallel_edges: bool = True,
+                      edge_align: int = 1024, weight_dtype=np.int32):
+    """TCSC_CF: the full tileset and three edge-subset tilesets for the
+    first / middle / last iteration phases (reference: the JA/JC pointer
+    sets of TCSC_CF_BASE, compressed_column.hpp:606-1120, run per phase in
+    spmv_stationary, vertex_program.hpp:1243-1320):
+
+      first  — regular-row edges, all columns
+      middle — regular rows x regular columns
+      last   — everything except regular-row x sink-col
+
+    Sink columns' messages are zero under the I-masked degree handoff
+    (vertex_program.hpp:476-483), which makes dropping regular-row x
+    sink-col edges after iteration 0 sound."""
+    r = np.asarray(r, np.int64)
+    c = np.asarray(c, np.int64)
+    cls = classify_vertices(r, c, part.n_pad)
+    row_is_source = cls["source_row"][r]
+    col_is_sink = cls["sink_col"][c]
+
+    def subset(mask):
+        return build_tileset(r[mask], c[mask],
+                             w[mask] if w is not None else None, part,
+                             compression=Compression.TCSC_CF,
+                             parallel_edges=parallel_edges,
+                             edge_align=edge_align,
+                             weight_dtype=weight_dtype)
+
+    full = build_tileset(r, c, w, part, compression=Compression.TCSC_CF,
+                         parallel_edges=parallel_edges,
+                         edge_align=edge_align, weight_dtype=weight_dtype)
+    return {"full": full,
+            "first": subset(~row_is_source),
+            "middle": subset(~row_is_source & ~col_is_sink),
+            "last": subset(~(~row_is_source & col_is_sink))}
+
+
 def build_tileset(
     r: np.ndarray,
     c: np.ndarray,
@@ -65,7 +120,7 @@ def build_tileset(
     """Build the tiled, compressed representation from a host edge list
     (global, already transformed row/col ids; ``w`` optional weights).
     Dedup of parallel edges keeps the minimum weight."""
-    if compression not in (Compression.CSC, Compression.TCSC):
+    if compression == Compression.DCSC:
         raise NotImplementedError(f"{compression} tiles are not ported yet")
     R, C, L, D = part.R, part.C, part.L, part.D
     r = np.asarray(r, dtype=np.int64)
@@ -91,7 +146,7 @@ def build_tileset(
     nnzrows_grp = rows_mask.sum(axis=1).astype(np.int64)
     nnzcols_grp = cols_mask.sum(axis=1).astype(np.int64)
 
-    renumber = compression == Compression.TCSC
+    renumber = compression in (Compression.TCSC, Compression.TCSC_CF)
 
     # per-device binning (native counting sort when available)
     if r.size and r.max() < (1 << 32) and c.max() < (1 << 32):

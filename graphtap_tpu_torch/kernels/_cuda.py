@@ -41,10 +41,17 @@ _SIGNATURES = {
     # plan_idx, fill_block, stream
     "gt_route_xr_exp": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _F64,
                         _P, _I32, _P],
-    # src, bases, plan, out, npanels, nwin, dtype, fill, plan_idx,
-    # fill_block, stream
-    "gt_route_passa": [_P, _P, _P, _P, _I64, _I32, _I32, _F64, _P, _I32,
-                       _P],
+    # src, bases, plan, out, npanels, nwin, out_rows, two_layer, dtype,
+    # fill, plan_idx, fill_block, stream
+    "gt_route_passa": [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _F64,
+                       _P, _I32, _P],
+    # x_ext, plan, w, out, npanels, dtype, mul_kind, fill, stream
+    "gt_route_expand": [_P, _P, _P, _P, _I64, _I32, _I32, _F64, _P],
+    # s1, out, nrows_out, dtype, reduce_kind, stream
+    "gt_fold_stripes": [_P, _P, _I64, _I32, _I32, _P],
+    # ystack, chunk_dst, y, nchunks, nblocks, dtype, reduce_kind,
+    # identity, stream
+    "gt_colsum_chunks": [_P, _P, _P, _I64, _I64, _I32, _I32, _F64, _P],
     # src, bases, plan, dst, seg, y, nrows, seg_rows, npanels, nwin,
     # dtype, reduce_kind, fill, plan_idx, fill_block, stream
     "gt_route_fold": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32,

@@ -13,6 +13,18 @@ its arrays as tensors on the run's device
     -> K3 route_fold (fixr, segmented y_mid) -> K4 hub_fold
     -> K3 route_fold (fix2, straight into the dense y)
 
+``spmv3_staged`` computes the same y through the staged (unfused)
+pipeline, the composition the JAX package keeps K11 and K13 for
+(``tests/test_panel.py:145-210``), on the same meta:
+
+  x -> K2 route_passa, single-layer (the xr half of each xe_plan block)
+    -> x_ext -> K11 route_expand (the exp half, ⊗w) -> s0 (= K1's s0)
+    -> K2 route_passa -> s1 -> K2 route_passa (fixr) -> stack1
+    -> K13 colsum_chunks (y_mid) -> K4 hub_fold -> K3 route_fold (fix2)
+
+Its tables (the two halves of xe_plan, the absolute y_mid row of each
+fixr chunk) are derived once per upload by ``staged_tables``.
+
 Frontier gating (nonstationary programs, ``gate``): activity bits per
 8-row x block propagate through the panel graph (xe -> pa -> fixr), and
 inactive panels' plan indices and window bases are redirected to the fill
@@ -29,8 +41,8 @@ import numpy as np
 import torch
 
 from graphtap_tpu_torch.kernels.panel_kernels import (
-    FOLD_SEG_ROWS, LANES, STRIPE, hub_fold, route_fold, route_passa,
-    route_xr_exp)
+    FOLD_SEG_ROWS, LANES, STRIPE, XROWS, colsum_chunks, hub_fold, plan_rows,
+    route_expand, route_fold, route_passa, route_xr_exp, xe_plan_rows)
 from graphtap_tpu_torch.kernels.panel_meta import Spmv3Meta, fill_blocks
 from graphtap_tpu_torch.kernels.semiring import Semiring
 
@@ -128,10 +140,7 @@ def spmv3_stages(x: torch.Tensor, t: Dict[str, torch.Tensor],
     package's ``lax.cond`` does. The gated maps are in ``maps``."""
     if not (isinstance(gate, bool) or gate == "auto"):
         raise ValueError(f"gate {gate!r}: expected False, True or 'auto'")
-    if meta.has_w:
-        mul_kind = "mul" if semiring.reduce_kind == "sum" else "add_sat"
-    else:
-        mul_kind = "none"
+    mul_kind = _mul_kind(meta, semiring)
     fill = semiring.identity
     kind = semiring.reduce_kind
     x2d = pad_x(x, meta, fill)
@@ -157,9 +166,22 @@ def spmv3_stages(x: torch.Tensor, t: Dict[str, torch.Tensor],
                        t["fixr_seg"], meta.nrb, kind, fill, meta.fix_panels,
                        meta.fixr_nwin, plan_idx=fx_q,
                        fill_block=fb["fixr_plan"])
+    y_hub, y = _fold_tail(y_mid, t, meta, kind, fill, dense_len)
+    return {"x2d": x2d, "s0": s0, "s1": s1, "y_mid": y_mid, "y_hub": y_hub,
+            "y": y, "gated": gated, "maps": maps}
+
+
+def _mul_kind(meta: Spmv3Meta, semiring: Semiring) -> str:
+    if not meta.has_w:
+        return "none"
+    return "mul" if semiring.reduce_kind == "sum" else "add_sat"
+
+
+def _fold_tail(y_mid, t, meta: Spmv3Meta, kind: str, fill, dense_len: int):
+    """y_mid -> (y_hub, y (dense_len,)): K4, then the fix2 fold (K3)
+    straight into the dense y layout."""
     # hub rows: lane-⊕-fold at the row's packed slot width
     y_hub = hub_fold(y_mid, t["hub_mask"], kind)
-    # fix2 lands straight in the dense y layout
     y_dense = route_fold(y_hub, t["f2_bases"], t["f2_plan"], t["fix2_dst"],
                          t["f2_seg"], meta.f2_rows, kind, fill,
                          meta.f2_panels, meta.f2_nwin)
@@ -171,9 +193,7 @@ def spmv3_stages(x: torch.Tensor, t: Dict[str, torch.Tensor],
         y_dense = torch.where(
             ok, y_dense, torch.tensor(fill, dtype=y_dense.dtype,
                                       device=y_dense.device))
-    return {"x2d": x2d, "s0": s0, "s1": s1, "y_mid": y_mid, "y_hub": y_hub,
-            "y": y_dense.reshape(-1)[:dense_len], "gated": gated,
-            "maps": maps}
+    return y_hub, y_dense.reshape(-1)[:dense_len]
 
 
 def spmv3_local(x: torch.Tensor, t: Dict[str, torch.Tensor],
@@ -181,3 +201,58 @@ def spmv3_local(x: torch.Tensor, t: Dict[str, torch.Tensor],
                 gate=False) -> torch.Tensor:
     """One-device v3 SpMV: x (NC,) -> y_dense (dense_len,)."""
     return spmv3_stages(x, t, meta, semiring, dense_len, gate)["y"]
+
+
+def staged_tables(t: Dict[str, torch.Tensor],
+                  meta: Spmv3Meta) -> Dict[str, torch.Tensor]:
+    """``t`` plus the staged pipeline's tables, on t's device: ``xr_plan``
+    and ``exp_plan``, the single-layer x -> x_ext half and the expand half
+    of each panel's packed ``xe_plan`` block (contiguous copies), and
+    ``chunk_dst``, the absolute y_mid row ``fixr_seg*seg_rows + fix_dst``
+    of each fixr chunk (inside the nrb-row table: ``validate_meta``)."""
+    npan = meta.exp_panels + 1
+    xr_rows = plan_rows(meta.xr_nwin * STRIPE, XROWS, False)
+    blocks = t["xe_plan"][:npan * xe_plan_rows(meta.xr_nwin)].view(
+        npan, -1, LANES)
+    seg_rows = min(meta.nrb, FOLD_SEG_ROWS)
+    chunk_dst = (t["fixr_seg"][:meta.fix_panels].long().repeat_interleave(
+        STRIPE) * seg_rows + t["fix_dst"][:meta.fix_panels * STRIPE].long())
+    return {**t,
+            "xr_plan": blocks[:, :xr_rows].reshape(-1, LANES).contiguous(),
+            "exp_plan": blocks[:, xr_rows:].reshape(-1, LANES).contiguous(),
+            "chunk_dst": chunk_dst.to(torch.int32)}
+
+
+def spmv3_staged_stages(x: torch.Tensor, t: Dict[str, torch.Tensor],
+                        meta: Spmv3Meta, semiring: Semiring,
+                        dense_len: int) -> Dict[str, torch.Tensor]:
+    """Every stage of one staged SpMV on ``t = staged_tables(...)``: the
+    x table ``x2d``, ``x_ext``, ``s0`` (equal to K1's), ``s1``,
+    ``stack1`` (the fixr route's routed panels), ``y_mid`` (their chunk
+    fold), ``y_hub`` and the result ``y`` (dense_len,)."""
+    if "chunk_dst" not in t:
+        raise KeyError("spmv3_staged: pass staged_tables(t, meta)")
+    fill, kind = semiring.identity, semiring.reduce_kind
+    nxe = meta.exp_panels + 1
+    x2d = pad_x(x, meta, fill)
+    x_ext = route_passa(x2d, t["xr_bases"], t["xr_plan"], fill, nxe,
+                        meta.xr_nwin, out_rows=XROWS, two_layer=False)
+    s0 = route_expand(x_ext, t["exp_plan"], t.get("w_stream"), fill, nxe,
+                      _mul_kind(meta, semiring))
+    s1 = route_passa(s0, t["pa_bases"], t["pa_plan"], fill,
+                     meta.pa_panels + 1, meta.pa_nwin)
+    stack1 = route_passa(s1, t["fixr_bases"], t["fixr_plan"], fill,
+                         meta.fix_panels, meta.fixr_nwin)
+    y_mid = colsum_chunks(stack1, t["chunk_dst"], meta.nrb, kind, fill)
+    y_hub, y = _fold_tail(y_mid, t, meta, kind, fill, dense_len)
+    return {"x2d": x2d, "x_ext": x_ext, "s0": s0, "s1": s1,
+            "stack1": stack1, "y_mid": y_mid, "y_hub": y_hub, "y": y}
+
+
+def spmv3_staged(x: torch.Tensor, t: Dict[str, torch.Tensor],
+                 meta: Spmv3Meta, semiring: Semiring,
+                 dense_len: int) -> torch.Tensor:
+    """The staged v3 SpMV: x (NC,) -> y_dense (dense_len,), equal to
+    ``spmv3_local``'s (bit for bit in int32; float sums within the
+    atomic folds' tolerance)."""
+    return spmv3_staged_stages(x, t, meta, semiring, dense_len)["y"]

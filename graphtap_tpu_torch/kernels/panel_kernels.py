@@ -1,17 +1,20 @@
 """The v3 panel-route kernels: CUDA wrappers, plain torch versions, counts.
 
-Counterpart of ``graphtap_tpu/kernels/panel_kernels.py``. Each of the four
-Pallas kernels on the panel path has here
+Counterpart of ``graphtap_tpu/kernels/panel_kernels.py``. Each of its
+seven Pallas kernels has here
 
   * a wrapper (``route_xr_exp``, ``route_passa``, ``route_fold``,
-    ``hub_fold``) that checks dtype, shape and contiguity, then runs the
+    ``hub_fold`` on the fused path; ``route_expand``, ``fold_stripes``,
+    ``colsum_chunks`` and ``route_passa``'s single-layer form on the
+    staged one) that checks dtype, shape and contiguity, then runs the
     plain version for a CPU tensor or launches the hand-written Hopper
     kernel (``csrc/panel_route.cu``) for a CUDA tensor — never a fallback;
   * a plain torch version (``*_plain``) of the same function, which the
     CPU tests hold against the Pallas kernels and ``chip_smoke.py`` holds
     against the CUDA kernels;
   * a launch count in ``LAUNCHES``, incremented only where the wrapper
-    launches the CUDA kernel.
+    launches the CUDA kernel (``route_passa_single`` counts the
+    single-layer launches of ``route_passa``).
 
 K1-K3 also take ``plan_idx`` ((npanels,) int32, default None = static):
 the frontier-gated variant of the Pallas kernels' ``plan_idx`` branch,
@@ -23,10 +26,10 @@ pure ⊕-identity output; ``panel_meta.fill_blocks``): the CUDA kernel
 skips the gathers of a panel pointed there, which computes what the plain
 version computes through that plan.
 
-Route semantics, shared by K1-K3. A panel's plan block is uint8 rows
-[idx1 (nsrc*8), sel_a (out), sel_b (out, two-layer only), idx3 (out)].
-For output slot (r, l): m = idx3[r,l] & 127; s = (idx3[r,l] >= 128 ?
-sel_b : sel_a)[r, m]; band = s >> 3, row = s & 7; the value is
+Route semantics, shared by K1-K3 and K11. A panel's plan block is uint8
+rows [idx1 (nsrc*8), sel_a (out), sel_b (out, two-layer only), idx3
+(out)]. For output slot (r, l): m = idx3[r,l] & 127; s = (idx3[r,l] >=
+128 ? sel_b : sel_a)[r, m]; band = s >> 3, row = s & 7; the value is
 src_band[band][row, idx1[band*8+row, m]] if band < nsrc, else the fill
 (⊕-identity) — a band past the source is fill, never a wrapped read.
 """
@@ -43,7 +46,8 @@ from graphtap_tpu_torch.kernels.panel_plan import (FOLD_SEG_ROWS, LANES,
 # launches of each CUDA kernel (the plain versions are not counted)
 LAUNCHES = {"route_xr_exp": 0, "route_passa": 0, "route_fold": 0,
             "hub_fold": 0, "route_xr_exp_gated": 0, "route_passa_gated": 0,
-            "route_fold_gated": 0}
+            "route_fold_gated": 0, "route_passa_single": 0,
+            "route_expand": 0, "fold_stripes": 0, "colsum_chunks": 0}
 
 _DTYPES = {torch.float32: 0, torch.float64: 1, torch.int32: 2}
 _MUL_KINDS = {"none": 0, "mul": 1, "add_sat": 2}
@@ -155,12 +159,47 @@ def route_xr_exp_plain(x2d, bases, plan, weights, fill, npanels: int,
 
 
 def route_passa_plain(stream0, bases, plan, fill, npanels: int, nwin: int,
-                      plan_idx=None):
+                      plan_idx=None, out_rows: int = PROWS,
+                      two_layer: bool = True):
     sr = nwin * STRIPE
-    i1, sa, sb, i3 = _split(plan, npanels, (sr, PROWS, PROWS, PROWS),
-                            plan_idx)
+    sizes = (sr, out_rows, out_rows, out_rows) if two_layer \
+        else (sr, out_rows, out_rows)
+    parts = _split(plan, npanels, sizes, plan_idx)
+    i1, sa, i3 = parts[0], parts[1], parts[-1]
+    sb = parts[2] if two_layer else None
     return _route(_windows(stream0, bases, npanels, nwin), i1, sa, sb, i3,
                   nwin, fill).reshape(-1, LANES)
+
+
+def route_expand_plain(x_ext, plan, weights, fill, npanels: int,
+                       mul_kind: str = "none"):
+    i1, sa, sb, i3 = _split(plan, npanels, (XROWS, PROWS, PROWS, PROWS))
+    acc = _route(_blocks(x_ext, npanels, XROWS, None), i1, sa, sb, i3,
+                 XROWS // STRIPE, fill)
+    return _mul(acc, weights, npanels, mul_kind, fill).reshape(-1, LANES)
+
+
+def _reduce8(t, reduce_kind: str):
+    """(n*8, 128) -> (n, 128): the ⊕ of each 8 consecutive rows, in t's
+    dtype (an int32 sum wraps as the kernels' does, not promoted)."""
+    v = t.view(-1, STRIPE, LANES)
+    if reduce_kind == "sum":
+        return v.sum(dim=1, dtype=t.dtype)
+    return v.amin(dim=1) if reduce_kind == "min" else v.amax(dim=1)
+
+
+def fold_stripes_plain(s1, reduce_kind: str, npanels: int):
+    return _reduce8(s1[:npanels * PROWS], reduce_kind)
+
+
+def colsum_chunks_plain(ystack, chunk_dst, nblocks: int, reduce_kind: str,
+                        identity):
+    parts = _reduce8(ystack, reduce_kind)
+    y = torch.full((nblocks, LANES), identity, dtype=ystack.dtype,
+                   device=ystack.device)
+    rows = chunk_dst[:parts.shape[0]].long()[:, None].expand(-1, LANES)
+    op = {"sum": "sum", "min": "amin", "max": "amax"}[reduce_kind]
+    return y.scatter_reduce_(0, rows, parts, op, include_self=True)
 
 
 def _fold_rows(dst, seg, nrows: int):
@@ -171,21 +210,12 @@ def _fold_rows(dst, seg, nrows: int):
 def route_fold_plain(stream0, bases, plan, dst, seg, nrows: int,
                      reduce_kind: str, fill, npanels: int, nwin: int,
                      plan_idx=None):
+    """K3 = the route of K2, then K13's chunk fold at rows seg*seg_rows +
+    dst."""
     routed = route_passa_plain(stream0, bases, plan, fill, npanels, nwin,
                                plan_idx)
-    bands = routed.view(npanels * STRIPE, STRIPE, LANES)
-    if reduce_kind == "sum":
-        parts = bands.sum(dim=1)
-    elif reduce_kind == "min":
-        parts = bands.amin(dim=1)
-    else:
-        parts = bands.amax(dim=1)
     rows = _fold_rows(dst[:npanels * STRIPE], seg[:npanels], nrows)
-    y = torch.full((nrows, LANES), fill, dtype=stream0.dtype,
-                   device=stream0.device)
-    op = {"sum": "sum", "min": "amin", "max": "amax"}[reduce_kind]
-    return y.scatter_reduce_(0, rows[:, None].expand(-1, LANES), parts, op,
-                             include_self=True)
+    return colsum_chunks_plain(routed, rows, nrows, reduce_kind, fill)
 
 
 def hub_fold_plain(y_mid, hub_mask, reduce_kind: str):
@@ -295,31 +325,135 @@ def route_xr_exp(x2d, bases, plan, weights, fill, npanels: int, nwin: int,
 
 
 def route_passa(stream0, bases, plan, fill, npanels: int, nwin: int,
-                plan_idx=None, fill_block=None):
+                plan_idx=None, fill_block=None, out_rows: int = PROWS,
+                two_layer: bool = True):
     """K2: the corner turn — each panel's ``nwin`` 8-row windows of
-    ``stream0`` (at block indices ``bases``) routed two-layer into a
-    64-row panel. Replaces ``panel_kernels.py::route_passa``, static and
-    gated (``plan_idx``)."""
-    _check_route_args(stream0, bases, plan, npanels, nwin)
-    pidx, fblk, key = _gate_args("route_passa", plan_idx, fill_block, plan,
-                                 plan_rows(nwin * STRIPE), npanels,
-                                 stream0.device)
+    ``stream0`` (at block indices ``bases``) routed into an
+    ``out_rows``-row panel: two-layer into 64 rows (the default), or
+    single-layer into 32 (``out_rows=XROWS, two_layer=False``: the
+    x -> x_ext route, whose plan has no sel_b). Replaces
+    ``panel_kernels.py::route_passa``, static and gated (``plan_idx``).
+    Static single-layer launches count under ``route_passa_single``."""
+    if out_rows not in (PROWS, XROWS):
+        raise ValueError(f"route_passa: out_rows {out_rows}, expected "
+                         f"{PROWS} or {XROWS}")
+    prows = plan_rows(nwin * STRIPE, out_rows, two_layer)
+    _check_sources("stream0", stream0, bases, plan, npanels, nwin)
+    _check_2d("plan", plan, torch.uint8, npanels * prows)
+    single = not two_layer and plan_idx is None
+    pidx, fblk, key = _gate_args(
+        "route_passa_single" if single else "route_passa", plan_idx,
+        fill_block, plan, prows, npanels, stream0.device)
     if not _on_cuda(stream0):
         return route_passa_plain(stream0, bases, plan, fill, npanels, nwin,
-                                 plan_idx)
+                                 plan_idx, out_rows, two_layer)
     lib = _cuda.library()
-    out = torch.empty((npanels * PROWS, LANES), dtype=stream0.dtype,
+    out = torch.empty((npanels * out_rows, LANES), dtype=stream0.dtype,
                       device=stream0.device)
     if npanels == 0:
         return out
     with torch.cuda.device(stream0.device):
         rc = lib.gt_route_passa(
             stream0.data_ptr(), bases.data_ptr(), plan.data_ptr(),
-            out.data_ptr(), npanels, nwin, _DTYPES[stream0.dtype],
-            float(fill), pidx, fblk, _stream(stream0))
+            out.data_ptr(), npanels, nwin, out_rows, int(two_layer),
+            _DTYPES[stream0.dtype], float(fill), pidx, fblk,
+            _stream(stream0))
     LAUNCHES[key] += 1
     _cuda.check(rc, key)
     return out
+
+
+def route_expand(x_ext, plan, weights, fill, npanels: int,
+                 mul_kind: str = "none"):
+    """K11: x_ext panels (npanels*32, 128) -> (npanels*64, 128)
+    contribution panels: panel i's own 32-row x_ext block (4 source
+    bands) routed two-layer, then ⊗ with the weight stream — K1's second
+    stage alone. ``plan``: per panel [idx1 (32), sel_a, sel_b, idx3 (64
+    each)]. Replaces ``panel_kernels.py::route_expand``."""
+    _check_2d("x_ext", x_ext, None, npanels * XROWS)
+    _check_values("x_ext", x_ext, x_ext.device)
+    _check_2d("plan", plan, torch.uint8, npanels * plan_rows(XROWS))
+    if plan.device != x_ext.device:
+        raise ValueError(f"plan on {plan.device}, expected {x_ext.device}")
+    if mul_kind not in _MUL_KINDS:
+        raise ValueError(f"mul_kind {mul_kind!r}")
+    if weights is not None:
+        _check_2d("weights", weights, x_ext.dtype, npanels * PROWS)
+        _check_values("weights", weights, x_ext.device)
+    if not _on_cuda(x_ext):
+        return route_expand_plain(x_ext, plan, weights, fill, npanels,
+                                  mul_kind)
+    lib = _cuda.library()
+    out = torch.empty((npanels * PROWS, LANES), dtype=x_ext.dtype,
+                      device=x_ext.device)
+    if npanels == 0:
+        return out
+    with torch.cuda.device(x_ext.device):
+        rc = lib.gt_route_expand(
+            x_ext.data_ptr(), plan.data_ptr(),
+            None if weights is None else weights.data_ptr(), out.data_ptr(),
+            npanels, _DTYPES[x_ext.dtype],
+            _MUL_KINDS[mul_kind] if weights is not None else 0, float(fill),
+            _stream(x_ext))
+    LAUNCHES["route_expand"] += 1
+    _cuda.check(rc, "route_expand")
+    return out
+
+
+def fold_stripes(s1, reduce_kind: str, npanels: int):
+    """K12 (pass B): (npanels*64, 128) -> (npanels*8, 128); row d of
+    panel i is the ⊕ of its rows d*8 .. d*8+7, folded in that order.
+    Replaces ``panel_kernels.py::fold_stripes``."""
+    _check_2d("s1", s1, None, npanels * PROWS)
+    _check_values("s1", s1, s1.device)
+    if reduce_kind not in _REDUCE_KINDS:
+        raise ValueError(f"fold_stripes: reduce_kind {reduce_kind!r}")
+    if not _on_cuda(s1):
+        return fold_stripes_plain(s1, reduce_kind, npanels)
+    lib = _cuda.library()
+    out = torch.empty((npanels * STRIPE, LANES), dtype=s1.dtype,
+                      device=s1.device)
+    if npanels == 0:
+        return out
+    with torch.cuda.device(s1.device):
+        rc = lib.gt_fold_stripes(s1.data_ptr(), out.data_ptr(),
+                                 npanels * STRIPE, _DTYPES[s1.dtype],
+                                 _REDUCE_KINDS[reduce_kind], _stream(s1))
+    LAUNCHES["fold_stripes"] += 1
+    _cuda.check(rc, "fold_stripes")
+    return out
+
+
+def colsum_chunks(ystack, chunk_dst, nblocks: int, reduce_kind: str,
+                  identity):
+    """K13: an (nblocks, 128) table that starts at ``identity``; row
+    ``chunk_dst[i]`` ⊕= the column-⊕ of chunk i (rows i*8 .. i*8+7 of
+    ``ystack``). Replaces ``panel_kernels.py::colsum_chunks``. The
+    chunk_dst values are not read back: callers build them from a
+    validated meta (``panel_engine.staged_tables``)."""
+    _check_2d("ystack", ystack)
+    if ystack.shape[0] % STRIPE:
+        raise ValueError("ystack rows must be a multiple of 8")
+    _check_values("ystack", ystack, ystack.device)
+    nchunks = ystack.shape[0] // STRIPE
+    _check_idx("chunk_dst", chunk_dst, nchunks, ystack.device)
+    if reduce_kind not in _REDUCE_OK[ystack.dtype]:
+        raise ValueError(f"colsum_chunks: {reduce_kind} on {ystack.dtype}")
+    if not _on_cuda(ystack):
+        return colsum_chunks_plain(ystack, chunk_dst, nblocks, reduce_kind,
+                                   identity)
+    lib = _cuda.library()
+    y = torch.empty((nblocks, LANES), dtype=ystack.dtype,
+                    device=ystack.device)
+    with torch.cuda.device(ystack.device):
+        rc = lib.gt_colsum_chunks(ystack.data_ptr(), chunk_dst.data_ptr(),
+                                  y.data_ptr(), nchunks, nblocks,
+                                  _DTYPES[ystack.dtype],
+                                  _REDUCE_KINDS[reduce_kind],
+                                  float(identity), _stream(ystack))
+    LAUNCHES["colsum_chunks"] += 1
+    _cuda.check(rc, "colsum_chunks")
+    return y
 
 
 def route_fold(stream0, bases, plan, dst, seg, nrows: int, reduce_kind: str,

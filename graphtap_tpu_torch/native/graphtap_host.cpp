@@ -13,7 +13,8 @@
 //   gt_dedup_edges  — remove parallel edges keeping the min weight
 //                     (reference: std::unique, matrix.hpp:550-556)
 //
-// Build: make -C graphtap_tpu/native   (produces libgraphtap_host.so)
+// Build: at first use, by graphtap_tpu_torch/native/__init__.py (g++ into
+// graphtap_tpu_torch/build/libgraphtap_host_<source hash>.so).
 
 #include <algorithm>
 #include <cstdint>

@@ -11,9 +11,11 @@ parameters (scale,
 edge factor, seed), every field of the ``GraphConfig`` (BFS and CC read
 one RMAT edge list through different configs — self-loops dropped or
 kept — and get different plans), whether the tiles carry weights, the
-ordering, the dtype and a hash of every source file the plan bytes depend
-on, so a plan built by older planner code is never served (a key that
-leaves out what the artifact depends on serves a wrong artifact).
+ordering, the tile phase ("main", or the TCSC_CF "first", "middle" and
+"last" edge subsets of one graph, whose plans differ), the dtype and a
+hash of every source file the plan bytes depend on, so a plan built by
+older planner code is never served (a key that leaves out what the
+artifact depends on serves a wrong artifact).
 """
 
 from __future__ import annotations
@@ -84,11 +86,17 @@ def config_hash(config) -> str:
                           ).hexdigest()[:12]
 
 
+PHASES = ("main", "first", "middle", "last")
+
+
 def meta_key(scale: int, edge_factor: int, seed: int, config, ordering,
-             value_dtype, weighted: bool, kind: str = "spmv3") -> str:
+             value_dtype, weighted: bool, kind: str = "spmv3",
+             phase: str = "main") -> str:
+    if phase not in PHASES:
+        raise ValueError(f"phase {phase!r}: expected one of {PHASES}")
     return (f"{kind}_rmat{scale}_ef{edge_factor}_s{seed}_"
             f"cfg{config_hash(config)}_{'w' if weighted else 'nw'}_"
-            f"{ordering.value}_{np.dtype(value_dtype).name}_"
+            f"{ordering.value}_{phase}_{np.dtype(value_dtype).name}_"
             f"{source_hash(kind)}")
 
 
@@ -149,11 +157,11 @@ _KINDS = {"spmv3": (build_spmv3_meta, save_spmv3_meta, load_spmv3_meta),
 
 
 def _cached(kind, tiles, scale, edge_factor, seed, config, ordering,
-            value_dtype, cache_dir):
+            value_dtype, cache_dir, phase):
     build, save, load = _KINDS[kind]
     d = Path(cache_dir) if cache_dir is not None else DEFAULT_DIR
     path = d / (meta_key(scale, edge_factor, seed, config, ordering,
-                         value_dtype, tiles.weights is not None, kind)
+                         value_dtype, tiles.weights is not None, kind, phase)
                 + ".npz")
     if path.exists():
         return load(path)
@@ -165,28 +173,30 @@ def _cached(kind, tiles, scale, edge_factor, seed, config, ordering,
 
 def cached_spmv3_meta(tiles: TileSet, scale: int, edge_factor: int,
                       seed: int, config, ordering, value_dtype=np.float32,
-                      cache_dir: Optional[os.PathLike] = None) -> Spmv3Meta:
+                      cache_dir: Optional[os.PathLike] = None,
+                      phase: str = "main") -> Spmv3Meta:
     """The panel meta of an RMAT graph's tiles (read through the
-    ``GraphConfig`` ``config``, tiled in ``ordering``), from disk when
-    cached."""
+    ``GraphConfig`` ``config``, tiled in ``ordering``; ``phase``: "main",
+    or the TCSC_CF phase the tiles are of), from disk when cached."""
     return _cached("spmv3", tiles, scale, edge_factor, seed, config,
-                   ordering, value_dtype, cache_dir)
+                   ordering, value_dtype, cache_dir, phase)
 
 
 def cached_shuffle_plans(tiles: TileSet, scale: int, edge_factor: int,
                          seed: int, config, ordering, value_dtype=np.float32,
-                         cache_dir: Optional[os.PathLike] = None
-                         ) -> ShufflePlans:
+                         cache_dir: Optional[os.PathLike] = None,
+                         phase: str = "main") -> ShufflePlans:
     """The v1 shuffle plans of an RMAT graph's tiles, keyed as
     ``cached_spmv3_meta`` keys the panel meta, from disk when cached."""
     return _cached("shuffle", tiles, scale, edge_factor, seed, config,
-                   ordering, value_dtype, cache_dir)
+                   ordering, value_dtype, cache_dir, phase)
 
 
 def cached_spmv2_meta(tiles: TileSet, scale: int, edge_factor: int,
                       seed: int, config, ordering, value_dtype=np.float32,
-                      cache_dir: Optional[os.PathLike] = None) -> Spmv2Meta:
+                      cache_dir: Optional[os.PathLike] = None,
+                      phase: str = "main") -> Spmv2Meta:
     """The v2 windowed-gather plans of an RMAT graph's tiles, keyed as
     ``cached_spmv3_meta`` keys the panel meta, from disk when cached."""
     return _cached("spmv2", tiles, scale, edge_factor, seed, config,
-                   ordering, value_dtype, cache_dir)
+                   ordering, value_dtype, cache_dir, phase)

@@ -10,7 +10,10 @@ equal the same runs on the CPU. The shuffle kernels K6 and K7 match
 bit for bit, K8 bit for bit in int32 and within the rtol above in float
 sums (shared and global atomics, no fixed order). The windowed gathers K9
 and K10 match bit for bit; the one-hot reduce K5 bit for bit in int32 and
-within the rtol above in float sums.
+within the rtol above in float sums. The staged pipeline's kernels: K2's
+single-layer form and K11 bit for bit (K11's s0 equal to K1's), K12 bit
+for bit in int32 and within rtol 1e-6 in floats, K13 as K3; the staged y
+equal to the fused y as the folds allow.
 """
 
 import numpy as np
@@ -34,7 +37,9 @@ from graphtap_tpu_torch.kernels.gather_engine import (STAGES,
                                                       stage_plan,
                                                       stage_src_rows)
 from graphtap_tpu_torch.kernels.gather_plan import build_gather_plan
-from graphtap_tpu_torch.kernels.panel_engine import spmv3_stages
+from graphtap_tpu_torch.kernels.panel_engine import (spmv3_staged_stages,
+                                                     spmv3_stages,
+                                                     staged_tables)
 from graphtap_tpu_torch.kernels.panel_meta import (build_spmv3_meta,
                                                    fill_blocks)
 from graphtap_tpu_torch.kernels.shuffle_engine import (build_shuffle_plans,
@@ -76,7 +81,8 @@ def test_kernels_match_plain(cuda, dtype, weighted):
     assert {k: pk.LAUNCHES[k] - before[k] for k in before} == {
         "route_xr_exp": 1, "route_passa": 1, "route_fold": 2,
         "hub_fold": 1, "route_xr_exp_gated": 0, "route_passa_gated": 0,
-        "route_fold_gated": 0}
+        "route_fold_gated": 0, "route_passa_single": 0, "route_expand": 0,
+        "fold_stripes": 0, "colsum_chunks": 0}
     fill, kind = sem.identity, sem.reduce_kind
     mul = ("mul" if kind == "sum" else "add_sat") if weighted else "none"
     xe = (st["x2d"], t["xr_bases"], t["xe_plan"], t.get("w_stream"), fill,
@@ -180,7 +186,8 @@ def test_gated_kernels_match_plain(cuda, weighted, frontier):
     assert {k: pk.LAUNCHES[k] - before[k] for k in before} == {
         "route_xr_exp": 0, "route_passa": 0, "route_fold": 0,
         "hub_fold": 0, "route_xr_exp_gated": 1, "route_passa_gated": 1,
-        "route_fold_gated": 1}
+        "route_fold_gated": 1, "route_passa_single": 0, "route_expand": 0,
+        "fold_stripes": 0, "colsum_chunks": 0}
     # the gated SpMV equals the static one
     xs = torch.from_numpy(x).to(cuda)
     assert torch.equal(
@@ -321,10 +328,13 @@ def _x(g, dtype, seed=1):
     return rng.random(g.part.tile_cols).astype(dtype)
 
 
-def _close(got, want):
+def _close(got, want, rtol=None):
+    """Floats within ``rtol`` (default: the folds' FOLD_RTOL), ints bit for
+    bit."""
     if got.dtype.is_floating_point:
-        torch.testing.assert_close(got, want, rtol=FOLD_RTOL[got.dtype],
-                                   atol=0)
+        torch.testing.assert_close(
+            got, want, rtol=FOLD_RTOL[got.dtype] if rtol is None else rtol,
+            atol=0)
     else:
         assert torch.equal(got, want)
 
@@ -423,3 +433,64 @@ def test_apps_new_kernels_on_cuda_match_cpu(cuda, app, kernel):
     a, b = on_card.state_vector(), on_cpu.state_vector()
     for k in b:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.parametrize("dtype,weighted", [(np.float32, False),
+                                            (np.float64, True),
+                                            (np.int32, True)])
+def test_staged_kernels_match_plain(cuda, dtype, weighted):
+    """The staged SpMV at RMAT-12: K2 single-layer, K11, K13 (and K12 on
+    its stack1) against their plain versions; K11's s0 equals the fused
+    K1's, and the staged y_mid and y the fused ones."""
+    sem = tsr.min_plus() if dtype == np.int32 else tsr.plus_times()
+    r, c, w = rmat_edges(12, 16, seed=3, weighted=weighted)
+    g = Graph.from_edges(r, c, w, GraphConfig(num_vertices=1 << 12,
+                                              transpose=True))
+    meta = build_spmv3_meta(g.tiled(), value_dtype=dtype)
+    t = staged_tables(meta_from_numpy(meta.arrays, cuda), meta)
+    rng = np.random.default_rng(1)
+    if dtype == np.int32:
+        x = rng.integers(0, 1000, size=g.part.tile_cols).astype(dtype)
+        x[rng.random(x.size) < 0.3] = tsr.INF_I32
+    else:
+        x = rng.random(g.part.tile_cols).astype(dtype)
+    x = torch.from_numpy(x).to(cuda)
+    before = dict(pk.LAUNCHES)
+    st = spmv3_staged_stages(x, t, meta, sem, g.part.tile_rows)
+    assert {k: pk.LAUNCHES[k] - before[k] for k in before
+            if pk.LAUNCHES[k] != before[k]} == {
+        "route_passa_single": 1, "route_expand": 1, "route_passa": 2,
+        "colsum_chunks": 1, "hub_fold": 1, "route_fold": 1}
+    fused = spmv3_stages(x, t, meta, sem, g.part.tile_rows)
+    fill, kind = sem.identity, sem.reduce_kind
+    nxe = meta.exp_panels + 1
+    mul = ("mul" if kind == "sum" else "add_sat") if weighted else "none"
+    assert torch.equal(st["x_ext"], pk.route_passa_plain(
+        st["x2d"], t["xr_bases"], t["xr_plan"], fill, nxe, meta.xr_nwin,
+        out_rows=pk.XROWS, two_layer=False))
+    assert torch.equal(st["s0"], pk.route_expand_plain(
+        st["x_ext"], t["exp_plan"], t.get("w_stream"), fill, nxe, mul))
+    assert torch.equal(st["s0"], fused["s0"])
+    assert torch.equal(st["stack1"], pk.route_passa_plain(
+        st["s1"], t["fixr_bases"], t["fixr_plan"], fill, meta.fix_panels,
+        meta.fixr_nwin))
+    _close(st["y_mid"], pk.colsum_chunks_plain(
+        st["stack1"], t["chunk_dst"], meta.nrb, kind, fill))
+    _close(st["y_mid"], fused["y_mid"])
+    _close(st["y"], fused["y"])
+    for red in ("sum", "min", "max"):
+        got = pk.fold_stripes(st["stack1"], red, meta.fix_panels)
+        _close(got, pk.fold_stripes_plain(st["stack1"], red,
+                                          meta.fix_panels), 1e-6)
+
+
+def test_staged_kernels_reject_bad_arguments(cuda):
+    x = torch.zeros((64, 128), device=cuda)
+    with pytest.raises(ValueError):
+        pk.colsum_chunks(x, torch.zeros(8, dtype=torch.int32, device=cuda),
+                         8, "min", 0.0)           # no float atomicMin
+    with pytest.raises(ValueError):
+        pk.fold_stripes(x, "sum", 2)              # 2 panels need 128 rows
+    with pytest.raises(ValueError):
+        pk.route_expand(x, torch.zeros((224, 128), dtype=torch.uint8),
+                        None, 0.0, 2)             # plan on another device

@@ -99,10 +99,10 @@ def test_pagerank_scan_kernel_matches_panel(rmat10, port_f64):
 
 def test_executor_lifecycle_errors(rmat10, port_f64):
     g = rmat10[2]
-    cf = Graph.from_edges(rmat10[0], rmat10[1], None, GraphConfig(
-        num_vertices=N, transpose=True, compression=Compression.TCSC_CF))
+    dcsc = Graph.from_edges(rmat10[0], rmat10[1], None, GraphConfig(
+        num_vertices=N, transpose=True, compression=Compression.DCSC))
     with pytest.raises(NotImplementedError):
-        run_pagerank(cf, 0, torch.float64, device="cpu")   # TCSC_CF
+        run_pagerank(dcsc, 0, torch.float64, device="cpu")     # DCSC
     ex = Executor(g, PageRankProgram(torch.float64), kernel="scan",
                   device="cpu")
     ex.free()

@@ -3,8 +3,11 @@
 Counterpart of ``graphtap_tpu/apps/_cli.py``: the reference binaries' argv
 (reference: README.md:7-10, ``bin/pr <file> <nvertices> [<iters|root>]``)
 and their five oracle lines (graphtap.slurm:101-104; formats from
-Env::print_time env.hpp:130-133, checksum vertex_program.hpp:1944-1958):
+Env::print_time env.hpp:130-133, checksum vertex_program.hpp:1944-1958),
+after the load-time edge balance line (reference: Matrix::balance,
+matrix.hpp:617-685; ``TileSet.balance_report``):
 
+    Edge balance: edges=<n> mean/dev=<n> max/dev=<n> imbalance=<f>
     <App> end-to-end time: <f> seconds
     Execute time: <f> seconds
     Iterations: <n>
@@ -12,7 +15,8 @@ Env::print_time env.hpp:130-133, checksum vertex_program.hpp:1944-1958):
     Reachable vertices: <n>
 
 Usage: ``python -m graphtap_tpu_torch.apps.pr <file> <nvertices> [<iters>]``
-(``pr1`` and ``deg`` alike). ``--device`` is ``cuda`` unless the caller
+(``pr1``, ``deg`` and ``cc`` alike; ``bfs`` and ``sssp`` take
+``[<root>]``). ``--device`` is ``cuda`` unless the caller
 asks for ``cpu``. ``--kernel``: ``auto`` (the default) is the panel
 pipeline on the card and the portable scan kernel on the CPU, as the JAX
 package's ``auto`` picks its chip's fast kernel; or any name of
@@ -30,8 +34,9 @@ from graphtap_tpu_torch.engine.executor import KERNELS
 def app_main(name: str, run, third_arg: str = "iters", default_third=0,
              argv=None):
     """Parse the reference-style argv, run the app, print the oracle
-    lines. ``run(graph_path, nvertices, third, kernel, device)`` must
-    return (the finished Executor, its execute seconds)."""
+    lines (the balance line first). ``run(graph_path, nvertices, third,
+    kernel, device)`` must return (the finished Executor, its execute
+    seconds)."""
     p = argparse.ArgumentParser(prog=f"graphtap_tpu_torch.apps.{name}")
     p.add_argument("file")
     p.add_argument("nvertices", type=int)
@@ -48,6 +53,7 @@ def app_main(name: str, run, third_arg: str = "iters", default_third=0,
     t_total = time.perf_counter() - t0
 
     checksum, reachable = ex.checksum()
+    print(ex.tiles.balance_report())
     print(f"{name} end-to-end time: {t_total:f} seconds")
     print(f"Execute time: {t_exec:f} seconds")
     print(f"Iterations: {ex.iteration}")

@@ -6,7 +6,11 @@ iteration+1 and parent = y only for unvisited vertices
 (apply_depends_on_iter); nonstationary, undirected, self-loops and
 parallel edges removed, TCSC, run to convergence. The changed bitmap is
 the frontier, so the panel kernel runs frontier-gated.
-"""
+
+
+``python -m graphtap_tpu_torch.apps.bfs <file> <nvertices> [<root>]``
+loads the file through ``bfs_config`` and prints the balance line and the
+five oracle lines (``apps/_cli.py``)."""
 
 from __future__ import annotations
 
@@ -69,16 +73,27 @@ def bfs_config(num_vertices: int) -> GraphConfig:
 
 
 def run_bfs(graph: Graph, root: int = 0, kernel: str = "panel",
-            device="cuda") -> Executor:
+            device="cuda", plans=None) -> Executor:
     """BFS from ``root`` to convergence on ``device`` ('cuda' unless the
     caller passes 'cpu'; ``kernel`` 'panel': the frontier-gated K1-K4
     pipeline; 'shuffle': K6-K8; 'shuffle2': K9 and K8; 'onehot': K5;
     'segment' or 'scan': plain torch). ``graph`` is read through
-    ``bfs_config``."""
+    ``bfs_config``; ``plans``: the kernel's prebuilt int32 plans of its
+    ROW tiles (``tools/artifact_cache.py``), as ``Executor`` takes them."""
     ex = Executor(graph, BFSProgram(root=root),
                   EngineConfig(stationary=False, apply_depends_on_iter=True,
                                ordering=Ordering.ROW),
-                  kernel=kernel, device=device)
+                  kernel=kernel, plans=plans, device=device)
     ex.initialize()
     ex.execute(0)
     return ex
+
+
+if __name__ == "__main__":
+    from graphtap_tpu_torch.apps._cli import app_main, timed
+
+    def _run(path, nv, root, kernel, device):
+        g = Graph.load(path, bfs_config(nv))
+        return timed(run_bfs, g, root=root, kernel=kernel, device=device)
+
+    app_main("bfs", _run, third_arg="root", default_third=0)

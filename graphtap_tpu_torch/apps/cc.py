@@ -5,7 +5,11 @@ cc.cpp): messenger = label, combiner = min, the applicator keeps the min
 and reports a change iff the label shrank; nonstationary, undirected,
 self-loops kept, parallel edges removed, TCSC, gather_depends_on_apply,
 run to convergence.
-"""
+
+
+``python -m graphtap_tpu_torch.apps.cc <file> <nvertices>`` loads the
+file through ``cc_config`` and prints the balance line and the five
+oracle lines (``apps/_cli.py``)."""
 
 from __future__ import annotations
 
@@ -55,15 +59,26 @@ def cc_config(num_vertices: int) -> GraphConfig:
                        parallel_edges=False, compression=Compression.TCSC)
 
 
-def run_cc(graph: Graph, kernel: str = "panel", device="cuda") -> Executor:
+def run_cc(graph: Graph, kernel: str = "panel", device="cuda",
+           plans=None) -> Executor:
     """CC to convergence on ``device`` ('cuda' unless the caller passes
     'cpu'; ``kernel`` any of ``Executor``'s: 'panel', 'shuffle',
     'shuffle2', 'onehot', 'segment' or 'scan'); ``graph`` is read
-    through ``cc_config``."""
+    through ``cc_config``; ``plans``: as ``run_bfs`` takes them."""
     ex = Executor(graph, CCProgram(),
                   EngineConfig(stationary=False, gather_depends_on_apply=True,
                                ordering=Ordering.ROW),
-                  kernel=kernel, device=device)
+                  kernel=kernel, plans=plans, device=device)
     ex.initialize()
     ex.execute(0)
     return ex
+
+
+if __name__ == "__main__":
+    from graphtap_tpu_torch.apps._cli import app_main, timed
+
+    def _run(path, nv, _third, kernel, device):
+        g = Graph.load(path, cc_config(nv))
+        return timed(run_cc, g, kernel=kernel, device=device)
+
+    app_main("cc", _run, third_arg="iters", default_third=0)

@@ -5,7 +5,11 @@ sssp.cpp): combiner y1 = min(y1, y2 + w), min-update applicator, the
 unweighted fallback y+1; nonstationary, directed with transpose flipped
 for a pull along in-edges, self-loops and parallel edges removed, TCSC,
 gather_depends_on_apply, run to convergence.
-"""
+
+
+``python -m graphtap_tpu_torch.apps.sssp <file> <nvertices> [<root>]``
+loads the (weighted) file through ``sssp_config`` and prints the balance
+line and the five oracle lines (``apps/_cli.py``)."""
 
 from __future__ import annotations
 
@@ -68,17 +72,27 @@ def sssp_config(num_vertices: int, weighted: bool = True) -> GraphConfig:
 
 
 def run_sssp(graph: Graph, root: int = 0, weighted: bool = True,
-             kernel: str = "panel", device="cuda") -> Executor:
+             kernel: str = "panel", device="cuda", plans=None) -> Executor:
     """SSSP from ``root`` to convergence on ``device`` ('cuda' unless the
     caller passes 'cpu'; ``kernel`` any of ``Executor``'s: 'panel',
     'shuffle', 'shuffle2' (its ⊗ is K9's add_sat), 'onehot', 'segment' or
     'scan');
     ``graph`` is read through ``sssp_config`` (with its weights when
-    ``weighted``)."""
+    ``weighted``); ``plans``: as ``run_bfs`` takes them."""
     ex = Executor(graph, SSSPProgram(root=root, weighted=weighted),
                   EngineConfig(stationary=False, gather_depends_on_apply=True,
                                ordering=Ordering.ROW),
-                  kernel=kernel, device=device)
+                  kernel=kernel, plans=plans, device=device)
     ex.initialize()
     ex.execute(0)
     return ex
+
+
+if __name__ == "__main__":
+    from graphtap_tpu_torch.apps._cli import app_main, timed
+
+    def _run(path, nv, root, kernel, device):
+        g = Graph.load(path, sssp_config(nv))
+        return timed(run_sssp, g, root=root, kernel=kernel, device=device)
+
+    app_main("sssp", _run, third_arg="root", default_third=0)

@@ -3,7 +3,7 @@
 // Hand-written CUDA C++ counterpart of the Pallas kernel in
 // graphtap_tpu/kernels/pallas_spmv.py:
 //
-//   K5 segment_reduce_kernel  replaces pallas_segment_reduce
+//   K5 gt_segment_reduce      replaces pallas_segment_reduce
 //                             (_reduce_kernel :115-138, call :144-162)
 //
 // What it computes. The host plan (build_pallas_plan) regroups the edges
@@ -17,27 +17,31 @@
 // like the Pallas one, reads no validity mask.
 //
 // What bounds it on the card: bytes. Per contribution one value and one
-// int32 lrows read, one ⊕; per chunk one chunk_block read; y written once.
-// Far below the card's ~20 operations per byte, so a call is held to
-// (bytes moved) / 3.35 TB/s.
+// int32 lrows read, one ⊕; per chunk 128 lane partials written and read
+// back once; y written once. Far below the card's ~20 operations per byte,
+// so a call is held to (bytes moved) / 3.35 TB/s.
 //
 // Design, simple first. The Pallas grid walks chunks in order and folds
 // each with a one-hot select and a column reduction of a (2048, 128)
-// register tile into a VMEM-resident y. Blocks here run in no order, so:
-// one block per chunk; each thread folds a run of 8 consecutive
-// contributions in registers while their row stays the same (edges come
-// row-sorted on the PageRank path, so this saves most shared atomics),
-// then ⊕-folds each run into 128 shared-memory lanes with shared atomics;
-// the block adds its lanes to y with one global atomic per lane, after y
-// was filled with the identity (K8's design). Float sums are reordered
-// against the Pallas kernel's chunk order; int32 min and max stay exact.
+// register tile into a VMEM-resident y, so its float sums come out the
+// same on every call. Blocks here run in no order, and a fold with
+// atomics rounds in another order on every call, which kept f32 PageRank's
+// absolute convergence vote from ever closing. So the fold runs in two
+// passes in a fixed order (common.cuh): (a) one 128-thread block per chunk
+// sorts the chunk by lane in shared memory, stably, and thread l folds
+// lane l's contributions in index order into the (nchunks, 128) scratch;
+// (b) one thread per (block, lane) folds its block's chunk partials in
+// chunk order, in runs of 64 and then the runs' results, from the
+// ⊕-identity, and writes y once. The block -> chunks lists are built once
+// per upload from chunk_block (kernels/fold_order.py::fold_lists). The
+// result equals the plain version's (segment_reduce_plain, the same
+// order) bit for bit.
 //
 // The launcher is extern "C" (bound with ctypes), launches on the
-// caller's stream, allocates nothing, and returns cudaGetLastError().
-// Element offsets are 64-bit.
+// caller's stream, allocates nothing (the scratch is the caller's), and
+// returns cudaGetLastError(). Element offsets are 64-bit.
 
 #include <cstdint>
-#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -48,97 +52,46 @@ using namespace gt;
 namespace {
 
 constexpr int CHUNK = 2048;                // contributions per chunk
-constexpr int PER_THREAD = CHUNK / THREADS;  // 8
-
-template <typename T, int RED>
-__global__ void __launch_bounds__(THREADS)
-segment_reduce_kernel(const T* __restrict__ contrib,
-                      const int* __restrict__ lrows,
-                      const int* __restrict__ chunk_block, T* __restrict__ y,
-                      T ident) {
-  __shared__ T acc[LANES];
-  for (int l = threadIdx.x; l < LANES; l += blockDim.x) acc[l] = ident;
-  __syncthreads();
-  const long long e0 = static_cast<long long>(blockIdx.x) * CHUNK +
-                       static_cast<long long>(threadIdx.x) * PER_THREAD;
-  int cur = lrows[e0];
-  T run = contrib[e0];
-#pragma unroll
-  for (int k = 1; k < PER_THREAD; ++k) {
-    const int lr = lrows[e0 + k];
-    const T v = contrib[e0 + k];
-    if (lr == cur) {
-      run = combine<RED, T>(run, v);
-    } else {
-      atomic_combine<RED>(&acc[cur], run);
-      cur = lr;
-      run = v;
-    }
-  }
-  atomic_combine<RED>(&acc[cur], run);
-  __syncthreads();
-  const long long row = chunk_block[blockIdx.x];
-  for (int l = threadIdx.x; l < LANES; l += blockDim.x) {
-    atomic_combine<RED>(y + row * LANES + l, acc[l]);
-  }
-}
-
-template <typename T, int RED>
-void launch_kernel(const void* c, const void* lr, const void* cb, void* y,
-                   long long nchunks, T ident, cudaStream_t st) {
-  segment_reduce_kernel<T, RED><<<static_cast<unsigned>(nchunks), THREADS,
-                                  0, st>>>(
-      static_cast<const T*>(c), static_cast<const int*>(lr),
-      static_cast<const int*>(cb), static_cast<T*>(y), ident);
-}
 
 template <typename T>
-int launch_segment_reduce(const void* c, const void* lr, const void* cb,
-                          void* y, long long nchunks, long long nblocks,
-                          int red, double identity, cudaStream_t st) {
-  if (red != RED_SUM && !std::is_same<T, int>::value) {
-    return cudaErrorInvalidValue;   // no float atomicMin/Max
-  }
-  const T ident = static_cast<T>(identity);
-  launch_fill<T>(static_cast<T*>(y), nblocks * LANES, ident, st);
-  if (nchunks > 0) {
-    if (red == RED_SUM) {
-      launch_kernel<T, RED_SUM>(c, lr, cb, y, nchunks, ident, st);
-    } else if constexpr (std::is_same<T, int>::value) {
-      if (red == RED_MIN) {
-        launch_kernel<T, RED_MIN>(c, lr, cb, y, nchunks, ident, st);
-      } else if (red == RED_MAX) {
-        launch_kernel<T, RED_MAX>(c, lr, cb, y, nchunks, ident, st);
-      } else {
-        return cudaErrorInvalidValue;
-      }
-    }
-  }
-  return cudaGetLastError();
+int launch_segment_reduce(const void* c, const void* lr, const void* rptr,
+                          const void* gptr, const void* idx, void* part,
+                          void* gpart, void* y, long long nchunks,
+                          long long nblocks, long long ngroups, int red,
+                          double identity, cudaStream_t st) {
+  return launch_chunk_fold<T, int, CHUNK>(c, lr, nullptr, rptr, gptr, idx,
+                                          part, gpart, y, nchunks, nblocks,
+                                          ngroups, red, identity, st);
 }
 
 }  // namespace
 
 extern "C" {
 
+// The block -> chunks lists (kernels/fold_order.py::fold_lists): idx
+// (nchunks) the chunks by block, in chunk order; gptr (ngroups + 1) the
+// runs in idx; rptr (nblocks + 1) each block's runs. part (nchunks, 128)
+// and gpart (ngroups, 128): scratch.
 int gt_segment_reduce(const void* contrib, const void* lrows,
-                      const void* chunk_block, void* y, long long nchunks,
-                      long long nblocks, int dtype, int reduce_kind,
-                      double identity, void* stream) {
+                      const void* rptr, const void* gptr, const void* idx,
+                      void* part, void* gpart, void* y, long long nchunks,
+                      long long nblocks, long long ngroups, int dtype,
+                      int reduce_kind, double identity, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case F32:
-      return launch_segment_reduce<float>(contrib, lrows, chunk_block, y,
-                                          nchunks, nblocks, reduce_kind,
-                                          identity, st);
+      return launch_segment_reduce<float>(contrib, lrows, rptr, gptr, idx,
+                                          part, gpart, y, nchunks, nblocks,
+                                          ngroups, reduce_kind, identity, st);
     case F64:
-      return launch_segment_reduce<double>(contrib, lrows, chunk_block, y,
-                                           nchunks, nblocks, reduce_kind,
-                                           identity, st);
+      return launch_segment_reduce<double>(contrib, lrows, rptr, gptr, idx,
+                                           part, gpart, y, nchunks, nblocks,
+                                           ngroups, reduce_kind, identity,
+                                           st);
     case I32:
-      return launch_segment_reduce<int>(contrib, lrows, chunk_block, y,
-                                        nchunks, nblocks, reduce_kind,
-                                        identity, st);
+      return launch_segment_reduce<int>(contrib, lrows, rptr, gptr, idx,
+                                        part, gpart, y, nchunks, nblocks,
+                                        ngroups, reduce_kind, identity, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -23,11 +23,11 @@
 // K1-K3 each have a gated launch, the frontier-gated variant of the Pallas
 // kernels' plan_idx branch (:226-242, :356-372, :453-461): block p reads
 // plan block plan_idx[p] (and K1 its weight block there) instead of block
-// p; window bases, K3's dst and seg stay those of panel p. A block whose
+// p; window bases, and K3's row -> bands list, stay panel p's. A block whose
 // plan_idx is the route's fill block (fill_block, an all-0xF8 plan that
 // routes pure ⊕-identity; validate_meta checks it on the host) skips its
-// gathers: K1 writes fill ⊗ w, K2 writes fill, K3 folds nothing (the
-// identity changes no y row). That is what the fill plan computes, so a
+// gathers: K1 writes fill ⊗ w, K2 writes fill, K3 writes fill band
+// partials. That is what the fill plan computes, so a
 // gated launch equals its plain version fed that plan; on the TPU the
 // same redirection makes the revolving buffers skip their fetches.
 // plan_idx == nullptr is the static launch, unchanged.
@@ -56,11 +56,18 @@
 // x_ext panel held in shared memory (expand_panel) for K1 and K11: K1
 // builds its 32x128 x_ext panel there, so x_ext never goes to device
 // memory; K11 loads it there from the x_ext table. K3 folds each routed
-// 8-row band in registers and adds it to the y table with one atomic per
-// lane (f32/f64 atomicAdd, int32 atomicMin/Max) after a fill pass sets the
-// whole table to the identity; blocks run in any order, so a float sum
-// rounds in another order than the TPU's grid loop. K13 does the same for
-// the staged chunks, one thread per (chunk, lane). K12 needs no atomics:
+// 8-row band in registers, in row order, into a (npanels*8, 128) scratch
+// of band partials; then one thread per (y row, lane) folds its row's
+// bands in ascending band (panel) order, the Pallas grid's order, in runs
+// of 64 and then the runs' results, from the identity, and writes y once
+// (common.cuh, pass (b); the row -> bands lists are built once per upload
+// from dst and seg, kernels/fold_order.py). So
+// its float sums come out the same on every call, and equal the plain
+// version's bit for bit: an atomic fold, whose order changed from call to
+// call, kept f32 PageRank's convergence vote from closing. K13 still adds
+// each staged chunk to y with one atomic per (chunk, lane) after a fill
+// pass (f32/f64 atomicAdd, int32 atomicMin/Max), so its float sums round
+// in no fixed order; no app path runs it. K12 needs no atomics:
 // one thread per output folds its 8 rows in order. K12 and K13 move each
 // byte once and are bound by device memory. K4 runs one 128-thread block
 // per row: warp shuffles for the xor shifts 1..16 and shared memory for 32
@@ -260,20 +267,24 @@ route_passa_kernel(const T* __restrict__ src, const int* __restrict__ bases,
 }
 
 // ---------------------------------------------------------------- K3
-// Route as K2, fold each routed 8-row band (ob) lane-wise in registers and
-// ⊕ it into y row seg[p]*seg_rows + dst[p*8+ob] (panel p's, gated or not).
-// y holds the identity before the first block runs (fill_kernel on the same
-// stream).
+// Pass (a): route as K2 and fold each routed 8-row band (ob) lane-wise in
+// registers, rows 0..7 in order, into part[(p*8 + ob), l]. A gated panel
+// pointed at the fill block writes the fill (what the fill plan folds to).
 template <typename T, int RED>
 __global__ void __launch_bounds__(THREADS)
 route_fold_kernel(const T* __restrict__ src, const int* __restrict__ bases,
-                  const uint8_t* __restrict__ plan,
-                  const int* __restrict__ dst, const int* __restrict__ seg,
-                  T* __restrict__ y, long long seg_rows, int nwin, T fill,
-                  const int* __restrict__ plan_idx, int fill_block) {
+                  const uint8_t* __restrict__ plan, T* __restrict__ part,
+                  int nwin, T fill, const int* __restrict__ plan_idx,
+                  int fill_block) {
   const long long p = blockIdx.x;
   const long long q = plan_block(plan_idx, p);
-  if (plan_idx != nullptr && q == fill_block) return;   // ⊕ identity
+  T* pp = part + p * STRIPE * LANES;
+  if (plan_idx != nullptr && q == fill_block) {
+    for (int t = threadIdx.x; t < STRIPE * LANES; t += blockDim.x) {
+      pp[t] = fill;
+    }
+    return;
+  }
   const int sr = nwin * STRIPE;
   const Route rt = route_at(plan + q * route_rows(sr, PROWS, true) * LANES,
                             sr, PROWS, true);
@@ -281,7 +292,6 @@ route_fold_kernel(const T* __restrict__ src, const int* __restrict__ bases,
   auto src_row = [&](int band, int row) -> const T* {
     return src + (static_cast<long long>(pb[band]) * STRIPE + row) * LANES;
   };
-  const long long seg_base = static_cast<long long>(seg[p]) * seg_rows;
   for (int t = threadIdx.x; t < STRIPE * LANES; t += blockDim.x) {
     const int ob = t >> 7;
     const int l = t & 127;
@@ -293,8 +303,7 @@ route_fold_kernel(const T* __restrict__ src, const int* __restrict__ bases,
                                             rt.idx3, ob * STRIPE + r, l,
                                             nwin, fill, src_row));
     }
-    const long long row = seg_base + dst[p * STRIPE + ob];
-    atomic_combine<RED>(y + row * LANES + l, acc);
+    pp[t] = acc;
   }
 }
 
@@ -502,51 +511,29 @@ int launch_colsum(const void* ystack, const void* chunk_dst, void* y,
   return cudaGetLastError();
 }
 
-template <typename T, int RED>
-void launch_fold_kernel(const void* src, const void* bases, const void* plan,
-                        const void* dst, const void* seg, void* y,
-                        long long seg_rows, long long npanels, int nwin,
-                        double fill, const int* pidx, int fill_block,
-                        cudaStream_t st) {
-  route_fold_kernel<T, RED><<<static_cast<unsigned>(npanels), THREADS, 0,
-                              st>>>(
-      static_cast<const T*>(src), static_cast<const int*>(bases),
-      static_cast<const uint8_t*>(plan), static_cast<const int*>(dst),
-      static_cast<const int*>(seg), static_cast<T*>(y), seg_rows, nwin,
-      static_cast<T>(fill), pidx, fill_block);
-}
-
+// K3: pass (a) over npanels panels into part (npanels*8, 128), then pass
+// (b) over the nrows rows of y by the row -> bands lists.
 template <typename T>
 int launch_fold(const void* src, const void* bases, const void* plan,
-                const void* dst, const void* seg, void* y, long long nrows,
-                long long seg_rows, long long npanels, int nwin, int red,
+                const void* rptr, const void* gptr, const void* idx,
+                void* part, void* gpart, void* y, long long nrows,
+                long long ngroups, long long npanels, int nwin, int red,
                 double fill, const int* pidx, int fill_block,
                 cudaStream_t st) {
-  if (red != RED_SUM && !std::is_same<T, int>::value) {
-    return cudaErrorInvalidValue;   // no float atomicMin/Max
-  }
-  launch_fill<T>(static_cast<T*>(y), nrows * LANES, static_cast<T>(fill),
-                 st);
-  if (npanels > 0) {
-    if (red == RED_SUM) {
-      launch_fold_kernel<T, RED_SUM>(src, bases, plan, dst, seg, y, seg_rows,
-                                     npanels, nwin, fill, pidx, fill_block,
-                                     st);
-    } else if constexpr (std::is_same<T, int>::value) {
-      if (red == RED_MIN) {
-        launch_fold_kernel<T, RED_MIN>(src, bases, plan, dst, seg, y,
-                                       seg_rows, npanels, nwin, fill, pidx,
-                                       fill_block, st);
-      } else if (red == RED_MAX) {
-        launch_fold_kernel<T, RED_MAX>(src, bases, plan, dst, seg, y,
-                                       seg_rows, npanels, nwin, fill, pidx,
-                                       fill_block, st);
-      } else {
-        return cudaErrorInvalidValue;
-      }
+  const T f = static_cast<T>(fill);
+  const int rc = dispatch_red(red, [&](auto r) {
+    constexpr int RED = decltype(r)::value;
+    if (npanels > 0) {
+      route_fold_kernel<T, RED>
+          <<<static_cast<unsigned>(npanels), THREADS, 0, st>>>(
+              static_cast<const T*>(src), static_cast<const int*>(bases),
+              static_cast<const uint8_t*>(plan), static_cast<T*>(part), nwin,
+              f, pidx, fill_block);
     }
-  }
-  return cudaGetLastError();
+    launch_row_fold<T, RED>(part, rptr, gptr, idx, gpart, y, nrows, ngroups,
+                            f, st);
+  });
+  return rc != cudaSuccess ? rc : cudaGetLastError();
 }
 
 template <typename T>
@@ -678,26 +665,31 @@ int gt_colsum_chunks(const void* ystack, const void* chunk_dst, void* y,
   }
 }
 
+// The row -> bands lists (kernels/fold_order.py::fold_lists): idx
+// (npanels*8) the bands by y row, ascending; gptr (ngroups + 1) the runs
+// in idx; rptr (nrows + 1) each row's runs. part (npanels*8, 128) and
+// gpart (ngroups, 128): scratch.
 int gt_route_fold(const void* src, const void* bases, const void* plan,
-                  const void* dst, const void* seg, void* y, long long nrows,
-                  long long seg_rows, long long npanels, int nwin, int dtype,
+                  const void* rptr, const void* gptr, const void* idx,
+                  void* part, void* gpart, void* y, long long nrows,
+                  long long ngroups, long long npanels, int nwin, int dtype,
                   int reduce_kind, double fill, const void* plan_idx,
                   int fill_block, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* pidx = static_cast<const int*>(plan_idx);
   switch (dtype) {
     case F32:
-      return launch_fold<float>(src, bases, plan, dst, seg, y, nrows,
-                                seg_rows, npanels, nwin, reduce_kind, fill,
-                                pidx, fill_block, st);
+      return launch_fold<float>(src, bases, plan, rptr, gptr, idx, part,
+                                gpart, y, nrows, ngroups, npanels, nwin,
+                                reduce_kind, fill, pidx, fill_block, st);
     case F64:
-      return launch_fold<double>(src, bases, plan, dst, seg, y, nrows,
-                                 seg_rows, npanels, nwin, reduce_kind, fill,
-                                 pidx, fill_block, st);
+      return launch_fold<double>(src, bases, plan, rptr, gptr, idx, part,
+                                 gpart, y, nrows, ngroups, npanels, nwin,
+                                 reduce_kind, fill, pidx, fill_block, st);
     case I32:
-      return launch_fold<int>(src, bases, plan, dst, seg, y, nrows, seg_rows,
-                              npanels, nwin, reduce_kind, fill, pidx,
-                              fill_block, st);
+      return launch_fold<int>(src, bases, plan, rptr, gptr, idx, part, gpart,
+                              y, nrows, ngroups, npanels, nwin, reduce_kind,
+                              fill, pidx, fill_block, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -6,7 +6,7 @@
 //   K6 expand_kernel          replaces expand_stream  (_expand_body, :42-103)
 //   K7 group_pass_kernel      replaces group_stream   (_group_pass_body,
 //                                                      :110-170)
-//   K8 grouped_reduce_kernel  replaces grouped_reduce (_reduce_body, :177-233)
+//   K8 gt_grouped_reduce      replaces grouped_reduce (_reduce_body, :177-233)
 //
 // What they compute. The host planner (shuffle_plan.py) lays the edges out
 // as a stream of (rows, 128) slots in (row-super, column, row) order.
@@ -27,9 +27,9 @@
 // up to SMAX*128 int8 frag_idx bytes per source row and pass (SMAX is 13-14
 // on RMAT graphs: up to 1.8 KB against the row's 512 B of f32 values) and
 // writes the row's values once; K8 reads the value and two int8 bytes per
-// slot. None does more than a handful of operations per byte, far under
-// the card's ~20 per byte in f32, so each is held to (bytes moved) /
-// 3.35 TB/s.
+// slot and writes and reads back 128 lane partials per chunk. None does
+// more than a handful of operations per byte, far under the card's ~20 per
+// byte in f32, so each is held to (bytes moved) / 3.35 TB/s.
 //
 // Design, simple first. K6: one thread per slot, grid-stride, coalesced
 // plan reads, the x value a gather. K7: on the TPU each pass of each super
@@ -43,14 +43,19 @@
 // is never initialised (holes hold garbage the reduce plan's ev masks);
 // here each pass output is first filled with the ⊕-identity, so runs are
 // deterministic. K8: the TPU folds chunks in grid order into a resident y;
-// here one block per chunk folds its 1024 slots into 128 shared-memory
-// lanes with shared atomics, then adds them to y with one global atomic
-// per lane after y was filled with the identity. Blocks run in no order,
-// so float sums are reordered (int32 min/max stay bit-exact).
+// here the fold runs in two passes in a fixed order (common.cuh), as K5's
+// does: (a) one 128-thread block per chunk folds each lane's valid slots
+// in index order into an (nchunks, 128) scratch; (b) one thread per
+// (block, lane) folds the block's chunk partials in chunk order (in runs of
+// 64, then the runs' results: a degree SpMV's hub block has thousands of
+// chunks) from the ⊕-identity and writes y once. Float sums come out the
+// same on every call and equal the plain version's bit for bit; the block
+// -> chunks lists are built once per upload from chunk_block
+// (kernels/fold_order.py).
 //
 // The launchers are extern "C" (bound with ctypes), launch on the caller's
-// stream, allocate nothing, and return cudaGetLastError(). Element offsets
-// are 64-bit.
+// stream, allocate nothing (K8's scratch is the caller's), and return
+// cudaGetLastError(). Element offsets are 64-bit.
 
 #include <cstdint>
 #include <type_traits>
@@ -120,29 +125,6 @@ group_pass_kernel(const T* __restrict__ in, const int* __restrict__ frag_dst,
   }
 }
 
-// ---------------------------------------------------------------- K8
-template <typename T, int RED>
-__global__ void __launch_bounds__(THREADS)
-grouped_reduce_kernel(const T* __restrict__ c, const int8_t* __restrict__ lr,
-                      const int8_t* __restrict__ ev,
-                      const int* __restrict__ chunk_block, T* __restrict__ y,
-                      T ident) {
-  __shared__ T acc[LANES];
-  for (int l = threadIdx.x; l < LANES; l += blockDim.x) acc[l] = ident;
-  __syncthreads();
-  const long long base = static_cast<long long>(blockIdx.x) * CHUNK_EL;
-  for (int t = threadIdx.x; t < CHUNK_EL; t += blockDim.x) {
-    if (ev[base + t] != 0) {
-      atomic_combine<RED>(&acc[lr[base + t]], c[base + t]);
-    }
-  }
-  __syncthreads();
-  const long long row = chunk_block[blockIdx.x];
-  for (int l = threadIdx.x; l < LANES; l += blockDim.x) {
-    atomic_combine<RED>(y + row * LANES + l, acc[l]);
-  }
-}
-
 // ---------------------------------------------------------------- launch
 template <typename T>
 int launch_expand(const void* x3d, const void* grp, const void* slot,
@@ -197,43 +179,15 @@ int launch_group(const void* in, const void* frag_dst, const void* frag_idx,
   return cudaGetLastError();
 }
 
-template <typename T, int RED>
-void launch_reduce_kernel(const void* c, const void* lr, const void* ev,
-                          const void* cb, void* y, long long nchunks,
-                          T ident, cudaStream_t st) {
-  grouped_reduce_kernel<T, RED><<<static_cast<unsigned>(nchunks), THREADS,
-                                  0, st>>>(
-      static_cast<const T*>(c), static_cast<const int8_t*>(lr),
-      static_cast<const int8_t*>(ev), static_cast<const int*>(cb),
-      static_cast<T*>(y), ident);
-}
-
 template <typename T>
 int launch_reduce(const void* c, const void* lr, const void* ev,
-                  const void* cb, void* y, long long nchunks,
-                  long long nblocks, int red, double identity,
-                  cudaStream_t st) {
-  if (red != RED_SUM && !std::is_same<T, int>::value) {
-    return cudaErrorInvalidValue;   // no float atomicMin/Max
-  }
-  const T ident = static_cast<T>(identity);
-  launch_fill<T>(static_cast<T*>(y), nblocks * LANES, ident, st);
-  if (nchunks > 0) {
-    if (red == RED_SUM) {
-      launch_reduce_kernel<T, RED_SUM>(c, lr, ev, cb, y, nchunks, ident, st);
-    } else if constexpr (std::is_same<T, int>::value) {
-      if (red == RED_MIN) {
-        launch_reduce_kernel<T, RED_MIN>(c, lr, ev, cb, y, nchunks, ident,
-                                         st);
-      } else if (red == RED_MAX) {
-        launch_reduce_kernel<T, RED_MAX>(c, lr, ev, cb, y, nchunks, ident,
-                                         st);
-      } else {
-        return cudaErrorInvalidValue;
-      }
-    }
-  }
-  return cudaGetLastError();
+                  const void* rptr, const void* gptr, const void* idx,
+                  void* part, void* gpart, void* y, long long nchunks,
+                  long long nblocks, long long ngroups, int red,
+                  double identity, cudaStream_t st) {
+  return launch_chunk_fold<T, int8_t, CHUNK_EL>(
+      c, lr, ev, rptr, gptr, idx, part, gpart, y, nchunks, nblocks, ngroups,
+      red, identity, st);
 }
 
 }  // namespace
@@ -280,21 +234,29 @@ int gt_group_pass(const void* in, const void* frag_dst, const void* frag_idx,
   }
 }
 
+// The block -> chunks lists (kernels/fold_order.py::fold_lists): idx
+// (nchunks) the chunks by block, in chunk order; gptr (ngroups + 1) the
+// runs in idx; rptr (nblocks + 1) each block's runs. part (nchunks, 128)
+// and gpart (ngroups, 128): scratch.
 int gt_grouped_reduce(const void* c, const void* lr, const void* ev,
-                      const void* chunk_block, void* y, long long nchunks,
-                      long long nblocks, int dtype, int reduce_kind,
-                      double identity, void* stream) {
+                      const void* rptr, const void* gptr, const void* idx,
+                      void* part, void* gpart, void* y, long long nchunks,
+                      long long nblocks, long long ngroups, int dtype,
+                      int reduce_kind, double identity, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case F32:
-      return launch_reduce<float>(c, lr, ev, chunk_block, y, nchunks,
-                                  nblocks, reduce_kind, identity, st);
+      return launch_reduce<float>(c, lr, ev, rptr, gptr, idx, part, gpart, y,
+                                  nchunks, nblocks, ngroups, reduce_kind,
+                                  identity, st);
     case F64:
-      return launch_reduce<double>(c, lr, ev, chunk_block, y, nchunks,
-                                   nblocks, reduce_kind, identity, st);
+      return launch_reduce<double>(c, lr, ev, rptr, gptr, idx, part, gpart,
+                                   y, nchunks, nblocks, ngroups, reduce_kind,
+                                   identity, st);
     case I32:
-      return launch_reduce<int>(c, lr, ev, chunk_block, y, nchunks, nblocks,
-                                reduce_kind, identity, st);
+      return launch_reduce<int>(c, lr, ev, rptr, gptr, idx, part, gpart, y,
+                                nchunks, nblocks, ngroups, reduce_kind,
+                                identity, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -11,8 +11,9 @@ Ported: fixed-iteration and convergence mode on TCSC and TCSC_CF tiles,
 stationary and nonstationary programs (messages masked to the
 ⊕-identity outside the frontier, the panel pipeline frontier-gated),
 every kernel choice of the JAX executor (``KERNELS``),
-``initialize(other=)`` with the I-masked handoff, ``free()`` and the
-oracles (``state_vector``, ``checksum``, ``display``). An unknown kernel
+``initialize(other=)`` with the I-masked handoff, ``free()``,
+``execute_profiled`` (per-phase timing) and the oracles
+(``state_vector``, ``checksum``, ``stats``, ``display``). An unknown kernel
 name raises ``ValueError``. Other tile formats (CSC, DCSC), the sparse
 exchange and the mesh raise ``NotImplementedError`` until a later version
 ports them.
@@ -40,6 +41,7 @@ panel-activity vote once more; both are synchronizing reads.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Dict, List, Optional, Tuple
@@ -52,6 +54,8 @@ from graphtap_tpu_torch.engine.program import State, VertexProgram, \
     numpy_dtype
 from graphtap_tpu_torch.format.tiles import TileSet
 from graphtap_tpu_torch.ingest.graph import Graph
+from graphtap_tpu_torch.kernels import (gather_engine, onehot_spmv,
+                                        panel_engine, shuffle_engine)
 from graphtap_tpu_torch.kernels.gather_engine import (Spmv2Meta,
                                                       build_spmv2_meta,
                                                       spmv2_local,
@@ -78,6 +82,11 @@ _PLANNERS = {"panel": (Spmv3Meta, build_spmv3_meta, validate_meta),
              "shuffle2": (Spmv2Meta, build_spmv2_meta, validate_spmv2_meta),
              "onehot": (PallasPlan, build_onehot_plan,
                         validate_pallas_plan)}
+# kernel -> the function that keeps its float folds' tables in the upload
+_FOLD_TABLES = {"panel": panel_engine.fold_tables,
+                "shuffle": shuffle_engine.fold_tables,
+                "shuffle2": gather_engine.fold_tables,
+                "onehot": onehot_spmv.fold_tables}
 MAX_CONVERGENCE_ITERS = 1 << 20     # as the JAX package's executor
 CF_PHASES = ("first", "middle", "last")
 GATE_ENV = "GRAPHTAP_PANEL_GATE"
@@ -115,6 +124,18 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+@contextlib.contextmanager
+def _fenced(timer, name: str, device: torch.device):
+    """``timer``'s phase ``name``, closed by a device synchronize (no
+    timer: nothing)."""
+    if timer is None:
+        yield
+        return
+    with timer.phase(name):
+        yield
+        _sync(device)
+
+
 class Executor:
     """Runs one VertexProgram over one TileSet on one device.
 
@@ -143,8 +164,9 @@ class Executor:
     None on the other kernels) and, on a CUDA device, its time by CUDA
     events (``ms``; None on the CPU); the flush of convergence mode is not
     among them. ``device_bytes`` is the size of the arrays uploaded for
-    the superstep (tiles or plans), those of the TCSC_CF phases included
-    once they are built."""
+    the superstep (tiles or plans, and the fold lists and scratch of K3,
+    K5 and K8), those of the TCSC_CF phases included once they are
+    built."""
 
     def __init__(self, graph: Graph, program: VertexProgram,
                  engine: Optional[EngineConfig] = None, kernel: str = "scan",
@@ -222,6 +244,8 @@ class Executor:
                "vids": self._tensor(self.part.owner_vids()[0])}
         if self.kernel in _PLANNERS:
             dev.update(meta_from_numpy(meta.arrays, self.device))
+            # the fixed-order float folds' lists and scratch (K3, K5, K8)
+            _FOLD_TABLES[self.kernel](dev, meta, self.program.value_dtype)
             if self.kernel == "onehot":
                 dev["iv_dense"] = self._tensor(tiles.iv_dense[0])
             return dev
@@ -350,28 +374,36 @@ class Executor:
                                                               m.device))
         return m
 
-    def _step(self, V: State, m: torch.Tensor, it: int, phase: str
-              ) -> Tuple[State, torch.Tensor, Optional[bool]]:
-        """Exchange x, combine, exchange y, apply -> (V', C', gated)."""
-        y, gated = self._combine(self._exchange_x(m), phase)
-        V2, C2 = self._apply(V, self._exchange_y(y), it, phase)
+    def _step(self, V: State, m: torch.Tensor, it: int, phase: str,
+              timer=None) -> Tuple[State, torch.Tensor, Optional[bool]]:
+        """Exchange x, combine, exchange y, apply -> (V', C', gated);
+        ``timer`` (a ``PhaseTimer``) times combine and apply, fenced."""
+        with _fenced(timer, "combine", self.device):
+            y, gated = self._combine(self._exchange_x(m), phase)
+        with _fenced(timer, "apply", self.device):
+            V2, C2 = self._apply(V, self._exchange_y(y), it, phase)
         return V2, C2, gated
 
-    def _superstep(self, V: State, C: torch.Tensor, it: int, phase: str
-                   ) -> Tuple[State, torch.Tensor, torch.Tensor]:
-        """One superstep, recorded in ``supersteps``; returns (V', C', its
-        messages)."""
+    def _superstep(self, V: State, C: torch.Tensor, it: int, phase: str,
+                   timer=None) -> Tuple[State, torch.Tensor, torch.Tensor]:
+        """One superstep, recorded in ``supersteps`` (its ms by CUDA events
+        on the card, or, with a ``timer``, fenced on the host clock);
+        returns (V', C', its messages)."""
         ev = None
-        if self.device.type == "cuda":
+        if timer is None and self.device.type == "cuda":
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
             ev[0].record()
-        m = self._messages(V, C)
-        V2, C2, gated = self._step(V, m, it, phase)
+        t0 = time.perf_counter()
+        with _fenced(timer, "scatter_gather", self.device):
+            m = self._messages(V, C)
+        V2, C2, gated = self._step(V, m, it, phase, timer)
         rec = {"phase": phase, "gated": gated, "ms": None}
         if ev is not None:
             ev[1].record()
             rec["events"] = ev
+        elif timer is not None:
+            rec["ms"] = (time.perf_counter() - t0) * 1e3
         self.supersteps.append(rec)
         return V2, C2, m
 
@@ -383,6 +415,31 @@ class Executor:
         graph every run but a 1-iteration one runs the CF phases. Ends
         with a device synchronize, so ``timings['execute']`` is device
         time (the CF phases' first build is not in it)."""
+        return self._run(num_iterations)
+
+    def execute_profiled(self, num_iterations: int, timer=None,
+                         printer=print):
+        """``execute`` with per-phase timing and per-iteration progress
+        (the reference's -DTIMING mode and its ``Iteration: n`` lines,
+        vertex_program.hpp:422, :2134-2152); returns the ``PhaseTimer``
+        (``tools/timing.py``), whose report ``printer`` gets last.
+
+        Each superstep's scatter_gather (the messages), combine (exchange
+        x and the SpMV) and apply (exchange y and the applicator) is timed
+        on the host clock, each fenced by a device synchronize on the card;
+        so is the flush of convergence mode (combine and apply). The run
+        is ``execute``'s loop, so the result is its result bit for bit.
+        ``supersteps`` records each superstep's fenced host ms."""
+        from graphtap_tpu_torch.tools.timing import PhaseTimer
+        timer = timer or PhaseTimer()
+        self._run(num_iterations, timer, printer)
+        if printer is not None:
+            printer(timer.report())
+        return timer
+
+    def _run(self, num_iterations, timer=None, printer=None) -> int:
+        """The superstep loop of ``execute`` and ``execute_profiled``;
+        ``printer`` gets an ``Iteration: n`` line after each superstep."""
         if self._dev is None:
             raise RuntimeError("execute() after free()")
         if self.state is None:
@@ -395,24 +452,24 @@ class Executor:
         self.supersteps = []
         t0 = time.perf_counter()
         V, C = self.state, self.changed
-        if niters and niters > 0:
-            for it in range(niters):
-                phase = ("main" if not cf else "first" if it == 0
-                         else "last" if it == niters - 1 else "middle")
-                V, C, _ = self._superstep(V, C, it, phase)
-            self.iteration = niters
-        else:
-            it, converged = 0, False
-            while not converged and it < MAX_CONVERGENCE_ITERS:
-                phase = ("main" if not cf else "first" if it == 0
-                         else "middle")
-                V, C, m = self._superstep(V, C, it, phase)
-                it += 1
+        converge = not (niters and niters > 0)
+        it, converged = 0, False
+        while not converged and it < (MAX_CONVERGENCE_ITERS if converge
+                                      else niters):
+            phase = ("main" if not cf else "first" if it == 0
+                     else "last" if not converge and it == niters - 1
+                     else "middle")
+            V, C, m = self._superstep(V, C, it, phase, timer)
+            it += 1
+            if printer is not None:
+                printer(f"Iteration: {it}")
+            if converge:
                 converged = not bool(C.any())       # the vote: a host read
+        if converge:
             # one extra combine + apply on the last superstep's messages,
             # to flush source/sink contributions (reference :425-429)
-            V, C, _ = self._step(V, m, it, "last" if cf else "main")
-            self.iteration = it
+            V, C, _ = self._step(V, m, it, "last" if cf else "main", timer)
+        self.iteration = it
         self.state, self.changed = V, C
         _sync(self.device)
         self.timings["execute"] = time.perf_counter() - t0
@@ -434,6 +491,13 @@ class Executor:
         vals = np.asarray(self.program.get_state(self.state_vector()))
         mask = vals != self.program.infinity()
         return float(vals[mask].astype(np.float64).sum()), int(mask.sum())
+
+    def stats(self) -> Dict[str, float]:
+        """Distribution statistics over the reachable states (reference:
+        checksum1(), vertex_program.hpp:1963-2119; ``tools/oracle.py``)."""
+        from graphtap_tpu_torch.tools.oracle import state_stats
+        vals = np.asarray(self.program.get_state(self.state_vector()))
+        return state_stats(vals, self.program.infinity())
 
     def display(self, count: int = 31) -> str:
         """First ``count`` vertex states (reference: display(),

@@ -54,6 +54,30 @@ class TileSet:
     nnzcols: np.ndarray          # (D, 1) int32 nnz cols of the col group
     jc: Optional[np.ndarray] = None   # DCSC's JC table; not ported (None)
 
+    def edge_balance(self) -> dict:
+        """Imbalance report (analog of Matrix::balance, matrix.hpp:563-687)."""
+        counts = self.nnz[:, 0].astype(np.float64)
+        mean = counts.mean() if counts.size else 0.0
+        return {
+            "per_device": counts.astype(np.int64).tolist(),
+            "mean": float(mean),
+            "max": float(counts.max() if counts.size else 0),
+            "imbalance": float((counts.max() / mean - 1.0) if mean > 0
+                               else 0.0),
+        }
+
+    def balance_report(self, threshold: float = 0.2) -> str:
+        """The one-line balance report printed at load (the reference
+        prints per-rank/rowgroup/colgroup imbalance with skip threshold
+        0.2, matrix.hpp:617-685 — report only, like there)."""
+        b = self.edge_balance()
+        line = (f"Edge balance: edges={self.nnz_total} "
+                f"mean/dev={b['mean']:.0f} max/dev={b['max']:.0f} "
+                f"imbalance={b['imbalance']:.3f}")
+        if b["imbalance"] > threshold:
+            line += f" (exceeds threshold {threshold})"
+        return line
+
 
 def classify_vertices(r: np.ndarray, c: np.ndarray, n_pad: int):
     """Vertex classes over the stored matrix (reference:

@@ -22,7 +22,8 @@ from typing import Optional
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
-SOURCES = ("panel_route.cu", "shuffle.cu", "gather.cu", "onehot.cu")
+SOURCES = ("panel_route.cu", "shuffle.cu", "gather.cu", "onehot.cu",
+           "probe.cu")
 HEADERS = ("common.cuh",)
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
@@ -36,6 +37,8 @@ _F64 = ctypes.c_double
 # launcher name -> argtypes; every launcher returns cudaError_t as int.
 # plan_idx is NULL for a static launch, else the (npanels,) int32 plan
 # block of each panel (gated); fill_block is the route's all-fill block.
+# rptr/gptr/idx are a fixed-order fold's row -> runs -> partials lists,
+# part/gpart its scratch (kernels/fold_order.py).
 _SIGNATURES = {
     # x2d, bases, plan, w, out, npanels, nwin, dtype, mul_kind, fill,
     # plan_idx, fill_block, stream
@@ -52,10 +55,10 @@ _SIGNATURES = {
     # ystack, chunk_dst, y, nchunks, nblocks, dtype, reduce_kind,
     # identity, stream
     "gt_colsum_chunks": [_P, _P, _P, _I64, _I64, _I32, _I32, _F64, _P],
-    # src, bases, plan, dst, seg, y, nrows, seg_rows, npanels, nwin,
-    # dtype, reduce_kind, fill, plan_idx, fill_block, stream
-    "gt_route_fold": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32,
-                      _I32, _F64, _P, _I32, _P],
+    # src, bases, plan, rptr, gptr, idx, part, gpart, y, nrows, ngroups,
+    # npanels, nwin, dtype, reduce_kind, fill, plan_idx, fill_block, stream
+    "gt_route_fold": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
+                      _I32, _I32, _I32, _F64, _P, _I32, _P],
     # v, hub_mask, out, nrows, dtype, reduce_kind, stream
     "gt_hub_fold": [_P, _P, _P, _I64, _I32, _I32, _P],
     # x3d, grp, slot, lane, ev, w, out, rows, dtype, mul_kind, fill, stream
@@ -65,17 +68,24 @@ _SIGNATURES = {
     # dtype, fill, stream
     "gt_group_pass": [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32,
                       _F64, _P],
-    # c, lr, ev, chunk_block, y, nchunks, nblocks, dtype, reduce_kind,
-    # identity, stream
-    "gt_grouped_reduce": [_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _F64,
-                          _P],
+    # c, lr, ev, rptr, gptr, idx, part, gpart, y, nchunks, nblocks,
+    # ngroups, dtype, reduce_kind, identity, stream
+    "gt_grouped_reduce": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                          _I64, _I32, _I32, _F64, _P],
     # src, wsel, base, nact, cidx, meta, w, out, nsteps, nsub, block_rows,
     # dtype, mul_kind, fill, stream
     "gt_windowed_gather": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32,
                            _I32, _I32, _F64, _P],
-    # contrib, lrows, chunk_block, y, nchunks, nblocks, dtype, reduce_kind,
-    # identity, stream
-    "gt_segment_reduce": [_P, _P, _P, _P, _I64, _I64, _I32, _I32, _F64, _P],
+    # contrib, lrows, rptr, gptr, idx, part, gpart, y, nchunks, nblocks,
+    # ngroups, dtype, reduce_kind, identity, stream
+    "gt_segment_reduce": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
+                          _I32, _I32, _F64, _P],
+    # x, y, rows, row_bytes, bm, bn_bytes, stream
+    "gt_probe_copy": [_P, _P, _I64, _I64, _I32, _I64, _P],
+    # a, b, c, d, out, nstreams, rows, lanes, bm, stream
+    "gt_probe_stream_sum": [_P, _P, _P, _P, _P, _I32, _I64, _I32, _I32, _P],
+    # x2d, bases, out, npanels, nwin, stream
+    "gt_probe_route_like": [_P, _P, _P, _I64, _I32, _P],
 }
 
 

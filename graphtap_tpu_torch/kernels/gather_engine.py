@@ -31,7 +31,8 @@ from graphtap_tpu_torch.kernels.gather_plan import (LANES, NPASSES, SUB,
                                                     build_spmv2_plan)
 from graphtap_tpu_torch.kernels.semiring import Semiring
 from graphtap_tpu_torch.kernels.shuffle_engine import mul_kind
-from graphtap_tpu_torch.kernels.shuffle_kernels import grouped_reduce
+from graphtap_tpu_torch.kernels.shuffle_kernels import (grouped_reduce,
+                                                        reduce_tables)
 
 STAGES = ("exp",) + tuple(f"p{p}" for p in range(NPASSES)) + ("mx",)
 _PLAN_KEYS = ("wsel", "base", "nact", "cidx", "meta")
@@ -240,11 +241,18 @@ def spmv2_stages(x: torch.Tensor, t: Dict[str, torch.Tensor],
                                       meta.nsub[k])
     st["y_blocks"] = grouped_reduce(buf, t["lr"], t["ev_r"],
                                     t["chunk_block"], meta.nblocks,
-                                    semiring.reduce_kind, fill)
+                                    semiring.reduce_kind, fill,
+                                    **fold_tables(t, meta, x.dtype))
     st["mx"] = windowed_gather(st["y_blocks"], *stage_plan(t, "mx"), None,
                                fill, meta.nsub["mx"])
     st["y"] = st["mx"].reshape(-1)[:dense_len]
     return st
+
+
+def fold_tables(t: Dict[str, torch.Tensor], meta: Spmv2Meta, dtype):
+    """K8's block -> chunks list and scratch, kept in ``t`` once per
+    upload (``shuffle_kernels.reduce_tables``)."""
+    return reduce_tables(t, meta.nblocks, dtype)
 
 
 def spmv2_local(x: torch.Tensor, t: Dict[str, torch.Tensor],

@@ -14,7 +14,10 @@ chunks of ``CHUNK`` contributions:
     device and contiguity, then runs the plain version for a CPU tensor or
     launches the hand-written Hopper kernel (``csrc/onehot.cu``) for a
     CUDA tensor — never a fallback; ``segment_reduce_plain`` is its plain
-    torch version and ``LAUNCHES`` its launch count;
+    torch version, which folds floats in the kernel's fixed order
+    (``fold_order.py``), and ``LAUNCHES`` its launch count;
+  * ``fold_tables``: K5's block -> chunks list and scratch, kept in the
+    device dict once per upload;
   * ``spmv_onehot``: the gather of x by the plan's cols, ⊗ by its weights
     and the mask of padding to the ⊕-identity (plain torch, as the JAX
     package leaves them to XLA), then K5.
@@ -30,14 +33,16 @@ import torch
 
 from graphtap_tpu_torch.format.tiles import TileSet
 from graphtap_tpu_torch.kernels import _cuda
+from graphtap_tpu_torch.kernels.fold_order import (chunk_fold_plain,
+                                                   fold_args)
+from graphtap_tpu_torch.kernels.fold_order import \
+    fold_tables as _fold_tables
 from graphtap_tpu_torch.kernels.panel_kernels import (_DTYPES,
                                                       _REDUCE_KINDS,
                                                       _REDUCE_OK, _on_cuda,
                                                       _stream)
 from graphtap_tpu_torch.kernels.semiring import Semiring
-from graphtap_tpu_torch.kernels.shuffle_kernels import (_SCATTER_OPS,
-                                                        _check,
-                                                        _check_values)
+from graphtap_tpu_torch.kernels.shuffle_kernels import _check, _check_values
 
 RB = 128          # rows per block = lane width
 CHUNK = 2048      # contributions per chunk
@@ -175,32 +180,33 @@ def validate_pallas_plan(plan: PallasPlan, ncols: int) -> None:
 # --------------------------------------------------------- plain version
 def segment_reduce_plain(contrib, lrows, chunk_block, nblocks: int, NR: int,
                          reduce_kind: str, identity):
-    """y (nblocks, 128) starts at the identity; every contribution e of
-    chunk i is ⊕-folded into y[chunk_block[i], lrows[e]]; returns
-    y.reshape(-1)[:NR]."""
-    dst = (chunk_block.long().repeat_interleave(CHUNK) * RB
-           + lrows.long())
-    y = torch.full((nblocks * RB,), identity, dtype=contrib.dtype,
-                   device=contrib.device)
-    y.scatter_reduce_(0, dst, contrib, _SCATTER_OPS[reduce_kind],
-                      include_self=True)
-    return y[:NR]
+    """y (nblocks, 128): each chunk folds its contributions into lane
+    lrows[e] in index order, then each block folds its chunks' lane
+    partials in chunk order from the identity (the kernel's fixed order,
+    ``fold_order.chunk_fold_plain``); returns y.reshape(-1)[:NR]."""
+    return chunk_fold_plain(contrib, lrows, None, CHUNK, chunk_block,
+                            nblocks, reduce_kind, identity).reshape(-1)[:NR]
 
 
 # ---------------------------------------------------------------- wrapper
 def segment_reduce(contrib, lrows, chunk_block, nblocks: int, NR: int,
-                   reduce_kind: str, identity):
+                   reduce_kind: str, identity, lists=None, scratch=None):
     """K5: ⊕-fold the chunked contributions (Ep,) into the compact row
     space (NR,). Padding must carry the ⊕-identity (``spmv_onehot`` masks
     it); the kernel reads no validity mask, as the Pallas one reads none.
-    Float sums run in no fixed order on the card. Replaces
+    Float sums fold in a fixed order, the plain version's, so a call gives
+    the same bits every time. ``lists``: the block -> chunks lists
+    (``fold_order.fold_lists(chunk_block, nblocks)``, built here if None);
+    ``scratch``: the chunks' and runs' lane partials (allocated here if
+    None); the plain version reads neither. Replaces
     ``pallas_spmv.py::pallas_segment_reduce``."""
     _check_values("contrib", contrib)
     dev = contrib.device
     _check("chunk_block", chunk_block, torch.int32, device=dev)
     if chunk_block.dim() != 1:
         raise ValueError("chunk_block: expected a 1-D tensor")
-    ep = chunk_block.shape[0] * CHUNK
+    nchunks = chunk_block.shape[0]
+    ep = nchunks * CHUNK
     _check("contrib", contrib, None, (ep,), dev)
     _check("lrows", lrows, torch.int32, (ep,), dev)
     if reduce_kind not in _REDUCE_OK[contrib.dtype]:
@@ -210,17 +216,28 @@ def segment_reduce(contrib, lrows, chunk_block, nblocks: int, NR: int,
     if not _on_cuda(contrib):
         return segment_reduce_plain(contrib, lrows, chunk_block, nblocks,
                                     NR, reduce_kind, identity)
+    rptr, gptr, idx, part, gpart = fold_args(
+        lists, scratch, chunk_block, nblocks, nchunks, contrib.dtype, dev)
     lib = _cuda.library()
     y = torch.empty((nblocks * RB,), dtype=contrib.dtype, device=dev)
     with torch.cuda.device(dev):
         rc = lib.gt_segment_reduce(
-            contrib.data_ptr(), lrows.data_ptr(), chunk_block.data_ptr(),
-            y.data_ptr(), chunk_block.shape[0], nblocks,
-            _DTYPES[contrib.dtype], _REDUCE_KINDS[reduce_kind],
+            contrib.data_ptr(), lrows.data_ptr(), rptr.data_ptr(),
+            gptr.data_ptr(), idx.data_ptr(), part.data_ptr(),
+            gpart.data_ptr(), y.data_ptr(), nchunks, nblocks,
+            gptr.shape[0] - 1, _DTYPES[contrib.dtype],
+            _REDUCE_KINDS[reduce_kind],
             float(identity), _stream(contrib))
     LAUNCHES["segment_reduce"] += 1
     _cuda.check(rc, "segment_reduce")
     return y[:NR]
+
+
+def fold_tables(t: Dict[str, torch.Tensor], plan: PallasPlan, dtype):
+    """K5's block -> chunks list and scratch, kept in ``t`` (once per
+    upload); returns segment_reduce's (lists, scratch) arguments."""
+    return _fold_tables(t, "oh", t["oh_chunk_block"], plan.nblocks,
+                        plan.nchunks, dtype)
 
 
 def onehot_contrib(x: torch.Tensor, t: Dict[str, torch.Tensor],
@@ -237,4 +254,5 @@ def spmv_onehot(x: torch.Tensor, t: Dict[str, torch.Tensor],
     """One-device one-hot SpMV: x (NC,) -> the compact y (NR,)."""
     return segment_reduce(onehot_contrib(x, t, semiring), t["oh_lrows"],
                           t["oh_chunk_block"], plan.nblocks, NR,
-                          semiring.reduce_kind, semiring.identity)
+                          semiring.reduce_kind, semiring.identity,
+                          **fold_tables(t, plan, x.dtype))

@@ -23,7 +23,9 @@ pipeline, the composition the JAX package keeps K11 and K13 for
     -> K13 colsum_chunks (y_mid) -> K4 hub_fold -> K3 route_fold (fix2)
 
 Its tables (the two halves of xe_plan, the absolute y_mid row of each
-fixr chunk) are derived once per upload by ``staged_tables``.
+fixr chunk) are derived once per upload by ``staged_tables``, and K3's
+row -> bands lists and scratch (its fixed fold order) by
+``fold_tables``, which keeps them in ``t``.
 
 Frontier gating (nonstationary programs, ``gate``): activity bits per
 8-row x block propagate through the panel graph (xe -> pa -> fixr), and
@@ -40,9 +42,12 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from graphtap_tpu_torch.kernels.fold_order import \
+    fold_tables as _fold_tables
 from graphtap_tpu_torch.kernels.panel_kernels import (
-    FOLD_SEG_ROWS, LANES, STRIPE, XROWS, colsum_chunks, hub_fold, plan_rows,
-    route_expand, route_fold, route_passa, route_xr_exp, xe_plan_rows)
+    FOLD_SEG_ROWS, LANES, STRIPE, XROWS, colsum_chunks, fold_rows, hub_fold,
+    plan_rows, route_expand, route_fold, route_passa, route_xr_exp,
+    xe_plan_rows)
 from graphtap_tpu_torch.kernels.panel_meta import Spmv3Meta, fill_blocks
 from graphtap_tpu_torch.kernels.semiring import Semiring
 
@@ -162,11 +167,13 @@ def spmv3_stages(x: torch.Tensor, t: Dict[str, torch.Tensor],
                       plan_idx=xe_q, fill_block=fb["xe_plan"])
     s1 = route_passa(s0, pa_b, t["pa_plan"], fill, meta.pa_panels + 1,
                      meta.pa_nwin, plan_idx=pa_q, fill_block=fb["pa_plan"])
+    folds = fold_tables(t, meta, x.dtype)
     y_mid = route_fold(s1, fx_b, t["fixr_plan"], t["fix_dst"],
                        t["fixr_seg"], meta.nrb, kind, fill, meta.fix_panels,
                        meta.fixr_nwin, plan_idx=fx_q,
-                       fill_block=fb["fixr_plan"])
-    y_hub, y = _fold_tail(y_mid, t, meta, kind, fill, dense_len)
+                       fill_block=fb["fixr_plan"], **folds["fixr"])
+    y_hub, y = _fold_tail(y_mid, t, meta, kind, fill, dense_len,
+                          folds["fix2"])
     return {"x2d": x2d, "s0": s0, "s1": s1, "y_mid": y_mid, "y_hub": y_hub,
             "y": y, "gated": gated, "maps": maps}
 
@@ -177,14 +184,28 @@ def _mul_kind(meta: Spmv3Meta, semiring: Semiring) -> str:
     return "mul" if semiring.reduce_kind == "sum" else "add_sat"
 
 
-def _fold_tail(y_mid, t, meta: Spmv3Meta, kind: str, fill, dense_len: int):
-    """y_mid -> (y_hub, y (dense_len,)): K4, then the fix2 fold (K3)
-    straight into the dense y layout."""
+def fold_tables(t: Dict[str, torch.Tensor], meta: Spmv3Meta, dtype):
+    """K3's row -> bands lists and scratch for the fixr and the fix2
+    fold, kept in ``t`` once per upload (``fold_order.fold_tables``);
+    returns each fold's route_fold (lists, scratch) arguments."""
+    return {
+        "fixr": _fold_tables(t, "fixr", fold_rows(
+            t["fix_dst"], t["fixr_seg"], meta.nrb, meta.fix_panels),
+            meta.nrb, meta.fix_panels * STRIPE, dtype),
+        "fix2": _fold_tables(t, "fix2", fold_rows(
+            t["fix2_dst"], t["f2_seg"], meta.f2_rows, meta.f2_panels),
+            meta.f2_rows, meta.f2_panels * STRIPE, dtype)}
+
+
+def _fold_tail(y_mid, t, meta: Spmv3Meta, kind: str, fill, dense_len: int,
+               fix2):
+    """y_mid -> (y_hub, y (dense_len,)): K4, then the fix2 fold (K3, its
+    fold tables ``fix2``) straight into the dense y layout."""
     # hub rows: lane-⊕-fold at the row's packed slot width
     y_hub = hub_fold(y_mid, t["hub_mask"], kind)
     y_dense = route_fold(y_hub, t["f2_bases"], t["f2_plan"], t["fix2_dst"],
                          t["f2_seg"], meta.f2_rows, kind, fill,
-                         meta.f2_panels, meta.f2_nwin)
+                         meta.f2_panels, meta.f2_nwin, **fix2)
     # dense segments no fix2 panel visits hold the ⊕-identity (the fold
     # table starts filled; the mask keeps the JAX package's contract)
     if not bool(np.all(meta.arrays["f2_segok"])):
@@ -244,7 +265,8 @@ def spmv3_staged_stages(x: torch.Tensor, t: Dict[str, torch.Tensor],
     stack1 = route_passa(s1, t["fixr_bases"], t["fixr_plan"], fill,
                          meta.fix_panels, meta.fixr_nwin)
     y_mid = colsum_chunks(stack1, t["chunk_dst"], meta.nrb, kind, fill)
-    y_hub, y = _fold_tail(y_mid, t, meta, kind, fill, dense_len)
+    y_hub, y = _fold_tail(y_mid, t, meta, kind, fill, dense_len,
+                          fold_tables(t, meta, x.dtype)["fix2"])
     return {"x2d": x2d, "x_ext": x_ext, "s0": s0, "s1": s1,
             "stack1": stack1, "y_mid": y_mid, "y_hub": y_hub, "y": y}
 

@@ -16,6 +16,10 @@ seven Pallas kernels has here
     launches the CUDA kernel (``route_passa_single`` counts the
     single-layer launches of ``route_passa``).
 
+K3's float sums fold in a fixed order (``fold_order.py``), which its
+plain version follows, so the two agree bit for bit and a call gives the
+same bits every time; K13 still folds with atomics.
+
 K1-K3 also take ``plan_idx`` ((npanels,) int32, default None = static):
 the frontier-gated variant of the Pallas kernels' ``plan_idx`` branch,
 where panel i reads plan block ``plan_idx[i]`` (K1 also its weight block
@@ -40,6 +44,7 @@ import numpy as np
 import torch
 
 from graphtap_tpu_torch.kernels import _cuda
+from graphtap_tpu_torch.kernels.fold_order import fold_args, list_fold
 from graphtap_tpu_torch.kernels.panel_plan import (FOLD_SEG_ROWS, LANES,
                                                    PROWS, STRIPE, XROWS)
 
@@ -207,15 +212,28 @@ def _fold_rows(dst, seg, nrows: int):
     return seg.long().repeat_interleave(STRIPE) * seg_rows + dst.long()
 
 
+def fold_rows(dst, seg, nrows: int, npanels: int):
+    """(npanels*8,) int64: the y row ``seg*seg_rows + dst`` each routed
+    8-row band of K3 folds into."""
+    return _fold_rows(dst[:npanels * STRIPE], seg[:npanels], nrows)
+
+
 def route_fold_plain(stream0, bases, plan, dst, seg, nrows: int,
                      reduce_kind: str, fill, npanels: int, nwin: int,
                      plan_idx=None):
-    """K3 = the route of K2, then K13's chunk fold at rows seg*seg_rows +
-    dst."""
+    """K3 = the route of K2; each routed 8-row band folded lane-wise,
+    rows 0..7 in order; then each y row ``seg*seg_rows + dst`` folds its
+    bands in ascending band order from the fill — the kernel's fixed
+    order (``fold_order.py``), so equal to it bit for bit."""
     routed = route_passa_plain(stream0, bases, plan, fill, npanels, nwin,
-                               plan_idx)
-    rows = _fold_rows(dst[:npanels * STRIPE], seg[:npanels], nrows)
-    return colsum_chunks_plain(routed, rows, nrows, reduce_kind, fill)
+                               plan_idx).view(-1, STRIPE, LANES)
+    op = {"sum": torch.add, "min": torch.minimum,
+          "max": torch.maximum}[reduce_kind]
+    bands = routed[:, 0]
+    for r in range(1, STRIPE):
+        bands = op(bands, routed[:, r])
+    return list_fold(bands, fold_rows(dst, seg, nrows, npanels), nrows,
+                     reduce_kind, fill)
 
 
 def hub_fold_plain(y_mid, hub_mask, reduce_kind: str):
@@ -458,13 +476,19 @@ def colsum_chunks(ystack, chunk_dst, nblocks: int, reduce_kind: str,
 
 def route_fold(stream0, bases, plan, dst, seg, nrows: int, reduce_kind: str,
                fill, npanels: int, nwin: int, plan_idx=None,
-               fill_block=None):
+               fill_block=None, lists=None, scratch=None):
     """K3: route as K2, then ⊕-fold each routed 8-row band into row
     ``seg[p]*min(nrows, 8192) + dst[p*8+ob]`` of an (nrows, 128) table
     that starts at the ⊕-identity. Replaces ``panel_kernels.py::
     route_fold``, static and gated (``plan_idx``; dst and seg stay panel
-    p's); its per-segment ``ini`` reset is implied, because the whole
-    table is filled before any fold (panels are segment-sorted)."""
+    p's); its per-segment ``ini`` reset is implied, because every row
+    starts at the identity. Float sums fold in a fixed order, the plain
+    version's: each band's 8 rows in order, then each y row's bands in
+    ascending panel order (the Pallas grid's), in runs of
+    ``fold_order.GROUP``. ``lists``: the row -> bands lists
+    (``fold_order.fold_lists(fold_rows(dst, seg, nrows, npanels),
+    nrows)``, built here if None); ``scratch``: the band and run partials
+    (allocated here if None); the plain version reads neither."""
     _check_route_args(stream0, bases, plan, npanels, nwin)
     _check_idx("dst", dst, npanels * STRIPE, stream0.device)
     _check_idx("seg", seg, npanels, stream0.device)
@@ -480,14 +504,18 @@ def route_fold(stream0, bases, plan, dst, seg, nrows: int, reduce_kind: str,
     if not _on_cuda(stream0):
         return route_fold_plain(stream0, bases, plan, dst, seg, nrows,
                                 reduce_kind, fill, npanels, nwin, plan_idx)
+    rptr, gptr, idx, part, gpart = fold_args(
+        lists, scratch, fold_rows(dst, seg, nrows, npanels) if lists is None
+        else None, nrows, npanels * STRIPE, stream0.dtype, stream0.device)
     lib = _cuda.library()
     y = torch.empty((nrows, LANES), dtype=stream0.dtype,
                     device=stream0.device)
     with torch.cuda.device(stream0.device):
         rc = lib.gt_route_fold(
             stream0.data_ptr(), bases.data_ptr(), plan.data_ptr(),
-            dst.data_ptr(), seg.data_ptr(), y.data_ptr(), nrows, seg_rows,
-            npanels, nwin, _DTYPES[stream0.dtype],
+            rptr.data_ptr(), gptr.data_ptr(), idx.data_ptr(),
+            part.data_ptr(), gpart.data_ptr(), y.data_ptr(), nrows,
+            gptr.shape[0] - 1, npanels, nwin, _DTYPES[stream0.dtype],
             _REDUCE_KINDS[reduce_kind], float(fill), pidx, fblk,
             _stream(stream0))
     LAUNCHES[key] += 1

@@ -25,7 +25,8 @@ from graphtap_tpu_torch.format.tiles import TileSet
 from graphtap_tpu_torch.kernels.semiring import Semiring
 from graphtap_tpu_torch.kernels.shuffle_kernels import (expand_stream,
                                                         group_stream,
-                                                        grouped_reduce)
+                                                        grouped_reduce,
+                                                        reduce_tables)
 from graphtap_tpu_torch.kernels.shuffle_plan import (LANES, RED_ROWS, SUB,
                                                      WROWS, build_spmv_plan,
                                                      plan_monotone_expand)
@@ -188,7 +189,8 @@ def spmv_stages(x: torch.Tensor, t: Dict[str, torch.Tensor],
     grouped = group_stream(contrib, t["frag_dst"], t["frag_idx"],
                            meta.rows_per_super, meta.npasses, fill)
     y_blocks = grouped_reduce(grouped, t["lr"], t["ev_r"], t["chunk_block"],
-                              meta.nblocks, kind, fill)
+                              meta.nblocks, kind, fill,
+                              **fold_tables(t, meta, x.dtype))
     ytab = _pad_windows(y_blocks.view(-1), ytab_windows(meta.nblocks), fill)
     ya = expand_stream(ytab, t["mexp_grp_a"], t["mexp_slot_a"],
                        t["mexp_lane"], t["mexp_ev_a"], None, fill)
@@ -198,6 +200,12 @@ def spmv_stages(x: torch.Tensor, t: Dict[str, torch.Tensor],
     return {"x3d": x3d, "contrib": contrib, "grouped": grouped,
             "y_blocks": y_blocks, "ytab": ytab, "ya": ya, "yb": yb,
             "y": y.reshape(-1)[:dense_len]}
+
+
+def fold_tables(t: Dict[str, torch.Tensor], meta: ShufflePlans, dtype):
+    """K8's block -> chunks list and scratch, kept in ``t`` once per
+    upload (``shuffle_kernels.reduce_tables``)."""
+    return reduce_tables(t, meta.nblocks, dtype)
 
 
 def spmv_local(x: torch.Tensor, t: Dict[str, torch.Tensor],

@@ -13,6 +13,10 @@ three Pallas kernels has here
   * a launch count in ``LAUNCHES``, incremented only where the wrapper
     launches the CUDA kernel (``group_stream``: once per radix pass).
 
+K8's float sums fold in a fixed order (``fold_order.py``), which its
+plain version follows; ``reduce_tables`` keeps its block -> chunks list
+and scratch in the plan tensors once per upload.
+
 The plans come from ``kernels/shuffle_plan.py``; ``shuffle_engine.
 validate_shuffle_plans`` checks every index the kernels follow before a
 plan reaches the card.
@@ -23,6 +27,8 @@ from __future__ import annotations
 import torch
 
 from graphtap_tpu_torch.kernels import _cuda
+from graphtap_tpu_torch.kernels.fold_order import (chunk_fold_plain,
+                                                   fold_args, fold_tables)
 from graphtap_tpu_torch.kernels.panel_kernels import (_DTYPES, _MUL_KINDS,
                                                       _REDUCE_KINDS,
                                                       _REDUCE_OK, _on_cuda,
@@ -32,9 +38,6 @@ from graphtap_tpu_torch.kernels.shuffle_plan import LANES, RED_ROWS, SUB, \
 
 # launches of each CUDA kernel (the plain versions are not counted)
 LAUNCHES = {"expand_stream": 0, "group_stream": 0, "grouped_reduce": 0}
-
-_SCATTER_OPS = {"sum": "sum", "min": "amin", "max": "amax"}
-
 
 def reset_launches() -> None:
     for k in LAUNCHES:
@@ -89,18 +92,13 @@ def group_stream_plain(contrib, frag_dst, frag_idx, rows_per_super: int,
 
 def grouped_reduce_plain(contrib, lr, evalid, chunk_block, nblocks: int,
                          reduce_kind: str, identity):
-    """y (nblocks, 128) starts at the identity; each stream element of
-    chunk i (8 rows) with ev set is ⊕-folded into y[chunk_block[i],
-    lr]."""
-    n = chunk_block.shape[0] * RED_ROWS * LANES
-    keep = evalid.reshape(-1)[:n] != 0
-    blk = chunk_block.long().repeat_interleave(RED_ROWS * LANES)[keep]
-    flat = blk * LANES + lr.reshape(-1)[:n][keep].long()
-    y = torch.full((nblocks * LANES,), identity, dtype=contrib.dtype,
-                   device=contrib.device)
-    y.scatter_reduce_(0, flat, contrib.reshape(-1)[:n][keep],
-                      _SCATTER_OPS[reduce_kind], include_self=True)
-    return y.view(nblocks, LANES)
+    """y (nblocks, 128): each 8-row chunk folds its elements with ev set
+    into lane lr in index order, then each block folds its chunks' lane
+    partials in chunk order from the identity (the kernel's fixed order,
+    ``fold_order.chunk_fold_plain``)."""
+    return chunk_fold_plain(contrib, lr, evalid != 0, RED_ROWS * LANES,
+                            chunk_block, nblocks, reduce_kind,
+                            identity).view(nblocks, LANES)
 
 
 # ------------------------------------------------------------- validation
@@ -219,17 +217,23 @@ def group_stream(contrib, frag_dst, frag_idx, rows_per_super: int,
 
 
 def grouped_reduce(contrib, lr, evalid, chunk_block, nblocks: int,
-                   reduce_kind: str, identity):
+                   reduce_kind: str, identity, lists=None, scratch=None):
     """K8: ⊕-fold a row-block-grouped stream into (nblocks, 128) that
     starts at the identity: each 8-row chunk i folds its valid elements
-    into row chunk_block[i], lane lr. Float sums run in no fixed order on
-    the card. Replaces ``shuffle_kernels.py::grouped_reduce``."""
+    into row chunk_block[i], lane lr. Float sums fold in a fixed order, the
+    plain version's, so a call gives the same bits every time. ``lists``:
+    the block -> chunks lists (``fold_order.fold_lists(chunk_block,
+    nblocks)``, built here if None); ``scratch``: the chunks' and runs'
+    lane partials (allocated here if None); the plain version reads
+    neither.
+    Replaces ``shuffle_kernels.py::grouped_reduce``."""
     _check_values("contrib", contrib)
     dev = contrib.device
     _check("chunk_block", chunk_block, torch.int32, device=dev)
     if chunk_block.dim() != 1:
         raise ValueError("chunk_block: expected a 1-D tensor")
-    rows = chunk_block.shape[0] * RED_ROWS
+    nchunks = chunk_block.shape[0]
+    rows = nchunks * RED_ROWS
     _check_rows("contrib", contrib, dev, rows)
     _check("lr", lr, torch.int8, (rows, LANES), dev)
     _check("evalid", evalid, torch.int8, (rows, LANES), dev)
@@ -240,14 +244,25 @@ def grouped_reduce(contrib, lr, evalid, chunk_block, nblocks: int,
     if not _on_cuda(contrib):
         return grouped_reduce_plain(contrib, lr, evalid, chunk_block,
                                     nblocks, reduce_kind, identity)
+    rptr, gptr, idx, part, gpart = fold_args(
+        lists, scratch, chunk_block, nblocks, nchunks, contrib.dtype, dev)
     lib = _cuda.library()
     y = torch.empty((nblocks, LANES), dtype=contrib.dtype, device=dev)
     with torch.cuda.device(dev):
         rc = lib.gt_grouped_reduce(
             contrib.data_ptr(), lr.data_ptr(), evalid.data_ptr(),
-            chunk_block.data_ptr(), y.data_ptr(), chunk_block.shape[0],
-            nblocks, _DTYPES[contrib.dtype], _REDUCE_KINDS[reduce_kind],
-            float(identity), _stream(contrib))
+            rptr.data_ptr(), gptr.data_ptr(), idx.data_ptr(),
+            part.data_ptr(), gpart.data_ptr(), y.data_ptr(), nchunks,
+            nblocks, gptr.shape[0] - 1, _DTYPES[contrib.dtype],
+            _REDUCE_KINDS[reduce_kind], float(identity), _stream(contrib))
     LAUNCHES["grouped_reduce"] += 1
     _cuda.check(rc, "grouped_reduce")
     return y
+
+
+def reduce_tables(t, nblocks: int, dtype):
+    """K8's block -> chunks list and scratch for the plan tensors ``t``
+    (``chunk_block`` there), kept in ``t`` (once per upload); returns
+    grouped_reduce's (lists, scratch) arguments."""
+    cb = t["chunk_block"]
+    return fold_tables(t, "rd", cb, nblocks, cb.shape[0], dtype)

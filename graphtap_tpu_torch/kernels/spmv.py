@@ -45,10 +45,18 @@ def spmv_segment(x, rows, cols, weights, nnz: int, num_segments: int,
 def spmv_sorted_scan(x, rows, cols, weights, nnz: int,
                      ja: torch.Tensor, semiring: Semiring) -> torch.Tensor:
     """SpMV over destination-sorted edges (the JAX package's segmented
-    scan + pointer gather). The ⊕ here is a ``scatter_reduce`` into the
-    NR = len(ja) - 1 compact rows; rows with no edge (``ja[k+1] ==
-    ja[k]``) keep the ⊕-identity, exactly as the scan version leaves them.
-    Float sums may round in another order than the scan."""
+    scan + pointer gather) into the NR = len(ja) - 1 compact rows; rows
+    with no edge (``ja[k+1] == ja[k]``) keep the ⊕-identity, exactly as
+    the scan version leaves them. Float sums fold each row's run of edges
+    by ``torch.segment_reduce`` over the pointers ``ja``, which adds in a
+    fixed order on either device: the card's ``scatter_reduce`` adds with
+    atomics in no fixed order, and then f32 PageRank's absolute
+    convergence vote does not close (ROADMAP F8). Integer sums, min and
+    max are exact in any order and take ``scatter_reduce``."""
+    if semiring.reduce_kind == "sum" and x.dtype.is_floating_point:
+        contrib = edge_contributions(x, cols, weights, nnz, semiring)
+        return torch.segment_reduce(contrib[:nnz], "sum",
+                                    offsets=ja.long(), initial=0)
     return spmv_segment(x, rows, cols, weights, nnz, ja.shape[0] - 1,
                         semiring)
 

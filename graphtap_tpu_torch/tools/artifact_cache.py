@@ -1,7 +1,9 @@
-"""On-disk cache of the port's host-built plans: the panel meta
+"""On-disk cache of the port's host-built artifacts: the panel meta
 (``Spmv3Meta``), the v1 shuffle plans (``ShufflePlans``) and the v2
-windowed-gather plans (``Spmv2Meta``). The one-hot plan builds in about a
-second and is not cached.
+windowed-gather plans (``Spmv2Meta``); tile sets (``save_tileset``,
+``load_tileset``) and RMAT edge lists (``cached_rmat``), as the JAX
+package's ``tools/artifact_cache.py`` keeps them. The one-hot plan builds
+in about a second and is not cached.
 
 Plans are a pure function of the edge list, the graph's ingest config,
 the ordering, the value dtype and the planner's code, and an RMAT-20 panel
@@ -30,6 +32,7 @@ from typing import Optional
 
 import numpy as np
 
+from graphtap_tpu_torch.config import Compression
 from graphtap_tpu_torch.format.tiles import TileSet
 from graphtap_tpu_torch.kernels.gather_engine import (Spmv2Meta,
                                                       build_spmv2_meta,
@@ -39,6 +42,7 @@ from graphtap_tpu_torch.kernels.panel_meta import (Spmv3Meta,
                                                    validate_meta)
 from graphtap_tpu_torch.kernels.shuffle_engine import (
     ShufflePlans, build_shuffle_plans, validate_shuffle_plans)
+from graphtap_tpu_torch.parallel.layout import Partition
 
 PKG = Path(__file__).resolve().parent.parent
 DEFAULT_DIR = PKG / "build" / "plan_cache"
@@ -63,6 +67,59 @@ _PLAN_SOURCES = {
 }
 
 
+# ----------------------------------------------------------------- TileSet
+_TS_ARRAYS = ("rows", "cols", "weights", "nnz", "ja", "ir", "iv_dense",
+              "nnzrows", "i_own", "j_own", "regular_own", "source_own",
+              "sink_own", "nnzcols", "jc")
+
+
+def save_tileset(ts: TileSet, path) -> None:
+    """A tile set as one ``.npz``: its arrays and a JSON meta entry of its
+    scalar fields and partition."""
+    arrays = {k: getattr(ts, k) for k in _TS_ARRAYS
+              if getattr(ts, k) is not None}
+    meta = {"compression": ts.compression.value,
+            "has_weight": bool(ts.has_weight), "Ep": int(ts.Ep),
+            "NR": int(ts.NR), "nnz_total": int(ts.nnz_total),
+            "part": [ts.part.nv, ts.part.R, ts.part.C, ts.part.L]}
+    arrays[_META] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+    np.savez(path, **arrays)
+
+
+def load_tileset(path) -> TileSet:
+    """The tile set ``save_tileset`` wrote."""
+    with np.load(path) as z:
+        meta = json.loads(bytes(z[_META]).decode())
+        arrays = {k: (z[k] if k in z.files else None) for k in _TS_ARRAYS}
+    nv, R, C, L = meta["part"]
+    return TileSet(part=Partition(nv=nv, R=R, C=C, L=L),
+                   compression=Compression(meta["compression"]),
+                   has_weight=meta["has_weight"], Ep=meta["Ep"],
+                   NR=meta["NR"], nnz_total=meta["nnz_total"], **arrays)
+
+
+# ------------------------------------------------------------- edge lists
+def cached_rmat(scale: int, edge_factor: int, seed: int, cache_dir,
+                weighted: bool = False):
+    """RMAT edges memoized as a raw binary edge list (the same
+    ``(u32, u32[, u32])`` records the reference's data files use)."""
+    from graphtap_tpu_torch.ingest.io import read_edge_list, write_binary
+    from graphtap_tpu_torch.ingest.rmat import rmat_edges
+    os.makedirs(cache_dir, exist_ok=True)
+    tag = "w" if weighted else ""
+    path = os.path.join(cache_dir,
+                        f"rmat{scale}_ef{edge_factor}_s{seed}{tag}.bin")
+    if os.path.exists(path):
+        return read_edge_list(path, has_weight=weighted)
+    r, c, w = rmat_edges(scale=scale, edge_factor=edge_factor, seed=seed,
+                         weighted=weighted)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    write_binary(tmp, r, c, w)
+    os.replace(tmp, path)
+    return r, c, w
+
+
+# ------------------------------------------------------------------ plans
 def _scalar_names(cls):
     return tuple(f.name for f in dataclasses.fields(cls) if f.name != "arrays")
 

@@ -1,0 +1,156 @@
+"""The device-memory probes P1-P3 on the CPU: the port's plain versions
+against the JAX package's Pallas probes in interpret mode.
+
+``tools_dev/bw_probe.py`` and ``tools_dev/route_cost_probe.py`` are loaded
+from their paths as private module copies; in each copy only, ``pl`` is a
+namespace whose ``pallas_call`` runs in interpret mode, ``TARGET_BYTES``
+is 1 MB, and ``_time`` keeps the output the probe would only time. The
+port's ``copy_1d``, ``copy_2d`` and ``multi_stream_sum`` (their plain
+versions, on the CPU) must return the same arrays, bit for bit. The TPU
+``route_like`` gives ``nwin`` in_specs but passes its table once, which
+Pallas rejects; the test calls ``_body`` through a ``pallas_call`` with the
+same specs and the table passed ``nwin`` times, and the port's
+``route_like`` (which takes the table once) must equal it bit for bit,
+its library form within f32 rounding. The CUDA kernels are held against
+the same plain versions on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py``).
+"""
+
+import functools
+import importlib.util
+import os
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from graphtap_tpu_torch.tools import bw_probe, route_cost_probe
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMALL = 1 << 20
+
+
+def _probe(name):
+    """A private copy of tools_dev/<name>.py: interpret-mode pallas_call,
+    TARGET_BYTES = 1 MB, and the outputs its ``_time`` sees."""
+    spec = importlib.util.spec_from_file_location(
+        f"_tpu_{name}", os.path.join(REPO, "tools_dev", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.pl = types.SimpleNamespace(**{
+        **vars(pl), "pallas_call": functools.partial(pl.pallas_call,
+                                                     interpret=True)})
+    mod.TARGET_BYTES = SMALL
+    outs = []
+
+    def keep(fn, *args):
+        out = fn(*args)
+        jax.block_until_ready(out)
+        outs.append(np.asarray(out))
+        return 1.0
+    mod._time = keep
+    return mod, outs
+
+
+@pytest.mark.parametrize("rows_per_block,dtype", [
+    (8, "float32"), (64, "float32"), (64, "int8")])
+def test_copy_1d_matches_pallas(rows_per_block, dtype):
+    mod, outs = _probe("bw_probe")
+    assert mod.copy_1d(rows_per_block, 1024, getattr(jnp, dtype)) > 0
+    got, rate = bw_probe.copy_1d(rows_per_block, 1024, getattr(torch, dtype),
+                                 device="cpu", target_bytes=SMALL)
+    assert rate is None                  # no device rate from a CPU run
+    np.testing.assert_array_equal(got.numpy(), outs[-1])
+    assert got.dtype == getattr(torch, dtype)
+
+
+@pytest.mark.parametrize("bm,bn", [(8, 128), (32, 1024)])
+def test_copy_2d_matches_pallas(bm, bn):
+    mod, outs = _probe("bw_probe")
+    mod.copy_2d(bm, bn)
+    got, _ = bw_probe.copy_2d(bm, bn, device="cpu", target_bytes=SMALL)
+    assert got.shape == (SMALL // (8192 * 4) // bm * bm, 8192)
+    np.testing.assert_array_equal(got.numpy(), outs[-1])
+
+
+@pytest.mark.parametrize("nstreams", [2, 4])
+def test_multi_stream_sum_matches_pallas(nstreams):
+    mod, outs = _probe("bw_probe")
+    mod.multi_stream_sum(nstreams)
+    got, _ = bw_probe.multi_stream_sum(nstreams, device="cpu",
+                                       target_bytes=SMALL)
+    np.testing.assert_array_equal(got.numpy(), outs[-1])
+    # stream i holds i + 1; the chain adds streams 1.. NCHAIN - 1 more times
+    assert float(got[0, 0]) == 1 + bw_probe.NCHAIN * sum(
+        range(2, nstreams + 1))
+
+
+def _jax_route_like(mod, x2d, bases, npanels, nwin):
+    """``route_like`` with its specs, the table passed nwin times."""
+    def spec(t):
+        return pl.BlockSpec((mod.STRIPE, mod.LANES),
+                            lambda i, b, t=t: (b[i * nwin + t], 0))
+    grid_spec = pltpu.PrefetchScalarGridSpec(
+        num_scalar_prefetch=1, grid=(npanels,),
+        in_specs=[spec(t) for t in range(nwin)],
+        out_specs=pl.BlockSpec((mod.PROWS, mod.LANES), lambda i, b: (i, 0)))
+    return pl.pallas_call(
+        functools.partial(mod._body, nwin), grid_spec=grid_spec,
+        out_shape=jax.ShapeDtypeStruct((npanels * mod.PROWS, mod.LANES),
+                                       x2d.dtype),
+        interpret=True)(bases, *([x2d] * nwin))
+
+
+@pytest.mark.parametrize("nwin", [1, 4, 12])
+def test_route_like_matches_pallas(nwin):
+    mod, _ = _probe("route_cost_probe")
+    rng = np.random.default_rng(nwin)
+    nblk, npanels = 64, 6
+    x = rng.standard_normal((nblk * 8, 128)).astype(np.float32)
+    b = rng.integers(0, nblk, size=npanels * nwin).astype(np.int32)
+    want = np.asarray(_jax_route_like(mod, jnp.asarray(x), jnp.asarray(b),
+                                      npanels, nwin))
+    tx, tb = torch.from_numpy(x), torch.from_numpy(b)
+    got = route_cost_probe.route_like(tx, tb, npanels, nwin)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_allclose(
+        route_cost_probe.route_like_library(tx, tb, npanels, nwin).numpy(),
+        want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["same", "random"])
+def test_route_like_measure_inputs(mode):
+    """The measurement's inputs: a table of ones and all-0 or seeded
+    random bases, so every output slot is nwin."""
+    x, b = route_cost_probe.make_inputs(32, 20, mode, device="cpu")
+    assert x.shape == (route_cost_probe.XBLOCKS * 8, 128)
+    assert (int(b.max()) == 0) == (mode == "same")
+    out = route_cost_probe.route_like(x, b, 32, 20)
+    assert out.shape == (32 * 64, 128) and bool(torch.all(out == 20))
+
+
+def test_probe_wrappers_reject_bad_inputs():
+    x = torch.ones((16, 1024))
+    with pytest.raises(ValueError):
+        bw_probe.copy_blocks(x, 3, 1024)             # rows not whole tiles
+    with pytest.raises(ValueError):
+        bw_probe.copy_blocks(torch.ones((16, 6)), 8, 2)   # 8-byte rows
+    with pytest.raises(ValueError):
+        bw_probe.stream_sum([x, x, x])
+    with pytest.raises(ValueError):
+        bw_probe.stream_sum([x, x.double()])
+    t = torch.ones((64, 128))
+    with pytest.raises(ValueError):
+        route_cost_probe.route_like(t, torch.tensor([0, 8], dtype=torch.int32),
+                                    1, 2)              # base past the table
+    with pytest.raises(ValueError):
+        route_cost_probe.route_like(t, torch.zeros(3, dtype=torch.int32), 1,
+                                    2)                 # wrong base count
+    assert bw_probe.LAUNCHES == {"copy_blocks": 0, "stream_sum": 0}
+    assert route_cost_probe.LAUNCHES == {"route_like": 0}

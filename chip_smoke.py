@@ -44,7 +44,8 @@ Phases, each printed as it runs; any failure exits non-zero:
               K5 on the one-hot plans of the same graphs (bit for bit, and
               twice with the same bits, as K8) and the whole one-hot SpMV
               against the plain one; K10 on the first RMAT-14 stage (mx,
-              exp, p0 .. p3) that re-plans with 64-row steps.
+              exp, p0 .. p3) that re-plans with 64-row steps, on the
+              stage's f32 source and on f64 and int32 sources.
   4. main     RMAT-20 (edge factor 16, seed 1): degree on the shuffle
               kernel (COL ordering) + 20 PageRank iterations on the panel
               kernel through apps.run_pagerank(device="cuda") in f32; the
@@ -61,10 +62,19 @@ Phases, each printed as it runs; any failure exits non-zero:
               call's time, at the RMAT-20 shapes of the main path (K1-K4:
               the PageRank superstep; K6-K8: the degree SpMV), and their
               largest difference (0: every kernel equals its plain
-              version bit for bit there). Library calls: torch.take over an index
-              precomputed from the plan for K1, K2 (unweighted), K6, K7;
-              torch.scatter_reduce for K8, and for K3 when no source slot
-              of its route feeds two (row, lane) slots (checked here).
+              version bit for bit there). Every row's kernel and library
+              call are timed twice: CUDA events around ten eager calls
+              (the enqueue rate of the host bounds a short call), and
+              device-only: the ten calls captured into one CUDA graph and
+              replayed between two events. Library calls: torch.take
+              over an index precomputed from the plan for K1, K2
+              (unweighted), K6, K7 (one take over the radix passes'
+              composed index); torch.scatter_reduce for K8, and for K3
+              when no source slot of its route feeds two (row, lane)
+              slots (checked here). K7 also in f64 and int32 on seeded
+              random streams of the degree plan, bit for bit, and its
+              earlier yardstick (one take per pass) logged; then the
+              degree SpMV's warm time (median of five calls).
   5b. staged  the staged SpMV (kernels/panel_engine.py::spmv3_staged) on
               the main path's own RMAT-20 panel meta and PageRank x, with
               K12 on its stack1: K2 single-layer, K11, K2 x2, K13, K4, K3;
@@ -135,7 +145,7 @@ The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches (from the PageRank paths for K1-K9, from
 the staged path for K11-K13 and K2's single-layer form, from the BFS path
 for the gated rows, from the probe tables for P1-P3; K10 has none),
-errors, times, bounds and library times.
+errors, times (event and device-only), bounds and library times.
 """
 
 from __future__ import annotations
@@ -664,15 +674,15 @@ def _shuffle_calls(torch, t, meta, sem, st):
     """(name, kernel call, plain call, (bytes, ops), library call or None)
     for each launch group of one shuffle SpMV on its stage tensors ``st``:
     K6 three times (the stream expand, the dense expansion's A and B
-    windows), K7 (all its passes), K8. Bytes count what this run's data
-    needs: K6 reads ev everywhere and slot, lane (and w) where ev is set,
-    the whole table, and writes every slot; K7 reads frag_dst, the
-    frag_idx rows of live fragments and the source values they name, and
-    writes the whole stream; K8 reads ev everywhere, lr and the value
+    windows), K7 (one gather through its passes' composed index), K8. Bytes
+    count what this run's data needs: K6 reads ev everywhere and slot,
+    lane (and w) where ev is set, the whole table, and writes every slot;
+    K7 reads its int32 index and each live source value once, and writes
+    the whole stream; K8 reads ev everywhere, lr and the value
     where ev is set, chunk_block, and writes y. The library calls (one
     PyTorch call each, on indices precomputed here): ``torch.take`` for
-    K6 (unweighted only) and for each K7 pass, ``torch.scatter_reduce``
-    for K8."""
+    K6 (unweighted only) and for K7 (over the passes' composed index, as
+    int64), ``torch.scatter_reduce`` for K8."""
     from graphtap_tpu_torch.kernels import shuffle_kernels as sk
     from graphtap_tpu_torch.kernels.shuffle_engine import mul_kind
     from graphtap_tpu_torch.kernels.shuffle_plan import LANES, SUB, WROWS
@@ -704,36 +714,16 @@ def _shuffle_calls(torch, t, meta, sem, st):
         calls.append(("expand_stream", *expand(
             st["ytab"], t[f"mexp_grp_{half}"], t[f"mexp_slot_{half}"],
             t["mexp_lane"], t[f"mexp_ev_{half}"], None, "none")))
-    # K7: each pass's source and destination flat indices (the plain
-    # version's), for its bytes and for the library call
+    # K7: one gather through the passes' composed index, kept in t as the
+    # path keeps it
+    gsrc = sk.group_tables(t, meta)["src"]
     gargs = (st["contrib"], t["frag_dst"], t["frag_idx"],
              meta.rows_per_super, meta.npasses, fill)
-    nsup, _, rps, smax = t["frag_dst"].shape
-    gbytes, bufs, takes = 0, [st["contrib"]], []
-    for p in range(meta.npasses):
-        d = t["frag_dst"][:, p]
-        idx = t["frag_idx"][:, p].reshape(nsup, rps, smax, LANES)
-        hit = (idx >= 0) & (d >= 0)[..., None]
-        gbytes += (_nbytes(d) + int((d >= 0).sum()) * LANES
-                   + int(hit.sum()) * es + _nbytes(st["contrib"]))
-        bufs.append(sk.group_pass_plain(bufs[-1], t["frag_dst"],
-                                        t["frag_idx"], p, rps, fill))
-        srow = torch.arange(nsup * rps, device=d.device).view(nsup, rps)
-        src = (srow[:, :, None, None] * LANES + idx.long())[hit]
-        drow = (torch.arange(nsup, device=d.device)[:, None, None] * rps
-                + d.long())
-        dst = (drow[..., None] * LANES
-               + torch.arange(LANES, device=d.device))[hit]
-        inv = torch.full((bufs[-1].numel(),), bufs[-1].numel(),
-                         dtype=torch.long, device=d.device)
-        inv[dst] = src
-        ext = torch.cat([bufs[-2].reshape(-1),
-                         bufs[-2].new_full((1,), fill)])
-        takes.append((ext, inv))
-        del idx, hit, src, dst
-    calls.append(("group_stream", lambda: sk.group_stream(*gargs),
+    gbytes = (_nbytes(gsrc) + int((gsrc >= 0).sum()) * es
+              + _nbytes(st["contrib"]))
+    calls.append(("group_stream", lambda: sk.group_stream(*gargs, src=gsrc),
                   lambda: sk.group_stream_plain(*gargs), (gbytes, 0),
-                  lambda: [torch.take(e, i) for e, i in takes]))
+                  _take_call(torch, st["contrib"], gsrc, fill)))
     rargs = (st["grouped"], t["lr"], t["ev_r"], t["chunk_block"],
              meta.nblocks, kind, fill)
     valid = t["ev_r"] != 0
@@ -886,6 +876,17 @@ def _k10_call(torch, np, t, meta, sem, st, tag):
         if not _same(got.reshape(-1)[valid], want):
             raise AssertionError(f"{tag}: K10 does not gather the stage's "
                                  f"source slots")
+        # the same plan over f64 and int32 sources
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        for dt, fill in ((torch.float64, 0.0), (torch.int32, -1)):
+            s2 = (torch.rand(st[src].shape, dtype=dt, device=dev,
+                             generator=gen) if dt.is_floating_point else
+                  torch.randint(0, 1 << 30, st[src].shape, dtype=dt,
+                                device=dev, generator=gen))
+            args = (s2, *p, fill, plan.nsub)
+            _check_call(f"{tag} {dt}", "windowed_gather64",
+                        gk.windowed_gather64(*args),
+                        gk.windowed_gather64_plain(*args))
         return call
     raise AssertionError(f"{tag}: no stage re-plans with 64-row steps")
 
@@ -1107,6 +1108,41 @@ def _ms(fn, torch, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_ms(fn, torch, reps: int):
+    """Mean device-only time of one call: ``reps`` calls captured into one
+    CUDA graph, replayed between two CUDA events (the lesser of two
+    replays), so the card runs their kernels back to back with no host
+    enqueue between them. None where a call reads a value back to the
+    host (a synchronizing operation, found with the sync debug mode before
+    any capture), which a graph cannot hold."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        log(f"device time not measured: the call synchronizes ({e})")
+        return None
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    best = None
+    for _ in range(2):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / reps
+        best = ms if best is None else min(best, ms)
+    del graph
+    return best
 
 
 def _golden():
@@ -1401,12 +1437,46 @@ def phase_staged(torch, ex):
     return list(rows.values())
 
 
+def _pass_takes(torch, t, meta, contrib, fill):
+    """K7's earlier yardstick, kept for the record: one torch.take per
+    radix pass over that pass's int64 inverse index (the plain version's
+    pass by pass), as one call of ``npasses`` takes."""
+    from graphtap_tpu_torch.kernels import shuffle_kernels as sk
+    from graphtap_tpu_torch.kernels.shuffle_plan import LANES
+    nsup, _, rps, smax = t["frag_dst"].shape
+    bufs, takes = [contrib], []
+    for p in range(meta.npasses):
+        d = t["frag_dst"][:, p]
+        idx = t["frag_idx"][:, p].reshape(nsup, rps, smax, LANES)
+        hit = (idx >= 0) & (d >= 0)[..., None]
+        bufs.append(sk.group_pass_plain(bufs[-1], t["frag_dst"],
+                                        t["frag_idx"], p, rps, fill))
+        srow = torch.arange(nsup * rps, device=d.device).view(nsup, rps)
+        src = (srow[:, :, None, None] * LANES + idx.long())[hit]
+        drow = (torch.arange(nsup, device=d.device)[:, None, None] * rps
+                + d.long())
+        dst = (drow[..., None] * LANES
+               + torch.arange(LANES, device=d.device))[hit]
+        inv = torch.full((contrib.numel(),), contrib.numel(),
+                         dtype=torch.long, device=d.device)
+        inv[dst] = src
+        ext = torch.cat([bufs[-2].reshape(-1), bufs[-2].new_full((1,),
+                                                                 fill)])
+        takes.append((ext, inv))
+        del idx, hit, src, dst
+    return lambda: [torch.take(e, i) for e, i in takes], bufs[-1]
+
+
 def phase_shuffle_kernels(torch, np, g, launches):
     """K6-K8 at the shapes of the main path's degree SpMV (its plans built
     again in a worker process: the degree phase freed its own before
-    PageRank's upload)."""
-    from graphtap_tpu_torch.kernels.semiring import plus_times
-    from graphtap_tpu_torch.kernels.shuffle_engine import spmv_stages
+    PageRank's upload); K7 also in f64 and int32 on random streams of the
+    same plan, and against the per-pass takes; then the degree
+    SpMV's warm time, the median of five calls (CUDA events)."""
+    from graphtap_tpu_torch.kernels import shuffle_kernels as sk
+    from graphtap_tpu_torch.kernels.semiring import INF_I32, plus_times
+    from graphtap_tpu_torch.kernels.shuffle_engine import (spmv_local,
+                                                           spmv_stages)
     from graphtap_tpu_torch.tools.convert import meta_from_numpy
     meta = _prebuilt("shuffle", "COL", g.config)
     log(f"kernels: degree shuffle plans: {meta.nsupers} supers of "
@@ -1422,13 +1492,50 @@ def phase_shuffle_kernels(torch, np, g, launches):
         a, b = kern(), plain()
         err = float((a.double() - b.double()).abs().max())
         _check_call(f"kernels RMAT-{SCALE} degree", name, a, b, kern)
-        got = lib()
-        got = got[-1] if isinstance(got, list) else got
-        if not _same(got.view(-1)[:a.numel()].view(a.shape), a):
+        if not _same(lib().view(-1)[:a.numel()].view(a.shape), a):
             raise AssertionError(f"{name}: the library call computes "
                                  f"another function")
         _time_row(torch, rows, name, kern, plain, err, launches[name],
                   _bound(*work, x.dtype), lib)
+    gargs = (t["frag_dst"], t["frag_idx"], meta.rows_per_super,
+             meta.npasses)
+    gsrc = t["group_src"]
+    log(f"kernels: group_stream index {gsrc.numel()} slots "
+        f"({int((gsrc >= 0).sum())} live), {_nbytes(gsrc)} bytes kept per "
+        f"upload")
+    takes, want = _pass_takes(torch, t, meta, st["contrib"], sem.identity)
+    if not _same(takes()[-1].view(want.shape), st["grouped"]):
+        raise AssertionError("group_stream: the per-pass takes compute "
+                             "another function")
+    log(f"kernels: group_stream, the earlier yardstick: {meta.npasses} per-pass "
+        f"torch.take: {_ms(takes, torch, 10):.4f} ms (device "
+        f"{_fmt(_device_ms(takes, torch, 10))})")
+    del takes, want
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    shape = st["contrib"].shape
+    for dt, fill in ((torch.float64, 0.0), (torch.int32, INF_I32)):
+        c = (torch.rand(shape, dtype=dt, device=DEVICE, generator=gen)
+             if dt.is_floating_point else
+             torch.randint(0, 1 << 30, shape, dtype=dt, device=DEVICE,
+                           generator=gen))
+        _check_call(f"kernels RMAT-{SCALE} degree {dt}", "group_stream",
+                    sk.group_stream(c, *gargs, fill, src=gsrc),
+                    sk.group_stream_plain(c, *gargs, fill))
+    del c
+    times = []
+    for _ in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        spmv_local(x, t, meta, sem, g.part.tile_rows)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    warm = sorted(times[1:])
+    log(f"kernels: RMAT-{SCALE} degree SpMV on shuffle, warm: median "
+        f"{warm[2]:.4f} ms of 5 calls (CUDA events; "
+        f"{', '.join(f'{v:.4f}' for v in times[1:])}; first "
+        f"{times[0]:.4f})")
     del t, st
     return list(rows.values())
 
@@ -1563,16 +1670,21 @@ def _kernel_row(torch, rows, call, launches, dtype) -> None:
 def _time_row(torch, rows, name, kern, plain, err, launches, bound,
               library=None) -> None:
     """Add one call's kernel, plain and library times and its bound to the
-    kernels-line row ``name``. Each time is the lesser of two runs timed in
-    turns (plain, library, kernel, kernel, library, plain; CUDA events):
-    the plan workers share the host's cores, and a run in which the host
-    stalls and leaves the card idle shows as an outlier."""
+    kernels-line row ``name``. Each event time is the lesser of two runs
+    timed in turns (plain, library, kernel, kernel, library, plain; CUDA
+    events over eager calls): the plan workers share the host's cores, and
+    a run in which the host stalls and leaves the card idle shows as an
+    outlier. Then the kernel's and the library call's device-only times
+    (``_device_ms``: ten calls replayed as one CUDA graph), which the
+    host's enqueue rate does not bound."""
     p1 = _ms(plain, torch, 3)
     l1 = _ms(library, torch, 10) if library else None
     k1 = _ms(kern, torch, 10)
     k2 = _ms(kern, torch, 10)
     l2 = _ms(library, torch, 10) if library else None
     p2 = _ms(plain, torch, 3)
+    kd = _device_ms(kern, torch, 10)
+    ld = _device_ms(library, torch, 10) if library else None
     kms, pms = min(k1, k2), min(p1, p2)
     source = SOURCES["shuffle" if name in SHUFFLE else
                      "gather" if name.startswith("windowed") else
@@ -1582,11 +1694,14 @@ def _time_row(torch, rows, name, kern, plain, err, launches, bound,
         "name": name, "route": "cuda", "source": source,
         "replaces": REPLACES[name], "launches": launches,
         "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-        "bound_by": bound[1], "library_ms": 0.0 if library else None})
+        "bound_by": bound[1], "library_ms": 0.0 if library else None,
+        "device_ms": 0.0, "library_device_ms": 0.0 if library else None})
     row["max_abs_err"] = max(row["max_abs_err"], err)
     row["ms"] += kms
     row["plain_ms"] += pms
     row["bound_ms"] += bound[0]
+    row["device_ms"] = None if kd is None or row["device_ms"] is None \
+        else row["device_ms"] + kd
     if bound[1] == "operations":
         row["bound_by"] = "operations"
     lib_txt = ""
@@ -1595,10 +1710,16 @@ def _time_row(torch, rows, name, kern, plain, err, launches, bound,
             raise AssertionError(f"{name}: a library time for only some "
                                  f"of its calls")
         row["library_ms"] += min(l1, l2)
-        lib_txt = f", library {min(l1, l2):.4f} ms"
-    log(f"kernel {name}: {kms:.4f} ms (runs {k1:.4f}, {k2:.4f}) vs plain "
-        f"{pms:.4f} ms{lib_txt}, bound {bound[0]:.4f} ms ({bound[1]}), "
-        f"max |diff| {err!r}")
+        row["library_device_ms"] = None if ld is None or row[
+            "library_device_ms"] is None else row["library_device_ms"] + ld
+        lib_txt = f", library {min(l1, l2):.4f} ms (device {_fmt(ld)})"
+    log(f"kernel {name}: {kms:.4f} ms (runs {k1:.4f}, {k2:.4f}; device "
+        f"{_fmt(kd)}) vs plain {pms:.4f} ms{lib_txt}, bound {bound[0]:.4f} "
+        f"ms ({bound[1]}), max |diff| {err!r}")
+
+
+def _fmt(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def _need_launches(path, launches, need) -> None:
@@ -2140,7 +2261,7 @@ def _phases(torch, np) -> int:
     phase_cc_sssp(torch, np)
     phase_cli(torch, np)
     log("ms per call group of one SpMV: route_fold sums its fixr and fix2 "
-        "calls, expand_stream its three calls, group_stream its passes, "
+        "calls, expand_stream its three calls, "
         "windowed_gather its six stage calls; the static panel rows at a "
         "PageRank superstep, the shuffle rows at the degree SpMV "
         f"(RMAT-{SCALE}), windowed_gather at the shuffle2 and "

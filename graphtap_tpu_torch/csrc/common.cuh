@@ -4,7 +4,8 @@
 // The value types, ⊗ and ⊕ kinds as the wrappers number them
 // (kernels/panel_kernels.py: _DTYPES, _MUL_KINDS, _REDUCE_KINDS), the
 // saturating min-plus ⊗, the ⊕ combine and its atomic form, a grid-stride
-// fill, and the two fixed-order passes of the K3, K5 and K8 folds.
+// fill, a 16-byte store of four values, and the two fixed-order passes of
+// the K3, K5 and K8 folds.
 
 #pragma once
 
@@ -80,6 +81,34 @@ __global__ void fill_kernel(T* __restrict__ y, long long n, T v) {
        i < n; i += stride) {
     y[i] = v;
   }
+}
+
+// out[4g .. 4g+3] = a, b, c, d as one 16-byte streaming store (two for
+// f64): evict-first, so the output stream does not push a gather's sources
+// out of L2. out must be 16-byte aligned (K7, K10).
+template <typename T>
+__device__ __forceinline__ void store4(T* __restrict__ out, unsigned g,
+                                       T a, T b, T c, T d);
+template <>
+__device__ __forceinline__ void store4<float>(float* __restrict__ out,
+                                              unsigned g, float a, float b,
+                                              float c, float d) {
+  __stcs(reinterpret_cast<float4*>(out) + g, make_float4(a, b, c, d));
+}
+template <>
+__device__ __forceinline__ void store4<int>(int* __restrict__ out,
+                                            unsigned g, int a, int b, int c,
+                                            int d) {
+  __stcs(reinterpret_cast<int4*>(out) + g, make_int4(a, b, c, d));
+}
+template <>
+__device__ __forceinline__ void store4<double>(double* __restrict__ out,
+                                               unsigned g, double a,
+                                               double b, double c,
+                                               double d) {
+  double2* o = reinterpret_cast<double2*>(out) + 2 * g;
+  __stcs(o, make_double2(a, b));
+  __stcs(o + 1, make_double2(c, d));
 }
 
 // Grid size of a grid-stride loop over n elements.

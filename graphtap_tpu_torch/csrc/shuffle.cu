@@ -4,7 +4,7 @@
 // graphtap_tpu/kernels/shuffle_kernels.py:
 //
 //   K6 expand_kernel          replaces expand_stream  (_expand_body, :42-103)
-//   K7 group_pass_kernel      replaces group_stream   (_group_pass_body,
+//   K7 group_gather_kernel    replaces group_stream   (_group_pass_body,
 //                                                      :110-170)
 //   K8 gt_grouped_reduce      replaces grouped_reduce (_reduce_body, :177-233)
 //
@@ -15,7 +15,12 @@
 //       (64,128) windows. The engine also runs it twice on the compact y
 //       (the monotone compact -> dense expansion).
 //   K7: per super s and radix pass p, out[s, frag_dst[s,p,r,j], l] =
-//       in[s, r, frag_idx[s,p,r,j*128+l]] where both are >= 0.
+//       in[s, r, frag_idx[s,p,r,j*128+l]] where both are >= 0; unwritten
+//       slots hold the fill. The passes compose (each moves every occupied
+//       slot of a super to one slot of the same super), so the kernel runs
+//       them as one gather: out[d] = src[d] >= 0 ? in[src[d]] : fill, with
+//       src the composed index (shuffle_kernels.py::group_index, built once
+//       per upload).
 //   K8: y (nblocks,128) = identity; each 8-row chunk i ⊕-folds its valid
 //       elements into y[chunk_block[i], lr].
 // The plans are the bytes the Pallas kernels read, so each kernel can be
@@ -24,25 +29,29 @@
 // What bounds them on the card: bytes. Per stream slot K6 reads three int8
 // plan bytes and one gathered x value and writes one value (f32: 3 + 4 + 4
 // B, the gather mostly hitting L2, x being at most tens of MB); K7 reads
-// up to SMAX*128 int8 frag_idx bytes per source row and pass (SMAX is 13-14
-// on RMAT graphs: up to 1.8 KB against the row's 512 B of f32 values) and
-// writes the row's values once; K8 reads the value and two int8 bytes per
-// slot and writes and reads back 128 lane partials per chunk. None does
-// more than a handful of operations per byte, far under the card's ~20 per
-// byte in f32, so each is held to (bytes moved) / 3.35 TB/s.
+// one int32 index and, for a live slot, one source value, and writes one
+// value (f32: 4 + 4 + 4 B); K8 reads the value and two int8 bytes per slot
+// and writes and reads back 128 lane partials per chunk. None does more
+// than a handful of operations per byte, far under the card's ~20 per byte
+// in f32, so each is held to (bytes moved) / 3.35 TB/s.
 //
 // Design, simple first. K6: one thread per slot, grid-stride, coalesced
 // plan reads, the x value a gather. K7: on the TPU each pass of each super
 // is a sequential grid walking source vregs and writing prefetch-addressed
-// destination rows of a VMEM-resident block, later writes winning; here
-// one launch covers every super of a pass, a block of 8 x 128 threads
-// stages 8 source rows in shared memory, and each thread scatters its
-// lane of each fragment straight to device memory. The scatter is
-// order-free because no (row, lane) of a super is written twice in a pass
-// (validate_shuffle_plans checks it on the host). The Pallas output block
-// is never initialised (holes hold garbage the reduce plan's ev masks);
-// here each pass output is first filled with the ⊕-identity, so runs are
-// deterministic. K8: the TPU folds chunks in grid order into a resident y;
+// destination rows of a VMEM-resident block, later writes winning. Run
+// pass by pass here, each pass would fill the whole stream, read ~14
+// frag_idx bytes a slot and scatter partial-sector stores from many
+// blocks. Instead the npasses passes are one gather through their
+// composed int32 index: each thread owns 4 consecutive output slots,
+// loads their indices as one 16-byte streaming load, issues four
+// independent source loads through the read-only path and writes the four
+// values as one 16-byte streaming store (two for f64), the fill where the
+// index is -1. Index math is 32-bit (the wrapper raises for a stream of
+// 2^31 slots or more). The output slots of a block read sources of one
+// super (2 MB in f32 at rps 4096), so the gather mostly hits the 50 MB L2,
+// and the kernel streams ~12 B a slot in f32. A gather has no order: the
+// result equals the pass-by-pass plain version bit for bit.
+// K8: the TPU folds chunks in grid order into a resident y;
 // here the fold runs in two passes in a fixed order (common.cuh), as K5's
 // does: (a) one 128-thread block per chunk folds each lane's valid slots
 // in index order into an (nchunks, 128) scratch; (b) one thread per
@@ -55,7 +64,7 @@
 //
 // The launchers are extern "C" (bound with ctypes), launch on the caller's
 // stream, allocate nothing (K8's scratch is the caller's), and return
-// cudaGetLastError(). Element offsets are 64-bit.
+// cudaGetLastError(). Element offsets are 64-bit (K7's 32-bit).
 
 #include <cstdint>
 #include <type_traits>
@@ -72,7 +81,7 @@ constexpr int SUB = 8;         // rows per expand step (one grp entry)
 constexpr int WROWS = 64;      // rows of an x window: 64 x 128 = 8192 columns
 constexpr int RED_ROWS = 8;    // stream rows per reduce chunk
 constexpr int CHUNK_EL = RED_ROWS * LANES;
-constexpr int GROUP_RPB = 8;   // K7 source rows per block
+constexpr int GROUP_VEC = 4;   // K7 output slots per thread
 
 // ---------------------------------------------------------------- K6
 template <typename T, int MUL>
@@ -96,32 +105,27 @@ expand_kernel(const T* __restrict__ x3d, const int* __restrict__ grp,
 }
 
 // ---------------------------------------------------------------- K7
-// Block: GROUP_RPB source rows (threadIdx.y) x 128 lanes (threadIdx.x).
-// Row gr = s * rps + r of the stream; its fragment j writes lane l of
-// destination row s * rps + frag_dst[s,p,r,j] from source lane
-// frag_idx[s,p,r,j*128+l]. frag_dst is padded with -1 past a row's last
-// fragment, frag_idx with -1 at lanes the fragment leaves alone.
+// One thread per GROUP_VEC consecutive output slots of the n-slot stream
+// (n a multiple of 128), grid-stride over the n / 4 groups.
 template <typename T>
-__global__ void __launch_bounds__(GROUP_RPB * LANES)
-group_pass_kernel(const T* __restrict__ in, const int* __restrict__ frag_dst,
-                  const int8_t* __restrict__ frag_idx, T* __restrict__ out,
-                  long long nrows, int rps, int npasses, int pass, int smax) {
-  __shared__ T rows[GROUP_RPB][LANES];
-  const int l = threadIdx.x;
-  const long long gr =
-      static_cast<long long>(blockIdx.x) * GROUP_RPB + threadIdx.y;
-  const bool live = gr < nrows;
-  if (live) rows[threadIdx.y][l] = in[gr * LANES + l];
-  __syncthreads();
-  if (!live) return;
-  const long long s = gr / rps;
-  const long long r = gr - s * rps;
-  const long long f0 = ((s * npasses + pass) * rps + r) * smax;
-  for (int j = 0; j < smax; ++j) {
-    const int d = frag_dst[f0 + j];         // the same for the row's lanes
-    if (d < 0) continue;
-    const int idx = frag_idx[(f0 + j) * LANES + l];
-    if (idx >= 0) out[(s * rps + d) * LANES + l] = rows[threadIdx.y][idx];
+__device__ __forceinline__ T gather_one(const T* __restrict__ in, int s,
+                                        T fill) {
+  return s >= 0 ? __ldg(in + s) : fill;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+group_gather_kernel(const T* __restrict__ in, const int4* __restrict__ src,
+                    T* __restrict__ out, unsigned ngroups, T fill) {
+  const unsigned stride = gridDim.x * blockDim.x;
+  for (unsigned g = blockIdx.x * blockDim.x + threadIdx.x; g < ngroups;
+       g += stride) {
+    const int4 s = __ldcs(src + g);
+    const T a = gather_one(in, s.x, fill);
+    const T b = gather_one(in, s.y, fill);
+    const T c = gather_one(in, s.z, fill);
+    const T d = gather_one(in, s.w, fill);
+    store4<T>(out, g, a, b, c, d);
   }
 }
 
@@ -161,20 +165,18 @@ int launch_expand(const void* x3d, const void* grp, const void* slot,
 }
 
 template <typename T>
-int launch_group(const void* in, const void* frag_dst, const void* frag_idx,
-                 void* out, long long nsupers, int rps, int npasses, int pass,
-                 int smax, double fill, cudaStream_t st) {
-  const long long nrows = nsupers * rps;
-  T* o = static_cast<T*>(out);
-  launch_fill<T>(o, nrows * LANES, static_cast<T>(fill), st);
-  if (nrows > 0) {
-    const dim3 block(LANES, GROUP_RPB);
-    const unsigned grid =
-        static_cast<unsigned>((nrows + GROUP_RPB - 1) / GROUP_RPB);
-    group_pass_kernel<T><<<grid, block, 0, st>>>(
-        static_cast<const T*>(in), static_cast<const int*>(frag_dst),
-        static_cast<const int8_t*>(frag_idx), o, nrows, rps, npasses, pass,
-        smax);
+int launch_group(const void* in, const void* src, void* out, long long n,
+                 double fill, cudaStream_t st) {
+  const long long ngroups = n / GROUP_VEC;
+  if (ngroups > 0) {
+    // one group a thread (20,000 blocks, ~19 waves on 132 SMs, at the
+    // RMAT-20 degree plan); past 65,536 blocks the grid-stride loop
+    const long long want = (ngroups + THREADS - 1) / THREADS;
+    const unsigned grid = static_cast<unsigned>(want < 65536 ? want : 65536);
+    group_gather_kernel<T><<<grid, THREADS, 0, st>>>(
+        static_cast<const T*>(in), static_cast<const int4*>(src),
+        static_cast<T*>(out), static_cast<unsigned>(ngroups),
+        static_cast<T>(fill));
   }
   return cudaGetLastError();
 }
@@ -215,20 +217,21 @@ int gt_expand_stream(const void* x3d, const void* grp, const void* slot,
   }
 }
 
-int gt_group_pass(const void* in, const void* frag_dst, const void* frag_idx,
-                  void* out, long long nsupers, int rps, int npasses,
-                  int pass, int smax, int dtype, double fill, void* stream) {
+// K7: out[d] = src[d] >= 0 ? in[src[d]] : fill over n slots (n < 2^31, a
+// multiple of GROUP_VEC; src and out 16-byte aligned).
+int gt_group_gather(const void* in, const void* src, void* out, long long n,
+                    int dtype, double fill, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n < 0 || n % GROUP_VEC != 0 || n >= (1LL << 31)) {
+    return cudaErrorInvalidValue;
+  }
   switch (dtype) {
     case F32:
-      return launch_group<float>(in, frag_dst, frag_idx, out, nsupers, rps,
-                                 npasses, pass, smax, fill, st);
+      return launch_group<float>(in, src, out, n, fill, st);
     case F64:
-      return launch_group<double>(in, frag_dst, frag_idx, out, nsupers, rps,
-                                  npasses, pass, smax, fill, st);
+      return launch_group<double>(in, src, out, n, fill, st);
     case I32:
-      return launch_group<int>(in, frag_dst, frag_idx, out, nsupers, rps,
-                               npasses, pass, smax, fill, st);
+      return launch_group<int>(in, src, out, n, fill, st);
     default:
       return cudaErrorInvalidValue;
   }

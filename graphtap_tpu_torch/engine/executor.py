@@ -82,7 +82,8 @@ _PLANNERS = {"panel": (Spmv3Meta, build_spmv3_meta, validate_meta),
              "shuffle2": (Spmv2Meta, build_spmv2_meta, validate_spmv2_meta),
              "onehot": (PallasPlan, build_onehot_plan,
                         validate_pallas_plan)}
-# kernel -> the function that keeps its float folds' tables in the upload
+# kernel -> the function that keeps its float folds' tables (and shuffle's
+# K7 index) in the upload
 _FOLD_TABLES = {"panel": panel_engine.fold_tables,
                 "shuffle": shuffle_engine.fold_tables,
                 "shuffle2": gather_engine.fold_tables,
@@ -244,7 +245,8 @@ class Executor:
                "vids": self._tensor(self.part.owner_vids()[0])}
         if self.kernel in _PLANNERS:
             dev.update(meta_from_numpy(meta.arrays, self.device))
-            # the fixed-order float folds' lists and scratch (K3, K5, K8)
+            # the fixed-order float folds' lists and scratch (K3, K5, K8),
+            # and K7's composed index
             _FOLD_TABLES[self.kernel](dev, meta, self.program.value_dtype)
             if self.kernel == "onehot":
                 dev["iv_dense"] = self._tensor(tiles.iv_dense[0])

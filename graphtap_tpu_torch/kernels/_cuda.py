@@ -64,10 +64,8 @@ _SIGNATURES = {
     # x3d, grp, slot, lane, ev, w, out, rows, dtype, mul_kind, fill, stream
     "gt_expand_stream": [_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _F64,
                          _P],
-    # in, frag_dst, frag_idx, out, nsupers, rps, npasses, pass, smax,
-    # dtype, fill, stream
-    "gt_group_pass": [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32,
-                      _F64, _P],
+    # in, src, out, n, dtype, fill, stream
+    "gt_group_gather": [_P, _P, _P, _I64, _I32, _F64, _P],
     # c, lr, ev, rptr, gptr, idx, part, gpart, y, nchunks, nblocks,
     # ngroups, dtype, reduce_kind, identity, stream
     "gt_grouped_reduce": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
@@ -76,6 +74,10 @@ _SIGNATURES = {
     # dtype, mul_kind, fill, stream
     "gt_windowed_gather": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32,
                            _I32, _I32, _F64, _P],
+    # src, wsel, base, nact, cidx, meta, out, nsteps, nsub, src_windows,
+    # cidx_blocks, dtype, fill, stream
+    "gt_windowed_gather64": [_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I64,
+                             _I64, _I32, _F64, _P],
     # contrib, lrows, rptr, gptr, idx, part, gpart, y, nchunks, nblocks,
     # ngroups, dtype, reduce_kind, identity, stream
     "gt_segment_reduce": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,

@@ -27,6 +27,9 @@ under ``mul`` a slot with nact[i] <= sid < 31 holds fill * w, as in the
 Pallas kernel. The TPU kernel walks (step, subop) on a sequential grid with
 the source window in VMEM and one ``pallas_call`` per 2048-step segment
 (its SMEM budget for ``wsel``/``nact``); here one launch covers every step.
+K10 stages each step's source windows in shared memory, so each is
+fetched once for the step's 8,192 slots, as the Pallas kernel fetches it
+once into VMEM.
 The plan shapes, and so the segment rounding of ``seg_round_rows``, stay
 the JAX package's, so the plans are the same bytes.
 
@@ -191,23 +194,28 @@ def windowed_gather(src, wsel, base, nact, cidx, meta, weights, fill,
 def windowed_gather64(src, wsel, base, nact, cidx, meta, fill, nsub: int):
     """K10: K9 with 64-row output steps and no ⊗: (S, 128) ->
     (nsteps*64, 128), meta (nsteps, 64, 128). Plans come from
-    ``build_gather_plan(block_rows=64)``. Replaces ``gather_kernels.py::
+    ``build_gather_plan(block_rows=64)``. On the card one block per step
+    stages the step's source windows and cidx blocks in shared memory, a
+    few subops ahead (``csrc/gather.cu``). Replaces ``gather_kernels.py::
     windowed_gather64``."""
     nsteps = _check_plan(src, wsel, base, nact, cidx, meta, nsub, BLK64)
     dev = src.device
     if not _on_cuda(src):
         return windowed_gather64_plain(src, wsel, base, nact, cidx, meta,
                                        fill, nsub)
+    for name, t in (("src", src), ("cidx", cidx), ("meta", meta)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: not 16-byte aligned")
     lib = _cuda.library()
     out = torch.empty((nsteps * BLK64, LANES), dtype=src.dtype, device=dev)
     if nsteps == 0:
         return out
     with torch.cuda.device(dev):
-        rc = lib.gt_windowed_gather(
+        rc = lib.gt_windowed_gather64(
             src.data_ptr(), wsel.data_ptr(), base.data_ptr(),
-            nact.data_ptr(), cidx.data_ptr(), meta.data_ptr(), None,
-            out.data_ptr(), nsteps, nsub, BLK64, _DTYPES[src.dtype],
-            _MUL_KINDS["none"], float(fill), _stream(src))
+            nact.data_ptr(), cidx.data_ptr(), meta.data_ptr(),
+            out.data_ptr(), nsteps, nsub, src.shape[0] // SUB,
+            cidx.shape[0], _DTYPES[src.dtype], float(fill), _stream(src))
     LAUNCHES["windowed_gather64"] += 1
     _cuda.check(rc, "windowed_gather64")
     return out

@@ -7,7 +7,8 @@ arrays, byte for byte, with a leading device axis of 1;
 host; ``spmv_stages`` / ``spmv_local`` run the pipeline
 
   x -> pad to whole 8192-column windows -> K6 expand_stream (⊗ w)
-    -> K7 group_stream (one launch per radix pass)
+    -> K7 group_stream (its radix passes composed into one gather: one
+       launch)
     -> K8 grouped_reduce (compact y blocks)
     -> compact -> dense: two more K6 calls (mexp A and B windows of the
        compact y), merged by the B-validity mask.
@@ -25,6 +26,7 @@ from graphtap_tpu_torch.format.tiles import TileSet
 from graphtap_tpu_torch.kernels.semiring import Semiring
 from graphtap_tpu_torch.kernels.shuffle_kernels import (expand_stream,
                                                         group_stream,
+                                                        group_tables,
                                                         grouped_reduce,
                                                         reduce_tables)
 from graphtap_tpu_torch.kernels.shuffle_plan import (LANES, RED_ROWS, SUB,
@@ -187,7 +189,8 @@ def spmv_stages(x: torch.Tensor, t: Dict[str, torch.Tensor],
     contrib = expand_stream(x3d, t["grp"], t["slot"], t["lane"], t["ev_x"],
                             t.get("w_stream"), fill, mul_kind(meta, semiring))
     grouped = group_stream(contrib, t["frag_dst"], t["frag_idx"],
-                           meta.rows_per_super, meta.npasses, fill)
+                           meta.rows_per_super, meta.npasses, fill,
+                           **group_tables(t, meta))
     y_blocks = grouped_reduce(grouped, t["lr"], t["ev_r"], t["chunk_block"],
                               meta.nblocks, kind, fill,
                               **fold_tables(t, meta, x.dtype))
@@ -204,7 +207,9 @@ def spmv_stages(x: torch.Tensor, t: Dict[str, torch.Tensor],
 
 def fold_tables(t: Dict[str, torch.Tensor], meta: ShufflePlans, dtype):
     """K8's block -> chunks list and scratch, kept in ``t`` once per
-    upload (``shuffle_kernels.reduce_tables``)."""
+    upload (``shuffle_kernels.reduce_tables``), beside K7's composed index
+    (``shuffle_kernels.group_tables``: 4 bytes a stream slot)."""
+    group_tables(t, meta)
     return reduce_tables(t, meta.nblocks, dtype)
 
 

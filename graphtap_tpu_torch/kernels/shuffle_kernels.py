@@ -11,11 +11,17 @@ three Pallas kernels has here
     CPU tests hold against the Pallas kernels and ``chip_smoke.py`` holds
     against the CUDA kernels;
   * a launch count in ``LAUNCHES``, incremented only where the wrapper
-    launches the CUDA kernel (``group_stream``: once per radix pass).
+    launches the CUDA kernel.
 
-K8's float sums fold in a fixed order (``fold_order.py``), which its
-plain version follows; ``reduce_tables`` keeps its block -> chunks list
-and scratch in the plan tensors once per upload.
+K7's radix passes compose: each moves every occupied slot of a super to
+one slot of the same super, so the whole regroup is one gather,
+``grouped[d] = contrib[src[d]]`` (``src[d] = -1``: the fill).
+``group_index`` composes the passes' plan bytes into ``src``, and
+``group_tables`` keeps it in the plan tensors once per upload; the CUDA
+kernel is that gather, one launch per call. K8's float sums fold in a
+fixed order (``fold_order.py``), which its plain version follows;
+``reduce_tables`` keeps its block -> chunks list and scratch in the plan
+tensors once per upload.
 
 The plans come from ``kernels/shuffle_plan.py``; ``shuffle_engine.
 validate_shuffle_plans`` checks every index the kernels follow before a
@@ -38,6 +44,10 @@ from graphtap_tpu_torch.kernels.shuffle_plan import LANES, RED_ROWS, SUB, \
 
 # launches of each CUDA kernel (the plain versions are not counted)
 LAUNCHES = {"expand_stream": 0, "group_stream": 0, "grouped_reduce": 0}
+# K7's composed index is int32: a stream of this many slots or more
+# does not fit
+INDEX_LIMIT = 2 ** 31
+
 
 def reset_launches() -> None:
     for k in LAUNCHES:
@@ -88,6 +98,46 @@ def group_stream_plain(contrib, frag_dst, frag_idx, rows_per_super: int,
         buf = group_pass_plain(buf, frag_dst, frag_idx, p, rows_per_super,
                                fill)
     return buf
+
+
+def group_index(frag_dst, frag_idx, rows_per_super: int, npasses: int
+                ) -> torch.Tensor:
+    """K7's passes composed into one gather: the (nsupers * rps, 128) int32
+    map ``src`` whose entry at a grouped slot is the flat contrib slot
+    (row * 128 + lane) it holds after all ``npasses`` passes, -1 where no
+    chain of passes writes it. Built from the plan bytes the kernels read:
+    pass p moves slot (s*rps + r)*128 + frag_idx[s,p,r,j*128+l] to
+    (s*rps + frag_dst[s,p,r,j])*128 + l where both are >= 0; a slot no pass
+    writes holds the fill, so -1 propagates. Plain torch, on the plans'
+    device. Raises ValueError for a stream of INDEX_LIMIT slots or more."""
+    nsup, _, rps, smax = frag_dst.shape
+    n = nsup * rps * LANES
+    if n >= INDEX_LIMIT:
+        raise ValueError(f"group_index: {n} stream slots do not fit an "
+                         f"int32 index (limit {INDEX_LIMIT})")
+    dev = frag_dst.device
+    src = torch.arange(n, device=dev)
+    for p in range(npasses):
+        d = frag_dst[:, p].reshape(-1)                  # (S*rps*smax,)
+        idx = frag_idx[:, p].reshape(-1)                # (S*rps*smax*128,)
+        hit = (idx.view(-1, LANES) >= 0) & (d >= 0)[:, None]
+        f = torch.nonzero(hit.view(-1)).squeeze(1)      # (fragment, lane)
+        frag = f // LANES
+        srow = frag // smax                             # s*rps + r
+        drow = srow - srow % rps + d[frag].long()       # s*rps + frag_dst
+        inv = torch.full((n,), -1, dtype=torch.long, device=dev)
+        inv[drow * LANES + f % LANES] = srow * LANES + idx[f].long()
+        src = torch.where(inv >= 0, src[inv.clamp(min=0)], -1)
+    return src.to(torch.int32).view(nsup * rps, LANES)
+
+
+def group_gather_plain(contrib, src, fill):
+    """K7 as one gather: out[d] = contrib[src[d]], the fill where src[d]
+    is -1 (``src``: ``group_index``)."""
+    f = torch.tensor(fill, dtype=contrib.dtype, device=contrib.device)
+    s = src.long()
+    return torch.where(s >= 0, contrib.reshape(-1)[s.clamp(min=0)].view(
+        s.shape), f)
 
 
 def grouped_reduce_plain(contrib, lr, evalid, chunk_block, nblocks: int,
@@ -176,15 +226,16 @@ def expand_stream(x3d, grp, slot, lane, evalid, weights, fill,
 
 
 def group_stream(contrib, frag_dst, frag_idx, rows_per_super: int,
-                 npasses: int, fill):
+                 npasses: int, fill, src=None):
     """K7: regroup the (nsupers * rps, 128) contribution stream by
-    destination row block, one launch per radix pass; each pass output
-    starts at ``fill``, so unwritten lanes (holes the reduce plan masks)
-    hold the ⊕-identity. frag_dst (nsupers, npasses, rps, SMAX) int32,
-    frag_idx (nsupers, npasses, rps, SMAX*128) int8, -1 = idle. Every
-    (row, lane) is written at most once per super and pass
-    (``validate_shuffle_plans``), so the parallel scatter equals the
-    Pallas kernel's sequential one. Replaces ``shuffle_kernels.py::
+    destination row block through ``npasses`` radix passes; lanes no pass
+    writes (holes the reduce plan masks) hold ``fill``, the ⊕-identity.
+    frag_dst (nsupers, npasses, rps, SMAX) int32, frag_idx (nsupers,
+    npasses, rps, SMAX*128) int8, -1 = idle. On the card the passes run as
+    one gather through their composed index ``src`` (``group_index``,
+    built here if None; ``group_tables`` keeps it per upload), one launch
+    per call; the plain version, on a CPU tensor, runs the passes one by
+    one and reads no ``src``. Replaces ``shuffle_kernels.py::
     group_stream``."""
     _check_values("contrib", contrib)
     dev = contrib.device
@@ -198,22 +249,41 @@ def group_stream(contrib, frag_dst, frag_idx, rows_per_super: int,
     _check("frag_dst", frag_dst, torch.int32, device=dev)
     _check("frag_idx", frag_idx, torch.int8, (nsup, npl, rps, smax * LANES),
            dev)
+    if src is not None:
+        _check("src", src, torch.int32, tuple(contrib.shape), dev)
     if not _on_cuda(contrib):
         return group_stream_plain(contrib, frag_dst, frag_idx,
                                   rows_per_super, npasses, fill)
+    if src is None:
+        src = group_index(frag_dst, frag_idx, rows_per_super, npasses)
+    if src.data_ptr() % 16:
+        raise ValueError("src: not 16-byte aligned")
     lib = _cuda.library()
-    buf = contrib
-    for p in range(npasses):
-        out = torch.empty_like(contrib)
-        with torch.cuda.device(dev):
-            rc = lib.gt_group_pass(
-                buf.data_ptr(), frag_dst.data_ptr(), frag_idx.data_ptr(),
-                out.data_ptr(), nsup, rps, npl, p, smax,
-                _DTYPES[contrib.dtype], float(fill), _stream(contrib))
-        LAUNCHES["group_stream"] += 1
-        _cuda.check(rc, "group_stream")
-        buf = out
-    return buf
+    out = torch.empty_like(contrib)
+    with torch.cuda.device(dev):
+        rc = lib.gt_group_gather(contrib.data_ptr(), src.data_ptr(),
+                                 out.data_ptr(), contrib.numel(),
+                                 _DTYPES[contrib.dtype], float(fill),
+                                 _stream(contrib))
+    LAUNCHES["group_stream"] += 1
+    _cuda.check(rc, "group_stream")
+    return out
+
+
+def group_tables(t, meta):
+    """K7's composed index for the plan tensors ``t`` (``frag_dst``,
+    ``frag_idx`` there; ``meta`` gives rows_per_super and npasses), kept
+    in ``t`` as ``group_src`` (once per upload) and checked once to lie in
+    [-1, stream slots); returns group_stream's ``src`` argument."""
+    src = t.get("group_src")
+    if src is None:
+        src = group_index(t["frag_dst"], t["frag_idx"],
+                          meta.rows_per_super, meta.npasses)
+        n = src.numel()
+        if n and (int(src.min()) < -1 or int(src.max()) >= n):
+            raise ValueError(f"group_index outside [-1, {n})")
+        t["group_src"] = src
+    return {"src": src}
 
 
 def grouped_reduce(contrib, lr, evalid, chunk_block, nblocks: int,

@@ -8,8 +8,10 @@ order that their plain versions follow (``kernels/fold_order.py``); called
 twice on the same RMAT-14 f32 inputs they give the same bits, and f32
 PageRank to convergence settles on every kernel. The gated K1-K3 match bit
 for bit, and BFS, CC and SSSP on the card equal the same runs on the CPU.
-The shuffle kernels K6 and K7 and the windowed gathers K9 and K10 match bit
-for bit. The staged pipeline's kernels: K2's single-layer form and K11 bit
+The shuffle kernels K6 and K7 (one composed gather per call, three radix
+passes among the cases) and the windowed gathers K9 and K10 (f32, f64 and
+i32; steps with no subop, fewer than nsub, and 30 in f64, so that K10's
+ring of shared-memory windows wraps) match bit for bit. The staged pipeline's kernels: K2's single-layer form and K11 bit
 for bit (K11's s0 equal to K1's), K12 bit for bit in int32 and within rtol
 1e-6 in floats, K13 bit for bit in int32 and within rtol 1e-5 (f32) /
 1e-12 (f64) in float sums (its atomic adds run in no fixed order); the
@@ -46,6 +48,7 @@ from graphtap_tpu_torch.kernels.panel_meta import (build_spmv3_meta,
                                                    fill_blocks)
 from graphtap_tpu_torch.kernels.shuffle_engine import (build_shuffle_plans,
                                                        mul_kind, spmv_stages)
+from graphtap_tpu_torch.kernels.shuffle_plan import build_spmv_plan
 from graphtap_tpu_torch.engine import executor
 from graphtap_tpu_torch.tools import bw_probe, route_cost_probe
 from graphtap_tpu_torch.tools.convert import meta_from_numpy
@@ -254,8 +257,7 @@ def test_shuffle_kernels_match_plain(cuda, case):
     st = spmv_stages(torch.from_numpy(x).to(cuda), t, meta, sem,
                      g.part.tile_rows)
     assert {k: sk.LAUNCHES[k] - before[k] for k in before} == {
-        "expand_stream": 3, "group_stream": meta.npasses,
-        "grouped_reduce": 1}
+        "expand_stream": 3, "group_stream": 1, "grouped_reduce": 1}
     assert torch.equal(st["contrib"], sk.expand_stream_plain(
         st["x3d"], t["grp"], t["slot"], t["lane"], t["ev_x"],
         t.get("w_stream"), fill, mul_kind(meta, sem)))
@@ -277,6 +279,36 @@ def test_shuffle_kernels_match_plain(cuda, case):
                                    rtol=FOLD_RTOL[cpu.dtype], atol=0)
     else:
         assert torch.equal(st["y"].cpu(), cpu)
+
+
+_STREAM_DTYPES = {"f32": (torch.float32, 0.0), "f64": (torch.float64, 0.0),
+                  "i32": (torch.int32, tsr.INF_I32)}
+
+
+@pytest.mark.parametrize("dt", sorted(_STREAM_DTYPES))
+def test_group_stream_matches_plain_three_passes(cuda, dt):
+    """K7 over three forced radix passes (the RMAT-20 degree plan's count)
+    equals the pass-by-pass plain version bit for bit, with its composed
+    index given or built, one launch per call."""
+    rng = np.random.default_rng(6)
+    rows, cols = rng.integers(0, 8000, 30000), rng.integers(0, 3000, 30000)
+    plan = build_spmv_plan(rows, cols, None, 8000, 3000, nwin=4,
+                           rows_per_super=512, force_npasses=3)
+    assert plan.npasses == 3
+    dtype, fill = _STREAM_DTYPES[dt]
+    shape = (plan.nsupers * plan.rows_per_super, 128)
+    c = (torch.from_numpy(rng.random(shape)).to(dtype) if dt != "i32" else
+         torch.from_numpy(rng.integers(0, 10000, shape).astype(np.int32)))
+    c, fd, fi = (torch.as_tensor(a).to(cuda) for a in (
+        c, plan.frag_dst, plan.frag_idx))
+    want = sk.group_stream_plain(c, fd, fi, plan.rows_per_super, 3, fill)
+    src = sk.group_index(fd, fi, plan.rows_per_super, 3)
+    before = sk.LAUNCHES["group_stream"]
+    for kw in ({}, {"src": src}):
+        assert torch.equal(sk.group_stream(c, fd, fi, plan.rows_per_super,
+                                           3, fill, **kw), want)
+    assert sk.LAUNCHES["group_stream"] == before + 2
+    assert torch.equal(sk.group_gather_plain(c, src, fill), want)
 
 
 @pytest.mark.parametrize("app", ["bfs", "cc", "sssp"])
@@ -365,9 +397,13 @@ def test_gather_kernels_match_plain(cuda, case):
     _close(st["y"].cpu(), cpu)
 
 
-def test_windowed_gather64_matches_plain(cuda):
-    """K10 on the mx stage of an RMAT-12 v2 plan, re-planned with 64-row
-    steps from the stage's own source index."""
+def _k10_plans():
+    """(source rows, 64-row plan, src_of) of two K10 cases: the mx stage
+    of an RMAT-12 v2 plan, re-planned with 64-row steps from the stage's
+    own source index; and four synthetic steps over 40 source windows: no
+    live slot (nact 0), half the slots from 5 windows, every slot from 30
+    windows (nsub 30), and 40% of the slots from 3 windows at random
+    source lanes (conflict layers). Holes hold SID_INVALID."""
     g, dtype, sem = _case_graph("f32_sum")
     meta = build_spmv2_meta(g.tiled(), value_dtype=dtype)
     t = meta_from_numpy(meta.arrays, "cpu")
@@ -375,19 +411,67 @@ def test_windowed_gather64_matches_plain(cuda):
                              meta.nsub["mx"]).reshape(-1).numpy()
     rows = gk.seg_round_rows64(meta.out_rows["mx"])
     src_of = np.concatenate([src_of, np.full(rows * 128 - src_of.size, -1)])
-    plan = build_gather_plan(stage_src_rows(meta, "mx"), rows, src_of,
+    mx_rows = stage_src_rows(meta, "mx")
+    cases = [(mx_rows, build_gather_plan(mx_rows, rows, src_of,
+                                         block_rows=gk.BLK64), src_of)]
+    rng = np.random.default_rng(5)
+    nwin, step = 40, gk.BLK64 * 128
+    lane = np.tile(np.arange(128), gk.BLK64)
+    src_of = np.full(4 * step, -1, np.int64)
+    for i, (wins, live, free_lane) in enumerate(
+            ((0, 0.0, False), (5, 0.5, False), (30, 1.0, False),
+             (3, 0.4, True))):
+        if not wins:
+            continue
+        b = rng.permutation(nwin)[:wins][rng.integers(0, wins, step)]
+        j = rng.integers(0, 8, step)
+        cl = (rng.integers(0, 128, step) if free_lane
+              else (7 * lane + 3 * b + j) % 128)
+        s = (b * 8 + j) * 128 + cl
+        s[rng.random(step) >= live] = -1
+        src_of[i * step:(i + 1) * step] = s
+    plan = build_gather_plan(nwin * 8, 4 * gk.BLK64, src_of,
                              block_rows=gk.BLK64)
-    src = torch.rand(stage_src_rows(meta, "mx"), 128, device=cuda)
-    args = [torch.from_numpy(a).to(cuda) for a in (
-        plan.wsel, plan.base, plan.nact, plan.cidx, plan.meta)]
-    before = gk.LAUNCHES["windowed_gather64"]
-    got = gk.windowed_gather64(src, *args, -1.0, plan.nsub)
-    assert gk.LAUNCHES["windowed_gather64"] == before + 1
-    assert torch.equal(got, gk.windowed_gather64_plain(src, *args, -1.0,
-                                                       plan.nsub))
-    valid = torch.from_numpy(src_of >= 0).to(cuda)
-    idx = torch.from_numpy(src_of).to(cuda)
-    assert torch.equal(got.view(-1)[valid], src.view(-1)[idx[valid]])
+    assert plan.nsub == 30 and list(plan.nact[:3]) == [0, 5, 30]
+    assert 0 < plan.nact[3] < 30
+    cases.append((nwin * 8, plan, src_of))
+    return cases
+
+
+@pytest.mark.parametrize("dt", sorted(_STREAM_DTYPES))
+def test_windowed_gather64_matches_plain(cuda, dt):
+    """K10 (the shared-memory ring) against its plain version bit for bit,
+    one launch per call, on both ``_k10_plans`` cases; and one K9 call on
+    an 8-row plan of the synthetic source index, unchanged."""
+    dtype, fill = _STREAM_DTYPES[dt]
+    rng = np.random.default_rng(2)
+    for src_rows, plan, src_of in _k10_plans():
+        src = torch.from_numpy(rng.random((src_rows, 128))).to(dtype) \
+            if dt != "i32" else torch.from_numpy(
+                rng.integers(0, 10000, (src_rows, 128)).astype(np.int32))
+        src = src.to(cuda)
+        args = [torch.from_numpy(a).to(cuda) for a in (
+            plan.wsel, plan.base, plan.nact, plan.cidx, plan.meta)]
+        before = gk.LAUNCHES["windowed_gather64"]
+        got = gk.windowed_gather64(src, *args, fill, plan.nsub)
+        assert gk.LAUNCHES["windowed_gather64"] == before + 1
+        assert torch.equal(got, gk.windowed_gather64_plain(
+            src, *args, fill, plan.nsub))
+        valid = torch.from_numpy(src_of >= 0).to(cuda)
+        idx = torch.from_numpy(src_of).to(cuda)
+        assert torch.equal(got.view(-1)[valid], src.view(-1)[idx[valid]])
+        assert bool((got.view(-1)[~valid] == fill).all())
+    # K9 keeps its own kernel: an 8-row plan of the same source index
+    plan8 = build_gather_plan(src_rows, src_of.size // 128, src_of)
+    args8 = [torch.from_numpy(a).to(cuda) for a in (
+        plan8.wsel, plan8.base, plan8.nact, plan8.cidx, plan8.meta)]
+    before = dict(gk.LAUNCHES)
+    got8 = gk.windowed_gather(src, *args8, None, fill, plan8.nsub)
+    assert gk.LAUNCHES == {**before, "windowed_gather":
+                           before["windowed_gather"] + 1}
+    assert torch.equal(got8, gk.windowed_gather_plain(
+        src, *args8, None, fill, plan8.nsub))
+    assert torch.equal(got8.view(-1), got.view(-1))
 
 
 @pytest.mark.parametrize("case", ["f32_sum", "f64_sum_w", "i32_min_w",

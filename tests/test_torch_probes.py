@@ -154,3 +154,18 @@ def test_probe_wrappers_reject_bad_inputs():
                                     2)                 # wrong base count
     assert bw_probe.LAUNCHES == {"copy_blocks": 0, "stream_sum": 0}
     assert route_cost_probe.LAUNCHES == {"route_like": 0}
+
+
+def test_route_like_checks_bases_once_per_version():
+    """A bases tensor checked once is not read back again until it is
+    written: a base moved past the table then raises."""
+    t = torch.ones((64, 128))
+    b = torch.zeros(2, dtype=torch.int32)
+    assert route_cost_probe.route_like(t, b, 1, 2).shape == (64, 128)
+    route_cost_probe.route_like(t, b, 1, 2)
+    b[1] = 8
+    with pytest.raises(ValueError):
+        route_cost_probe.route_like(t, b, 1, 2)
+    with pytest.raises(ValueError):
+        route_cost_probe.route_like(t[:32], torch.tensor(
+            [0, 4], dtype=torch.int32), 1, 2)

@@ -10,7 +10,10 @@ one operation) and match bit for bit; K8 and the whole SpMV match bit for
 bit in int32 min and within rtol 1e-12 in f64 sums (1e-5 in f32), whose
 order of addition differs from the Pallas kernel's chunk-by-chunk order.
 K7 is compared at the lanes the plan writes: the Pallas output block is
-never initialised, the port fills it with the ⊕-identity."""
+never initialised, the port fills it with the ⊕-identity. K7's composed
+index (``group_index``) equals the planner's own simulation
+(``final_src``), and the one gather through it (``group_gather_plain``)
+equals the pass-by-pass plain version bit for bit."""
 
 import os
 import sys
@@ -188,6 +191,11 @@ def test_plain_kernels_match_pallas(name):
                                   np.asarray(jg)[written])
     # the port's holes hold the identity
     assert np.all(tg.numpy()[~written] == ident)
+    # the passes as one gather through their composed index
+    src = sk.group_index(_t(plan.frag_dst), _t(plan.frag_idx),
+                         plan.rows_per_super, plan.npasses)
+    _same_array(sk.group_gather_plain(tc, src, ident).numpy(), tg.numpy(),
+                "group_gather_plain")
     # K8
     jy = np.asarray(jk.grouped_reduce(
         jg, jnp.asarray(plan.lr), jnp.asarray(plan.ev_r),
@@ -207,6 +215,91 @@ def test_plain_kernels_match_pallas(name):
         np.add.at(want, rows, x[cols] * (1 if w is None else w))
         np.testing.assert_allclose(ty.reshape(-1)[:NR], want,
                                    rtol=SUM_RTOL[x.dtype.type] * 10)
+
+
+# ------------------------------------- (b2) K7 as one composed gather
+def _group_plan(name):
+    """A seeded plan of ``_case(name)``; "passes3": the "passes" graph
+    with three radix passes forced, as many as the RMAT-20 degree plan
+    has."""
+    rows, cols, w, _, NR, NC, _, _, _, kw = _case(
+        "passes" if name == "passes3" else name)
+    if name == "passes3":
+        kw = dict(kw, force_npasses=3)
+    return build_spmv_plan(rows.astype(np.int64), cols.astype(np.int64), w,
+                           NR, NC, **kw)
+
+
+# dtype -> a contribution stream of that dtype and its fill
+_GROUP_STREAMS = {
+    "f32": lambda rng, n: (rng.random(n).astype(np.float32), 0.0),
+    "f64": lambda rng, n: (rng.random(n), 0.0),
+    "i32": lambda rng, n: (rng.integers(0, 10000, n).astype(np.int32), INF),
+}
+
+
+@pytest.mark.parametrize("name", ["sum_w", "sum", "min", "hub", "add_sat",
+                                  "passes", "passes3"])
+def test_group_index_matches_final_src(name):
+    """group_index equals the planner's final_src (int32, -1 at holes);
+    the gather through it equals the pass-by-pass plain version bit for
+    bit in f32, f64 and i32, and the CPU wrapper gives the same with and
+    without ``src``."""
+    plan = _group_plan(name)
+    if name == "passes3":
+        assert plan.npasses == 3
+    fd, fi = _t(plan.frag_dst), _t(plan.frag_idx)
+    src = sk.group_index(fd, fi, plan.rows_per_super, plan.npasses)
+    assert src.dtype == torch.int32
+    assert tuple(src.shape) == (plan.nsupers * plan.rows_per_super, LANES)
+    np.testing.assert_array_equal(src.view(-1).numpy(), plan.final_src)
+    assert bool((src.view(-1)[torch.from_numpy(plan.final_src < 0)]
+                 == -1).all())
+    rng = np.random.default_rng(11)
+    for dt, make in _GROUP_STREAMS.items():
+        vals, fill = make(rng, src.numel())
+        c = _t(vals).view(src.shape)
+        want = sk.group_stream_plain(c, fd, fi, plan.rows_per_super,
+                                     plan.npasses, fill)
+        _same_array(sk.group_gather_plain(c, src, fill).numpy(),
+                    want.numpy(), dt)
+        for kw in ({}, {"src": src}):
+            _same_array(sk.group_stream(c, fd, fi, plan.rows_per_super,
+                                        plan.npasses, fill, **kw).numpy(),
+                        want.numpy(), f"{dt} wrapper {sorted(kw)}")
+
+
+def test_group_gather_matches_pallas_three_passes():
+    """The composed gather against the Pallas group_stream (interpret
+    mode) over three radix passes, at the lanes the plan writes."""
+    plan = _group_plan("passes3")
+    rng = np.random.default_rng(12)
+    c = rng.random((plan.nsupers * plan.rows_per_super, LANES))
+    jg = np.asarray(jk.group_stream(
+        jnp.asarray(c), jnp.asarray(plan.frag_dst),
+        jnp.asarray(plan.frag_idx), plan.rows_per_super, plan.npasses,
+        interpret=True))
+    src = sk.group_index(_t(plan.frag_dst), _t(plan.frag_idx),
+                         plan.rows_per_super, plan.npasses)
+    got = sk.group_gather_plain(_t(c), src, 0.0).numpy()
+    written = plan.ev_r != 0
+    assert written.any()
+    np.testing.assert_array_equal(got[written], jg[written])
+    assert np.all(got[~written] == 0.0)
+
+
+def test_group_index_raises_past_int32(monkeypatch):
+    """A stream of INDEX_LIMIT slots or more raises instead of wrapping
+    (the limit lowered here to this plan's stream)."""
+    plan = _group_plan("sum")
+    n = plan.nsupers * plan.rows_per_super * LANES
+    args = (_t(plan.frag_dst), _t(plan.frag_idx), plan.rows_per_super,
+            plan.npasses)
+    monkeypatch.setattr(sk, "INDEX_LIMIT", n + 1)
+    assert sk.group_index(*args).numel() == n
+    monkeypatch.setattr(sk, "INDEX_LIMIT", n)
+    with pytest.raises(ValueError, match="int32"):
+        sk.group_index(*args)
 
 
 # ------------------------------------------- (c) spmv_local against JAX
@@ -368,6 +461,10 @@ def test_wrappers_reject_bad_inputs(small):
     with pytest.raises(ValueError, match="rps"):
         sk.group_stream(c, t["frag_dst"], t["frag_idx"],
                         plans.rows_per_super * 2, plans.npasses, 0.0)
+    with pytest.raises(TypeError, match="src"):
+        sk.group_stream(c, t["frag_dst"], t["frag_idx"],
+                        plans.rows_per_super, plans.npasses, 0.0,
+                        src=torch.zeros(c.shape, dtype=torch.long))
     with pytest.raises(ValueError, match="grouped_reduce"):
         sk.grouped_reduce(c, t["lr"], t["ev_r"], t["chunk_block"],
                           plans.nblocks, "min", 0.0)
@@ -437,6 +534,28 @@ def test_executor_shuffle_plans_type_and_reuse(small):
     ex = Executor(g, PageRankProgram(torch.float32), kernel="shuffle",
                   plans=plans, device="cpu")
     assert ex.meta is plans
+
+
+def test_group_tables_kept_once_per_upload(small, monkeypatch):
+    """group_tables builds K7's index once into the plan tensors, as the
+    executor's upload keeps it (and counts it in device_bytes); an entry
+    outside [-1, slots) raises."""
+    g, plans, _, _ = small
+    t = meta_from_numpy(plans.arrays, "cpu")
+    a = sk.group_tables(t, plans)
+    b = sk.group_tables(t, plans)
+    assert a["src"] is b["src"] is t["group_src"]
+    assert torch.equal(a["src"], sk.group_index(
+        t["frag_dst"], t["frag_idx"], plans.rows_per_super, plans.npasses))
+    ex = Executor(g, PageRankProgram(torch.float32), kernel="shuffle",
+                  plans=plans, device="cpu")
+    assert torch.equal(ex._dev["group_src"], a["src"])
+    assert ex.device_bytes >= a["src"].numel() * 4
+    bad = a["src"].clone()
+    bad.view(-1)[0] = bad.numel()
+    monkeypatch.setattr(sk, "group_index", lambda *args: bad)
+    with pytest.raises(ValueError, match="outside"):
+        sk.group_tables(meta_from_numpy(plans.arrays, "cpu"), plans)
 
 
 def test_artifact_cache_shuffle_roundtrip_and_key(tmp_path, small):

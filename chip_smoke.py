@@ -51,7 +51,9 @@ Phases, each printed as it runs; any failure exits non-zero:
               kernel through apps.run_pagerank(device="cuda") in f32; the
               degrees equal tests/golden.py::degree bit for bit, the
               checksum within 1e-4 relative of the f64 NumPy golden model;
-              the launch counts of K1-K4 and K6-K8. After phases 5 and
+              the launch counts of K1-K4 and K6-K8; warm GTEPS, the median
+              of five warm 20-iteration runs, each run listed (as on every
+              PageRank path below). After phases 5 and
               5b: f32 PageRank to convergence (execute(0)) on the same
               executor, re-initialized from the degree phase, and one
               execute_profiled of 20 iterations with its PhaseTimer report
@@ -62,7 +64,10 @@ Phases, each printed as it runs; any failure exits non-zero:
               call's time, at the RMAT-20 shapes of the main path (K1-K4:
               the PageRank superstep; K6-K8: the degree SpMV), and their
               largest difference (0: every kernel equals its plain
-              version bit for bit there). Every row's kernel and library
+              version bit for bit there). Each K2 call of the smoke logs
+              its npanels, nwin and kernel form (passa_form: the source
+              windows staged in shared memory or read from device memory),
+              each K9 stage its steps and nsub. Every row's kernel and library
               call are timed twice: CUDA events around ten eager calls
               (the enqueue rate of the host bounds a short call), and
               device-only: the ten calls captured into one CUDA graph and
@@ -162,6 +167,7 @@ SCALE = 20
 EDGE_FACTOR = 16
 SEED = 1
 ITERS = 20
+WARM_RUNS = 5                # warm ITERS-iteration runs behind each GTEPS
 PARITY_SCALE = 14
 # BFS, CC and SSSP run at RMAT-18, the scale of BENCH_SUITE.json: the
 # port's host planner (its copy of panel_plan.py) finds no x->x_ext route
@@ -341,6 +347,7 @@ def _kernel_calls(t, meta, sem, st):
     pa = (st["s0"], t["pa_bases"], t["pa_plan"], fill, meta.pa_panels + 1,
           meta.pa_nwin)
     npa = meta.pa_panels + 1
+    _log_passa("kernels", npa, meta.pa_nwin, st["s0"])
     pa_w = (_nbytes(st["s0"]) + 4 * npa * meta.pa_nwin
             + npa * pk.plan_rows(meta.pa_nwin * pk.STRIPE) * pk.LANES
             + npa * panel * es, 0)
@@ -564,6 +571,8 @@ def _gated_calls(t, meta, sem, st, maps):
     es = st["x2d"].element_size()
     panel = pk.PROWS * pk.LANES
     nxe, npa = meta.exp_panels + 1, meta.pa_panels + 1
+    _log_passa(f"gated ({int((pa_q[:npa] != fb['pa_plan']).sum())} panels "
+               f"not at the fill block)", npa, meta.pa_nwin, st["s0"])
     work = [
         _gated_work(st["x2d"], xe_b, xe_q[:nxe], fb["xe_plan"],
                     meta.xr_nwin, pk.xe_plan_rows(meta.xr_nwin),
@@ -830,6 +839,11 @@ def _v2_calls(torch, t, meta, sem, st):
     from graphtap_tpu_torch.kernels.gather_engine import STAGES, stage_plan
     from graphtap_tpu_torch.kernels.shuffle_engine import mul_kind
     srcs = dict(zip(STAGES, ("x2d", "exp", "p0", "p1", "p2", "y_blocks")))
+    for k in STAGES:
+        log(f"kernels windowed_gather stage {k}: "
+            f"{stage_plan(t, k)[4].shape[0]} steps of 8 rows, nsub "
+            f"{meta.nsub[k]}, ⊗ "
+            f"{mul_kind(meta, sem) if k == 'exp' else 'none'}")
     return [_gather_call(torch, "windowed_gather", gk.windowed_gather,
                          gk.windowed_gather_plain, st[srcs[k]],
                          stage_plan(t, k), meta.nsub[k], sem.identity,
@@ -1204,14 +1218,35 @@ def phase_main(torch, np):
         raise AssertionError(f"checksum rel err {rel} >= {GOLDEN_RTOL}")
     nnz = ex.tiles.nnz_total
     first = tm["execute"]
-    ex.execute(ITERS)                   # the same 20 supersteps, warm
-    warm = ex.timings["execute"]
-    log(f"main: {ITERS} iterations {first:.4f} s first, {warm:.4f} s warm; "
-        f"{nnz * ITERS / warm / 1e9:.4f} GTEPS warm "
-        f"({nnz * ITERS / first / 1e9:.4f} first), nnz {nnz}")
+    log(f"main: {ITERS} iterations {first:.4f} s first "
+        f"({nnz * ITERS / first / 1e9:.4f} GTEPS), nnz {nnz}")
     ref = {"degree": want, "checksum": gsum,
-           "gteps": nnz * ITERS / warm / 1e9, "edges": (r, c)}
+           "gteps": _warm_gteps("main", ex), "edges": (r, c)}
     return g, ex, launches, ref
+
+
+def _warm_gteps(tag, ex) -> float:
+    """The median GTEPS (nnz x ITERS / seconds) of WARM_RUNS warm
+    ITERS-iteration runs of ``ex``, each run listed."""
+    nnz = ex.tiles.nnz_total
+    secs = []
+    for _ in range(WARM_RUNS):
+        ex.execute(ITERS)
+        secs.append(ex.timings["execute"])
+    rates = sorted(nnz * ITERS / s / 1e9 for s in secs)
+    runs = ", ".join(f"{s:.4f} s ({nnz * ITERS / s / 1e9:.4f})" for s in secs)
+    log(f"{tag}: {WARM_RUNS} warm runs of {ITERS} iterations: {runs}; "
+        f"median {rates[WARM_RUNS // 2]:.4f} GTEPS, nnz {nnz}")
+    return rates[WARM_RUNS // 2]
+
+
+def _log_passa(tag, npanels, nwin, src, out_rows=64, two_layer=True):
+    """One K2 call's shape and the form its kernel takes on the card."""
+    from graphtap_tpu_torch.kernels import panel_kernels as pk
+    log(f"{tag} route_passa: npanels {npanels}, nwin {nwin}, "
+        f"{'two' if two_layer else 'single'}-layer {out_rows} rows, "
+        f"{src.dtype}: form "
+        f"{pk.passa_form(nwin, out_rows, two_layer, src.element_size())}")
 
 
 def _converge32(tag, ex, deg, conv) -> None:
@@ -1331,6 +1366,10 @@ def _staged_calls(torch, t, meta, sem, st):
     xr_rows = pk.plan_rows(meta.xr_nwin * pk.STRIPE, pk.XROWS, False)
     xr = (st["x2d"], t["xr_bases"], t["xr_plan"], fill, nxe, meta.xr_nwin)
     one = dict(out_rows=pk.XROWS, two_layer=False)
+    _log_passa("staged x->x_ext", nxe, meta.xr_nwin, st["x2d"], **one)
+    _log_passa("staged corner turn", meta.pa_panels + 1, meta.pa_nwin,
+               st["s0"])
+    _log_passa("staged fixr", meta.fix_panels, meta.fixr_nwin, st["s1"])
     idx = pk.route_passa_plain(_slot_ids(torch, st["x2d"]), *xr[1:3], -1,
                                *xr[4:], **one)
     calls = [("route_passa_single", lambda: pk.route_passa(*xr, **one),
@@ -1553,12 +1592,10 @@ def _pagerank_checks(np, tag, ex, ref, launches, need) -> float:
     if not rel < GOLDEN_RTOL:
         raise AssertionError(f"{tag}: checksum rel err {rel} >= "
                              f"{GOLDEN_RTOL}")
-    nnz, first = ex.tiles.nnz_total, ex.timings["execute"]
-    ex.execute(ITERS)
-    warm = ex.timings["execute"]
-    gteps = nnz * ITERS / warm / 1e9
-    log(f"{tag}: {ITERS} iterations {first:.4f} s first, {warm:.4f} s "
-        f"warm; {gteps:.4f} GTEPS warm vs panel's {ref['gteps']:.4f}")
+    log(f"{tag}: {ITERS} iterations {ex.timings['execute']:.4f} s first")
+    gteps = _warm_gteps(tag, ex)
+    log(f"{tag}: {gteps:.4f} GTEPS warm (median) vs panel's "
+        f"{ref['gteps']:.4f}")
     return gteps
 
 

@@ -24,24 +24,30 @@
 // card's ~20 operations per byte in f32, so each call is held to (bytes
 // moved) / 3.35 TB/s.
 //
-// K9, simple first. The Pallas kernel walks (step, subop) on a sequential
-// grid with the (8,128) source window in VMEM, a lane crossbar by cidx and
-// a sublane crossbar by j, keeping a slot where its sid equals the subop.
-// The value of a slot depends only on its own meta byte, so here the kernel
-// is output-stationary: one thread per output slot, grid-stride, coalesced
-// meta reads and writes, the cidx byte and the source value two dependent
-// gathers; Hopper's 50 MB L2 takes the place of the window DMA. One launch
-// covers every step: the TPU's segmented driver (one pallas_call per 2048
-// steps) exists for its SMEM budget and has no counterpart here.
+// K9. The Pallas kernel walks (step, subop) on a sequential grid with the
+// (8,128) source window in VMEM, a lane crossbar by cidx and a sublane
+// crossbar by j, keeping a slot where its sid equals the subop. The value
+// of a slot depends only on its own meta byte, so here the kernel is
+// output-stationary, one 256-thread block per 8-row step (1,024 slots, the
+// step is blockIdx.x: no division): the step's nact, base and wsel entries
+// are loaded once per block (wsel into shared memory), and each thread
+// resolves 4 slots, 4t .. 4t+3: one 4-byte meta load, its 16-byte weight
+// word issued beside it under a ⊗, four independent cidx byte loads, then
+// four independent value loads, and one 16-byte streaming store. So the
+// dependent chain a slot pays is meta -> cidx -> value, with four chains in
+// flight a thread; Hopper's 50 MB L2 takes the place of the window DMA.
+// The cidx byte is used signed, as the plain version uses it, and a source
+// slot below 0 reads the fill. One launch covers every step: the TPU's
+// segmented driver (one pallas_call per 2048 steps) exists for its SMEM
+// budget and has no counterpart here.
 //
 // K10 exists to fetch each (8,128) source window once per 64-row step and
-// spend it on the step's 8,192 slots; K9's one-thread-per-slot form would
-// fetch a cidx byte and a source value again for every slot, through a
-// chain of four dependent loads. Here one 256-thread block owns one step
-// (the step is blockIdx.x: no division); each thread holds 32 slots in
-// registers, their meta bytes as eight coalesced 4-byte loads (slots
-// 4*(t + 256*g) .. +3, g = 0..7, so a warp's loads and its 16-byte stores
-// are contiguous). The step's subops s < min(nact, nsub) are staged in
+// spend it on the step's 8,192 slots; K9's per-slot form fetches a cidx
+// byte and a source value again for every slot. Here one 256-thread block
+// owns one step (the step is blockIdx.x: no division); each thread holds
+// 32 slots in registers, their meta bytes as eight coalesced 4-byte loads
+// (slots 4*(t + 256*g) .. +3, g = 0..7, so a warp's loads and its 16-byte
+// stores are contiguous). The step's subops s < min(nact, nsub) are staged in
 // rounds of HALF: a ring of RING = 2 * HALF stages in shared memory, each
 // one source window (4 KB in f32/i32, 8 KB in f64) and its 1 KB cidx
 // block, filled with 16-byte cp.async; round r + 1 is copied into one half
@@ -62,6 +68,7 @@
 // Element offsets are 64-bit.
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -74,6 +81,37 @@ namespace {
 constexpr int SUB = 8;           // rows of a source window
 constexpr int SID_INVALID = 31;  // meta sid of a slot that holds the fill
 
+constexpr int VEC = 4;                       // slots per meta word / store
+constexpr int STEP_EL = SUB * LANES;         // 1,024 slots of a K9 step
+
+// w[4g .. 4g+3] as one 16-byte streaming load (two for f64); w 16-byte
+// aligned
+template <typename T>
+__device__ __forceinline__ void load4(const T* __restrict__ w, unsigned g,
+                                      T* v) {
+  if constexpr (sizeof(T) == 8) {
+    const double2* p = reinterpret_cast<const double2*>(w) + 2 * g;
+    const double2 a = __ldcs(p);
+    const double2 b = __ldcs(p + 1);
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = b.x;
+    v[3] = b.y;
+  } else if constexpr (std::is_same<T, float>::value) {
+    const float4 a = __ldcs(reinterpret_cast<const float4*>(w) + g);
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = a.z;
+    v[3] = a.w;
+  } else {
+    const int4 a = __ldcs(reinterpret_cast<const int4*>(w) + g);
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = a.z;
+    v[3] = a.w;
+  }
+}
+
 template <typename T, int MUL>
 __global__ void __launch_bounds__(THREADS)
 windowed_gather_kernel(const T* __restrict__ src, const int* __restrict__ wsel,
@@ -81,41 +119,57 @@ windowed_gather_kernel(const T* __restrict__ src, const int* __restrict__ wsel,
                        const int* __restrict__ nact,
                        const int8_t* __restrict__ cidx,
                        const uint8_t* __restrict__ meta,
-                       const T* __restrict__ w, T* __restrict__ out,
-                       long long n, int nsub, int step_el, T fill) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long e = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       e < n; e += stride) {
-    const int m = meta[e];                   // upcast before any compare
-    const int sid = m >> 3;
-    const int j = m & 7;
-    const long long i = e / step_el;
-    const int l = static_cast<int>(e % LANES);
-    const int na = nact[i];
-    T v = fill;
-    if (sid < (na < nsub ? na : nsub)) {
-      const long long win = wsel[i * nsub + sid];
-      const long long blk = static_cast<long long>(base[i]) + sid;
-      const int c = cidx[(blk * SUB + j) * LANES + l];
-      v = src[(win * SUB + j) * LANES + c];
+                       const T* __restrict__ w, T* __restrict__ out, int nsub,
+                       T fill) {
+  __shared__ int s_ws[SID_INVALID];
+  const long long i = blockIdx.x;
+  const int t = threadIdx.x;
+  // the step's scalars, once: wsel into shared memory, nact and base into
+  // registers, side by side with this thread's meta word and weights
+  if (t < nsub) s_ws[t] = wsel[i * nsub + t];
+  const int na = nact[i];
+  const int ns = na < nsub ? na : nsub;
+  const long long b0 = base[i];
+  const unsigned m =
+      __ldcs(reinterpret_cast<const unsigned*>(meta + i * STEP_EL) + t);
+  T wv[VEC];
+  if constexpr (MUL != MUL_NONE) load4<T>(w + i * STEP_EL, t, wv);
+  const int l0 = (VEC * t) & (LANES - 1);
+  int c[VEC];
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) {
+    const int mb = (m >> (8 * k)) & 0xff;
+    c[k] = 0;
+    if ((mb >> 3) < ns) {
+      c[k] = __ldg(cidx + ((b0 + (mb >> 3)) * SUB + (mb & 7)) * LANES + l0 +
+                   k);
+    }
+  }
+  __syncthreads();                           // s_ws is in
+  T v[VEC];
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) {
+    const int mb = (m >> (8 * k)) & 0xff;
+    const int sid = mb >> 3;
+    v[k] = fill;
+    if (sid < ns) {
+      const long long e =
+          (static_cast<long long>(s_ws[sid]) * SUB + (mb & 7)) * LANES + c[k];
+      if (e >= 0) v[k] = __ldg(src + e);
     }
     if constexpr (MUL != MUL_NONE) {
-      v = sid == SID_INVALID ? fill : apply_mul<T, MUL>(v, w, e, fill);
+      v[k] = sid == SID_INVALID ? fill : apply_mul<T, MUL>(v[k], wv, k, fill);
     }
-    out[e] = v;
   }
+  store4<T>(out + i * STEP_EL, t, v[0], v[1], v[2], v[3]);
 }
 
 template <typename T>
 int launch_gather(const void* src, const void* wsel, const void* base,
                   const void* nact, const void* cidx, const void* meta,
                   const void* w, void* out, long long nsteps, int nsub,
-                  int block_rows, int mul_kind, double fill,
-                  cudaStream_t st) {
-  const int step_el = block_rows * LANES;
-  const long long n = nsteps * step_el;
-  if (n == 0) return cudaGetLastError();
+                  int mul_kind, double fill, cudaStream_t st) {
+  if (nsteps == 0) return cudaGetLastError();
   const T* s = static_cast<const T*>(src);
   const int* ws = static_cast<const int*>(wsel);
   const int* b = static_cast<const int*>(base);
@@ -125,19 +179,19 @@ int launch_gather(const void* src, const void* wsel, const void* base,
   const T* wt = static_cast<const T*>(w);
   T* o = static_cast<T*>(out);
   const T f = static_cast<T>(fill);
-  const unsigned blocks = stride_blocks(n);
+  const unsigned blocks = static_cast<unsigned>(nsteps);
   switch (mul_kind) {
     case MUL_NONE:
       windowed_gather_kernel<T, MUL_NONE><<<blocks, THREADS, 0, st>>>(
-          s, ws, b, na, c, m, wt, o, n, nsub, step_el, f);
+          s, ws, b, na, c, m, wt, o, nsub, f);
       break;
     case MUL_MUL:
       windowed_gather_kernel<T, MUL_MUL><<<blocks, THREADS, 0, st>>>(
-          s, ws, b, na, c, m, wt, o, n, nsub, step_el, f);
+          s, ws, b, na, c, m, wt, o, nsub, f);
       break;
     case MUL_ADD_SAT:
       windowed_gather_kernel<T, MUL_ADD_SAT><<<blocks, THREADS, 0, st>>>(
-          s, ws, b, na, c, m, wt, o, n, nsub, step_el, f);
+          s, ws, b, na, c, m, wt, o, nsub, f);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -151,7 +205,6 @@ constexpr int STEP64_EL = BLK64 * LANES;     // 8,192 slots
 constexpr int WIN_EL = SUB * LANES;          // values of one source window
 constexpr int HALF = 8;                      // subops of one round
 constexpr int RING = 2 * HALF;               // window stages: two rounds
-constexpr int VEC = 4;                       // slots per meta word / store
 constexpr int NVEC = STEP64_EL / (THREADS * VEC);   // 8 words a thread
 
 // shared memory of one K10 block: RING windows of T, then RING cidx blocks
@@ -300,30 +353,28 @@ int launch_gather64(const void* src, const void* wsel, const void* base,
 
 extern "C" {
 
-// K9 (block_rows 8, any ⊗).
+// K9: 8-row steps, any ⊗. meta (nsteps, 8, 128), w (nsteps, 8, 128) and
+// out 16-byte aligned.
 int gt_windowed_gather(const void* src, const void* wsel, const void* base,
                        const void* nact, const void* cidx, const void* meta,
                        const void* w, void* out, long long nsteps, int nsub,
-                       int block_rows, int dtype, int mul_kind, double fill,
-                       void* stream) {
+                       int dtype, int mul_kind, double fill, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (w == nullptr && mul_kind != MUL_NONE) return cudaErrorInvalidValue;
-  if (nsub < 1 || nsub > SID_INVALID || block_rows % SUB != 0 ||
-      block_rows <= 0) {
+  if (nsub < 1 || nsub > SID_INVALID || nsteps < 0 ||
+      nsteps >= (1LL << 31)) {
     return cudaErrorInvalidValue;
   }
   switch (dtype) {
     case F32:
       return launch_gather<float>(src, wsel, base, nact, cidx, meta, w, out,
-                                  nsteps, nsub, block_rows, mul_kind, fill,
-                                  st);
+                                  nsteps, nsub, mul_kind, fill, st);
     case F64:
       return launch_gather<double>(src, wsel, base, nact, cidx, meta, w, out,
-                                   nsteps, nsub, block_rows, mul_kind, fill,
-                                   st);
+                                   nsteps, nsub, mul_kind, fill, st);
     case I32:
       return launch_gather<int>(src, wsel, base, nact, cidx, meta, w, out,
-                                nsteps, nsub, block_rows, mul_kind, fill, st);
+                                nsteps, nsub, mul_kind, fill, st);
     default:
       return cudaErrorInvalidValue;
   }

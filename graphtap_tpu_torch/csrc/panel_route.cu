@@ -48,11 +48,16 @@
 // Per output each route reads 3 plan bytes plus one value; the value and
 // idx1/sel reads are data-dependent gathers inside 128-lane rows (one or
 // two cache lines each), so the kernels are bound by L1/L2 gather latency
-// and by the plan stream (~0.4-0.5 KB of plan per 4 KB f32 panel). The
-// design keeps it simple: one thread block per panel, 256 threads striding
+// and by the plan stream (~0.4-0.5 KB of plan per 4 KB f32 panel). K1, K3
+// and K11 keep it simple: one thread block per panel, 256 threads striding
 // over its slots, so neighbouring threads read neighbouring plan bytes and
-// write neighbouring outputs (coalesced). One device function routes a
-// panel (route_panel) for K1's two stages, K2 and K11, and one expands an
+// write neighbouring outputs (coalesced). K2 moves each panel's plan
+// block, and where two stages fit its source windows, into shared memory
+// with TMA bulk copies, double-buffered in persistent blocks, and resolves
+// four slots a thread out of it (see K2 below): per panel one bulk read
+// and one bulk write, so it is held to bytes, not to a chain of four
+// dependent device loads a slot. One device function routes a
+// panel (route_panel) for K1's two stages and K11, and one expands an
 // x_ext panel held in shared memory (expand_panel) for K1 and K11: K1
 // builds its 32x128 x_ext panel there, so x_ext never goes to device
 // memory; K11 loads it there from the x_ext table. K3 folds each routed
@@ -239,31 +244,178 @@ route_expand_kernel(const T* __restrict__ x_ext,
 // bases[p*nwin + band]) routed into an out_rows-row panel: two-layer
 // (64 rows; plan [idx1 (nwin*8), sel_a, sel_b, idx3]) or single-layer
 // (the x -> x_ext route, 32 rows; plan [idx1, sel_a, idx3]).
-template <typename T>
+//
+// Persistent blocks (a grid of at most the blocks the SMs hold at once),
+// each walking panels blockIdx.x, + gridDim.x, ... through a ring of two
+// shared-memory stages. A stage holds one panel's whole plan block (one
+// TMA bulk copy, contiguous and 128-byte aligned) and, in the STAGED form,
+// the panel's nwin source windows beside it (one bulk copy each, 4 KB in
+// f32/int32, 8 KB in f64); both complete on the stage's mbarrier. Warp 0
+// issues panel p + 2*gridDim.x into a stage as soon as the block has
+// resolved panel p out of it, so one panel's copies land while the other
+// resolves. Each thread resolves 4 slots at a time: one 4-byte idx3 word,
+// then four independent sel -> idx1 -> value chains, all out of shared
+// memory (STAGED) or the last one a read-only load of device memory
+// (unstaged: the windows do not fit two stages), and one 16-byte
+// streaming store. A window whose base lies outside the source table is
+// not copied (a validated plan has none), a band >= nwin is the fill and
+// reads nothing, and a lane is taken mod 128. Gated: plan block
+// plan_idx[p], bases still panel p's; a panel pointed at fill_block copies
+// nothing and writes the fill.
+constexpr int VEC = 4;                       // slots a thread resolves at once
+constexpr int WIN_EL = STRIPE * LANES;       // values of one source window
+constexpr int PASSA_STAGES = 2;
+constexpr int SMEM_BLOCK = 232448;           // shared memory a block may have
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count));
+}
+// one arrival that also expects `bytes` of bulk copies on this phase
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+// TMA bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from device memory into shared memory, completing on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+template <typename T, bool STAGED>
 __global__ void __launch_bounds__(THREADS)
 route_passa_kernel(const T* __restrict__ src, const int* __restrict__ bases,
                    const uint8_t* __restrict__ plan, T* __restrict__ out,
-                   int nwin, int out_rows, bool two_layer, T fill,
-                   const int* __restrict__ plan_idx, int fill_block) {
-  const long long p = blockIdx.x;
-  const long long q = plan_block(plan_idx, p);
-  T* po = out + p * out_rows * LANES;
-  if (plan_idx != nullptr && q == fill_block) {
-    for (int e = threadIdx.x; e < out_rows * LANES; e += blockDim.x) {
-      po[e] = fill;
-    }
-    return;
-  }
+                   long long npanels, int nwin, int out_rows, bool two_layer,
+                   T fill, const int* __restrict__ plan_idx, int fill_block,
+                   long long src_windows) {
+  extern __shared__ __align__(128) unsigned char smem[];
   const int sr = nwin * STRIPE;
-  const Route rt = route_at(
-      plan + q * route_rows(sr, out_rows, two_layer) * LANES, sr, out_rows,
-      two_layer);
-  const int* pb = bases + p * nwin;
-  auto src_row = [&](int band, int row) -> const T* {
-    return src + (static_cast<long long>(pb[band]) * STRIPE + row) * LANES;
+  const int plan_bytes =
+      static_cast<int>(route_rows(sr, out_rows, two_layer)) * LANES;
+  const int stage_bytes =
+      plan_bytes + (STAGED ? nwin * WIN_EL * static_cast<int>(sizeof(T)) : 0);
+  uint64_t* bar =
+      reinterpret_cast<uint64_t*>(smem + PASSA_STAGES * stage_bytes);
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const long long G = gridDim.x;
+  if (t == 0) {
+    for (int s = 0; s < PASSA_STAGES; ++s) mbar_init(&bar[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // warp 0: copy panel p's plan block (and windows) into stage s
+  auto load = [&](long long p, int s) {
+    const long long q = plan_block(plan_idx, p);
+    const bool fill_panel = plan_idx != nullptr && q == fill_block;
+    unsigned char* dst = smem + s * stage_bytes;
+    long long wb = -1;
+    unsigned mine = 0;
+    if (STAGED && !fill_panel && lane < nwin) {    // nwin <= 32 when STAGED
+      wb = bases[p * nwin + lane];
+      if (wb >= 0 && wb < src_windows) mine = WIN_EL * sizeof(T);
+    }
+    unsigned bytes = mine;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      bytes += __shfl_xor_sync(FULL_MASK, bytes, o);
+    }
+    if (lane == 0) {
+      mbar_arrive_tx(&bar[s], fill_panel ? 0u : bytes + plan_bytes);
+      if (!fill_panel) {
+        bulk_load(dst, plan + q * plan_bytes, plan_bytes, &bar[s]);
+      }
+    }
+    if (mine != 0) {
+      bulk_load(dst + plan_bytes + lane * mine, src + wb * WIN_EL, mine,
+                &bar[s]);
+    }
   };
-  route_panel<T>(rt, out_rows, nwin, fill, src_row,
-                 [&](int e, T v) { po[e] = v; });
+
+  long long p = blockIdx.x;
+  if (t < 32) {
+    for (int s = 0; s < PASSA_STAGES && p + s * G < npanels; ++s) {
+      load(p + s * G, s);
+    }
+  }
+  const int nvec = out_rows * LANES / (THREADS * VEC);   // 8 or 4
+  for (int k = 0; p < npanels; ++k, p += G) {
+    const int s = k % PASSA_STAGES;
+    mbar_wait(&bar[s], (k / PASSA_STAGES) & 1);
+    const long long q = plan_block(plan_idx, p);
+    T* po = out + p * out_rows * LANES;
+    if (plan_idx != nullptr && q == fill_block) {
+      for (int g = 0; g < nvec; ++g) {
+        store4<T>(po, t + THREADS * g, fill, fill, fill, fill);
+      }
+    } else {
+      const uint8_t* idx1 = smem + s * stage_bytes;
+      const uint8_t* sel_a = idx1 + sr * LANES;
+      const uint8_t* sel_b = two_layer ? sel_a + out_rows * LANES : sel_a;
+      const uint8_t* idx3 = sel_a + (two_layer ? 2 : 1) * out_rows * LANES;
+      const T* win = reinterpret_cast<const T*>(idx1 + plan_bytes);
+      const int* pb = bases + p * nwin;
+#pragma unroll 2
+      for (int g = 0; g < nvec; ++g) {
+        const int e = VEC * (t + THREADS * g);
+        const int r = e >> 7;
+        const unsigned w3 = *reinterpret_cast<const unsigned*>(idx3 + e);
+        T v[VEC];
+#pragma unroll
+        for (int k4 = 0; k4 < VEC; ++k4) {
+          const int i3 = (w3 >> (8 * k4)) & 0xff;
+          const int m = i3 & 127;
+          const int sv = (i3 >= 128 ? sel_b : sel_a)[r * LANES + m];
+          const int band = sv >> 3;
+          const int row = sv & 7;
+          v[k4] = fill;
+          if (band < nwin) {
+            const int l = idx1[(band * STRIPE + row) * LANES + m] &
+                          (LANES - 1);
+            if constexpr (STAGED) {
+              v[k4] = win[band * WIN_EL + row * LANES + l];
+            } else {
+              const long long b = __ldg(pb + band);
+              v[k4] = __ldg(src + (b * STRIPE + row) * LANES + l);
+            }
+          }
+        }
+        store4<T>(po, t + THREADS * g, v[0], v[1], v[2], v[3]);
+      }
+    }
+    __syncthreads();                 // stage s is free for panel p + 2G
+    if (t < 32 && p + PASSA_STAGES * G < npanels) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      load(p + PASSA_STAGES * G, s);
+    }
+  }
 }
 
 // ---------------------------------------------------------------- K3
@@ -442,16 +594,68 @@ int launch_expand(const void* x_ext, const void* plan, const void* w,
   return cudaGetLastError();
 }
 
+// Above 48 KB a block's shared memory is opted into once per kernel.
+template <typename T, bool STAGED>
+cudaError_t passa_opt_in() {
+  static const cudaError_t rc = cudaFuncSetAttribute(
+      route_passa_kernel<T, STAGED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BLOCK);
+  return rc;
+}
+
+// staged: the windows beside the plan in each stage (the wrapper's
+// passa_form picks it from nwin and the value size); the grid is as many
+// blocks as the SMs hold at once at this footprint, at most npanels.
+template <typename T, bool STAGED>
+int launch_passa_form(const void* src, const void* bases,
+                      const void* plan, void* out, long long npanels,
+                      int nwin, int out_rows, int two_layer, double fill,
+                      const int* pidx, int fill_block, long long src_windows,
+                      cudaStream_t st) {
+  const long long stage =
+      route_rows(nwin * STRIPE, out_rows, two_layer != 0) * LANES +
+      (STAGED ? static_cast<long long>(nwin) * WIN_EL * sizeof(T) : 0);
+  const long long smem = PASSA_STAGES * stage + PASSA_STAGES * 8;
+  if (smem > SMEM_BLOCK || (STAGED && nwin > 32)) return cudaErrorInvalidValue;
+  const cudaError_t opt = passa_opt_in<T, STAGED>();
+  if (opt != cudaSuccess) return opt;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess) {
+    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (rc == cudaSuccess) {
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, route_passa_kernel<T, STAGED>, THREADS,
+        static_cast<size_t>(smem));
+  }
+  if (rc != cudaSuccess) return rc;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long cap = static_cast<long long>(sms) * per_sm;
+  route_passa_kernel<T, STAGED>
+      <<<static_cast<unsigned>(npanels < cap ? npanels : cap), THREADS,
+         static_cast<size_t>(smem), st>>>(
+          static_cast<const T*>(src), static_cast<const int*>(bases),
+          static_cast<const uint8_t*>(plan), static_cast<T*>(out), npanels,
+          nwin, out_rows, two_layer != 0, static_cast<T>(fill), pidx,
+          fill_block, src_windows);
+  return cudaGetLastError();
+}
+
 template <typename T>
 int launch_passa(const void* src, const void* bases, const void* plan,
                  void* out, long long npanels, int nwin, int out_rows,
                  int two_layer, double fill, const int* pidx, int fill_block,
-                 cudaStream_t st) {
-  route_passa_kernel<T><<<static_cast<unsigned>(npanels), THREADS, 0, st>>>(
-      static_cast<const T*>(src), static_cast<const int*>(bases),
-      static_cast<const uint8_t*>(plan), static_cast<T*>(out), nwin,
-      out_rows, two_layer != 0, static_cast<T>(fill), pidx, fill_block);
-  return cudaGetLastError();
+                 long long src_windows, int staged, cudaStream_t st) {
+  if (npanels <= 0) return cudaGetLastError();
+  return staged ? launch_passa_form<T, true>(src, bases, plan, out, npanels,
+                                             nwin, out_rows, two_layer, fill,
+                                             pidx, fill_block, src_windows,
+                                             st)
+                : launch_passa_form<T, false>(src, bases, plan, out, npanels,
+                                              nwin, out_rows, two_layer, fill,
+                                              pidx, fill_block, src_windows,
+                                              st);
 }
 
 template <typename T>
@@ -587,26 +791,33 @@ int gt_route_xr_exp(const void* x2d, const void* bases, const void* plan,
 }
 
 // out_rows: 64 (two_layer = 1, the corner turn and the fixr route) or 32
-// (two_layer = 0, the x -> x_ext route).
+// (two_layer = 0, the x -> x_ext route); src (src_windows * 8, 128); src
+// and plan 16-byte aligned; staged: the panels' windows are copied into
+// shared memory beside their plan blocks (two stages must fit a block).
 int gt_route_passa(const void* src, const void* bases, const void* plan,
                    void* out, long long npanels, int nwin, int out_rows,
                    int two_layer, int dtype, double fill,
-                   const void* plan_idx, int fill_block, void* stream) {
+                   const void* plan_idx, int fill_block,
+                   long long src_windows, int staged, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* pidx = static_cast<const int*>(plan_idx);
+  if (nwin < 1 || (out_rows != PROWS && out_rows != XROWS) ||
+      out_rows * LANES % (THREADS * VEC) != 0) {
+    return cudaErrorInvalidValue;
+  }
   switch (dtype) {
     case F32:
       return launch_passa<float>(src, bases, plan, out, npanels, nwin,
                                  out_rows, two_layer, fill, pidx, fill_block,
-                                 st);
+                                 src_windows, staged, st);
     case F64:
       return launch_passa<double>(src, bases, plan, out, npanels, nwin,
                                   out_rows, two_layer, fill, pidx,
-                                  fill_block, st);
+                                  fill_block, src_windows, staged, st);
     case I32:
       return launch_passa<int>(src, bases, plan, out, npanels, nwin,
                                out_rows, two_layer, fill, pidx, fill_block,
-                               st);
+                               src_windows, staged, st);
     default:
       return cudaErrorInvalidValue;
   }

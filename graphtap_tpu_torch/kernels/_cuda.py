@@ -45,9 +45,9 @@ _SIGNATURES = {
     "gt_route_xr_exp": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _F64,
                         _P, _I32, _P],
     # src, bases, plan, out, npanels, nwin, out_rows, two_layer, dtype,
-    # fill, plan_idx, fill_block, stream
+    # fill, plan_idx, fill_block, src_windows, staged, stream
     "gt_route_passa": [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _F64,
-                       _P, _I32, _P],
+                       _P, _I32, _I64, _I32, _P],
     # x_ext, plan, w, out, npanels, dtype, mul_kind, fill, stream
     "gt_route_expand": [_P, _P, _P, _P, _I64, _I32, _I32, _F64, _P],
     # s1, out, nrows_out, dtype, reduce_kind, stream
@@ -70,10 +70,10 @@ _SIGNATURES = {
     # ngroups, dtype, reduce_kind, identity, stream
     "gt_grouped_reduce": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
                           _I64, _I32, _I32, _F64, _P],
-    # src, wsel, base, nact, cidx, meta, w, out, nsteps, nsub, block_rows,
-    # dtype, mul_kind, fill, stream
+    # src, wsel, base, nact, cidx, meta, w, out, nsteps, nsub, dtype,
+    # mul_kind, fill, stream
     "gt_windowed_gather": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32,
-                           _I32, _I32, _F64, _P],
+                           _I32, _F64, _P],
     # src, wsel, base, nact, cidx, meta, out, nsteps, nsub, src_windows,
     # cidx_blocks, dtype, fill, stream
     "gt_windowed_gather64": [_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I64,

@@ -26,7 +26,9 @@ the fill) and sets sid-31 (``SID_INVALID``) slots back to the fill, so
 under ``mul`` a slot with nact[i] <= sid < 31 holds fill * w, as in the
 Pallas kernel. The TPU kernel walks (step, subop) on a sequential grid with
 the source window in VMEM and one ``pallas_call`` per 2048-step segment
-(its SMEM budget for ``wsel``/``nact``); here one launch covers every step.
+(its SMEM budget for ``wsel``/``nact``); here one launch covers every step,
+K9 as one block per step that loads the step's scalars once and resolves
+four slots a thread.
 K10 stages each step's source windows in shared memory, so each is
 fetched once for the step's 8,192 slots, as the Pallas kernel fetches it
 once into VMEM.
@@ -44,6 +46,7 @@ import torch
 
 from graphtap_tpu_torch.kernels import _cuda
 from graphtap_tpu_torch.kernels.panel_kernels import (_DTYPES, _MUL_KINDS,
+                                                      _check_aligned,
                                                       _on_cuda, _stream)
 from graphtap_tpu_torch.kernels.shuffle_kernels import (_check,
                                                         _check_rows,
@@ -161,7 +164,9 @@ def windowed_gather(src, wsel, base, nact, cidx, meta, weights, fill,
     """K9: (S, 128) source table -> (nsteps*8, 128), each slot gathered
     through its window as the module docstring says, then ⊗ w
     (``mul_kind``: 'none' | 'mul' | 'add_sat', weights (nsteps, 8, 128) of
-    the source dtype, given iff mul_kind is not 'none'). Replaces
+    the source dtype, given iff mul_kind is not 'none'). ``meta`` is
+    (nsteps, 8, 128): any other step height raises. On the card one block
+    per 8-row step, four slots a thread (``csrc/gather.cu``). Replaces
     ``gather_kernels.py::windowed_gather``."""
     nsteps = _check_plan(src, wsel, base, nact, cidx, meta, nsub, SUB)
     dev = src.device
@@ -175,6 +180,7 @@ def windowed_gather(src, wsel, base, nact, cidx, meta, weights, fill,
     if not _on_cuda(src):
         return windowed_gather_plain(src, wsel, base, nact, cidx, meta,
                                      weights, fill, nsub, mul_kind)
+    _check_aligned(meta=meta, weights=weights)
     lib = _cuda.library()
     out = torch.empty((nsteps * SUB, LANES), dtype=src.dtype, device=dev)
     if nsteps == 0:
@@ -184,7 +190,7 @@ def windowed_gather(src, wsel, base, nact, cidx, meta, weights, fill,
             src.data_ptr(), wsel.data_ptr(), base.data_ptr(),
             nact.data_ptr(), cidx.data_ptr(), meta.data_ptr(),
             None if weights is None else weights.data_ptr(), out.data_ptr(),
-            nsteps, nsub, SUB, _DTYPES[src.dtype], _MUL_KINDS[mul_kind],
+            nsteps, nsub, _DTYPES[src.dtype], _MUL_KINDS[mul_kind],
             float(fill), _stream(src))
     LAUNCHES["windowed_gather"] += 1
     _cuda.check(rc, "windowed_gather")
@@ -203,9 +209,7 @@ def windowed_gather64(src, wsel, base, nact, cidx, meta, fill, nsub: int):
     if not _on_cuda(src):
         return windowed_gather64_plain(src, wsel, base, nact, cidx, meta,
                                        fill, nsub)
-    for name, t in (("src", src), ("cidx", cidx), ("meta", meta)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: not 16-byte aligned")
+    _check_aligned(src=src, cidx=cidx, meta=meta)
     lib = _cuda.library()
     out = torch.empty((nsteps * BLK64, LANES), dtype=src.dtype, device=dev)
     if nsteps == 0:

@@ -90,6 +90,39 @@ def plan_rows(src_rows: int, out_rows: int = PROWS,
     return src_rows + (3 if two_layer else 2) * out_rows
 
 
+# K2 on the card: shared memory a block may have (the H100's 227 KB), the
+# stages of its ring, and the mbarrier bytes beside them
+SMEM_BLOCK = 232_448
+PASSA_STAGES = 2
+_MBAR_BYTES = 8
+
+
+def passa_form(nwin: int, out_rows: int, two_layer: bool,
+               itemsize: int) -> str:
+    """The form of K2's kernel for these shapes: 'staged' when two stages
+    of (plan block + the panel's nwin source windows of ``itemsize``-byte
+    values) fit a block's shared memory, else 'unstaged' (two stages of
+    plan blocks; values read from device memory). Raises ValueError when
+    two plan blocks alone do not fit: past nwin 89 two-layer (64 rows)
+    and 105 single-layer (32 rows); a plan's bands are uint8 >> 3, so no
+    route reads more than 32 windows."""
+    plan_bytes = plan_rows(nwin * STRIPE, out_rows, two_layer) * LANES
+    win_bytes = nwin * STRIPE * LANES * itemsize
+
+    def fits(stage: int) -> bool:
+        return PASSA_STAGES * (stage + _MBAR_BYTES) <= SMEM_BLOCK
+
+    if nwin <= 32 and fits(plan_bytes + win_bytes):
+        return "staged"
+    if fits(plan_bytes):
+        return "unstaged"
+    raise ValueError(
+        f"route_passa: nwin {nwin} needs a {plan_bytes}-byte plan block; "
+        f"{PASSA_STAGES} of them exceed the {SMEM_BLOCK} bytes of shared "
+        f"memory a block may have (nwin <= 89 two-layer, <= 105 "
+        f"single-layer)")
+
+
 def xe_plan_rows(nwin: int) -> int:
     """Rows per panel of the fused x->x_ext + expand plan (K1)."""
     return plan_rows(nwin * STRIPE, XROWS, False) + plan_rows(XROWS)
@@ -277,6 +310,13 @@ def _check_values(name, t, device):
         raise ValueError(f"{name} on {t.device}, expected {device}")
 
 
+def _check_aligned(**tensors) -> None:
+    """The card's kernels copy or access these in 16-byte words."""
+    for name, t in tensors.items():
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: not 16-byte aligned")
+
+
 def _on_cuda(t: torch.Tensor) -> bool:
     """True for a CUDA tensor, False for a CPU one; anything else raises."""
     if t.device.type == "cuda":
@@ -351,13 +391,21 @@ def route_passa(stream0, bases, plan, fill, npanels: int, nwin: int,
     single-layer into 32 (``out_rows=XROWS, two_layer=False``: the
     x -> x_ext route, whose plan has no sel_b). Replaces
     ``panel_kernels.py::route_passa``, static and gated (``plan_idx``).
-    Static single-layer launches count under ``route_passa_single``."""
+    Static single-layer launches count under ``route_passa_single``.
+
+    On the card, persistent blocks stage each panel's plan block (and,
+    in the 'staged' form of ``passa_form``, its source windows) in shared
+    memory with TMA bulk copies, two panels in flight a block, and
+    resolve four slots a thread (``csrc/panel_route.cu``). An nwin whose
+    two plan blocks exceed a block's shared memory raises on any device
+    (``passa_form``)."""
     if out_rows not in (PROWS, XROWS):
         raise ValueError(f"route_passa: out_rows {out_rows}, expected "
                          f"{PROWS} or {XROWS}")
     prows = plan_rows(nwin * STRIPE, out_rows, two_layer)
     _check_sources("stream0", stream0, bases, plan, npanels, nwin)
     _check_2d("plan", plan, torch.uint8, npanels * prows)
+    form = passa_form(nwin, out_rows, two_layer, stream0.element_size())
     single = not two_layer and plan_idx is None
     pidx, fblk, key = _gate_args(
         "route_passa_single" if single else "route_passa", plan_idx,
@@ -365,6 +413,7 @@ def route_passa(stream0, bases, plan, fill, npanels: int, nwin: int,
     if not _on_cuda(stream0):
         return route_passa_plain(stream0, bases, plan, fill, npanels, nwin,
                                  plan_idx, out_rows, two_layer)
+    _check_aligned(stream0=stream0, plan=plan)
     lib = _cuda.library()
     out = torch.empty((npanels * out_rows, LANES), dtype=stream0.dtype,
                       device=stream0.device)
@@ -375,6 +424,7 @@ def route_passa(stream0, bases, plan, fill, npanels: int, nwin: int,
             stream0.data_ptr(), bases.data_ptr(), plan.data_ptr(),
             out.data_ptr(), npanels, nwin, out_rows, int(two_layer),
             _DTYPES[stream0.dtype], float(fill), pidx, fblk,
+            stream0.shape[0] // STRIPE, int(form == "staged"),
             _stream(stream0))
     LAUNCHES[key] += 1
     _cuda.check(rc, key)

@@ -17,7 +17,11 @@ for bit (K11's s0 equal to K1's), K12 bit for bit in int32 and within rtol
 1e-12 (f64) in float sums (its atomic adds run in no fixed order); the
 staged y equal to the fused y as K13 allows. Whole SpMVs on the card are
 held against the CPU within the same rtol. The probes P1-P3 match their
-plain versions bit for bit.
+plain versions bit for bit. K2 in both its forms (the source windows
+staged in shared memory beside the plan block, or read from device
+memory), static and gated, and K9 on steps with nact 0, nact beyond nsub
+and SID_INVALID slots under each ⊗, match bit for bit on seeded synthetic
+plans.
 """
 
 import numpy as np
@@ -138,14 +142,18 @@ def test_wrappers_reject_mixed_devices(cuda):
                        meta.pa_panels + 1, meta.pa_nwin)
 
 
-@pytest.mark.parametrize("frontier", ["sparse", "empty"])
+# share of K2's panels pointed at the fill block, by frontier
+_PA_OFF = {"sparse": 0.5, "dense": 0.7, "empty": 1.0}
+
+
+@pytest.mark.parametrize("frontier", ["sparse", "dense", "empty"])
 @pytest.mark.parametrize("weighted", [True, False])
 def test_gated_kernels_match_plain(cuda, weighted, frontier):
     """Gated K1-K3 at RMAT-12, int32 min: K1 on the real gating maps of a
-    2% frontier clustered mid-range (or an empty one); K2 and K3 with
-    about half the panels pointed at the fill block, so the kernels'
-    fill-block early exit is held against the plain version fed the
-    fill plan."""
+    2% frontier clustered mid-range, a 30% one (a contiguous range) or an
+    empty one; K2 with half, 70% or all of its panels pointed at the fill
+    block, K3 with about half, so the kernels' fill-block early exit is
+    held against the plain version fed the fill plan."""
     sem = tsr.min_plus() if weighted else tsr.min_select()
     inf = sem.identity
     r, c, w = rmat_edges(12, 16, seed=1, weighted=weighted)
@@ -157,20 +165,22 @@ def test_gated_kernels_match_plain(cuda, weighted, frontier):
     nc = g.part.tile_cols
     rng = np.random.default_rng(2)
     x = np.full(nc, inf, np.int32)
-    if frontier == "sparse":
-        x[nc // 2:nc // 2 + nc // 50] = rng.integers(0, 1000, nc // 50)
+    if frontier != "empty":
+        lo, k = (nc // 2, nc // 50) if frontier == "sparse" else (
+            nc // 4, 3 * nc // 10)
+        x[lo:lo + k] = rng.integers(0, 1000, k)
     x2d = tpe.pad_x(torch.from_numpy(x).to(cuda), meta, inf)
     xe_b, xe_q = tpe.gating_maps(tpe.window_activity(x2d, t, meta, inf),
                                  t, meta)[:2]
     fb = fill_blocks(meta)
 
-    def half_off(nq, fill):
+    def half_off(nq, fill, share=0.5):
         q = np.arange(nq, dtype=np.int32)
-        q[rng.random(nq) < 0.5] = fill
+        q[rng.random(nq) < share] = fill
         return torch.from_numpy(q).to(cuda)
 
     npa = meta.pa_panels + 1
-    pa_q = half_off(npa, fb["pa_plan"])
+    pa_q = half_off(npa, fb["pa_plan"], _PA_OFF[frontier])
     fx_q = half_off(meta.fix_panels, fb["fixr_plan"])
     mul = "add_sat" if weighted else "none"
     before = dict(pk.LAUNCHES)
@@ -395,6 +405,130 @@ def test_gather_kernels_match_plain(cuda, case):
                                                             "cpu"),
                        meta, sem, g.part.tile_rows)["y"]
     _close(st["y"].cpu(), cpu)
+
+
+# K2 on seeded synthetic routes (its plain version needs no routable
+# plan): (npanels, nwin, out_rows, two_layer, share of panels pointed at
+# the fill block or None for a static launch)
+_PASSA_CASES = {
+    "pa12": (300, 12, 64, True, None),          # the corner turn's nwin
+    "pa12_gated_all": (300, 12, 64, True, 1.0),   # a 0% frontier
+    "pa12_gated_70": (300, 12, 64, True, 0.7),    # a 30% frontier
+    "single24": (300, 24, 32, False, None),     # x -> x_ext, unstaged
+    "single11": (300, 11, 32, False, None),     # the largest staged f64
+    "staged_edge": (300, 17, 64, True, None),   # the largest staged f32
+    "wide40": (200, 40, 64, True, None),        # past 32 windows: unstaged
+    "one": (1, 12, 64, True, None),
+    "many": (1001, 12, 64, True, None),         # not a multiple of the grid
+}
+
+
+def _values(rng, dt, shape):
+    if dt == "i32":
+        return torch.from_numpy(rng.integers(-1000, 1000, shape).astype(
+            np.int32))
+    return torch.from_numpy(rng.standard_normal(shape)).to(
+        _STREAM_DTYPES[dt][0])
+
+
+def _passa_inputs(rng, dt, npanels, nwin, out_rows, two_layer):
+    """src (2*nwin + 3 windows), bases, and a plan of npanels random
+    blocks plus an all-fill block (sel 0xF8) at index npanels: idx1 lanes
+    in [0, 128), sel bands in [0, nwin] (band nwin, where below 32, is
+    the fill), idx3 any byte (bit 7 picks sel_b)."""
+    nblk = 2 * nwin + 3
+    src = _values(rng, dt, (nblk * 8, 128))
+    bases = torch.from_numpy(rng.integers(0, nblk, npanels * nwin).astype(
+        np.int32))
+    sr = nwin * 8
+    nsel = 2 if two_layer else 1
+    blocks = []
+    for _ in range(npanels):
+        band = rng.integers(0, min(nwin + 1, 32), (nsel * out_rows, 128))
+        sel = band * 8 + rng.integers(0, 8, band.shape)
+        blocks.append(np.concatenate([
+            rng.integers(0, 128, (sr, 128)), sel,
+            rng.integers(0, 256, (out_rows, 128))]))
+    blocks.append(np.concatenate([
+        np.zeros((sr, 128)), np.full((nsel * out_rows, 128), 0xF8),
+        np.zeros((out_rows, 128))]))
+    plan = torch.from_numpy(np.concatenate(blocks).astype(np.uint8))
+    return src, bases, plan
+
+
+@pytest.mark.parametrize("dt", sorted(_STREAM_DTYPES))
+@pytest.mark.parametrize("case", sorted(_PASSA_CASES))
+def test_route_passa_forms_match_plain(cuda, case, dt):
+    """K2 in each form (staged windows or values from device memory, as
+    ``passa_form`` picks from nwin and the value size), static and gated,
+    against its plain version bit for bit, one launch per call."""
+    npanels, nwin, out_rows, two_layer, off = _PASSA_CASES[case]
+    dtype, fill = _STREAM_DTYPES[dt]
+    rng = np.random.default_rng(11)
+    src, bases, plan = (a.to(cuda) for a in _passa_inputs(
+        rng, dt, npanels, nwin, out_rows, two_layer))
+    form = pk.passa_form(nwin, out_rows, two_layer, src.element_size())
+    assert form == ("unstaged" if case in ("single24", "wide40") or (
+        dt == "f64" and two_layer) else "staged"), form
+    kw = {"out_rows": out_rows, "two_layer": two_layer}
+    key = "route_passa" if two_layer else "route_passa_single"
+    if off is not None:
+        q = np.arange(npanels, dtype=np.int32)
+        q[rng.random(npanels) < off] = npanels
+        kw["plan_idx"] = torch.from_numpy(q).to(cuda)
+        key = "route_passa_gated"
+    args = (src, bases, plan, fill, npanels, nwin)
+    before = dict(pk.LAUNCHES)
+    got = pk.route_passa(*args, fill_block=npanels if off else None, **kw)
+    assert {k: pk.LAUNCHES[k] - before[k] for k in before if
+            pk.LAUNCHES[k] != before[k]} == {key: 1}
+    want = pk.route_passa_plain(*args, **kw)
+    assert torch.equal(got, want)
+    if off == 1.0:
+        assert bool((got == fill).all())
+
+
+def _k9_edge_plan(rng, nsub=6, nwin=20):
+    """Five 8-row steps over nwin source windows: nact 0, nact 3 < nsub,
+    nact = nsub, nact 9 > nsub, and nsub with a tenth of its slots
+    SID_INVALID; every step's sids run to nsub + 1, past its live ones."""
+    nact = np.array([0, 3, nsub, 9, nsub], np.int32)
+    nsteps = nact.size
+    wsel = rng.integers(0, nwin, nsteps * nsub).astype(np.int32)
+    base = (np.arange(nsteps) * nsub).astype(np.int32)
+    cidx = rng.integers(0, 128, (nsteps * nsub, 8, 128)).astype(np.int8)
+    sid = rng.integers(0, nsub + 2, (nsteps, 8, 128))
+    sid[-1][rng.random((8, 128)) < 0.1] = gk.SID_INVALID
+    meta = (sid * 8 + rng.integers(0, 8, sid.shape)).astype(np.uint8)
+    return nwin * 8, [torch.from_numpy(a) for a in (wsel, base, nact, cidx,
+                                                    meta)]
+
+
+@pytest.mark.parametrize("mul", ["none", "mul", "add_sat"])
+@pytest.mark.parametrize("dt", sorted(_STREAM_DTYPES))
+def test_windowed_gather_edges_match_plain(cuda, dt, mul):
+    """K9 against its plain version bit for bit on nact 0, nact below,
+    at and above nsub and SID_INVALID slots, under each ⊗ (add_sat from
+    the min-plus fill); a 0-step stage launches nothing."""
+    rng = np.random.default_rng(12)
+    dtype = _STREAM_DTYPES[dt][0]
+    fill = {"add_sat": float("inf"), "mul": 1.0, "none": 0.0}[mul]
+    if dt == "i32":
+        fill = tsr.INF_I32 if mul == "add_sat" else int(fill)
+    rows, plan = _k9_edge_plan(rng)
+    src = _values(rng, dt, (rows, 128)).to(cuda)
+    plan = [a.to(cuda) for a in plan]
+    w = None if mul == "none" else _values(rng, dt, (5, 8, 128)).to(cuda)
+    before = gk.LAUNCHES["windowed_gather"]
+    got = gk.windowed_gather(src, *plan, w, fill, 6, mul)
+    assert gk.LAUNCHES["windowed_gather"] == before + 1
+    assert torch.equal(got, gk.windowed_gather_plain(src, *plan, w, fill, 6,
+                                                     mul))
+    empty = [a[:0] for a in plan[:3]] + [plan[3], plan[4][:0]]
+    out = gk.windowed_gather(src, *empty, None if w is None else w[:0],
+                             fill, 6, mul)
+    assert out.shape == (0, 128)
+    assert gk.LAUNCHES["windowed_gather"] == before + 1
 
 
 def _k10_plans():

@@ -396,6 +396,10 @@ def test_wrappers_reject_bad_inputs(small):
                            None, 0.0, nsub)
     with pytest.raises(ValueError, match="meta"):
         gk.windowed_gather64(x2d, *ok, 0.0, nsub)          # 8-row meta
+    with pytest.raises(ValueError, match="meta"):          # 16-row steps
+        gk.windowed_gather(x2d, wsel, base, nact, cidx,
+                           m[:m.shape[0] // 2 * 2].reshape(-1, 16, 128),
+                           None, 0.0, nsub)
     # no launch was counted: the CPU runs the plain versions
     before = dict(gk.LAUNCHES)
     gk.windowed_gather(x2d, *ok, None, 0.0, nsub)

@@ -228,5 +228,45 @@ def test_wrappers_validate_inputs():
         pk.route_passa(s0, t["pa_bases"].long(), *args[1:])
     with pytest.raises(ValueError):                      # short plan
         pk.route_passa(s0, t["pa_bases"], t["pa_plan"][:64], *args[2:])
+    # two plan blocks of nwin 90 exceed a block's shared memory on the card
+    with pytest.raises(ValueError, match="232448 bytes of shared memory"):
+        pk.route_passa(s0, torch.zeros(90, dtype=torch.int32),
+                       torch.zeros((pk.plan_rows(720), 128),
+                                   dtype=torch.uint8), 0.0, 1, 90)
     with pytest.raises(ValueError):                      # ⊕ kind
         pk.hub_fold(torch.zeros((meta.nrb, 128)), t["hub_mask"], "min")
+
+
+@pytest.mark.parametrize("two_layer,itemsize", [(True, 4), (True, 8),
+                                                (False, 4), (False, 8)])
+def test_passa_form_follows_its_rule(two_layer, itemsize):
+    """K2's form on the card: 'staged' while two stages of plan block +
+    nwin source windows (+ an 8-byte mbarrier each) fit the 232,448 bytes
+    a block may have, 'unstaged' while two plan blocks do, else a raise;
+    and where the repo's routes land."""
+    out_rows = pk.PROWS if two_layer else pk.XROWS
+    forms = {}
+    for nwin in range(1, 120):
+        plan = pk.plan_rows(nwin * 8, out_rows, two_layer) * 128
+        win = nwin * 8 * 128 * itemsize
+        want = ("staged" if nwin <= 32 and 2 * (plan + win + 8) <= 232448
+                else "unstaged" if 2 * (plan + 8) <= 232448 else None)
+        if want is None:
+            with pytest.raises(ValueError, match="nwin"):
+                pk.passa_form(nwin, out_rows, two_layer, itemsize)
+        else:
+            assert pk.passa_form(nwin, out_rows, two_layer, itemsize) == want
+        forms[nwin] = want
+    last = {f: max(n for n, g in forms.items() if g == f)
+            for f in ("staged", "unstaged")}
+    assert last == {(True, 4): {"staged": 17, "unstaged": 89},
+                    (True, 8): {"staged": 9, "unstaged": 89},
+                    (False, 4): {"staged": 21, "unstaged": 105},
+                    (False, 8): {"staged": 11, "unstaged": 105}}[
+        (two_layer, itemsize)]
+    # the corner turn (nwin 12) stages its windows in f32 and int32; the
+    # x -> x_ext route at nwin 24 reads them from device memory
+    assert forms[12] == ("staged" if two_layer and itemsize == 4 else
+                         "unstaged" if two_layer else
+                         "staged" if itemsize == 4 else "unstaged")
+    assert forms[24] == "unstaged"

@@ -67,7 +67,15 @@ Phases, each printed as it runs; any failure exits non-zero:
               version bit for bit there). Each K2 call of the smoke logs
               its npanels, nwin and kernel form (passa_form: the source
               windows staged in shared memory or read from device memory),
-              each K9 stage its steps and nsub. Every row's kernel and library
+              each K9 stage its steps and nsub, and each meta whose K1 and
+              K3 the smoke runs (parity, gated, main, CF phases, BFS, CC,
+              SSSP) its K1, fixr and fix2 npanels, nwin, plan-ring depth,
+              shared memory and blocks an SM. K3's pass (b) share is
+              estimated from its bytes at the measured copy rate (no
+              switch runs it alone), and the five launches of the panel
+              superstep are summed by device time beside the eager SpMV
+              and superstep (CUDA events): what is left is the host's.
+              Every row's kernel and library
               call are timed twice: CUDA events around ten eager calls
               (the enqueue rate of the host bounds a short call), and
               device-only: the ten calls captured into one CUDA graph and
@@ -485,6 +493,7 @@ def phase_parity(torch, np) -> None:
         st = spmv3_stages(x, t, meta, sem, g.part.tile_rows)
         name_dt = np.dtype(dtype).name
         tag = f"parity {name_dt} {sem.reduce_kind}"
+        _log_ring(tag, meta, x.dtype)
         for name, kern, plain, _ in _kernel_calls(t, meta, sem, st):
             _check_call(tag, name, kern(), plain(), kern)
         if dtype == np.float32:
@@ -651,6 +660,8 @@ def phase_gated_parity(torch, np) -> None:
         meta = build_spmv3_meta(g.tiled(), value_dtype=np.int32)
         t = meta_from_numpy(meta.arrays, DEVICE)
         nc, inf = g.part.tile_cols, sem.identity
+        _log_ring(f"gated parity {'weighted' if weighted else 'unweighted'}",
+                  meta, torch.int32)
         for share in (0.02, 0.30, 0.0):
             xv = np.full(nc, inf, np.int32)
             k = int(nc * share)
@@ -907,11 +918,12 @@ def _k10_call(torch, np, t, meta, sem, st, tag):
 
 def _k5_call(torch, t, plan, nr, sem, contrib):
     """(name, kernel call, plain call, (bytes, ops), library call, f64
-    plain call) of K5 on ``contrib``: bytes read every contribution and
-    its int32 row (the kernel cannot know the padding), chunk_block, and
-    write y; ops one ⊕ per contribution; the library call
-    torch.scatter_reduce over the precomputed destination slot; the last
-    the plain version on the contributions in f64."""
+    plain call, f64 library call) of K5 on ``contrib``: bytes read every
+    contribution and its int32 row (the kernel cannot know the padding),
+    chunk_block, and write y; ops one ⊕ per contribution; the library
+    call torch.scatter_reduce over the precomputed destination slot; the
+    last two the plain version and the library call on the contributions
+    in f64."""
     from graphtap_tpu_torch.kernels import onehot_spmv as oh
     args = (contrib, t["oh_lrows"], t["oh_chunk_block"], plan.nblocks, nr,
             sem.reduce_kind, sem.identity)
@@ -929,7 +941,9 @@ def _k5_call(torch, t, plan, nr, sem, contrib):
     return ("segment_reduce", lambda: oh.segment_reduce(*args, **folds),
             lambda: oh.segment_reduce_plain(*args), work,
             lambda: torch.scatter_reduce(y0, 0, dst, contrib, op)[:nr],
-            lambda: oh.segment_reduce_plain(*f64))
+            lambda: oh.segment_reduce_plain(*f64),
+            lambda: torch.scatter_reduce(y0.double(), 0, dst, f64[0],
+                                         op)[:nr])
 
 
 def _check_call(tag, name, a, b, kern=None) -> None:
@@ -1249,6 +1263,34 @@ def _log_passa(tag, npanels, nwin, src, out_rows=64, two_layer=True):
         f"{pk.passa_form(nwin, out_rows, two_layer, src.element_size())}")
 
 
+def _log_ring(tag, meta, dtype) -> None:
+    """The plan rings of K1 and K3 (fixr, fix2) on ``meta`` for values of
+    torch ``dtype``: npanels, nwin, ring depth, shared memory and the
+    blocks an SM holds at once (the card's occupancy query); and the
+    distinct source windows of a panel, the bytes its gathers touch."""
+    import numpy as np
+    import torch
+    from graphtap_tpu_torch.kernels import panel_kernels as pk
+    es = torch.tensor([], dtype=dtype).element_size()
+    for name, npan, nwin, bases in (
+            ("route_xr_exp", meta.exp_panels + 1, meta.xr_nwin, "xr_bases"),
+            ("route_fold fixr", meta.fix_panels, meta.fixr_nwin,
+             "fixr_bases"),
+            ("route_fold fix2", meta.f2_panels, meta.f2_nwin, "f2_bases")):
+        kern = name.split()[0]
+        depth, smem = ((pk.XE_STAGES, pk.xr_exp_smem(nwin, es))
+                       if kern == "route_xr_exp" else
+                       (pk.fold_stages(nwin), pk.fold_smem(nwin)))
+        b = np.sort(meta.arrays[bases][0][:npan * nwin].reshape(npan, nwin),
+                    axis=1)
+        distinct = float((np.diff(b, axis=1) != 0).sum(axis=1).mean() + 1)
+        log(f"{tag} {name}: npanels {npan}, nwin {nwin}, {dtype}: ring "
+            f"depth {depth}, {smem} bytes of shared memory, "
+            f"{pk.ring_blocks_per_sm(kern, dtype, nwin)} blocks an SM; "
+            f"{distinct:.2f} distinct windows a panel "
+            f"({distinct * pk.STRIPE * pk.LANES * es / 1024:.1f} KB)")
+
+
 def _converge32(tag, ex, deg, conv) -> None:
     """f32 PageRank to convergence (execute(0)) on ``ex``, re-initialized
     from the degree executor ``deg``: the absolute vote must settle under
@@ -1290,14 +1332,18 @@ def _profile(tag, ex, deg) -> None:
         f"{sum(plain) / ITERS:.4f} ms (min {min(plain):.4f})")
 
 
-def phase_kernels(torch, ex, launches):
-    """The panel kernels at the shapes of a PageRank superstep."""
-    from graphtap_tpu_torch.kernels.panel_engine import spmv3_stages
+def phase_kernels(torch, ex, launches, best_copy):
+    """The panel kernels at the shapes of a PageRank superstep; then K3's
+    pass (b) share and the superstep's kernel device time beside its
+    eager times."""
+    from graphtap_tpu_torch.kernels.panel_engine import (spmv3_local,
+                                                         spmv3_stages)
     from graphtap_tpu_torch.tools.convert import meta_from_numpy
     meta, sem = ex.meta, ex.program.semiring
     t = meta_from_numpy(meta.arrays, DEVICE)
     x = ex.program.messenger(ex.state).to(torch.float32)
     st = spmv3_stages(x, t, meta, sem, ex.part.tile_rows)
+    _log_ring(f"kernels RMAT-{SCALE}", meta, x.dtype)
     rows = {}
     for (name, kern, plain, work), lib in zip(
             _kernel_calls(t, meta, sem, st),
@@ -1312,7 +1358,42 @@ def phase_kernels(torch, ex, launches):
                                  f"another function")
         _time_row(torch, rows, name, kern, plain, err, launches[name],
                   _bound(*work, x.dtype), lib)
+    _fold_pass_b(t, meta, rows["route_fold"], best_copy)
+    kern_dev = [r["device_ms"] for r in rows.values()]
+    spmv = _ms(lambda: spmv3_local(x, t, meta, sem, ex.part.tile_rows),
+               torch, 10)
+    ex.execute(ITERS)
+    step = sum(s["ms"] for s in ex.supersteps) / ITERS
+    if None not in kern_dev:
+        dev = sum(kern_dev)
+        log(f"panel superstep RMAT-{SCALE}: its five kernel launches (K1, "
+            f"K2, K3 x2, K4) take {dev:.4f} ms of device time (CUDA-graph "
+            f"replay); the eager SpMV {spmv:.4f} ms and the eager superstep "
+            f"{step:.4f} ms (CUDA events, mean of {ITERS}): "
+            f"{step - dev:.4f} ms ({(step - dev) / step:.1%}) of the "
+            f"superstep is not kernel device time")
     return list(rows.values())
+
+
+def _fold_pass_b(t, meta, row, best_copy) -> None:
+    """K3's pass (b) (the fixed-order row folds, common.cuh) estimated
+    from its bytes at the measured copy rate (no switch launches it
+    alone): it reads the band partials and the run partials once, writes
+    the runs and y once, and reads its three lists; beside K3's device
+    time (fixr + fix2)."""
+    es = 4                                       # f32 PageRank
+    nbytes = 0
+    for pre, npan, nrows in (("fixr", meta.fix_panels, meta.nrb),
+                             ("fix2", meta.f2_panels, meta.f2_rows)):
+        ngroups = t[pre + "_fgptr"].numel() - 1
+        nbytes += (npan * 8 * 128 * es + 2 * ngroups * 128 * es
+                   + nrows * 128 * es + 4 * (npan * 8 + ngroups + nrows + 2))
+    ms = nbytes / (best_copy * 1e9) * 1e3
+    dev = row["device_ms"]
+    share = "not measured" if dev is None else f"{ms / dev:.1%}"
+    log(f"kernels route_fold: pass (b) moves {nbytes} bytes (fixr + fix2): "
+        f"{ms:.4f} ms at the measured copy rate ({best_copy:.1f} GB/s), an "
+        f"estimate, {share} of K3's device time {_fmt(dev)}")
 
 
 def _scaled_ok(a, b, kind, rtol) -> bool:
@@ -1685,16 +1766,21 @@ def _kernel_row(torch, rows, call, launches, dtype) -> None:
     err = float((a.double() - b.double()).abs().max())
     _check_call("kernels", name, a, b, kern)
     if name == "segment_reduce":
-        # float sums over hub rows of ~1e5 terms: the library call's atomic
-        # sum is held at max |diff| <= rtol * max |y|, and the kernel
-        # beside an f64 fold of the same contributions
+        # float sums over hub rows of ~1e5 terms: the library call's f32
+        # atomic sum rounds in another order on every call (0.014-0.027
+        # from the plain fold at max |y| 1804 on RMAT-20), so the same call
+        # in f64 is held against the f64 fold at max |diff| <= rtol *
+        # max |y|; the kernel is set beside the f64 fold too
         scale = float(b.double().abs().max())
+        want = call[5]()
+        lib32 = float((lib().double() - b.double()).abs().max())
+        lib64 = float((call[6]() - want).abs().max())
         log(f"kernels segment_reduce: against an f64 fold of the same "
             f"contributions max |diff| "
-            f"{float((a.double() - call[5]()).abs().max())!r} (max |y| "
-            f"{scale!r})")
-        ok_lib = lib is None or float((lib().double() - b.double()).abs(
-        ).max()) <= FOLD_RTOL["float32"] * scale
+            f"{float((a.double() - want).abs().max())!r} (max |y| "
+            f"{scale!r}); the library call {lib32!r} from the plain fold "
+            f"in f32, {lib64!r} from the f64 fold in f64")
+        ok_lib = lib64 <= FOLD_RTOL["float64"] * scale
     else:
         ok_lib = lib is None or _same(lib(), a)
     if not ok_lib:
@@ -1826,6 +1912,7 @@ def phase_bfs(torch, np):
     x = ex._messages(ex.state, ex.changed)
     st = spmv3_stages(x, ex._dev, ex.meta, ex.program.semiring,
                       ex.part.tile_rows, gate=True)
+    _log_ring(f"kernels bfs RMAT-{SUITE_SCALE}", ex.meta, x.dtype)
     rows = {}
     sem = ex.program.semiring
     for (name, kern, plain, work), lib in zip(
@@ -1946,6 +2033,7 @@ def phase_cc_sssp(torch, np) -> None:
             f"{tm['upload']:.2f} s; {ex.iteration} iterations in "
             f"{tm['execute']:.4f} s (first), wall {wall:.1f} s")
         log(f"{app}: launches {launches}")
+        _log_ring(app, ex.meta, torch.int32)
         _log_supersteps(app, ex)
         t0 = time.perf_counter()
         r64, c64 = r.astype(np.int64), c.astype(np.int64)
@@ -2109,6 +2197,8 @@ def phase_cf(torch, np, g, ref, main_meta, conv32) -> None:
     del ex, ecf, etc, conv
     plans = {ph: _prebuilt("spmv3", "ROW", gcf.config, ph)
              for ph in CF_PHASES}
+    for ph in CF_PHASES:
+        _log_ring(f"cf panel {ph}", plans[ph], torch.float32)
     run("panel", plans=main_meta, phase_plans=plans).free()
 
 
@@ -2279,7 +2369,7 @@ def _phases(torch, np) -> int:
     phase_shuffle_parity(torch, np)
     phase_gather_parity(torch, np)
     g, ex, launches, ref = phase_main(torch, np)
-    kernels += phase_kernels(torch, ex, launches)
+    kernels += phase_kernels(torch, ex, launches, best_copy)
     kernels += phase_staged(torch, ex)
     conv32 = {}
     _converge32("panel", ex, ex.degree_phase, conv32)

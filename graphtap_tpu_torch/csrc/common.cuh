@@ -4,8 +4,8 @@
 // The value types, ⊗ and ⊕ kinds as the wrappers number them
 // (kernels/panel_kernels.py: _DTYPES, _MUL_KINDS, _REDUCE_KINDS), the
 // saturating min-plus ⊗, the ⊕ combine and its atomic form, a grid-stride
-// fill, a 16-byte store of four values, and the two fixed-order passes of
-// the K3, K5 and K8 folds.
+// fill, 16-byte stores and loads of four values, and the two fixed-order
+// passes of the K3, K5 and K8 folds.
 
 #pragma once
 
@@ -109,6 +109,41 @@ __device__ __forceinline__ void store4<double>(double* __restrict__ out,
   double2* o = reinterpret_cast<double2*>(out) + 2 * g;
   __stcs(o, make_double2(a, b));
   __stcs(o + 1, make_double2(c, d));
+}
+
+// out[4g .. 4g+3] = a, b, c, d as one 16-byte store (two for f64), with
+// no cache hint: K1's x_ext panel in shared memory. out must be 16-byte
+// aligned.
+template <typename T>
+__device__ __forceinline__ void put4(T* __restrict__ out, unsigned g, T a,
+                                     T b, T c, T d) {
+  if constexpr (std::is_same<T, double>::value) {
+    double2* o = reinterpret_cast<double2*>(out) + 2 * g;
+    o[0] = make_double2(a, b);
+    o[1] = make_double2(c, d);
+  } else if constexpr (std::is_same<T, float>::value) {
+    reinterpret_cast<float4*>(out)[g] = make_float4(a, b, c, d);
+  } else {
+    reinterpret_cast<int4*>(out)[g] = make_int4(a, b, c, d);
+  }
+}
+
+// v = in[4g .. 4g+3] as one 16-byte streaming load (two for f64): a
+// stream read once per launch (K1's weights). in must be 16-byte aligned.
+template <typename T>
+__device__ __forceinline__ void load4(const T* __restrict__ in, unsigned g,
+                                      T (&v)[4]) {
+  if constexpr (std::is_same<T, double>::value) {
+    const double2* i = reinterpret_cast<const double2*>(in) + 2 * g;
+    const double2 a = __ldcs(i), b = __ldcs(i + 1);
+    v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
+  } else if constexpr (std::is_same<T, float>::value) {
+    const float4 a = __ldcs(reinterpret_cast<const float4*>(in) + g);
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  } else {
+    const int4 a = __ldcs(reinterpret_cast<const int4*>(in) + g);
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  }
 }
 
 // Grid size of a grid-stride loop over n elements.

@@ -21,9 +21,9 @@
 // fold (pass B).
 //
 // K1-K3 each have a gated launch, the frontier-gated variant of the Pallas
-// kernels' plan_idx branch (:226-242, :356-372, :453-461): block p reads
+// kernels' plan_idx branch (:226-242, :356-372, :453-461): panel p reads
 // plan block plan_idx[p] (and K1 its weight block there) instead of block
-// p; window bases, and K3's row -> bands list, stay panel p's. A block whose
+// p; window bases, and K3's row -> bands list, stay panel p's. A panel whose
 // plan_idx is the route's fill block (fill_block, an all-0xF8 plan that
 // routes pure ⊕-identity; validate_meta checks it on the host) skips its
 // gathers: K1 writes fill ⊗ w, K2 writes fill, K3 writes fill band
@@ -46,38 +46,42 @@
 //
 // What bounds them on the card: memory traffic and latency, not arithmetic.
 // Per output each route reads 3 plan bytes plus one value; the value and
-// idx1/sel reads are data-dependent gathers inside 128-lane rows (one or
-// two cache lines each), so the kernels are bound by L1/L2 gather latency
-// and by the plan stream (~0.4-0.5 KB of plan per 4 KB f32 panel). K1, K3
-// and K11 keep it simple: one thread block per panel, 256 threads striding
-// over its slots, so neighbouring threads read neighbouring plan bytes and
-// write neighbouring outputs (coalesced). K2 moves each panel's plan
-// block, and where two stages fit its source windows, into shared memory
-// with TMA bulk copies, double-buffered in persistent blocks, and resolves
-// four slots a thread out of it (see K2 below): per panel one bulk read
-// and one bulk write, so it is held to bytes, not to a chain of four
-// dependent device loads a slot. One device function routes a
-// panel (route_panel) for K1's two stages and K11, and one expands an
-// x_ext panel held in shared memory (expand_panel) for K1 and K11: K1
-// builds its 32x128 x_ext panel there, so x_ext never goes to device
-// memory; K11 loads it there from the x_ext table. K3 folds each routed
-// 8-row band in registers, in row order, into a (npanels*8, 128) scratch
-// of band partials; then one thread per (y row, lane) folds its row's
-// bands in ascending band (panel) order, the Pallas grid's order, in runs
-// of 64 and then the runs' results, from the identity, and writes y once
-// (common.cuh, pass (b); the row -> bands lists are built once per upload
-// from dst and seg, kernels/fold_order.py). So
-// its float sums come out the same on every call, and equal the plain
+// idx1/sel reads are data-dependent gathers inside 128-lane rows. Read
+// from device memory, that is a chain of four dependent loads a slot, and
+// most of K1's and K3's bytes are plan bytes (~0.5 KB of plan per 4 KB f32
+// panel). So K1, K2 and K3 share one plan ring (plan_ring below):
+// persistent blocks, each walking panels blockIdx.x, + gridDim.x, ...,
+// copy each panel's contiguous plan block (and, in K2's staged form, its
+// source windows) into a shared-memory stage with TMA bulk copies on an
+// mbarrier, one panel's copies landing while the block resolves another;
+// the sel -> idx1 chains resolve out of shared memory (K1 and K2: four
+// slots a thread from one 4-byte idx3 word; K3: one (band, lane) a
+// thread), the value last: from shared memory (K1's expand stage, K2
+// staged) or by a read-only load of device memory. Per panel the plan
+// arrives in one bulk read, so the kernels are held to bytes, not to the
+// chain. K1 builds its 32x128 x_ext panel in shared memory (x_ext never
+// goes to device memory) and expands it; K3 folds each routed 8-row band
+// in registers, in row order, into a
+// (npanels*8, 128) scratch of band partials; then one thread per (y row,
+// lane) folds its row's bands in ascending band (panel) order, the Pallas
+// grid's order, in runs of 64 and then the runs' results, from the
+// identity, and writes y once (common.cuh, pass (b); the row -> bands
+// lists are built once per upload from dst and seg, kernels/fold_order.py).
+// So its float sums come out the same on every call, and equal the plain
 // version's bit for bit: an atomic fold, whose order changed from call to
-// call, kept f32 PageRank's convergence vote from closing. K13 still adds
-// each staged chunk to y with one atomic per (chunk, lane) after a fill
-// pass (f32/f64 atomicAdd, int32 atomicMin/Max), so its float sums round
-// in no fixed order; no app path runs it. K12 needs no atomics:
-// one thread per output folds its 8 rows in order. K12 and K13 move each
-// byte once and are bound by device memory. K4 runs one 128-thread block
-// per row: warp shuffles for the xor shifts 1..16 and shared memory for 32
-// and 64, in the Pallas kernel's order, so it is bit-exact. All element
-// offsets are 64-bit.
+// call, kept f32 PageRank's convergence vote from closing.
+//
+// K11 keeps the simple form (route_slot / route_panel / expand_panel): one
+// block per panel, 256 threads striding over its slots, each slot the
+// chain of dependent loads; no app path runs it. K13 still adds each
+// staged chunk to y with one atomic per (chunk, lane) after a fill pass
+// (f32/f64 atomicAdd, int32 atomicMin/Max), so its float sums round in no
+// fixed order; no app path runs it. K12 needs no atomics: one thread per
+// output folds its 8 rows in order. K12 and K13 move each byte once and
+// are bound by device memory. K4 runs one 128-thread block per row: warp
+// shuffles for the xor shifts 1..16 and shared memory for 32 and 64, in
+// the Pallas kernel's order, so it is bit-exact. All element offsets are
+// 64-bit.
 //
 // The launchers are extern "C" (bound with ctypes), launch on the caller's
 // stream, allocate nothing, and return cudaGetLastError().
@@ -157,7 +161,8 @@ __device__ __forceinline__ void route_panel(const Route& rt, int out_rows,
   }
 }
 
-// The expand route of one panel (K1's second stage, and K11): the 32-row
+// The expand route of one panel (K11; K1's second stage in the simple
+// form, one block a panel, the plan read from device memory): the 32-row
 // x_ext panel xe (4 source bands, in shared memory) routed two-layer into
 // the 64-row panel po, then ⊗ with the panel's weights pw.
 template <typename T, int MUL>
@@ -180,92 +185,15 @@ __device__ __forceinline__ long long plan_block(const int* __restrict__ pidx,
   return pidx == nullptr ? p : static_cast<long long>(pidx[p]);
 }
 
-// ---------------------------------------------------------------- K1
-// x table -> (64,128) contribution panel per block: the single-layer
-// x -> x_ext route of the panel's nwin x windows into shared memory, the
-// two-layer expand route out of it, then ⊗ with the weight stream.
-// Plan rows per panel: [xr_idx1 (nwin*8), xr_sel_a (32), xr_idx3 (32),
-// ex_idx1 (32), ex_sel_a (64), ex_sel_b (64), ex_idx3 (64)].
-template <typename T, int MUL>
-__global__ void __launch_bounds__(THREADS)
-route_xr_exp_kernel(const T* __restrict__ x2d, const int* __restrict__ bases,
-                    const uint8_t* __restrict__ plan,
-                    const T* __restrict__ w, T* __restrict__ out, int nwin,
-                    T fill, const int* __restrict__ plan_idx,
-                    int fill_block) {
-  __shared__ T xe[XROWS * LANES];
-  const long long p = blockIdx.x;
-  const long long q = plan_block(plan_idx, p);
-  T* po = out + p * PROWS * LANES;
-  const T* pw = (MUL == MUL_NONE) ? nullptr : w + q * PROWS * LANES;
-  if (plan_idx != nullptr && q == fill_block) {
-    for (int e = threadIdx.x; e < PROWS * LANES; e += blockDim.x) {
-      po[e] = apply_mul<T, MUL>(fill, pw, e, fill);
-    }
-    return;
-  }
-  const int sr = nwin * STRIPE;
-  const long long xr_rows = route_rows(sr, XROWS, false);
-  const uint8_t* blk = plan + q * (xr_rows + EX_PROWS) * LANES;
-  const int* pb = bases + p * nwin;
-  auto x_row = [&](int band, int row) -> const T* {
-    return x2d + (static_cast<long long>(pb[band]) * STRIPE + row) * LANES;
-  };
-  route_panel<T>(route_at(blk, sr, XROWS, false), XROWS, nwin, fill, x_row,
-                 [&](int e, T v) { xe[e] = v; });
-  __syncthreads();
-  expand_panel<T, MUL>(blk + xr_rows * LANES, xe, pw, po, fill);
-}
-
-// ---------------------------------------------------------------- K11
-// x_ext table (npanels*32, 128) -> (64,128) contribution panel per block:
-// the panel's own x_ext block loaded into shared memory, then K1's expand
-// stage. Plan rows per panel: [idx1 (32), sel_a (64), sel_b (64),
-// idx3 (64)].
-template <typename T, int MUL>
-__global__ void __launch_bounds__(THREADS)
-route_expand_kernel(const T* __restrict__ x_ext,
-                    const uint8_t* __restrict__ plan,
-                    const T* __restrict__ w, T* __restrict__ out, T fill) {
-  __shared__ T xe[XROWS * LANES];
-  const long long p = blockIdx.x;
-  const T* src = x_ext + p * XROWS * LANES;
-  for (int e = threadIdx.x; e < XROWS * LANES; e += blockDim.x) {
-    xe[e] = src[e];
-  }
-  __syncthreads();
-  const T* pw = (MUL == MUL_NONE) ? nullptr : w + p * PROWS * LANES;
-  expand_panel<T, MUL>(plan + p * EX_PROWS * LANES, xe, pw,
-                       out + p * PROWS * LANES, fill);
-}
-
-// ---------------------------------------------------------------- K2
-// Corner turn: the panel's nwin 8-row windows of src (block indices
-// bases[p*nwin + band]) routed into an out_rows-row panel: two-layer
-// (64 rows; plan [idx1 (nwin*8), sel_a, sel_b, idx3]) or single-layer
-// (the x -> x_ext route, 32 rows; plan [idx1, sel_a, idx3]).
-//
-// Persistent blocks (a grid of at most the blocks the SMs hold at once),
-// each walking panels blockIdx.x, + gridDim.x, ... through a ring of two
-// shared-memory stages. A stage holds one panel's whole plan block (one
-// TMA bulk copy, contiguous and 128-byte aligned) and, in the STAGED form,
-// the panel's nwin source windows beside it (one bulk copy each, 4 KB in
-// f32/int32, 8 KB in f64); both complete on the stage's mbarrier. Warp 0
-// issues panel p + 2*gridDim.x into a stage as soon as the block has
-// resolved panel p out of it, so one panel's copies land while the other
-// resolves. Each thread resolves 4 slots at a time: one 4-byte idx3 word,
-// then four independent sel -> idx1 -> value chains, all out of shared
-// memory (STAGED) or the last one a read-only load of device memory
-// (unstaged: the windows do not fit two stages), and one 16-byte
-// streaming store. A window whose base lies outside the source table is
-// not copied (a validated plan has none), a band >= nwin is the fill and
-// reads nothing, and a lane is taken mod 128. Gated: plan block
-// plan_idx[p], bases still panel p's; a panel pointed at fill_block copies
-// nothing and writes the fill.
+// ------------------------------------------------------- the plan ring
+// K1-K3's persistent walk over panels through shared-memory stages. A
+// stage holds one panel's whole plan block (one TMA bulk copy, contiguous
+// and 128-byte aligned) and whatever else the kernel copies beside it;
+// every copy of a stage completes on the stage's mbarrier.
 constexpr int VEC = 4;                       // slots a thread resolves at once
 constexpr int WIN_EL = STRIPE * LANES;       // values of one source window
-constexpr int PASSA_STAGES = 2;
 constexpr int SMEM_BLOCK = 232448;           // shared memory a block may have
+constexpr int MBAR_BYTES = 8;                // one mbarrier a stage
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -307,6 +235,244 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
+// Called by warp 0: lane 0 arrives on bar expecting plan block q's
+// plan_bytes plus `extra` bytes that other lanes copy on the same phase,
+// and copies block q into dst. A gated panel at the fill block copies
+// nothing and arrives expecting 0 bytes, so its stage's phase completes.
+// A launch reads each plan block once, so the copy carries an L2
+// evict-first hint: the plan stream (255 MB for K3's fixr at RMAT-20)
+// does not push the gathers' sources out of L2 (K3's fix2 source, 16.8
+// MB, stays there).
+__device__ __forceinline__ void plan_copy(uint64_t* bar, void* dst,
+                                          const uint8_t* __restrict__ plan,
+                                          long long q, int plan_bytes,
+                                          bool fill_panel, unsigned extra) {
+  if ((threadIdx.x & 31) == 0) {
+    mbar_arrive_tx(bar, fill_panel ? 0u : plan_bytes + extra);
+    if (!fill_panel) {
+      asm volatile(
+          "{\n.reg .b64 pol;\n"
+          "createpolicy.fractional.L2::evict_first.b64 pol, 1.0;\n"
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+          ".L2::cache_hint [%0], [%1], %2, [%3], pol;\n}\n" ::"r"(
+              smem_addr(dst)),
+          "l"(plan + q * plan_bytes), "r"(plan_bytes), "r"(smem_addr(bar))
+          : "memory");
+    }
+  }
+}
+
+// The walk: warp 0 fills stage s with panel p by load(p, s) (TMA copies
+// completing on bar[s]); body(p, s) runs once they have landed; the stage
+// is refilled with panel p + stages*gridDim.x as soon as every thread is
+// done with it, so with two stages one panel's copies land while the
+// other resolves. bar: `stages` mbarriers in shared memory.
+template <typename Load, typename Body>
+__device__ __forceinline__ void plan_ring(long long npanels, int stages,
+                                          uint64_t* bar, Load&& load,
+                                          Body&& body) {
+  const int t = threadIdx.x;
+  const long long G = gridDim.x;
+  if (t == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(&bar[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  long long p = blockIdx.x;
+  if (t < 32) {
+    for (int s = 0; s < stages && p + s * G < npanels; ++s) {
+      load(p + s * G, s);
+    }
+  }
+  for (int k = 0; p < npanels; ++k, p += G) {
+    const int s = k % stages;
+    mbar_wait(&bar[s], (k / stages) & 1);
+    body(p, s);
+    __syncthreads();                 // stage s is free for the next panel
+    if (t < 32 && p + stages * G < npanels) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      load(p + stages * G, s);
+    }
+  }
+}
+
+// One route slot resolved out of a plan block in shared memory: its sel
+// byte (sel_b where the pick bit of i3 is set, in a two-layer route) and
+// idx1 lane; returns false for a band >= nsrc (the fill).
+__device__ __forceinline__ bool slot_at(const uint8_t* idx1,
+                                        const uint8_t* sel_a,
+                                        const uint8_t* sel_b, int r, int i3,
+                                        int nsrc, int* band, int* row,
+                                        int* lane) {
+  const int m = i3 & 127;
+  const int sv = (i3 >= 128 ? sel_b : sel_a)[r * LANES + m];
+  *band = sv >> 3;
+  *row = sv & 7;
+  if (*band >= nsrc) return false;
+  *lane = idx1[(*band * STRIPE + *row) * LANES + m] & (LANES - 1);
+  return true;
+}
+
+// ---------------------------------------------------------------- K1
+// x table -> (64,128) contribution panel per panel: the single-layer
+// x -> x_ext route of the panel's nwin x windows into shared memory, the
+// two-layer expand route out of it, then ⊗ with the weight stream. Plan
+// block per panel: [xr_idx1 (nwin*8), xr_sel_a (32), xr_idx3 (32),
+// ex_idx1 (32), ex_sel_a (64), ex_sel_b (64), ex_idx3 (64)] rows of 128.
+//
+// Plan ring of XE_STAGES stages, each one plan block (61,440 bytes at
+// nwin 24), and beside them the x_ext panel xe (16 KB f32, 32 KB f64): one
+// block an SM, of 512 threads (16 warps hide the x gathers' L2 latency
+// better than 8 did at RMAT-20). Stage 1 resolves four slots a thread out
+// of the staged plan, the x value by a read-only load (24 windows, 96 KB
+// in f32, do not fit beside two stages; the x table sits in L2), into xe;
+// stage 2 resolves four slots a thread wholly out of shared memory, reads
+// a 16-byte weight word under mul/add_sat, and writes one 16-byte
+// streaming store. Gated: plan (and weight) block plan_idx[p], bases still
+// panel p's; a panel at fill_block copies nothing and writes fill ⊗ w.
+constexpr int XE_STAGES = 2;
+constexpr int XE_THREADS = 512;
+
+__host__ __device__ __forceinline__ long long xe_plan_bytes(int nwin) {
+  return (route_rows(nwin * STRIPE, XROWS, false) + EX_PROWS) * LANES;
+}
+inline long long xe_smem(int nwin, long long value_bytes) {
+  return XE_STAGES * (xe_plan_bytes(nwin) + MBAR_BYTES) +
+         static_cast<long long>(XROWS) * LANES * value_bytes;
+}
+
+template <typename T, int MUL>
+__device__ __forceinline__ void mul4(T (&v)[VEC], const T* __restrict__ pw,
+                                     unsigned g, T fill) {
+  if constexpr (MUL != MUL_NONE) {
+    T wv[VEC];
+    load4<T>(pw, g, wv);
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) v[k] = apply_mul<T, MUL>(v[k], wv, k, fill);
+  }
+}
+
+template <typename T, int MUL>
+__global__ void __launch_bounds__(XE_THREADS, 1)
+route_xr_exp_kernel(const T* __restrict__ x2d, const int* __restrict__ bases,
+                    const uint8_t* __restrict__ plan,
+                    const T* __restrict__ w, T* __restrict__ out,
+                    long long npanels, int nwin, T fill,
+                    const int* __restrict__ plan_idx, int fill_block) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int sr = nwin * STRIPE;
+  const int xr_bytes = static_cast<int>(route_rows(sr, XROWS, false)) * LANES;
+  const int plan_bytes = static_cast<int>(xe_plan_bytes(nwin));
+  T* xe = reinterpret_cast<T*>(smem + XE_STAGES * plan_bytes);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(xe + XROWS * LANES);
+  const int t = threadIdx.x;
+  auto load = [&](long long p, int s) {
+    const long long q = plan_block(plan_idx, p);
+    plan_copy(&bar[s], smem + s * plan_bytes, plan, q, plan_bytes,
+              plan_idx != nullptr && q == fill_block, 0);
+  };
+  plan_ring(npanels, XE_STAGES, bar, load, [&](long long p, int s) {
+    const long long q = plan_block(plan_idx, p);
+    T* po = out + p * PROWS * LANES;
+    const T* pw = (MUL == MUL_NONE) ? nullptr : w + q * PROWS * LANES;
+    if (plan_idx != nullptr && q == fill_block) {
+#pragma unroll
+      for (int g = 0; g < PROWS * LANES / (XE_THREADS * VEC); ++g) {
+        T v[VEC] = {fill, fill, fill, fill};
+        mul4<T, MUL>(v, pw, t + XE_THREADS * g, fill);
+        store4<T>(po, t + XE_THREADS * g, v[0], v[1], v[2], v[3]);
+      }
+      return;
+    }
+    // stage 1: x -> xe, single-layer (the pick bit is ignored)
+    const uint8_t* xi1 = smem + s * plan_bytes;
+    const uint8_t* xsa = xi1 + sr * LANES;
+    const uint8_t* xi3 = xsa + XROWS * LANES;
+    const int* pb = bases + p * nwin;
+#pragma unroll
+    for (int g = 0; g < XROWS * LANES / (XE_THREADS * VEC); ++g) {
+      const int e = VEC * (t + XE_THREADS * g);
+      const unsigned w3 = *reinterpret_cast<const unsigned*>(xi3 + e);
+      T v[VEC];
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        int band, row, l;
+        v[k] = fill;
+        if (slot_at(xi1, xsa, xsa, e >> 7, (w3 >> (8 * k)) & 0x7f, nwin,
+                    &band, &row, &l)) {
+          const long long b = __ldg(pb + band);
+          v[k] = __ldg(x2d + (b * STRIPE + row) * LANES + l);
+        }
+      }
+      put4<T>(xe, t + XE_THREADS * g, v[0], v[1], v[2], v[3]);
+    }
+    __syncthreads();
+    // stage 2: xe (4 source bands) -> 64 rows, two-layer, then ⊗ w
+    const uint8_t* ei1 = xi1 + xr_bytes;
+    const uint8_t* esa = ei1 + XROWS * LANES;
+    const uint8_t* esb = esa + PROWS * LANES;
+    const uint8_t* ei3 = esb + PROWS * LANES;
+#pragma unroll 2
+    for (int g = 0; g < PROWS * LANES / (XE_THREADS * VEC); ++g) {
+      const int e = VEC * (t + XE_THREADS * g);
+      const unsigned w3 = *reinterpret_cast<const unsigned*>(ei3 + e);
+      T v[VEC];
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        int band, row, l;
+        v[k] = slot_at(ei1, esa, esb, e >> 7, (w3 >> (8 * k)) & 0xff,
+                       XROWS / STRIPE, &band, &row, &l)
+                   ? xe[(band * STRIPE + row) * LANES + l]
+                   : fill;
+      }
+      mul4<T, MUL>(v, pw, t + XE_THREADS * g, fill);
+      store4<T>(po, t + XE_THREADS * g, v[0], v[1], v[2], v[3]);
+    }
+  });
+}
+
+// ---------------------------------------------------------------- K11
+// x_ext table (npanels*32, 128) -> (64,128) contribution panel per block:
+// the panel's own x_ext block loaded into shared memory, then the expand
+// route (expand_panel: K1's second stage in the simple form, its plan
+// read from device memory). Plan rows per panel: [idx1 (32), sel_a (64),
+// sel_b (64), idx3 (64)].
+template <typename T, int MUL>
+__global__ void __launch_bounds__(THREADS)
+route_expand_kernel(const T* __restrict__ x_ext,
+                    const uint8_t* __restrict__ plan,
+                    const T* __restrict__ w, T* __restrict__ out, T fill) {
+  __shared__ T xe[XROWS * LANES];
+  const long long p = blockIdx.x;
+  const T* src = x_ext + p * XROWS * LANES;
+  for (int e = threadIdx.x; e < XROWS * LANES; e += blockDim.x) {
+    xe[e] = src[e];
+  }
+  __syncthreads();
+  const T* pw = (MUL == MUL_NONE) ? nullptr : w + p * PROWS * LANES;
+  expand_panel<T, MUL>(plan + p * EX_PROWS * LANES, xe, pw,
+                       out + p * PROWS * LANES, fill);
+}
+
+// ---------------------------------------------------------------- K2
+// Corner turn: the panel's nwin 8-row windows of src (block indices
+// bases[p*nwin + band]) routed into an out_rows-row panel: two-layer
+// (64 rows; plan [idx1 (nwin*8), sel_a, sel_b, idx3]) or single-layer
+// (the x -> x_ext route, 32 rows; plan [idx1, sel_a, idx3]).
+//
+// A plan ring of two stages. In the STAGED form a stage also holds the
+// panel's nwin source windows beside the plan block (one bulk copy each,
+// 4 KB in f32/int32, 8 KB in f64). Each thread resolves 4 slots at a
+// time: one 4-byte idx3 word, then four independent sel -> idx1 -> value
+// chains, all out of shared memory (STAGED) or the last one a read-only
+// load of device memory (unstaged: the windows do not fit two stages), and
+// one 16-byte streaming store. A window whose base lies outside the source
+// table is not copied (a validated plan has none), a band >= nwin is the
+// fill and reads nothing, and a lane is taken mod 128. Gated: plan block
+// plan_idx[p], bases still panel p's; a panel pointed at fill_block copies
+// nothing and writes the fill.
+constexpr int PASSA_STAGES = 2;
+
 template <typename T, bool STAGED>
 __global__ void __launch_bounds__(THREADS)
 route_passa_kernel(const T* __restrict__ src, const int* __restrict__ bases,
@@ -324,12 +490,6 @@ route_passa_kernel(const T* __restrict__ src, const int* __restrict__ bases,
       reinterpret_cast<uint64_t*>(smem + PASSA_STAGES * stage_bytes);
   const int t = threadIdx.x;
   const int lane = t & 31;
-  const long long G = gridDim.x;
-  if (t == 0) {
-    for (int s = 0; s < PASSA_STAGES; ++s) mbar_init(&bar[s], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
 
   // warp 0: copy panel p's plan block (and windows) into stage s
   auto load = [&](long long p, int s) {
@@ -347,116 +507,121 @@ route_passa_kernel(const T* __restrict__ src, const int* __restrict__ bases,
     for (int o = 16; o > 0; o >>= 1) {
       bytes += __shfl_xor_sync(FULL_MASK, bytes, o);
     }
-    if (lane == 0) {
-      mbar_arrive_tx(&bar[s], fill_panel ? 0u : bytes + plan_bytes);
-      if (!fill_panel) {
-        bulk_load(dst, plan + q * plan_bytes, plan_bytes, &bar[s]);
-      }
-    }
+    plan_copy(&bar[s], dst, plan, q, plan_bytes, fill_panel, bytes);
     if (mine != 0) {
       bulk_load(dst + plan_bytes + lane * mine, src + wb * WIN_EL, mine,
                 &bar[s]);
     }
   };
 
-  long long p = blockIdx.x;
-  if (t < 32) {
-    for (int s = 0; s < PASSA_STAGES && p + s * G < npanels; ++s) {
-      load(p + s * G, s);
-    }
-  }
   const int nvec = out_rows * LANES / (THREADS * VEC);   // 8 or 4
-  for (int k = 0; p < npanels; ++k, p += G) {
-    const int s = k % PASSA_STAGES;
-    mbar_wait(&bar[s], (k / PASSA_STAGES) & 1);
+  plan_ring(npanels, PASSA_STAGES, bar, load, [&](long long p, int s) {
     const long long q = plan_block(plan_idx, p);
     T* po = out + p * out_rows * LANES;
     if (plan_idx != nullptr && q == fill_block) {
       for (int g = 0; g < nvec; ++g) {
         store4<T>(po, t + THREADS * g, fill, fill, fill, fill);
       }
-    } else {
-      const uint8_t* idx1 = smem + s * stage_bytes;
-      const uint8_t* sel_a = idx1 + sr * LANES;
-      const uint8_t* sel_b = two_layer ? sel_a + out_rows * LANES : sel_a;
-      const uint8_t* idx3 = sel_a + (two_layer ? 2 : 1) * out_rows * LANES;
-      const T* win = reinterpret_cast<const T*>(idx1 + plan_bytes);
-      const int* pb = bases + p * nwin;
+      return;
+    }
+    const uint8_t* idx1 = smem + s * stage_bytes;
+    const uint8_t* sel_a = idx1 + sr * LANES;
+    const uint8_t* sel_b = two_layer ? sel_a + out_rows * LANES : sel_a;
+    const uint8_t* idx3 = sel_a + (two_layer ? 2 : 1) * out_rows * LANES;
+    const T* win = reinterpret_cast<const T*>(idx1 + plan_bytes);
+    const int* pb = bases + p * nwin;
 #pragma unroll 2
-      for (int g = 0; g < nvec; ++g) {
-        const int e = VEC * (t + THREADS * g);
-        const int r = e >> 7;
-        const unsigned w3 = *reinterpret_cast<const unsigned*>(idx3 + e);
-        T v[VEC];
+    for (int g = 0; g < nvec; ++g) {
+      const int e = VEC * (t + THREADS * g);
+      const unsigned w3 = *reinterpret_cast<const unsigned*>(idx3 + e);
+      T v[VEC];
 #pragma unroll
-        for (int k4 = 0; k4 < VEC; ++k4) {
-          const int i3 = (w3 >> (8 * k4)) & 0xff;
-          const int m = i3 & 127;
-          const int sv = (i3 >= 128 ? sel_b : sel_a)[r * LANES + m];
-          const int band = sv >> 3;
-          const int row = sv & 7;
-          v[k4] = fill;
-          if (band < nwin) {
-            const int l = idx1[(band * STRIPE + row) * LANES + m] &
-                          (LANES - 1);
-            if constexpr (STAGED) {
-              v[k4] = win[band * WIN_EL + row * LANES + l];
-            } else {
-              const long long b = __ldg(pb + band);
-              v[k4] = __ldg(src + (b * STRIPE + row) * LANES + l);
-            }
+      for (int k4 = 0; k4 < VEC; ++k4) {
+        int band, row, l;
+        v[k4] = fill;
+        if (slot_at(idx1, sel_a, sel_b, e >> 7, (w3 >> (8 * k4)) & 0xff,
+                    nwin, &band, &row, &l)) {
+          if constexpr (STAGED) {
+            v[k4] = win[band * WIN_EL + row * LANES + l];
+          } else {
+            const long long b = __ldg(pb + band);
+            v[k4] = __ldg(src + (b * STRIPE + row) * LANES + l);
           }
         }
-        store4<T>(po, t + THREADS * g, v[0], v[1], v[2], v[3]);
       }
+      store4<T>(po, t + THREADS * g, v[0], v[1], v[2], v[3]);
     }
-    __syncthreads();                 // stage s is free for panel p + 2G
-    if (t < 32 && p + PASSA_STAGES * G < npanels) {
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      load(p + PASSA_STAGES * G, s);
-    }
-  }
+  });
 }
 
 // ---------------------------------------------------------------- K3
-// Pass (a): route as K2 and fold each routed 8-row band (ob) lane-wise in
-// registers, rows 0..7 in order, into part[(p*8 + ob), l]. A gated panel
-// pointed at the fill block writes the fill (what the fill plan folds to).
+// Pass (a): route as K2 (two-layer, 64 rows, values by read-only loads:
+// fixr's 31 windows are 124 KB, more than fit beside the plan) and fold
+// each routed 8-row band ob lane-wise in registers, rows 0..7 in order,
+// into part[(p*8 + ob), l]. A plan ring of `stages` stages of one plan
+// block each (two where two fit a block, to nwin 89; one to nwin 202; the
+// wrapper's fold_stages picks). One thread a (band, lane), 1,024 threads:
+// per row one idx3 byte and one chain out of the staged plan, 8
+// independent chains a thread, then one store of the band partial.
+//
+// What bounds it: each 4-byte gather moves a 32-byte sector from L2 to the
+// SM (a fixr panel touches ~90% of the sectors of its ~21.5 distinct
+// windows, 8,192 gathers). So a block asks for at least FOLD_SMEM_MIN
+// bytes of shared memory, more than half an SM's: one block runs an SM,
+// and the SM's L1 keeps ~124 KB, room for a panel's windows (86 KB on
+// average at RMAT-20's fixr), where two blocks an SM left it ~28 KB. A
+// gated panel pointed at the fill block copies nothing and writes the
+// fill (what the fill plan folds to).
+constexpr int FOLD_THREADS = STRIPE * LANES;   // one (band, lane) a thread
+constexpr int FOLD_SMEM_MIN = 118784;          // 116 KB: one block an SM
+
 template <typename T, int RED>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(FOLD_THREADS, 1)
 route_fold_kernel(const T* __restrict__ src, const int* __restrict__ bases,
                   const uint8_t* __restrict__ plan, T* __restrict__ part,
-                  int nwin, T fill, const int* __restrict__ plan_idx,
-                  int fill_block) {
-  const long long p = blockIdx.x;
-  const long long q = plan_block(plan_idx, p);
-  T* pp = part + p * STRIPE * LANES;
-  if (plan_idx != nullptr && q == fill_block) {
-    for (int t = threadIdx.x; t < STRIPE * LANES; t += blockDim.x) {
-      pp[t] = fill;
-    }
-    return;
-  }
+                  long long npanels, int nwin, int stages, T fill,
+                  const int* __restrict__ plan_idx, int fill_block) {
+  extern __shared__ __align__(128) unsigned char smem[];
   const int sr = nwin * STRIPE;
-  const Route rt = route_at(plan + q * route_rows(sr, PROWS, true) * LANES,
-                            sr, PROWS, true);
-  const int* pb = bases + p * nwin;
-  auto src_row = [&](int band, int row) -> const T* {
-    return src + (static_cast<long long>(pb[band]) * STRIPE + row) * LANES;
+  const int plan_bytes = static_cast<int>(route_rows(sr, PROWS, true)) * LANES;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + stages * plan_bytes);
+  const int t = threadIdx.x;
+  const int ob = t >> 7;                     // the thread's band
+  const int l = t & (LANES - 1);             // and lane
+  auto load = [&](long long p, int s) {
+    const long long q = plan_block(plan_idx, p);
+    plan_copy(&bar[s], smem + s * plan_bytes, plan, q, plan_bytes,
+              plan_idx != nullptr && q == fill_block, 0);
   };
-  for (int t = threadIdx.x; t < STRIPE * LANES; t += blockDim.x) {
-    const int ob = t >> 7;
-    const int l = t & 127;
-    T acc = route_slot<T>(rt.idx1, rt.sel_a, rt.sel_b, rt.idx3, ob * STRIPE,
-                          l, nwin, fill, src_row);
-#pragma unroll
-    for (int r = 1; r < STRIPE; ++r) {
-      acc = combine<RED>(acc, route_slot<T>(rt.idx1, rt.sel_a, rt.sel_b,
-                                            rt.idx3, ob * STRIPE + r, l,
-                                            nwin, fill, src_row));
+  plan_ring(npanels, stages, bar, load, [&](long long p, int s) {
+    const long long q = plan_block(plan_idx, p);
+    T* pp = part + p * STRIPE * LANES;
+    if (plan_idx != nullptr && q == fill_block) {
+      pp[t] = fill;
+      return;
     }
+    const uint8_t* idx1 = smem + s * plan_bytes;
+    const uint8_t* sel_a = idx1 + sr * LANES;
+    const uint8_t* sel_b = sel_a + PROWS * LANES;
+    const uint8_t* idx3 = sel_b + PROWS * LANES;
+    const int* pb = bases + p * nwin;
+    T v[STRIPE];
+#pragma unroll
+    for (int r = 0; r < STRIPE; ++r) {
+      const int row_out = ob * STRIPE + r;
+      int band, row, lane;
+      v[r] = fill;
+      if (slot_at(idx1, sel_a, sel_b, row_out, idx3[row_out * LANES + l],
+                  nwin, &band, &row, &lane)) {
+        const long long b = __ldg(pb + band);
+        v[r] = __ldg(src + (b * STRIPE + row) * LANES + lane);
+      }
+    }
+    T acc = v[0];
+#pragma unroll
+    for (int r = 1; r < STRIPE; ++r) acc = combine<RED>(acc, v[r]);
     pp[t] = acc;
-  }
+  });
 }
 
 // ---------------------------------------------------------------- K4
@@ -534,35 +699,111 @@ colsum_chunks_kernel(const T* __restrict__ ystack,
 }
 
 // ---------------------------------------------------------------- launch
+// A ring kernel (K1-K3) opted in to a block's whole shared memory, as a
+// kernel past 48 KB must be, once per kernel: Id names the kernel instance.
+template <typename T, int KERNEL, int FORM>
+struct RingId {};
+
+template <typename Id, typename Kern>
+cudaError_t ring_ready(Kern kern) {
+  static const cudaError_t rc = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BLOCK);
+  return rc;
+}
+
+// Blocks of `threads` with `smem` bytes of dynamic shared memory each that
+// one SM holds at once (ready: ring_ready's result for kern).
+template <typename Kern>
+cudaError_t ring_blocks_per_sm(Kern kern, cudaError_t ready, int threads,
+                               long long smem, int* per_sm) {
+  if (ready != cudaSuccess) return ready;
+  if (smem > SMEM_BLOCK) return cudaErrorInvalidValue;
+  const cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, kern, threads, static_cast<size_t>(smem));
+  if (rc != cudaSuccess) return rc;
+  return *per_sm < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
+}
+
+// Launch a ring kernel on a persistent grid: as many blocks as the SMs
+// hold at once at this footprint, at most npanels.
+template <typename Kern, typename... Args>
+int ring_launch(Kern kern, cudaError_t ready, int threads, long long smem,
+                long long npanels, cudaStream_t st, Args... args) {
+  if (npanels <= 0) return cudaGetLastError();
+  int per_sm = 0, dev = 0, sms = 0;
+  cudaError_t rc = ring_blocks_per_sm(kern, ready, threads, smem, &per_sm);
+  if (rc == cudaSuccess) rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess) {
+    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (rc != cudaSuccess) return rc;
+  const long long cap = static_cast<long long>(sms) * per_sm;
+  kern<<<static_cast<unsigned>(npanels < cap ? npanels : cap), threads,
+         static_cast<size_t>(smem), st>>>(args...);
+  return cudaGetLastError();
+}
+
+// K3's footprint: `stages` plan blocks of nwin windows, an mbarrier each,
+// and at least FOLD_SMEM_MIN bytes (one block an SM).
+inline long long fold_smem(int nwin, int stages) {
+  const long long ring = stages * (route_rows(nwin * STRIPE, PROWS, true) *
+                                       LANES +
+                                   MBAR_BYTES);
+  return ring < FOLD_SMEM_MIN ? FOLD_SMEM_MIN : ring;
+}
+
+template <typename T, int MUL>
+int launch_xr_exp_mul(const void* x2d, const void* bases, const void* plan,
+                      const void* w, void* out, long long npanels, int nwin,
+                      double fill, const int* pidx, int fill_block,
+                      cudaStream_t st) {
+  auto kern = route_xr_exp_kernel<T, MUL>;
+  return ring_launch(kern, ring_ready<RingId<T, 1, MUL>>(kern), XE_THREADS,
+                     xe_smem(nwin, sizeof(T)), npanels, st,
+                     static_cast<const T*>(x2d),
+                     static_cast<const int*>(bases),
+                     static_cast<const uint8_t*>(plan),
+                     static_cast<const T*>(w), static_cast<T*>(out),
+                     npanels, nwin, static_cast<T>(fill), pidx, fill_block);
+}
+
 template <typename T>
 int launch_xr_exp(const void* x2d, const void* bases, const void* plan,
                   const void* w, void* out, long long npanels, int nwin,
                   int mul_kind, double fill, const int* pidx, int fill_block,
                   cudaStream_t st) {
-  const T* xs = static_cast<const T*>(x2d);
-  const int* b = static_cast<const int*>(bases);
-  const uint8_t* pl = static_cast<const uint8_t*>(plan);
-  const T* ws = static_cast<const T*>(w);
-  T* o = static_cast<T*>(out);
-  const T f = static_cast<T>(fill);
-  const dim3 grid(static_cast<unsigned>(npanels));
   switch (mul_kind) {
     case MUL_NONE:
-      route_xr_exp_kernel<T, MUL_NONE><<<grid, THREADS, 0, st>>>(
-          xs, b, pl, ws, o, nwin, f, pidx, fill_block);
-      break;
+      return launch_xr_exp_mul<T, MUL_NONE>(x2d, bases, plan, w, out,
+                                            npanels, nwin, fill, pidx,
+                                            fill_block, st);
     case MUL_MUL:
-      route_xr_exp_kernel<T, MUL_MUL><<<grid, THREADS, 0, st>>>(
-          xs, b, pl, ws, o, nwin, f, pidx, fill_block);
-      break;
+      return launch_xr_exp_mul<T, MUL_MUL>(x2d, bases, plan, w, out, npanels,
+                                           nwin, fill, pidx, fill_block, st);
     case MUL_ADD_SAT:
-      route_xr_exp_kernel<T, MUL_ADD_SAT><<<grid, THREADS, 0, st>>>(
-          xs, b, pl, ws, o, nwin, f, pidx, fill_block);
-      break;
+      return launch_xr_exp_mul<T, MUL_ADD_SAT>(x2d, bases, plan, w, out,
+                                               npanels, nwin, fill, pidx,
+                                               fill_block, st);
     default:
       return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
+}
+
+// Blocks an SM holds at once of K1 (kernel 1; its no-⊗ instance) or K3's
+// pass (a) (kernel 3, at ring depth `stages`; its sum instance).
+template <typename T>
+int ring_blocks(int kernel, int nwin, int stages, int* per_sm) {
+  if (kernel == 1) {
+    auto kern = route_xr_exp_kernel<T, MUL_NONE>;
+    return ring_blocks_per_sm(kern, ring_ready<RingId<T, 1, MUL_NONE>>(kern),
+                              XE_THREADS, xe_smem(nwin, sizeof(T)), per_sm);
+  }
+  if (kernel == 3) {
+    auto kern = route_fold_kernel<T, RED_SUM>;
+    return ring_blocks_per_sm(kern, ring_ready<RingId<T, 3, RED_SUM>>(kern),
+                              FOLD_THREADS, fold_smem(nwin, stages), per_sm);
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -594,18 +835,8 @@ int launch_expand(const void* x_ext, const void* plan, const void* w,
   return cudaGetLastError();
 }
 
-// Above 48 KB a block's shared memory is opted into once per kernel.
-template <typename T, bool STAGED>
-cudaError_t passa_opt_in() {
-  static const cudaError_t rc = cudaFuncSetAttribute(
-      route_passa_kernel<T, STAGED>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BLOCK);
-  return rc;
-}
-
 // staged: the windows beside the plan in each stage (the wrapper's
-// passa_form picks it from nwin and the value size); the grid is as many
-// blocks as the SMs hold at once at this footprint, at most npanels.
+// passa_form picks it from nwin and the value size).
 template <typename T, bool STAGED>
 int launch_passa_form(const void* src, const void* bases,
                       const void* plan, void* out, long long npanels,
@@ -615,31 +846,15 @@ int launch_passa_form(const void* src, const void* bases,
   const long long stage =
       route_rows(nwin * STRIPE, out_rows, two_layer != 0) * LANES +
       (STAGED ? static_cast<long long>(nwin) * WIN_EL * sizeof(T) : 0);
-  const long long smem = PASSA_STAGES * stage + PASSA_STAGES * 8;
-  if (smem > SMEM_BLOCK || (STAGED && nwin > 32)) return cudaErrorInvalidValue;
-  const cudaError_t opt = passa_opt_in<T, STAGED>();
-  if (opt != cudaSuccess) return opt;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t rc = cudaGetDevice(&dev);
-  if (rc == cudaSuccess) {
-    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (rc == cudaSuccess) {
-    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, route_passa_kernel<T, STAGED>, THREADS,
-        static_cast<size_t>(smem));
-  }
-  if (rc != cudaSuccess) return rc;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long cap = static_cast<long long>(sms) * per_sm;
-  route_passa_kernel<T, STAGED>
-      <<<static_cast<unsigned>(npanels < cap ? npanels : cap), THREADS,
-         static_cast<size_t>(smem), st>>>(
-          static_cast<const T*>(src), static_cast<const int*>(bases),
-          static_cast<const uint8_t*>(plan), static_cast<T*>(out), npanels,
-          nwin, out_rows, two_layer != 0, static_cast<T>(fill), pidx,
-          fill_block, src_windows);
-  return cudaGetLastError();
+  if (STAGED && nwin > 32) return cudaErrorInvalidValue;
+  auto kern = route_passa_kernel<T, STAGED>;
+  return ring_launch(kern, ring_ready<RingId<T, 2, STAGED>>(kern), THREADS,
+                     PASSA_STAGES * (stage + MBAR_BYTES), npanels, st,
+                     static_cast<const T*>(src),
+                     static_cast<const int*>(bases),
+                     static_cast<const uint8_t*>(plan), static_cast<T*>(out),
+                     npanels, nwin, out_rows, two_layer != 0,
+                     static_cast<T>(fill), pidx, fill_block, src_windows);
 }
 
 template <typename T>
@@ -715,29 +930,36 @@ int launch_colsum(const void* ystack, const void* chunk_dst, void* y,
   return cudaGetLastError();
 }
 
-// K3: pass (a) over npanels panels into part (npanels*8, 128), then pass
-// (b) over the nrows rows of y by the row -> bands lists.
+// K3: pass (a) over npanels panels into part (npanels*8, 128) through a
+// plan ring of `stages` stages (1 or 2; the wrapper's fold_stages), then
+// pass (b) over the nrows rows of y by the row -> bands lists.
 template <typename T>
 int launch_fold(const void* src, const void* bases, const void* plan,
                 const void* rptr, const void* gptr, const void* idx,
                 void* part, void* gpart, void* y, long long nrows,
-                long long ngroups, long long npanels, int nwin, int red,
-                double fill, const int* pidx, int fill_block,
+                long long ngroups, long long npanels, int nwin, int stages,
+                int red, double fill, const int* pidx, int fill_block,
                 cudaStream_t st) {
+  if (stages < 1 || stages > 2) return cudaErrorInvalidValue;
   const T f = static_cast<T>(fill);
+  int err = cudaSuccess;
   const int rc = dispatch_red(red, [&](auto r) {
     constexpr int RED = decltype(r)::value;
-    if (npanels > 0) {
-      route_fold_kernel<T, RED>
-          <<<static_cast<unsigned>(npanels), THREADS, 0, st>>>(
-              static_cast<const T*>(src), static_cast<const int*>(bases),
-              static_cast<const uint8_t*>(plan), static_cast<T*>(part), nwin,
-              f, pidx, fill_block);
+    auto kern = route_fold_kernel<T, RED>;
+    err = ring_launch(kern, ring_ready<RingId<T, 3, RED>>(kern),
+                      FOLD_THREADS, fold_smem(nwin, stages), npanels, st,
+                      static_cast<const T*>(src),
+                      static_cast<const int*>(bases),
+                      static_cast<const uint8_t*>(plan),
+                      static_cast<T*>(part), npanels, nwin, stages, f, pidx,
+                      fill_block);
+    if (err == cudaSuccess) {
+      launch_row_fold<T, RED>(part, rptr, gptr, idx, gpart, y, nrows,
+                              ngroups, f, st);
     }
-    launch_row_fold<T, RED>(part, rptr, gptr, idx, gpart, y, nrows, ngroups,
-                            f, st);
   });
-  return rc != cudaSuccess ? rc : cudaGetLastError();
+  if (rc != cudaSuccess) return rc;
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <typename T>
@@ -769,6 +991,8 @@ extern "C" {
 
 // plan_idx: nullptr for the static launch, else (npanels,) int32 plan
 // block per panel (gated); fill_block: the route's all-fill plan block.
+// Two plan blocks and the x_ext panel must fit a block's shared memory;
+// plan and w 16-byte aligned.
 int gt_route_xr_exp(const void* x2d, const void* bases, const void* plan,
                     const void* w, void* out, long long npanels, int nwin,
                     int dtype, int mul_kind, double fill,
@@ -879,28 +1103,32 @@ int gt_colsum_chunks(const void* ystack, const void* chunk_dst, void* y,
 // The row -> bands lists (kernels/fold_order.py::fold_lists): idx
 // (npanels*8) the bands by y row, ascending; gptr (ngroups + 1) the runs
 // in idx; rptr (nrows + 1) each row's runs. part (npanels*8, 128) and
-// gpart (ngroups, 128): scratch.
+// gpart (ngroups, 128): scratch. stages: pass (a)'s ring depth, 1 or 2
+// (its plan blocks must fit a block's shared memory); src, plan and part
+// 16-byte aligned.
 int gt_route_fold(const void* src, const void* bases, const void* plan,
                   const void* rptr, const void* gptr, const void* idx,
                   void* part, void* gpart, void* y, long long nrows,
-                  long long ngroups, long long npanels, int nwin, int dtype,
-                  int reduce_kind, double fill, const void* plan_idx,
-                  int fill_block, void* stream) {
+                  long long ngroups, long long npanels, int nwin, int stages,
+                  int dtype, int reduce_kind, double fill,
+                  const void* plan_idx, int fill_block, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* pidx = static_cast<const int*>(plan_idx);
   switch (dtype) {
     case F32:
       return launch_fold<float>(src, bases, plan, rptr, gptr, idx, part,
                                 gpart, y, nrows, ngroups, npanels, nwin,
-                                reduce_kind, fill, pidx, fill_block, st);
+                                stages, reduce_kind, fill, pidx, fill_block,
+                                st);
     case F64:
       return launch_fold<double>(src, bases, plan, rptr, gptr, idx, part,
                                  gpart, y, nrows, ngroups, npanels, nwin,
-                                 reduce_kind, fill, pidx, fill_block, st);
+                                 stages, reduce_kind, fill, pidx, fill_block,
+                                 st);
     case I32:
       return launch_fold<int>(src, bases, plan, rptr, gptr, idx, part, gpart,
-                              y, nrows, ngroups, npanels, nwin, reduce_kind,
-                              fill, pidx, fill_block, st);
+                              y, nrows, ngroups, npanels, nwin, stages,
+                              reduce_kind, fill, pidx, fill_block, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -916,6 +1144,22 @@ int gt_hub_fold(const void* v, const void* hm, void* out, long long nrows,
       return launch_hub<double>(v, hm, out, nrows, reduce_kind, st);
     case I32:
       return launch_hub<int>(v, hm, out, nrows, reduce_kind, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// *per_sm = the blocks of K1 (kernel 1) or K3's pass (a) (kernel 3, ring
+// depth `stages`) that one SM holds at once at this value type and nwin.
+int gt_ring_blocks_per_sm(int kernel, int dtype, int nwin, int stages,
+                          int* per_sm) {
+  switch (dtype) {
+    case F32:
+      return ring_blocks<float>(kernel, nwin, stages, per_sm);
+    case F64:
+      return ring_blocks<double>(kernel, nwin, stages, per_sm);
+    case I32:
+      return ring_blocks<int>(kernel, nwin, stages, per_sm);
     default:
       return cudaErrorInvalidValue;
   }

@@ -56,9 +56,12 @@ _SIGNATURES = {
     # identity, stream
     "gt_colsum_chunks": [_P, _P, _P, _I64, _I64, _I32, _I32, _F64, _P],
     # src, bases, plan, rptr, gptr, idx, part, gpart, y, nrows, ngroups,
-    # npanels, nwin, dtype, reduce_kind, fill, plan_idx, fill_block, stream
+    # npanels, nwin, stages, dtype, reduce_kind, fill, plan_idx, fill_block,
+    # stream
     "gt_route_fold": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
-                      _I32, _I32, _I32, _F64, _P, _I32, _P],
+                      _I32, _I32, _I32, _I32, _F64, _P, _I32, _P],
+    # kernel (1: K1, 3: K3), dtype, nwin, stages, out (int*)
+    "gt_ring_blocks_per_sm": [_I32, _I32, _I32, _I32, _P],
     # v, hub_mask, out, nrows, dtype, reduce_kind, stream
     "gt_hub_fold": [_P, _P, _P, _I64, _I32, _I32, _P],
     # x3d, grp, slot, lane, ev, w, out, rows, dtype, mul_kind, fill, stream

@@ -40,6 +40,8 @@ src_band[band][row, idx1[band*8+row, m]] if band < nsrc, else the fill
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -90,11 +92,19 @@ def plan_rows(src_rows: int, out_rows: int = PROWS,
     return src_rows + (3 if two_layer else 2) * out_rows
 
 
-# K2 on the card: shared memory a block may have (the H100's 227 KB), the
-# stages of its ring, and the mbarrier bytes beside them
+# K1-K3 on the card: shared memory a block may have (the H100's 227 KB),
+# the stages of K1's and K2's plan rings, and the mbarrier beside each
+# stage
 SMEM_BLOCK = 232_448
 PASSA_STAGES = 2
+XE_STAGES = 2
 _MBAR_BYTES = 8
+
+
+def _fits(stages: int, stage_bytes: int, extra: int = 0) -> bool:
+    """``stages`` ring stages of ``stage_bytes`` (+ an mbarrier each) and
+    ``extra`` bytes beside them fit a block's shared memory."""
+    return stages * (stage_bytes + _MBAR_BYTES) + extra <= SMEM_BLOCK
 
 
 def passa_form(nwin: int, out_rows: int, two_layer: bool,
@@ -108,13 +118,9 @@ def passa_form(nwin: int, out_rows: int, two_layer: bool,
     route reads more than 32 windows."""
     plan_bytes = plan_rows(nwin * STRIPE, out_rows, two_layer) * LANES
     win_bytes = nwin * STRIPE * LANES * itemsize
-
-    def fits(stage: int) -> bool:
-        return PASSA_STAGES * (stage + _MBAR_BYTES) <= SMEM_BLOCK
-
-    if nwin <= 32 and fits(plan_bytes + win_bytes):
+    if nwin <= 32 and _fits(PASSA_STAGES, plan_bytes + win_bytes):
         return "staged"
-    if fits(plan_bytes):
+    if _fits(PASSA_STAGES, plan_bytes):
         return "unstaged"
     raise ValueError(
         f"route_passa: nwin {nwin} needs a {plan_bytes}-byte plan block; "
@@ -126,6 +132,64 @@ def passa_form(nwin: int, out_rows: int, two_layer: bool,
 def xe_plan_rows(nwin: int) -> int:
     """Rows per panel of the fused x->x_ext + expand plan (K1)."""
     return plan_rows(nwin * STRIPE, XROWS, False) + plan_rows(XROWS)
+
+
+def xr_exp_smem(nwin: int, itemsize: int) -> int:
+    """Shared memory of K1's block on the card: XE_STAGES plan blocks of
+    ``xe_plan_rows(nwin)`` x 128 bytes (an mbarrier each) and the 32-row
+    x_ext panel of ``itemsize``-byte values. Raises ValueError past a
+    block's 232,448 bytes: nwin 69 for 4-byte values, 61 for 8-byte
+    (every meta the repo builds has nwin 24: 139,280 bytes in f32)."""
+    plan_bytes = xe_plan_rows(nwin) * LANES
+    xe_bytes = XROWS * LANES * itemsize
+    if not _fits(XE_STAGES, plan_bytes, xe_bytes):
+        raise ValueError(
+            f"route_xr_exp: nwin {nwin} needs a {plan_bytes}-byte plan "
+            f"block; {XE_STAGES} of them and the {xe_bytes}-byte x_ext "
+            f"panel exceed the {SMEM_BLOCK} bytes of shared memory a block "
+            f"may have (nwin <= 69 for 4-byte values, <= 61 for 8-byte)")
+    return XE_STAGES * (plan_bytes + _MBAR_BYTES) + xe_bytes
+
+
+def fold_stages(nwin: int) -> int:
+    """Stages of K3's plan ring on the card: 2 while two plan blocks
+    (64-row two-layer routes of nwin windows, an mbarrier each) fit a
+    block's shared memory (nwin <= 89), 1 while one does (nwin <= 202).
+    Raises ValueError past one plan block."""
+    plan_bytes = plan_rows(nwin * STRIPE) * LANES
+    for stages in (2, 1):
+        if _fits(stages, plan_bytes):
+            return stages
+    raise ValueError(
+        f"route_fold: nwin {nwin} needs a {plan_bytes}-byte plan block; "
+        f"with its mbarrier it exceeds the {SMEM_BLOCK} bytes of shared "
+        f"memory a block may have (nwin <= 202)")
+
+
+# K3 asks for at least this much shared memory, more than half an SM's
+# 228 KB, so one block runs an SM and its L1 keeps ~124 KB for the window
+# sectors the block's gathers touch
+FOLD_SMEM_MIN = 118_784
+
+
+def fold_smem(nwin: int) -> int:
+    """Shared memory of K3's block on the card: ``fold_stages`` stages of
+    (plan block + mbarrier), at least FOLD_SMEM_MIN bytes."""
+    return max(fold_stages(nwin) * (plan_rows(nwin * STRIPE) * LANES
+                                    + _MBAR_BYTES), FOLD_SMEM_MIN)
+
+
+def ring_blocks_per_sm(kernel: str, dtype, nwin: int) -> int:
+    """Blocks of K1 (``kernel`` 'route_xr_exp') or K3's pass (a)
+    ('route_fold') that one SM of the current card holds at once for
+    ``dtype`` values and ``nwin`` windows, as the launch sizes its grid."""
+    which = {"route_xr_exp": 1, "route_fold": 3}[kernel]
+    stages = fold_stages(nwin) if which == 3 else XE_STAGES
+    out = ctypes.c_int(0)
+    rc = _cuda.library().gt_ring_blocks_per_sm(
+        which, _DTYPES[dtype], nwin, stages, ctypes.addressof(out))
+    _cuda.check(rc, "ring_blocks_per_sm")
+    return out.value
 
 
 # --------------------------------------------------------- plain versions
@@ -352,7 +416,15 @@ def route_xr_exp(x2d, bases, plan, weights, fill, npanels: int, nwin: int,
     single-layer x -> x_ext route of each panel's ``nwin`` x windows (at
     block indices ``bases``), the two-layer expand route, then ⊗ with the
     weight stream. Replaces ``panel_kernels.py::route_xr_exp``, static
-    and gated (``plan_idx``)."""
+    and gated (``plan_idx``).
+
+    On the card, persistent blocks stage each panel's plan block in
+    shared memory with TMA bulk copies, two panels in flight a block,
+    build the panel's x_ext in shared memory beside them and expand it,
+    four slots a thread (``csrc/panel_route.cu``). An nwin whose two plan
+    blocks and x_ext panel exceed a block's shared memory (past nwin 69
+    for 4-byte values, 61 for 8-byte) raises on any device
+    (``xr_exp_smem``)."""
     _check_sources("x2d", x2d, bases, plan, npanels, nwin)
     _check_2d("plan", plan, torch.uint8, npanels * xe_plan_rows(nwin))
     if mul_kind not in _MUL_KINDS:
@@ -360,11 +432,13 @@ def route_xr_exp(x2d, bases, plan, weights, fill, npanels: int, nwin: int,
     if weights is not None:
         _check_2d("weights", weights, x2d.dtype, npanels * PROWS)
         _check_values("weights", weights, x2d.device)
+    xr_exp_smem(nwin, x2d.element_size())
     pidx, fblk, key = _gate_args("route_xr_exp", plan_idx, fill_block, plan,
                                  xe_plan_rows(nwin), npanels, x2d.device)
     if not _on_cuda(x2d):
         return route_xr_exp_plain(x2d, bases, plan, weights, fill, npanels,
                                   nwin, mul_kind, plan_idx)
+    _check_aligned(plan=plan, weights=weights)
     lib = _cuda.library()
     out = torch.empty((npanels * PROWS, LANES), dtype=x2d.dtype,
                       device=x2d.device)
@@ -538,7 +612,13 @@ def route_fold(stream0, bases, plan, dst, seg, nrows: int, reduce_kind: str,
     ``fold_order.GROUP``. ``lists``: the row -> bands lists
     (``fold_order.fold_lists(fold_rows(dst, seg, nrows, npanels),
     nrows)``, built here if None); ``scratch``: the band and run partials
-    (allocated here if None); the plain version reads neither."""
+    (allocated here if None); the plain version reads neither.
+
+    On the card, pass (a) runs persistent blocks, one an SM, that stage
+    each panel's plan block in shared memory with TMA bulk copies, in a
+    ring of ``fold_stages(nwin)`` stages (two to nwin 89, one to nwin
+    202), and fold one (band, lane) a thread in registers; an nwin whose
+    plan block exceeds a block's shared memory raises on any device."""
     _check_route_args(stream0, bases, plan, npanels, nwin)
     _check_idx("dst", dst, npanels * STRIPE, stream0.device)
     _check_idx("seg", seg, npanels, stream0.device)
@@ -548,6 +628,7 @@ def route_fold(stream0, bases, plan, dst, seg, nrows: int, reduce_kind: str,
     if nrows % seg_rows:
         raise ValueError(f"nrows {nrows} is not whole {seg_rows}-row "
                          f"segments")
+    stages = fold_stages(nwin)
     pidx, fblk, key = _gate_args("route_fold", plan_idx, fill_block, plan,
                                  plan_rows(nwin * STRIPE), npanels,
                                  stream0.device)
@@ -557,6 +638,7 @@ def route_fold(stream0, bases, plan, dst, seg, nrows: int, reduce_kind: str,
     rptr, gptr, idx, part, gpart = fold_args(
         lists, scratch, fold_rows(dst, seg, nrows, npanels) if lists is None
         else None, nrows, npanels * STRIPE, stream0.dtype, stream0.device)
+    _check_aligned(plan=plan)
     lib = _cuda.library()
     y = torch.empty((nrows, LANES), dtype=stream0.dtype,
                     device=stream0.device)
@@ -565,9 +647,9 @@ def route_fold(stream0, bases, plan, dst, seg, nrows: int, reduce_kind: str,
             stream0.data_ptr(), bases.data_ptr(), plan.data_ptr(),
             rptr.data_ptr(), gptr.data_ptr(), idx.data_ptr(),
             part.data_ptr(), gpart.data_ptr(), y.data_ptr(), nrows,
-            gptr.shape[0] - 1, npanels, nwin, _DTYPES[stream0.dtype],
-            _REDUCE_KINDS[reduce_kind], float(fill), pidx, fblk,
-            _stream(stream0))
+            gptr.shape[0] - 1, npanels, nwin, stages,
+            _DTYPES[stream0.dtype], _REDUCE_KINDS[reduce_kind], float(fill),
+            pidx, fblk, _stream(stream0))
     LAUNCHES[key] += 1
     _cuda.check(rc, key)
     return y

@@ -21,7 +21,10 @@ plain versions bit for bit. K2 in both its forms (the source windows
 staged in shared memory beside the plan block, or read from device
 memory), static and gated, and K9 on steps with nact 0, nact beyond nsub
 and SID_INVALID slots under each ⊗, match bit for bit on seeded synthetic
-plans.
+plans. K1 and K3 on their plan rings (static and gated, every ⊗ and ⊕
+kind, npanels 1 and past the persistent grid, K3 in both ring depths,
+each nwin up to the wrapper's shared-memory limit) match bit for bit on
+seeded synthetic plans.
 """
 
 import numpy as np
@@ -431,29 +434,57 @@ def _values(rng, dt, shape):
         _STREAM_DTYPES[dt][0])
 
 
+def _route_block(rng, src_rows, out_rows, nsel, nbands):
+    """One random plan block: idx1 lanes in [0, 128) (src_rows), nsel sel
+    layers of bands in [0, nbands) (out_rows each), idx3 any byte (bit 7
+    picks sel_b)."""
+    band = rng.integers(0, nbands, (nsel * out_rows, 128))
+    sel = band * 8 + rng.integers(0, 8, band.shape)
+    return np.concatenate([rng.integers(0, 128, (src_rows, 128)), sel,
+                           rng.integers(0, 256, (out_rows, 128))])
+
+
+def _fill_block(src_rows, out_rows, nsel):
+    """The all-fill plan block: every sel 0xF8 (band 31)."""
+    return np.concatenate([np.zeros((src_rows, 128)),
+                           np.full((nsel * out_rows, 128), 0xF8),
+                           np.zeros((out_rows, 128))])
+
+
+def _windowed(rng, dt, npanels, nwin):
+    """A source of 2*nwin + 3 windows and npanels*nwin window bases."""
+    nblk = 2 * nwin + 3
+    src = _values(rng, dt, (nblk * 8, 128))
+    bases = torch.from_numpy(rng.integers(0, nblk, npanels * nwin).astype(
+        np.int32))
+    return src, bases
+
+
 def _passa_inputs(rng, dt, npanels, nwin, out_rows, two_layer):
     """src (2*nwin + 3 windows), bases, and a plan of npanels random
     blocks plus an all-fill block (sel 0xF8) at index npanels: idx1 lanes
     in [0, 128), sel bands in [0, nwin] (band nwin, where below 32, is
     the fill), idx3 any byte (bit 7 picks sel_b)."""
-    nblk = 2 * nwin + 3
-    src = _values(rng, dt, (nblk * 8, 128))
-    bases = torch.from_numpy(rng.integers(0, nblk, npanels * nwin).astype(
-        np.int32))
-    sr = nwin * 8
+    src, bases = _windowed(rng, dt, npanels, nwin)
     nsel = 2 if two_layer else 1
-    blocks = []
-    for _ in range(npanels):
-        band = rng.integers(0, min(nwin + 1, 32), (nsel * out_rows, 128))
-        sel = band * 8 + rng.integers(0, 8, band.shape)
-        blocks.append(np.concatenate([
-            rng.integers(0, 128, (sr, 128)), sel,
-            rng.integers(0, 256, (out_rows, 128))]))
-    blocks.append(np.concatenate([
-        np.zeros((sr, 128)), np.full((nsel * out_rows, 128), 0xF8),
-        np.zeros((out_rows, 128))]))
+    blocks = [_route_block(rng, nwin * 8, out_rows, nsel, min(nwin + 1, 32))
+              for _ in range(npanels)]
+    blocks.append(_fill_block(nwin * 8, out_rows, nsel))
     plan = torch.from_numpy(np.concatenate(blocks).astype(np.uint8))
     return src, bases, plan
+
+
+def _gate(rng, npanels, off, device):
+    """plan_idx with a share ``off`` of the panels pointed at the fill
+    block (index npanels), the rest at their own blocks."""
+    q = np.arange(npanels, dtype=np.int32)
+    q[rng.random(npanels) < off] = npanels
+    return torch.from_numpy(q).to(device)
+
+
+def _launched(before):
+    return {k: pk.LAUNCHES[k] - before[k] for k in before
+            if pk.LAUNCHES[k] != before[k]}
 
 
 @pytest.mark.parametrize("dt", sorted(_STREAM_DTYPES))
@@ -473,17 +504,123 @@ def test_route_passa_forms_match_plain(cuda, case, dt):
     kw = {"out_rows": out_rows, "two_layer": two_layer}
     key = "route_passa" if two_layer else "route_passa_single"
     if off is not None:
-        q = np.arange(npanels, dtype=np.int32)
-        q[rng.random(npanels) < off] = npanels
-        kw["plan_idx"] = torch.from_numpy(q).to(cuda)
+        kw["plan_idx"] = _gate(rng, npanels, off, cuda)
         key = "route_passa_gated"
     args = (src, bases, plan, fill, npanels, nwin)
     before = dict(pk.LAUNCHES)
     got = pk.route_passa(*args, fill_block=npanels if off else None, **kw)
-    assert {k: pk.LAUNCHES[k] - before[k] for k in before if
-            pk.LAUNCHES[k] != before[k]} == {key: 1}
+    assert _launched(before) == {key: 1}
     want = pk.route_passa_plain(*args, **kw)
     assert torch.equal(got, want)
+    if off == 1.0:
+        assert bool((got == fill).all())
+
+
+# K1 on seeded synthetic routes: (npanels, nwin (None: the largest the
+# wrapper admits for the value size), ⊗ kind, share of panels pointed at
+# the fill block or None for a static launch)
+_XR_EXP_CASES = {
+    "nwin24": (300, 24, "none", None),          # every meta's nwin
+    "nwin24_mul": (300, 24, "mul", None),
+    "nwin24_add_sat": (300, 24, "add_sat", None),
+    "gated_all": (300, 24, "mul", 1.0),         # a 0% frontier
+    "gated_70": (300, 24, "add_sat", 0.7),      # a 30% frontier
+    "one": (1, 24, "none", None),
+    "many": (1001, 24, "mul", None),            # not a multiple of the grid
+    "limit": (40, None, "add_sat", None),       # nwin 69 (4 B), 61 (8 B)
+}
+
+
+@pytest.mark.parametrize("dt", sorted(_STREAM_DTYPES))
+@pytest.mark.parametrize("case", sorted(_XR_EXP_CASES))
+def test_route_xr_exp_forms_match_plain(cuda, case, dt):
+    """K1 (the plan ring: x -> x_ext into shared memory, then the expand
+    route out of it, ⊗ per slot), static and gated, against its plain
+    version bit for bit, one launch per call; nwin at the wrapper's
+    shared-memory limit, one past it raises."""
+    npanels, nwin, mul, off = _XR_EXP_CASES[case]
+    dtype, fill = _STREAM_DTYPES[dt]
+    es = torch.tensor([], dtype=dtype).element_size()
+    if nwin is None:
+        nwin = {4: 69, 8: 61}[es]
+        with pytest.raises(ValueError, match="route_xr_exp: nwin"):
+            pk.xr_exp_smem(nwin + 1, es)
+    pk.xr_exp_smem(nwin, es)
+    rng = np.random.default_rng(12)
+    x2d, bases = _windowed(rng, dt, npanels, nwin)
+    blocks = []
+    for _ in range(npanels):
+        blocks += [_route_block(rng, nwin * 8, 32, 1, min(nwin + 1, 32)),
+                   _route_block(rng, 32, 64, 2, 6)]    # bands 4, 5: fill
+    blocks += [_fill_block(nwin * 8, 32, 1), _fill_block(32, 64, 2)]
+    plan = torch.from_numpy(np.concatenate(blocks).astype(np.uint8))
+    w = _values(rng, dt, ((npanels + 1) * 64, 128))
+    x2d, bases, plan, w = (a.to(cuda) for a in (x2d, bases, plan, w))
+    kw, key = {}, "route_xr_exp"
+    if off is not None:
+        kw["plan_idx"] = _gate(rng, npanels, off, cuda)
+        key = "route_xr_exp_gated"
+    args = (x2d, bases, plan, None if mul == "none" else w, fill, npanels,
+            nwin, mul)
+    before = dict(pk.LAUNCHES)
+    got = pk.route_xr_exp(*args, fill_block=npanels if off else None, **kw)
+    assert _launched(before) == {key: 1}
+    assert torch.equal(got, pk.route_xr_exp_plain(*args, **kw))
+    if off == 1.0:               # fill ⊗ the fill block's weights
+        assert torch.equal(got, (fill * w[npanels * 64:]).to(dtype).repeat(
+            npanels, 1))
+
+
+# K3 on seeded synthetic routes: (npanels, nwin, share of panels pointed at
+# the fill block or None for a static launch)
+_FOLD_CASES = {
+    "fixr31": (300, 31, None),                  # RMAT-20's fixr nwin
+    "fix2_28": (300, 28, None),                 # and its fix2 nwin
+    "one_stage": (60, 100, None),               # one plan block fits
+    "limit": (20, 202, None),                   # the last nwin that fits
+    "gated_all": (300, 31, 1.0),                # a 0% frontier
+    "gated_70": (300, 31, 0.7),                 # a 30% frontier
+    "one": (1, 31, None),
+    "many": (1001, 31, None),                   # not a multiple of the grid
+}
+_FOLD_KINDS = {"f32_sum": ("f32", "sum", 0.0), "f64_sum": ("f64", "sum", 0.0),
+               "i32_sum": ("i32", "sum", 0),
+               "i32_min": ("i32", "min", tsr.INF_I32),
+               "i32_max": ("i32", "max", -tsr.INF_I32)}
+
+
+@pytest.mark.parametrize("kind", sorted(_FOLD_KINDS))
+@pytest.mark.parametrize("case", sorted(_FOLD_CASES))
+def test_route_fold_forms_match_plain(cuda, case, kind):
+    """K3 (pass (a) on the plan ring, two stages or one as fold_stages
+    picks from nwin, then the fixed-order pass (b)), static and gated,
+    against its plain version bit for bit, one launch per call, and the
+    same bits on a second call; one nwin past the limit raises."""
+    npanels, nwin, off = _FOLD_CASES[case]
+    dt, red, fill = _FOLD_KINDS[kind]
+    assert pk.fold_stages(nwin) == (2 if nwin <= 89 else 1)
+    if case == "limit":
+        with pytest.raises(ValueError, match="route_fold: nwin"):
+            pk.fold_stages(nwin + 1)
+    rng = np.random.default_rng(13)
+    src, bases, plan = (a.to(cuda) for a in _passa_inputs(
+        rng, dt, npanels, nwin, 64, True))
+    nrows = 2 * 8192                             # two fold segments
+    dst = torch.from_numpy(rng.integers(0, 50, npanels * 8).astype(
+        np.int32)).to(cuda)                      # many bands a y row
+    seg = torch.from_numpy(rng.integers(0, 2, npanels).astype(
+        np.int32)).to(cuda)
+    kw, key = {}, "route_fold"
+    if off is not None:
+        kw["plan_idx"] = _gate(rng, npanels, off, cuda)
+        key = "route_fold_gated"
+    args = (src, bases, plan, dst, seg, nrows, red, fill, npanels, nwin)
+    before = dict(pk.LAUNCHES)
+    got = pk.route_fold(*args, fill_block=npanels if off else None, **kw)
+    assert _launched(before) == {key: 1}
+    assert torch.equal(got, pk.route_fold_plain(*args, **kw))
+    assert torch.equal(got, pk.route_fold(
+        *args, fill_block=npanels if off else None, **kw))
     if off == 1.0:
         assert bool((got == fill).all())
 

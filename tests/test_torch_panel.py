@@ -235,6 +235,20 @@ def test_wrappers_validate_inputs():
                                    dtype=torch.uint8), 0.0, 1, 90)
     with pytest.raises(ValueError):                      # ⊕ kind
         pk.hub_fold(torch.zeros((meta.nrb, 128)), t["hub_mask"], "min")
+    # K1: two plan blocks of nwin 70 and the f32 x_ext panel, and K3: one
+    # plan block of nwin 203, exceed a block's shared memory on the card
+    with pytest.raises(ValueError, match="232448 bytes of shared memory"):
+        pk.route_xr_exp(torch.zeros((8, 128)),
+                        torch.zeros(70, dtype=torch.int32),
+                        torch.zeros((pk.xe_plan_rows(70), 128),
+                                    dtype=torch.uint8), None, 0.0, 1, 70)
+    with pytest.raises(ValueError, match="232448 bytes of shared memory"):
+        pk.route_fold(s0, torch.zeros(203, dtype=torch.int32),
+                      torch.zeros((pk.plan_rows(203 * 8), 128),
+                                  dtype=torch.uint8),
+                      torch.zeros(8, dtype=torch.int32),
+                      torch.zeros(1, dtype=torch.int32), 64, "sum", 0.0, 1,
+                      203)
 
 
 @pytest.mark.parametrize("two_layer,itemsize", [(True, 4), (True, 8),
@@ -270,3 +284,44 @@ def test_passa_form_follows_its_rule(two_layer, itemsize):
                          "unstaged" if two_layer else
                          "staged" if itemsize == 4 else "unstaged")
     assert forms[24] == "unstaged"
+
+
+@pytest.mark.parametrize("kernel,itemsize", [("route_xr_exp", 4),
+                                             ("route_xr_exp", 8),
+                                             ("route_fold", 4)])
+def test_ring_footprint_follows_its_rule(kernel, itemsize):
+    """K1's and K3's plan rings on the card: K1 holds two plan blocks (an
+    8-byte mbarrier each) and its 32x128 x_ext panel, K3 two plan blocks
+    while they fit the 232,448 bytes a block may have and one after, and
+    asks for at least 116 KB; past that each raises. And where the repo's
+    routes land."""
+    fits = {}
+    for nwin in range(1, 260):
+        if kernel == "route_xr_exp":
+            want = (2 * (pk.xe_plan_rows(nwin) * 128 + 8)
+                    + 32 * 128 * itemsize)
+            want = want if want <= 232448 else None
+            got = lambda: pk.xr_exp_smem(nwin, itemsize)  # noqa: E731
+        else:
+            plan = pk.plan_rows(nwin * 8) * 128 + 8
+            want = 2 if 2 * plan <= 232448 else 1 if plan <= 232448 else None
+            got = lambda: pk.fold_stages(nwin)  # noqa: E731
+        if want is None:
+            with pytest.raises(ValueError, match="nwin"):
+                got()
+        else:
+            assert got() == want
+        fits[nwin] = want
+    last = max(n for n, v in fits.items() if v is not None)
+    assert all(fits[n] is not None for n in range(1, last + 1))
+    if kernel == "route_xr_exp":
+        assert last == {4: 69, 8: 61}[itemsize]
+        assert fits[24] == {4: 139280, 8: 155664}[itemsize]   # every meta
+    else:
+        assert last == 202
+        assert max(n for n, v in fits.items() if v == 2) == 89
+        assert fits[31] == fits[28] == 2         # RMAT-20's fixr and fix2
+        # at least 116 KB, so one block runs an SM
+        assert pk.fold_smem(31) == 118784
+        assert pk.fold_smem(89) == 2 * (pk.plan_rows(712) * 128 + 8)
+        assert pk.fold_smem(202) == pk.plan_rows(1616) * 128 + 8

@@ -17,7 +17,11 @@ Phases, each printed as it runs; any failure exits non-zero:
               bit for bit; then the quick P1/P2 copy-rate table
               (tools/bw_probe.py) and the P3 per-panel table
               (tools/route_cost_probe.py), each with the card's name and
-              power limit; the best P1 copy rate is the measured ceiling
+              power limit, and each P1 row's chunks (chunk rows, pieces,
+              bw_probe.copy_chunks) and ring depth (chunks in flight an
+              SM, the card's occupancy query); the best copy rate of
+              the table (a P1 row's, or Tensor.copy_'s where it beats
+              every P1 row; the row is logged) is the measured ceiling
               each kernel row's bytes are also set against.
   3. parity   each panel kernel against its plain torch version on the
               card, on RMAT-14 plans in f32 sum, f64 sum (weighted) and
@@ -95,9 +99,11 @@ Phases, each printed as it runs; any failure exits non-zero:
               staged y_mid and y within K3's tolerance of the fused ones
               (max |diff| <= 1e-5 x max |fused|, f32); K12's rows scattered
               by chunk_dst with ⊕ equal to K13's y_mid at that tolerance.
-              Then the kernel rows of K2 single-layer, K11, K12 and K13,
-              with torch.take (K2, K11), view(-1, 8, 128).sum(1) (K12) and
-              one scatter_reduce (K13) as their library calls.
+              K11's plan ring is logged (npanels, stage bytes, shared
+              memory, blocks an SM). Then the kernel rows of K2
+              single-layer, K11, K12 and K13, with torch.take (K2, K11),
+              view(-1, 8, 128).sum(1) (K12) and one scatter_reduce (K13)
+              as their library calls.
   4b. paths   RMAT-20 PageRank, 20 iterations in f32, on shuffle2 (its
               executor built here and handed the main phase's shuffle
               degrees, as bench.py composes BENCH_KERNEL=shuffle2) and on
@@ -389,21 +395,6 @@ def _kernel_calls(t, meta, sem, st):
                        meta.f2_rows))]
 
 
-def _slot_ids(torch, src):
-    """int32 slot numbers in ``src``'s shape: a pure gather run on them
-    gives, per output slot, the flat source slot it reads (-1: the fill)."""
-    return torch.arange(src.numel(), dtype=torch.int32,
-                        device=src.device).view(src.shape)
-
-
-def _take_call(torch, src, idx, fill):
-    """One torch.take over ``src`` extended by one fill element, the index
-    ``idx`` (-1: the fill) precomputed."""
-    ext = torch.cat([src.reshape(-1), src.new_full((1,), fill)])
-    idx = torch.where(idx >= 0, idx.long(), ext.numel() - 1)
-    return lambda: torch.take(ext, idx)
-
-
 def _fold_library(torch, src, bases, plan, dst, seg, nrows, kind, fill,
                   npanels, nwin, plan_idx=None):
     """(one torch.scatter_reduce computing K3 on these inputs, or None;
@@ -412,7 +403,8 @@ def _fold_library(torch, src, bases, plan, dst, seg, nrows, kind, fill,
     a destination per source slot computes it only if no source slot is
     routed twice. ``plan_idx``: the gated launch's plan map."""
     from graphtap_tpu_torch.kernels import panel_kernels as pk
-    routed = pk.route_passa_plain(_slot_ids(torch, src), bases, plan, -1,
+    from graphtap_tpu_torch.tools import timing
+    routed = pk.route_passa_plain(timing.slot_ids(src), bases, plan, -1,
                                   npanels, nwin, plan_idx)
     live = routed >= 0
     mult = int(torch.bincount(routed[live].long()).max()) if bool(
@@ -439,17 +431,18 @@ def _panel_libraries(torch, t, meta, sem, st):
     calls qualify (_fold_library), none for K4, whose butterfly's float
     order is part of its contract."""
     from graphtap_tpu_torch.kernels import panel_kernels as pk
+    from graphtap_tpu_torch.tools import timing
     fill, kind = sem.identity, sem.reduce_kind
     k1 = None
     if not meta.has_w:
         idx = pk.route_xr_exp_plain(
-            _slot_ids(torch, st["x2d"]), t["xr_bases"], t["xe_plan"], None,
+            timing.slot_ids(st["x2d"]), t["xr_bases"], t["xe_plan"], None,
             -1, meta.exp_panels + 1, meta.xr_nwin)
-        k1 = _take_call(torch, st["x2d"], idx, fill)
-    idx = pk.route_passa_plain(_slot_ids(torch, st["s0"]), t["pa_bases"],
+        k1 = timing.take_call(st["x2d"], idx, fill)
+    idx = pk.route_passa_plain(timing.slot_ids(st["s0"]), t["pa_bases"],
                                t["pa_plan"], -1, meta.pa_panels + 1,
                                meta.pa_nwin)
-    k2 = _take_call(torch, st["s0"], idx, fill)
+    k2 = timing.take_call(st["s0"], idx, fill)
     fx, m1 = _fold_library(torch, st["s1"], t["fixr_bases"], t["fixr_plan"],
                            t["fix_dst"], t["fixr_seg"], meta.nrb, kind, fill,
                            meta.fix_panels, meta.fixr_nwin)
@@ -619,18 +612,19 @@ def _gated_libraries(torch, t, meta, sem, st, maps):
     (unweighted) and K2, one torch.scatter_reduce for K3 where no source
     slot is routed twice (_fold_library), else None."""
     from graphtap_tpu_torch.kernels import panel_kernels as pk
+    from graphtap_tpu_torch.tools import timing
     fill, kind = sem.identity, sem.reduce_kind
     xe_b, xe_q, pa_b, pa_q, fx_b, fx_q = maps
     k1 = None
     if not meta.has_w:
         idx = pk.route_xr_exp_plain(
-            _slot_ids(torch, st["x2d"]), xe_b, t["xe_plan"], None, -1,
+            timing.slot_ids(st["x2d"]), xe_b, t["xe_plan"], None, -1,
             meta.exp_panels + 1, meta.xr_nwin, plan_idx=xe_q)
-        k1 = _take_call(torch, st["x2d"], idx, fill)
-    idx = pk.route_passa_plain(_slot_ids(torch, st["s0"]), pa_b,
+        k1 = timing.take_call(st["x2d"], idx, fill)
+    idx = pk.route_passa_plain(timing.slot_ids(st["s0"]), pa_b,
                                t["pa_plan"], -1, meta.pa_panels + 1,
                                meta.pa_nwin, plan_idx=pa_q)
-    k2 = _take_call(torch, st["s0"], idx, fill)
+    k2 = timing.take_call(st["s0"], idx, fill)
     k3, mult = _fold_library(torch, st["s1"], fx_b, t["fixr_plan"],
                              t["fix_dst"], t["fixr_seg"], meta.nrb, kind,
                              fill, meta.fix_panels, meta.fixr_nwin,
@@ -706,6 +700,7 @@ def _shuffle_calls(torch, t, meta, sem, st):
     from graphtap_tpu_torch.kernels import shuffle_kernels as sk
     from graphtap_tpu_torch.kernels.shuffle_engine import mul_kind
     from graphtap_tpu_torch.kernels.shuffle_plan import LANES, SUB, WROWS
+    from graphtap_tpu_torch.tools import timing
     fill, kind = sem.identity, sem.reduce_kind
     mul = mul_kind(meta, sem)
     es = st["x3d"].element_size()
@@ -743,7 +738,7 @@ def _shuffle_calls(torch, t, meta, sem, st):
               + _nbytes(st["contrib"]))
     calls.append(("group_stream", lambda: sk.group_stream(*gargs, src=gsrc),
                   lambda: sk.group_stream_plain(*gargs), (gbytes, 0),
-                  _take_call(torch, st["contrib"], gsrc, fill)))
+                  timing.take_call(st["contrib"], gsrc, fill)))
     rargs = (st["grouped"], t["lr"], t["ev_r"], t["chunk_block"],
              meta.nblocks, kind, fill)
     valid = t["ev_r"] != 0
@@ -832,6 +827,7 @@ def _gather_call(torch, name, kern, plain, src, plan, nsub, fill, w=None,
     output written once; ops: one ⊗ per slot when weighted. The library
     call (unweighted only): torch.take over the precomputed source index."""
     from graphtap_tpu_torch.kernels.gather_kernels import gather_index
+    from graphtap_tpu_torch.tools import timing
     args = (src, *plan) + ((w, fill, nsub, mk) if name == "windowed_gather"
                            else (fill, nsub))
     idx = gather_index(*plan, nsub)
@@ -840,7 +836,7 @@ def _gather_call(torch, name, kern, plain, src, plan, nsub, fill, w=None,
             + _nbytes(plan[4]) + int((idx >= 0).sum())
             + (_nbytes(w) if w is not None else 0) + idx.numel() * es,
             idx.numel() if w is not None else 0)
-    lib = _take_call(torch, src, idx, fill) if w is None else None
+    lib = timing.take_call(src, idx, fill) if w is None else None
     return (name, lambda: kern(*args), lambda: plain(*args), work, lib)
 
 
@@ -1138,41 +1134,6 @@ def _ms(fn, torch, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(fn, torch, reps: int):
-    """Mean device-only time of one call: ``reps`` calls captured into one
-    CUDA graph, replayed between two CUDA events (the lesser of two
-    replays), so the card runs their kernels back to back with no host
-    enqueue between them. None where a call reads a value back to the
-    host (a synchronizing operation, found with the sync debug mode before
-    any capture), which a graph cannot hold."""
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        fn()
-    except RuntimeError as e:
-        log(f"device time not measured: the call synchronizes ({e})")
-        return None
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    best = None
-    for _ in range(2):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        torch.cuda.synchronize()
-        ms = start.elapsed_time(end) / reps
-        best = ms if best is None else min(best, ms)
-    del graph
-    return best
-
-
 def _golden():
     """tests/golden.py, the NumPy golden models (loaded by path)."""
     import importlib.util
@@ -1441,6 +1402,7 @@ def _staged_calls(torch, t, meta, sem, st):
     unweighted), view(-1, 8, 128) reduced over dim 1 (K12), one
     scatter_reduce over repeat_interleave(chunk_dst, 8) (K13)."""
     from graphtap_tpu_torch.kernels import panel_kernels as pk
+    from graphtap_tpu_torch.tools import timing
     fill, kind = sem.identity, sem.reduce_kind
     es = st["x2d"].element_size()
     nxe = meta.exp_panels + 1
@@ -1451,21 +1413,21 @@ def _staged_calls(torch, t, meta, sem, st):
     _log_passa("staged corner turn", meta.pa_panels + 1, meta.pa_nwin,
                st["s0"])
     _log_passa("staged fixr", meta.fix_panels, meta.fixr_nwin, st["s1"])
-    idx = pk.route_passa_plain(_slot_ids(torch, st["x2d"]), *xr[1:3], -1,
+    idx = pk.route_passa_plain(timing.slot_ids(st["x2d"]), *xr[1:3], -1,
                                *xr[4:], **one)
     calls = [("route_passa_single", lambda: pk.route_passa(*xr, **one),
               lambda: pk.route_passa_plain(*xr, **one),
               (_nbytes(st["x2d"]) + 4 * nxe * meta.xr_nwin
                + nxe * xr_rows * pk.LANES + _nbytes(st["x_ext"]), 0),
-              _take_call(torch, st["x2d"], idx, fill))]
+              timing.take_call(st["x2d"], idx, fill))]
     w = t.get("w_stream")
     mk = ("mul" if kind == "sum" else "add_sat") if meta.has_w else "none"
     ex = (st["x_ext"], t["exp_plan"], w, fill, nxe, mk)
     lib = None
     if w is None:
-        idx = pk.route_expand_plain(_slot_ids(torch, st["x_ext"]),
+        idx = pk.route_expand_plain(timing.slot_ids(st["x_ext"]),
                                     t["exp_plan"], None, -1, nxe)
-        lib = _take_call(torch, st["x_ext"], idx, fill)
+        lib = timing.take_call(st["x_ext"], idx, fill)
     calls.append(("route_expand", lambda: pk.route_expand(*ex),
                   lambda: pk.route_expand_plain(*ex),
                   (_nbytes(st["x_ext"]) + _nbytes(t["exp_plan"][
@@ -1551,6 +1513,12 @@ def phase_staged(torch, ex):
     _need_launches("staged", launches, STAGED_LAUNCHES)
     _staged_checks(torch, f"staged RMAT-{SCALE} f32", st, fused, folded, t,
                    sem)
+    log(f"staged route_expand: npanels {meta.exp_panels + 1}, {x.dtype}: "
+        f"ring depth {pk.EX_STAGES}, stages of "
+        f"{pk.plan_rows(pk.XROWS) * pk.LANES} plan + "
+        f"{pk.XROWS * pk.LANES * x.element_size()} x_ext bytes, "
+        f"{pk.expand_smem(x.element_size())} bytes of shared memory, "
+        f"{pk.ring_blocks_per_sm('route_expand', x.dtype)} blocks an SM")
     rows = {}
     for call in _staged_calls(torch, t, meta, sem, st):
         _staged_row(torch, rows, call, launches[call[0]], x.dtype)
@@ -1597,6 +1565,7 @@ def phase_shuffle_kernels(torch, np, g, launches):
     from graphtap_tpu_torch.kernels.semiring import INF_I32, plus_times
     from graphtap_tpu_torch.kernels.shuffle_engine import (spmv_local,
                                                            spmv_stages)
+    from graphtap_tpu_torch.tools import timing
     from graphtap_tpu_torch.tools.convert import meta_from_numpy
     meta = _prebuilt("shuffle", "COL", g.config)
     log(f"kernels: degree shuffle plans: {meta.nsupers} supers of "
@@ -1629,7 +1598,7 @@ def phase_shuffle_kernels(torch, np, g, launches):
                              "another function")
     log(f"kernels: group_stream, the earlier yardstick: {meta.npasses} per-pass "
         f"torch.take: {_ms(takes, torch, 10):.4f} ms (device "
-        f"{_fmt(_device_ms(takes, torch, 10))})")
+        f"{_fmt(timing.device_ms(takes, 10, log))})")
     del takes, want
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     shape = st["contrib"].shape
@@ -1798,16 +1767,17 @@ def _time_row(torch, rows, name, kern, plain, err, launches, bound,
     events over eager calls): the plan workers share the host's cores, and
     a run in which the host stalls and leaves the card idle shows as an
     outlier. Then the kernel's and the library call's device-only times
-    (``_device_ms``: ten calls replayed as one CUDA graph), which the
+    (``timing.device_ms``: ten calls replayed as one CUDA graph), which the
     host's enqueue rate does not bound."""
+    from graphtap_tpu_torch.tools import timing
     p1 = _ms(plain, torch, 3)
     l1 = _ms(library, torch, 10) if library else None
     k1 = _ms(kern, torch, 10)
     k2 = _ms(kern, torch, 10)
     l2 = _ms(library, torch, 10) if library else None
     p2 = _ms(plain, torch, 3)
-    kd = _device_ms(kern, torch, 10)
-    ld = _device_ms(library, torch, 10) if library else None
+    kd = timing.device_ms(kern, 10, log)
+    ld = timing.device_ms(library, 10, log) if library else None
     kms, pms = min(k1, k2), min(p1, p2)
     source = SOURCES["shuffle" if name in SHUFFLE else
                      "gather" if name.startswith("windowed") else
@@ -2206,7 +2176,8 @@ def phase_probes(torch):
     """P1-P3: the quick copy-rate table and the per-panel table, their
     launches counted; then each kernel against its plain version at the
     tables' shapes, bit for bit, and its kernels-line row. Returns (the
-    rows, the best P1 copy rate in GB/s)."""
+    rows, the measured ceiling: the table's best copy rate in GB/s, P1's
+    or Tensor.copy_'s)."""
     from graphtap_tpu_torch.tools import bw_probe as bw
     from graphtap_tpu_torch.tools import route_cost_probe as rc
     npanels, nwin = 2048, 20
@@ -2221,11 +2192,23 @@ def phase_probes(torch):
     log(f"probes: {bw.card()} ({torch.cuda.get_device_name(0)})")
     for ln in bw.format_table(rows_bw).splitlines():
         log(f"probes P1/P2: {ln}")
+    for label, shape, dtype, bm, bn, _ in bw.copy_shapes(quick=True):
+        es = torch.tensor([], dtype=dtype).element_size()
+        ch = bw.copy_chunks(shape[0], shape[1] * es, bm, bn * es)
+        log(f"probes P1 {label}: {shape} {dtype}: chunks of "
+            f"{ch.chunk_rows} rows x {ch.pieces} piece(s) of "
+            f"{ch.piece_bytes} bytes, one block a chunk, ring depth "
+            f"{bw.copy_blocks_per_sm(ch)} chunks in flight an SM")
     for ln in rc.format_table(rows_rc, npanels).splitlines():
         log(f"probes P3: {ln}")
-    best = max(gbs for name, gbs in rows_bw if name.startswith("cuda copy"))
-    log(f"probes: best P1 copy rate {best:.1f} GB/s (read+write), "
-        f"{best / (PEAK_BYTES / 1e9):.3f} of the published 3350 GB/s")
+    copies = [(gbs, name) for name, gbs in rows_bw
+              if name.startswith("cuda copy") or name == "torch Tensor.copy_"]
+    best, which = max(copies)
+    log(f"probes: best P1 copy rate "
+        f"{max(g for g, n in copies if n.startswith('cuda')):.1f} GB/s; the "
+        f"measured ceiling is the table's best copy, {which}: {best:.1f} "
+        f"GB/s (read+write), {best / (PEAK_BYTES / 1e9):.3f} of the "
+        f"published 3350 GB/s")
     rows = {}
     x = torch.rand((bw.TARGET_BYTES // 4096, 1024), device=DEVICE)
     y = torch.empty_like(x)

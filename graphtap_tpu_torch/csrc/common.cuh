@@ -1,11 +1,13 @@
 // Device helpers shared by the port's kernels (panel_route.cu, shuffle.cu,
-// gather.cu, onehot.cu).
+// gather.cu, onehot.cu, probe.cu).
 //
 // The value types, ⊗ and ⊕ kinds as the wrappers number them
 // (kernels/panel_kernels.py: _DTYPES, _MUL_KINDS, _REDUCE_KINDS), the
 // saturating min-plus ⊗, the ⊕ combine and its atomic form, a grid-stride
-// fill, 16-byte stores and loads of four values, and the two fixed-order
-// passes of the K3, K5 and K8 folds.
+// fill, 16-byte stores and loads of four values, the Hopper TMA helpers
+// (mbarriers, bulk copies both ways, bulk groups) of the plan rings of
+// K1-K3 and K11 and of P1's copy ring, and the two fixed-order passes of
+// the K3, K5 and K8 folds.
 
 #pragma once
 
@@ -144,6 +146,81 @@ __device__ __forceinline__ void load4(const T* __restrict__ in, unsigned g,
     const int4 a = __ldcs(reinterpret_cast<const int4*>(in) + g);
     v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
   }
+}
+
+// ------------------------------------------------------------- TMA (sm_90)
+// One thread drives each copy; the data never passes through registers.
+// A bulk load completes on an mbarrier in shared memory: the thread that
+// issues it first arrives on the barrier expecting the phase's bytes
+// (mbar_arrive_tx), and any thread waits for the phase's parity
+// (mbar_wait). A bulk store from shared memory joins the issuing thread's
+// current bulk group (bulk_commit closes it); bulk_wait_read<N> returns
+// once all but the newest N groups have read their shared memory, which
+// may then be reused or released. Sizes are multiples of 16 bytes, both
+// ends 16-byte aligned.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count));
+}
+// one arrival that also expects `bytes` of bulk copies on this phase
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+// `bytes` from device memory into shared memory, completing on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+// `bytes` from shared memory into device memory, in the current bulk group
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           unsigned bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(smem_addr(src)), "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Fences between the generic proxy (threads) and the async proxy (TMA):
+// an initialized mbarrier is seen by the bulk copies that complete on it,
+// and shared memory the threads have used is ordered before the bulk
+// copies that next write or read it.
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Grid size of a grid-stride loop over n elements.

@@ -16,7 +16,7 @@
 //
 // K1-K4 carry the fused PageRank superstep; K2 single-layer, K11, K12 and
 // K13 are the staged (unfused) pipeline's: x -> x_ext (K2 single-layer),
-// x_ext -> contributions (K11, the second half of K1), the corner turn and
+// x_ext -> contributions (K11, the second stage of K1), the corner turn and
 // the fixr route (K2), the chunk fold (K13); K12 is the per-panel 8-row
 // fold (pass B).
 //
@@ -49,17 +49,17 @@
 // idx1/sel reads are data-dependent gathers inside 128-lane rows. Read
 // from device memory, that is a chain of four dependent loads a slot, and
 // most of K1's and K3's bytes are plan bytes (~0.5 KB of plan per 4 KB f32
-// panel). So K1, K2 and K3 share one plan ring (plan_ring below):
+// panel). So K1, K2, K3 and K11 share one plan ring (plan_ring below):
 // persistent blocks, each walking panels blockIdx.x, + gridDim.x, ...,
 // copy each panel's contiguous plan block (and, in K2's staged form, its
-// source windows) into a shared-memory stage with TMA bulk copies on an
-// mbarrier, one panel's copies landing while the block resolves another;
-// the sel -> idx1 chains resolve out of shared memory (K1 and K2: four
-// slots a thread from one 4-byte idx3 word; K3: one (band, lane) a
-// thread), the value last: from shared memory (K1's expand stage, K2
-// staged) or by a read-only load of device memory. Per panel the plan
-// arrives in one bulk read, so the kernels are held to bytes, not to the
-// chain. K1 builds its 32x128 x_ext panel in shared memory (x_ext never
+// source windows; in K11, its x_ext block) into a shared-memory stage with
+// TMA bulk copies on an mbarrier, one panel's copies landing while the
+// block resolves another; the sel -> idx1 chains resolve out of shared
+// memory (K1, K2 and K11: four slots a thread from one 4-byte idx3 word;
+// K3: one (band, lane) a thread), the value last: from shared memory (K1's
+// expand stage and K11, one helper: expand_stage; K2 staged) or by a
+// read-only load of device memory. Per panel the plan arrives in one bulk
+// read, so the kernels are held to bytes, not to the chain. K1 builds its 32x128 x_ext panel in shared memory (x_ext never
 // goes to device memory) and expands it; K3 folds each routed 8-row band
 // in registers, in row order, into a
 // (npanels*8, 128) scratch of band partials; then one thread per (y row,
@@ -71,12 +71,9 @@
 // version's bit for bit: an atomic fold, whose order changed from call to
 // call, kept f32 PageRank's convergence vote from closing.
 //
-// K11 keeps the simple form (route_slot / route_panel / expand_panel): one
-// block per panel, 256 threads striding over its slots, each slot the
-// chain of dependent loads; no app path runs it. K13 still adds each
-// staged chunk to y with one atomic per (chunk, lane) after a fill pass
-// (f32/f64 atomicAdd, int32 atomicMin/Max), so its float sums round in no
-// fixed order; no app path runs it. K12 needs no atomics: one thread per
+// K13 still adds each staged chunk to y with one atomic per (chunk, lane)
+// after a fill pass (f32/f64 atomicAdd, int32 atomicMin/Max), so its
+// float sums round in no fixed order; no app path runs it. K12 needs no atomics: one thread per
 // output folds its 8 rows in order. K12 and K13 move each byte once and
 // are bound by device memory. K4 runs one 128-thread block per row: warp
 // shuffles for the xor shifts 1..16 and shared memory for 32 and 64, in
@@ -101,83 +98,14 @@ constexpr int STRIPE = 8;
 constexpr int PROWS = 64;   // rows of a contribution / corner-turn panel
 constexpr int XROWS = 32;   // rows of an x_ext panel
 
-// One output slot (r, l) of a route. src_row(band, row) points at the 128
-// values of source row `row` of band `band`. sel_b == nullptr is a
-// single-layer route: layer a is read whatever the pick bit says.
-template <typename T, typename SrcRow>
-__device__ __forceinline__ T route_slot(const uint8_t* __restrict__ idx1,
-                                        const uint8_t* __restrict__ sel_a,
-                                        const uint8_t* __restrict__ sel_b,
-                                        const uint8_t* __restrict__ idx3,
-                                        int r, int l, int nsrc, T fill,
-                                        SrcRow src_row) {
-  const int i3 = idx3[r * LANES + l];
-  const int m = i3 & 127;
-  const uint8_t* sel = (sel_b != nullptr && i3 >= 128) ? sel_b : sel_a;
-  const int s = sel[r * LANES + m];
-  const int band = s >> 3;
-  if (band >= nsrc) return fill;           // no landing: the ⊕-identity
-  const int row = s & 7;
-  const int lane = idx1[(band * STRIPE + row) * LANES + m];
-  return src_row(band, row)[lane];
-}
-
-// One panel's packed plan block: [idx1 (src_rows), sel_a (out_rows),
-// sel_b (out_rows, two-layer only), idx3 (out_rows)].
-struct Route {
-  const uint8_t* idx1;
-  const uint8_t* sel_a;
-  const uint8_t* sel_b;     // nullptr: single landing layer
-  const uint8_t* idx3;
-};
-
 __host__ __device__ __forceinline__ long long route_rows(int src_rows,
                                                          int out_rows,
                                                          bool two_layer) {
   return src_rows + (two_layer ? 3LL : 2LL) * out_rows;
 }
 
-__device__ __forceinline__ Route route_at(const uint8_t* blk, int src_rows,
-                                          int out_rows, bool two_layer) {
-  Route r;
-  r.idx1 = blk;
-  r.sel_a = blk + static_cast<long long>(src_rows) * LANES;
-  r.sel_b = two_layer ? r.sel_a + out_rows * LANES : nullptr;
-  r.idx3 = r.sel_a + (two_layer ? 2 : 1) * out_rows * LANES;
-  return r;
-}
-
 // Rows of an expand-route plan block (two-layer, x_ext source, 64 out).
 constexpr int EX_PROWS = XROWS + 3 * PROWS;
-
-// Route all out_rows x 128 slots of one panel; store(e, v) takes slot e.
-template <typename T, typename SrcRow, typename Store>
-__device__ __forceinline__ void route_panel(const Route& rt, int out_rows,
-                                            int nsrc, T fill, SrcRow src_row,
-                                            Store store) {
-  for (int e = threadIdx.x; e < out_rows * LANES; e += blockDim.x) {
-    store(e, route_slot<T>(rt.idx1, rt.sel_a, rt.sel_b, rt.idx3, e >> 7,
-                           e & 127, nsrc, fill, src_row));
-  }
-}
-
-// The expand route of one panel (K11; K1's second stage in the simple
-// form, one block a panel, the plan read from device memory): the 32-row
-// x_ext panel xe (4 source bands, in shared memory) routed two-layer into
-// the 64-row panel po, then ⊗ with the panel's weights pw.
-template <typename T, int MUL>
-__device__ __forceinline__ void expand_panel(const uint8_t* ex_blk,
-                                             const T* xe,
-                                             const T* __restrict__ pw,
-                                             T* __restrict__ po, T fill) {
-  const Route ex = route_at(ex_blk, XROWS, PROWS, true);
-  auto xe_row = [&](int band, int row) -> const T* {
-    return xe + (band * STRIPE + row) * LANES;
-  };
-  route_panel<T>(ex, PROWS, XROWS / STRIPE, fill, xe_row, [&](int e, T v) {
-    po[e] = apply_mul<T, MUL>(v, pw, e, fill);
-  });
-}
 
 // Plan block of block p: p itself (static) or plan_idx[p] (gated).
 __device__ __forceinline__ long long plan_block(const int* __restrict__ pidx,
@@ -186,54 +114,15 @@ __device__ __forceinline__ long long plan_block(const int* __restrict__ pidx,
 }
 
 // ------------------------------------------------------- the plan ring
-// K1-K3's persistent walk over panels through shared-memory stages. A
-// stage holds one panel's whole plan block (one TMA bulk copy, contiguous
-// and 128-byte aligned) and whatever else the kernel copies beside it;
-// every copy of a stage completes on the stage's mbarrier.
+// K1-K3's and K11's persistent walk over panels through shared-memory
+// stages (the TMA helpers are common.cuh's). A stage holds one panel's
+// whole plan block (one TMA bulk copy, contiguous and 128-byte aligned)
+// and whatever else the kernel copies beside it; every copy of a stage
+// completes on the stage's mbarrier.
 constexpr int VEC = 4;                       // slots a thread resolves at once
 constexpr int WIN_EL = STRIPE * LANES;       // values of one source window
 constexpr int SMEM_BLOCK = 232448;           // shared memory a block may have
 constexpr int MBAR_BYTES = 8;                // one mbarrier a stage
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count));
-}
-// one arrival that also expects `bytes` of bulk copies on this phase
-__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar,
-                                               unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
-// TMA bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
-// from device memory into shared memory, completing on bar
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          unsigned bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
 
 // Called by warp 0: lane 0 arrives on bar expecting plan block q's
 // plan_bytes plus `extra` bytes that other lanes copy on the same phase,
@@ -275,7 +164,7 @@ __device__ __forceinline__ void plan_ring(long long npanels, int stages,
   const long long G = gridDim.x;
   if (t == 0) {
     for (int s = 0; s < stages; ++s) mbar_init(&bar[s], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_mbar_init();
   }
   __syncthreads();
   long long p = blockIdx.x;
@@ -290,7 +179,7 @@ __device__ __forceinline__ void plan_ring(long long npanels, int stages,
     body(p, s);
     __syncthreads();                 // stage s is free for the next panel
     if (t < 32 && p + stages * G < npanels) {
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      fence_async_smem();
       load(p + stages * G, s);
     }
   }
@@ -313,34 +202,7 @@ __device__ __forceinline__ bool slot_at(const uint8_t* idx1,
   return true;
 }
 
-// ---------------------------------------------------------------- K1
-// x table -> (64,128) contribution panel per panel: the single-layer
-// x -> x_ext route of the panel's nwin x windows into shared memory, the
-// two-layer expand route out of it, then ⊗ with the weight stream. Plan
-// block per panel: [xr_idx1 (nwin*8), xr_sel_a (32), xr_idx3 (32),
-// ex_idx1 (32), ex_sel_a (64), ex_sel_b (64), ex_idx3 (64)] rows of 128.
-//
-// Plan ring of XE_STAGES stages, each one plan block (61,440 bytes at
-// nwin 24), and beside them the x_ext panel xe (16 KB f32, 32 KB f64): one
-// block an SM, of 512 threads (16 warps hide the x gathers' L2 latency
-// better than 8 did at RMAT-20). Stage 1 resolves four slots a thread out
-// of the staged plan, the x value by a read-only load (24 windows, 96 KB
-// in f32, do not fit beside two stages; the x table sits in L2), into xe;
-// stage 2 resolves four slots a thread wholly out of shared memory, reads
-// a 16-byte weight word under mul/add_sat, and writes one 16-byte
-// streaming store. Gated: plan (and weight) block plan_idx[p], bases still
-// panel p's; a panel at fill_block copies nothing and writes fill ⊗ w.
-constexpr int XE_STAGES = 2;
-constexpr int XE_THREADS = 512;
-
-__host__ __device__ __forceinline__ long long xe_plan_bytes(int nwin) {
-  return (route_rows(nwin * STRIPE, XROWS, false) + EX_PROWS) * LANES;
-}
-inline long long xe_smem(int nwin, long long value_bytes) {
-  return XE_STAGES * (xe_plan_bytes(nwin) + MBAR_BYTES) +
-         static_cast<long long>(XROWS) * LANES * value_bytes;
-}
-
+// v[k] ⊗= the weights pw[4g + k] (one 16-byte word; MUL_NONE: none).
 template <typename T, int MUL>
 __device__ __forceinline__ void mul4(T (&v)[VEC], const T* __restrict__ pw,
                                      unsigned g, T fill) {
@@ -350,6 +212,70 @@ __device__ __forceinline__ void mul4(T (&v)[VEC], const T* __restrict__ pw,
 #pragma unroll
     for (int k = 0; k < VEC; ++k) v[k] = apply_mul<T, MUL>(v[k], wv, k, fill);
   }
+}
+
+// The expand route of one panel, out of shared memory (K1's second stage,
+// and K11): the plan block ex [idx1 (32), sel_a, sel_b, idx3 (64 each)]
+// routes the 32-row x_ext panel xe (4 source bands; bands 4..31 are the
+// fill) two-layer into the 64-row panel po, then ⊗ with the panel's
+// weights pw. Each of the NT threads resolves four slots at a time: one
+// 4-byte idx3 word, four sel -> idx1 -> value chains, a 16-byte weight
+// word under mul/add_sat, and one 16-byte streaming store.
+template <typename T, int MUL, int NT>
+__device__ __forceinline__ void expand_stage(const uint8_t* ex, const T* xe,
+                                             const T* __restrict__ pw,
+                                             T* __restrict__ po, T fill) {
+  const int t = threadIdx.x;
+  const uint8_t* ei1 = ex;
+  const uint8_t* esa = ei1 + XROWS * LANES;
+  const uint8_t* esb = esa + PROWS * LANES;
+  const uint8_t* ei3 = esb + PROWS * LANES;
+#pragma unroll 2
+  for (int g = 0; g < PROWS * LANES / (NT * VEC); ++g) {
+    const int e = VEC * (t + NT * g);
+    const unsigned w3 = *reinterpret_cast<const unsigned*>(ei3 + e);
+    T v[VEC];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      int band, row, l;
+      v[k] = slot_at(ei1, esa, esb, e >> 7, (w3 >> (8 * k)) & 0xff,
+                     XROWS / STRIPE, &band, &row, &l)
+                 ? xe[(band * STRIPE + row) * LANES + l]
+                 : fill;
+    }
+    mul4<T, MUL>(v, pw, t + NT * g, fill);
+    store4<T>(po, t + NT * g, v[0], v[1], v[2], v[3]);
+  }
+}
+
+// ---------------------------------------------------------------- K1
+// x table -> (64,128) contribution panel per panel: the single-layer
+// x -> x_ext route of the panel's nwin x windows into shared memory, the
+// two-layer expand route out of it (expand_stage), then ⊗ with the weight
+// stream. Plan
+// block per panel: [xr_idx1 (nwin*8), xr_sel_a (32), xr_idx3 (32),
+// ex_idx1 (32), ex_sel_a (64), ex_sel_b (64), ex_idx3 (64)] rows of 128.
+//
+// Plan ring of XE_STAGES stages, each one plan block (61,440 bytes at
+// nwin 24), and beside them the x_ext panel xe (16 KB f32, 32 KB f64): one
+// block an SM, of 512 threads (16 warps hide the x gathers' L2 latency
+// better than 8 did at RMAT-20). Stage 1 resolves four slots a thread out
+// of the staged plan, the x value by a read-only load (24 windows, 96 KB
+// in f32, do not fit beside two stages; the x table sits in L2), into xe;
+// stage 2 (expand_stage) resolves four slots a thread wholly out of
+// shared memory, reads a 16-byte weight word under mul/add_sat, and writes
+// one 16-byte streaming store. Gated: plan (and weight) block
+// plan_idx[p], bases still panel p's; a panel at fill_block copies nothing
+// and writes fill ⊗ w.
+constexpr int XE_STAGES = 2;
+constexpr int XE_THREADS = 512;
+
+__host__ __device__ __forceinline__ long long xe_plan_bytes(int nwin) {
+  return (route_rows(nwin * STRIPE, XROWS, false) + EX_PROWS) * LANES;
+}
+inline long long xe_smem(int nwin, long long value_bytes) {
+  return XE_STAGES * (xe_plan_bytes(nwin) + MBAR_BYTES) +
+         static_cast<long long>(XROWS) * LANES * value_bytes;
 }
 
 template <typename T, int MUL>
@@ -408,50 +334,60 @@ route_xr_exp_kernel(const T* __restrict__ x2d, const int* __restrict__ bases,
     }
     __syncthreads();
     // stage 2: xe (4 source bands) -> 64 rows, two-layer, then ⊗ w
-    const uint8_t* ei1 = xi1 + xr_bytes;
-    const uint8_t* esa = ei1 + XROWS * LANES;
-    const uint8_t* esb = esa + PROWS * LANES;
-    const uint8_t* ei3 = esb + PROWS * LANES;
-#pragma unroll 2
-    for (int g = 0; g < PROWS * LANES / (XE_THREADS * VEC); ++g) {
-      const int e = VEC * (t + XE_THREADS * g);
-      const unsigned w3 = *reinterpret_cast<const unsigned*>(ei3 + e);
-      T v[VEC];
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) {
-        int band, row, l;
-        v[k] = slot_at(ei1, esa, esb, e >> 7, (w3 >> (8 * k)) & 0xff,
-                       XROWS / STRIPE, &band, &row, &l)
-                   ? xe[(band * STRIPE + row) * LANES + l]
-                   : fill;
-      }
-      mul4<T, MUL>(v, pw, t + XE_THREADS * g, fill);
-      store4<T>(po, t + XE_THREADS * g, v[0], v[1], v[2], v[3]);
-    }
+    expand_stage<T, MUL, XE_THREADS>(xi1 + xr_bytes, xe, pw, po, fill);
   });
 }
 
 // ---------------------------------------------------------------- K11
-// x_ext table (npanels*32, 128) -> (64,128) contribution panel per block:
-// the panel's own x_ext block loaded into shared memory, then the expand
-// route (expand_panel: K1's second stage in the simple form, its plan
-// read from device memory). Plan rows per panel: [idx1 (32), sel_a (64),
-// sel_b (64), idx3 (64)].
+// x_ext table (npanels*32, 128) -> (64,128) contribution panel per panel:
+// K1's second stage alone. Plan rows per panel: [idx1 (32), sel_a (64),
+// sel_b (64), idx3 (64)], 28,672 bytes.
+//
+// What bounds it: bytes. Per panel the 28,672-byte plan block and the
+// panel's own x_ext block (16 KB in f32/int32, 32 KB in f64) come in and
+// 32 KB (64 KB) of contributions go out, read once each; every route read
+// is then a shared-memory read. So K11 runs on the plan ring: persistent
+// blocks, a stage holding the panel's plan block (plan_copy, evict-first)
+// and its x_ext block beside it (one bulk copy on the same mbarrier), two
+// stages a block (90,128 bytes in f32: two blocks an SM; 122,896 in f64:
+// one), so one panel's 44.7 KB land while the other resolves; the body is
+// expand_stage, four slots a thread of EX_THREADS (512 threads were no
+// faster than 256 at RMAT-20 on the H100: PERF.md).
+constexpr int EX_STAGES = 2;
+constexpr int EX_THREADS = 256;
+
+template <typename T>
+__host__ __device__ constexpr int ex_stage_bytes() {
+  return EX_PROWS * LANES + XROWS * LANES * static_cast<int>(sizeof(T));
+}
+template <typename T>
+constexpr long long ex_smem() {
+  return EX_STAGES * (ex_stage_bytes<T>() + MBAR_BYTES);
+}
+
 template <typename T, int MUL>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(EX_THREADS)
 route_expand_kernel(const T* __restrict__ x_ext,
                     const uint8_t* __restrict__ plan,
-                    const T* __restrict__ w, T* __restrict__ out, T fill) {
-  __shared__ T xe[XROWS * LANES];
-  const long long p = blockIdx.x;
-  const T* src = x_ext + p * XROWS * LANES;
-  for (int e = threadIdx.x; e < XROWS * LANES; e += blockDim.x) {
-    xe[e] = src[e];
-  }
-  __syncthreads();
-  const T* pw = (MUL == MUL_NONE) ? nullptr : w + p * PROWS * LANES;
-  expand_panel<T, MUL>(plan + p * EX_PROWS * LANES, xe, pw,
-                       out + p * PROWS * LANES, fill);
+                    const T* __restrict__ w, T* __restrict__ out,
+                    long long npanels, T fill) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int PLAN = EX_PROWS * LANES;
+  constexpr int STAGE = ex_stage_bytes<T>();
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + EX_STAGES * STAGE);
+  auto load = [&](long long p, int s) {
+    unsigned char* dst = smem + s * STAGE;
+    plan_copy(&bar[s], dst, plan, p, PLAN, false, STAGE - PLAN);
+    if ((threadIdx.x & 31) == 0) {
+      bulk_load(dst + PLAN, x_ext + p * XROWS * LANES, STAGE - PLAN, &bar[s]);
+    }
+  };
+  plan_ring(npanels, EX_STAGES, bar, load, [&](long long p, int s) {
+    const uint8_t* ex = smem + s * STAGE;
+    const T* pw = (MUL == MUL_NONE) ? nullptr : w + p * PROWS * LANES;
+    expand_stage<T, MUL, EX_THREADS>(ex, reinterpret_cast<const T*>(ex + PLAN),
+                                     pw, out + p * PROWS * LANES, fill);
+  });
 }
 
 // ---------------------------------------------------------------- K2
@@ -789,8 +725,9 @@ int launch_xr_exp(const void* x2d, const void* bases, const void* plan,
   }
 }
 
-// Blocks an SM holds at once of K1 (kernel 1; its no-⊗ instance) or K3's
-// pass (a) (kernel 3, at ring depth `stages`; its sum instance).
+// Blocks an SM holds at once of K1 (kernel 1; its no-⊗ instance), K3's
+// pass (a) (kernel 3, at ring depth `stages`; its sum instance) or K11
+// (kernel 11; its no-⊗ instance; nwin and stages unused).
 template <typename T>
 int ring_blocks(int kernel, int nwin, int stages, int* per_sm) {
   if (kernel == 1) {
@@ -803,36 +740,44 @@ int ring_blocks(int kernel, int nwin, int stages, int* per_sm) {
     return ring_blocks_per_sm(kern, ring_ready<RingId<T, 3, RED_SUM>>(kern),
                               FOLD_THREADS, fold_smem(nwin, stages), per_sm);
   }
+  if (kernel == 11) {
+    auto kern = route_expand_kernel<T, MUL_NONE>;
+    return ring_blocks_per_sm(kern,
+                              ring_ready<RingId<T, 11, MUL_NONE>>(kern),
+                              EX_THREADS, ex_smem<T>(), per_sm);
+  }
   return cudaErrorInvalidValue;
+}
+
+template <typename T, int MUL>
+int launch_expand_mul(const void* x_ext, const void* plan, const void* w,
+                      void* out, long long npanels, double fill,
+                      cudaStream_t st) {
+  auto kern = route_expand_kernel<T, MUL>;
+  return ring_launch(kern, ring_ready<RingId<T, 11, MUL>>(kern), EX_THREADS,
+                     ex_smem<T>(), npanels, st, static_cast<const T*>(x_ext),
+                     static_cast<const uint8_t*>(plan),
+                     static_cast<const T*>(w), static_cast<T*>(out), npanels,
+                     static_cast<T>(fill));
 }
 
 template <typename T>
 int launch_expand(const void* x_ext, const void* plan, const void* w,
                   void* out, long long npanels, int mul_kind, double fill,
                   cudaStream_t st) {
-  const T* xs = static_cast<const T*>(x_ext);
-  const uint8_t* pl = static_cast<const uint8_t*>(plan);
-  const T* ws = static_cast<const T*>(w);
-  T* o = static_cast<T*>(out);
-  const T f = static_cast<T>(fill);
-  const dim3 grid(static_cast<unsigned>(npanels));
   switch (mul_kind) {
     case MUL_NONE:
-      route_expand_kernel<T, MUL_NONE><<<grid, THREADS, 0, st>>>(xs, pl, ws,
-                                                                 o, f);
-      break;
+      return launch_expand_mul<T, MUL_NONE>(x_ext, plan, w, out, npanels,
+                                            fill, st);
     case MUL_MUL:
-      route_expand_kernel<T, MUL_MUL><<<grid, THREADS, 0, st>>>(xs, pl, ws, o,
-                                                                f);
-      break;
+      return launch_expand_mul<T, MUL_MUL>(x_ext, plan, w, out, npanels, fill,
+                                           st);
     case MUL_ADD_SAT:
-      route_expand_kernel<T, MUL_ADD_SAT><<<grid, THREADS, 0, st>>>(
-          xs, pl, ws, o, f);
-      break;
+      return launch_expand_mul<T, MUL_ADD_SAT>(x_ext, plan, w, out, npanels,
+                                               fill, st);
     default:
       return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 // staged: the windows beside the plan in each stage (the wrapper's
@@ -1047,6 +992,7 @@ int gt_route_passa(const void* src, const void* bases, const void* plan,
   }
 }
 
+// x_ext, plan and w 16-byte aligned.
 int gt_route_expand(const void* x_ext, const void* plan, const void* w,
                     void* out, long long npanels, int dtype, int mul_kind,
                     double fill, void* stream) {
@@ -1149,8 +1095,9 @@ int gt_hub_fold(const void* v, const void* hm, void* out, long long nrows,
   }
 }
 
-// *per_sm = the blocks of K1 (kernel 1) or K3's pass (a) (kernel 3, ring
-// depth `stages`) that one SM holds at once at this value type and nwin.
+// *per_sm = the blocks of K1 (kernel 1), K3's pass (a) (kernel 3, ring
+// depth `stages`) or K11 (kernel 11) that one SM holds at once at this
+// value type and nwin.
 int gt_ring_blocks_per_sm(int kernel, int dtype, int nwin, int stages,
                           int* per_sm) {
   switch (dtype) {

@@ -60,7 +60,7 @@ _SIGNATURES = {
     # stream
     "gt_route_fold": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
                       _I32, _I32, _I32, _I32, _F64, _P, _I32, _P],
-    # kernel (1: K1, 3: K3), dtype, nwin, stages, out (int*)
+    # kernel (1: K1, 3: K3, 11: K11), dtype, nwin, stages, out (int*)
     "gt_ring_blocks_per_sm": [_I32, _I32, _I32, _I32, _P],
     # v, hub_mask, out, nrows, dtype, reduce_kind, stream
     "gt_hub_fold": [_P, _P, _P, _I64, _I32, _I32, _P],
@@ -85,8 +85,11 @@ _SIGNATURES = {
     # ngroups, dtype, reduce_kind, identity, stream
     "gt_segment_reduce": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
                           _I32, _I32, _F64, _P],
-    # x, y, rows, row_bytes, bm, bn_bytes, stream
-    "gt_probe_copy": [_P, _P, _I64, _I64, _I32, _I64, _P],
+    # x, y, rows, row_bytes, bm, bn_bytes, chunk_rows, pieces, piece_bytes,
+    # stream
+    "gt_probe_copy": [_P, _P, _I64, _I64, _I32, _I64, _I32, _I32, _I64, _P],
+    # chunk_bytes, out (int*)
+    "gt_probe_copy_blocks_per_sm": [_I64, _P],
     # a, b, c, d, out, nstreams, rows, lanes, bm, stream
     "gt_probe_stream_sum": [_P, _P, _P, _P, _P, _I32, _I64, _I32, _I32, _P],
     # x2d, bases, out, npanels, nwin, stream

@@ -92,12 +92,13 @@ def plan_rows(src_rows: int, out_rows: int = PROWS,
     return src_rows + (3 if two_layer else 2) * out_rows
 
 
-# K1-K3 on the card: shared memory a block may have (the H100's 227 KB),
-# the stages of K1's and K2's plan rings, and the mbarrier beside each
-# stage
+# K1-K3 and K11 on the card: shared memory a block may have (the H100's
+# 227 KB), the stages of K1's, K2's and K11's plan rings, and the mbarrier
+# beside each stage
 SMEM_BLOCK = 232_448
 PASSA_STAGES = 2
 XE_STAGES = 2
+EX_STAGES = 2
 _MBAR_BYTES = 8
 
 
@@ -151,6 +152,16 @@ def xr_exp_smem(nwin: int, itemsize: int) -> int:
     return XE_STAGES * (plan_bytes + _MBAR_BYTES) + xe_bytes
 
 
+def expand_smem(itemsize: int) -> int:
+    """Shared memory of K11's block on the card: EX_STAGES stages, each
+    a panel's expand plan block (``plan_rows(XROWS)`` x 128 bytes) and
+    its 32-row x_ext block of ``itemsize``-byte values beside it, an
+    mbarrier each: 90,128 bytes for 4-byte values (two blocks an SM),
+    122,896 for 8-byte (one)."""
+    return EX_STAGES * (plan_rows(XROWS) * LANES + XROWS * LANES * itemsize
+                        + _MBAR_BYTES)
+
+
 def fold_stages(nwin: int) -> int:
     """Stages of K3's plan ring on the card: 2 while two plan blocks
     (64-row two-layer routes of nwin windows, an mbarrier each) fit a
@@ -179,11 +190,12 @@ def fold_smem(nwin: int) -> int:
                                     + _MBAR_BYTES), FOLD_SMEM_MIN)
 
 
-def ring_blocks_per_sm(kernel: str, dtype, nwin: int) -> int:
-    """Blocks of K1 (``kernel`` 'route_xr_exp') or K3's pass (a)
-    ('route_fold') that one SM of the current card holds at once for
-    ``dtype`` values and ``nwin`` windows, as the launch sizes its grid."""
-    which = {"route_xr_exp": 1, "route_fold": 3}[kernel]
+def ring_blocks_per_sm(kernel: str, dtype, nwin: int = 0) -> int:
+    """Blocks of K1 (``kernel`` 'route_xr_exp'), K3's pass (a)
+    ('route_fold') or K11 ('route_expand', whose footprint has no nwin)
+    that one SM of the current card holds at once for ``dtype`` values and
+    ``nwin`` windows, as the launch sizes its grid."""
+    which = {"route_xr_exp": 1, "route_fold": 3, "route_expand": 11}[kernel]
     stages = fold_stages(nwin) if which == 3 else XE_STAGES
     out = ctypes.c_int(0)
     rc = _cuda.library().gt_ring_blocks_per_sm(
@@ -511,7 +523,13 @@ def route_expand(x_ext, plan, weights, fill, npanels: int,
     contribution panels: panel i's own 32-row x_ext block (4 source
     bands) routed two-layer, then ⊗ with the weight stream — K1's second
     stage alone. ``plan``: per panel [idx1 (32), sel_a, sel_b, idx3 (64
-    each)]. Replaces ``panel_kernels.py::route_expand``."""
+    each)]. Replaces ``panel_kernels.py::route_expand``.
+
+    On the card, K11 runs on K1's plan ring: persistent blocks stage each
+    panel's plan block and its x_ext block in shared memory with TMA bulk
+    copies, two panels in flight a block (``expand_smem``), and resolve
+    four slots a thread with K1's own expand stage
+    (``csrc/panel_route.cu``)."""
     _check_2d("x_ext", x_ext, None, npanels * XROWS)
     _check_values("x_ext", x_ext, x_ext.device)
     _check_2d("plan", plan, torch.uint8, npanels * plan_rows(XROWS))
@@ -525,6 +543,7 @@ def route_expand(x_ext, plan, weights, fill, npanels: int,
     if not _on_cuda(x_ext):
         return route_expand_plain(x_ext, plan, weights, fill, npanels,
                                   mul_kind)
+    _check_aligned(x_ext=x_ext, plan=plan, weights=weights)
     lib = _cuda.library()
     out = torch.empty((npanels * PROWS, LANES), dtype=x_ext.dtype,
                       device=x_ext.device)

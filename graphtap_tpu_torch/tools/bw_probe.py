@@ -22,6 +22,15 @@ Each returns (its output tensor, GB/s). On the card the kernels of
 of the streams in order) and the rate is None: a CPU run gives no device
 rate.
 
+P1 on the card measures TMA bulk copies, global -> shared -> global, on
+an mbarrier, no value in registers. The copy is cut in tile order into
+chunks of whole rows of one tile (``copy_chunks``: at most CHUNK_BYTES a
+chunk; a row segment wider than that splits into pieces), one one-warp
+block a chunk; the SM's resident blocks are the ring
+(``copy_blocks_per_sm`` chunks in flight). The panel kernels' plan rings
+use the same copies from persistent blocks, which ran about 3% behind
+one block a chunk on the H100 (PERF.md).
+
     python -m graphtap_tpu_torch.tools.bw_probe [quick]
 
 prints the table with the card's name and power limit; it needs a card.
@@ -29,9 +38,10 @@ prints the table with the card's name and power limit; it needs a card.
 
 from __future__ import annotations
 
+import ctypes
 import subprocess
 import sys
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -42,6 +52,9 @@ MB = 1 << 20
 TARGET_BYTES = 268 * MB
 NCHAIN = 8
 WIDE = 8192                  # columns of copy_2d's array
+
+# P1's chunks on the card: at most CHUNK_BYTES each
+CHUNK_BYTES = 32 * 1024
 
 # launches of each CUDA kernel (the plain versions are not counted)
 LAUNCHES = {"copy_blocks": 0, "stream_sum": 0}
@@ -65,10 +78,46 @@ def stream_sum_plain(xs: List[torch.Tensor]) -> torch.Tensor:
     return acc
 
 
+# ------------------------------------------------------------ P1's chunks
+class CopyChunks(NamedTuple):
+    chunk_rows: int     # rows of a chunk (the last of a tile may hold fewer)
+    pieces: int         # pieces of a row segment (1 while it fits a chunk)
+    piece_bytes: int    # bytes of a piece (the last piece holds the rest)
+
+
+def copy_chunks(rows: int, row_bytes: int, bm: int,
+                bn_bytes: int) -> CopyChunks:
+    """How P1 cuts a (rows, row_bytes) array in (bm, bn_bytes) tiles into
+    chunks: up to ``chunk_rows`` consecutive rows of one tile, the most
+    whose row segments fit CHUNK_BYTES; a segment wider than CHUNK_BYTES
+    is one row cut into ``pieces`` of ``piece_bytes``. A tile's chunks
+    are rows-major, pieces-minor, and the tiles row-major."""
+    if (bm <= 0 or bn_bytes <= 0 or bn_bytes % 16 or row_bytes % bn_bytes
+            or rows % bm):
+        raise ValueError(f"copy_chunks: ({rows}, {row_bytes} bytes) in "
+                         f"({bm}, {bn_bytes} bytes) tiles of whole 16-byte "
+                         f"rows")
+    piece = min(bn_bytes, CHUNK_BYTES)
+    return CopyChunks(min(bm, CHUNK_BYTES // piece), -(-bn_bytes // piece),
+                      piece)
+
+
+def copy_blocks_per_sm(ch: CopyChunks) -> int:
+    """P1's blocks (chunks in flight) one SM of the current card holds at
+    once for chunks ``ch``."""
+    out = ctypes.c_int(0)
+    rc = _cuda.library().gt_probe_copy_blocks_per_sm(
+        ch.chunk_rows * ch.piece_bytes, ctypes.addressof(out))
+    _cuda.check(rc, "copy_blocks_per_sm")
+    return out.value
+
+
 # --------------------------------------------------------------- wrappers
 def copy_blocks(x: torch.Tensor, bm: int, bn: int) -> torch.Tensor:
-    """P1: a copy of the 2-D ``x``, one CUDA block per (bm, bn) tile.
-    Replaces ``tools_dev/bw_probe.py``'s ``_copy_kernel`` calls."""
+    """P1: a copy of the 2-D ``x`` in (bm, bn) tiles, tile by tile.
+    Replaces ``tools_dev/bw_probe.py``'s ``_copy_kernel`` calls. On the
+    card, one block a chunk (``copy_chunks``) copies it with TMA bulk
+    copies through shared memory."""
     if x.dim() != 2 or not x.is_contiguous():
         raise ValueError("copy_blocks: expected a contiguous 2-D tensor")
     rows, cols = x.shape
@@ -80,9 +129,10 @@ def copy_blocks(x: torch.Tensor, bm: int, bn: int) -> torch.Tensor:
     lib = _cuda.library()
     y = torch.empty_like(x)
     es = x.element_size()
+    ch = copy_chunks(rows, cols * es, bm, bn * es)
     with torch.cuda.device(x.device):
         rc = lib.gt_probe_copy(x.data_ptr(), y.data_ptr(), rows, cols * es,
-                               bm, bn * es, _stream(x))
+                               bm, bn * es, *ch, _stream(x))
     LAUNCHES["copy_blocks"] += 1
     _cuda.check(rc, "copy_blocks")
     return y
@@ -148,14 +198,47 @@ def _chain(call, x):
     return run
 
 
+def _itemsize(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def shape_1d(rows_per_block: int, lanes: int, dtype=torch.float32,
+             target_bytes: int = TARGET_BYTES) -> Tuple[int, int]:
+    """copy_1d's array: (rows, lanes), rows whole blocks."""
+    rows = target_bytes // (lanes * _itemsize(dtype))
+    return rows - rows % rows_per_block, lanes
+
+
+def shape_2d(bm: int, dtype=torch.float32,
+             target_bytes: int = TARGET_BYTES) -> Tuple[int, int]:
+    """copy_2d's array: (m, WIDE), m whole blocks."""
+    m = target_bytes // (WIDE * _itemsize(dtype))
+    return m - m % bm, WIDE
+
+
+def copy_shapes(quick: bool = False):
+    """(table label, array shape, dtype, bm, bn, copy) of each P1 row of
+    ``table``, in its order; ``copy(bm, bn, dtype, device)`` is the row's
+    probe, ``copy_1d`` or ``copy_2d``."""
+    out = [(f"cuda copy 1D ({rb},1024)", shape_1d(rb, 1024), torch.float32,
+            rb, 1024, copy_1d)
+           for rb in ((8, 256) if quick else (8, 64, 256, 1024))]
+    out += [(f"cuda copy 2D ({bm},{bn})", shape_2d(bm), torch.float32, bm,
+             bn, copy_2d) for bm, bn in (((8, 128), (256, 512)) if quick else (
+                 (8, 128), (64, 128), (256, 128), (256, 512), (512, 1024)))]
+    if not quick:
+        out.append(("cuda copy int8 (64,1024) byte rate",
+                    shape_1d(64, 1024, torch.int8), torch.int8, 64, 1024,
+                    copy_1d))
+    return out
+
+
 def copy_1d(rows_per_block: int, lanes: int, dtype=torch.float32,
             device="cuda", target_bytes: int = TARGET_BYTES):
     """(rows, lanes) ones in (rows_per_block, lanes) blocks, NCHAIN chained
     copies; (output, read+write GB/s)."""
-    rows = target_bytes // (lanes * torch.empty((), dtype=dtype)
-                            .element_size())
-    rows -= rows % rows_per_block
-    x = torch.ones((rows, lanes), dtype=dtype, device=device)
+    x = torch.ones(shape_1d(rows_per_block, lanes, dtype, target_bytes),
+                   dtype=dtype, device=device)
     return chained_gbs(_chain(lambda y: copy_blocks(y, rows_per_block,
                                                     lanes), x),
                        2 * x.numel() * x.element_size() * NCHAIN, device)
@@ -165,11 +248,10 @@ def copy_2d(bm: int, bn: int, dtype=torch.float32, device="cuda",
             target_bytes: int = TARGET_BYTES):
     """(m, 8192) ones in (bm, bn) blocks, NCHAIN chained copies; (output,
     read+write GB/s)."""
-    m = target_bytes // (WIDE * torch.empty((), dtype=dtype).element_size())
-    m -= m % bm
     if WIDE % bn:
         raise ValueError(f"copy_2d: bn {bn} does not divide {WIDE}")
-    x = torch.ones((m, WIDE), dtype=dtype, device=device)
+    x = torch.ones(shape_2d(bm, dtype, target_bytes), dtype=dtype,
+                   device=device)
     return chained_gbs(_chain(lambda y: copy_blocks(y, bm, bn), x),
                        2 * x.numel() * x.element_size() * NCHAIN, device)
 
@@ -223,16 +305,8 @@ def table(quick: bool = False, device="cuda") -> List[Tuple[str, float]]:
     XLA row and ``Tensor.copy_`` beside it."""
     rows = [("torch elementwise x+1", elementwise(device)[1]),
             ("torch Tensor.copy_", library_copy(device)[1])]
-    for rb in (8, 256) if quick else (8, 64, 256, 1024):
-        rows.append((f"cuda copy 1D ({rb},1024)",
-                     copy_1d(rb, 1024, device=device)[1]))
-    for bm, bn in ((8, 128), (256, 512)) if quick else (
-            (8, 128), (64, 128), (256, 128), (256, 512), (512, 1024)):
-        rows.append((f"cuda copy 2D ({bm},{bn})",
-                     copy_2d(bm, bn, device=device)[1]))
-    if not quick:
-        rows.append(("cuda copy int8 (64,1024) byte rate",
-                     copy_1d(64, 1024, torch.int8, device=device)[1]))
+    for label, _, dtype, bm, bn, copy in copy_shapes(quick):
+        rows.append((label, copy(bm, bn, dtype, device)[1]))
     rows.append(("2-stream sum -> 1 out (64,1024)",
                  multi_stream_sum(2, device=device)[1]))
     rows.append(("4-stream sum -> 1 out (64,1024)",

@@ -24,7 +24,10 @@ and SID_INVALID slots under each ⊗, match bit for bit on seeded synthetic
 plans. K1 and K3 on their plan rings (static and gated, every ⊗ and ⊕
 kind, npanels 1 and past the persistent grid, K3 in both ring depths,
 each nwin up to the wrapper's shared-memory limit) match bit for bit on
-seeded synthetic plans.
+seeded synthetic plans, and so does K11 on K1's plan ring (every ⊗ in
+f32, f64 and int32, npanels 1 and past the grid, fill slots), twice. P1's
+TMA chunk copies equal x.clone() on 16-byte segments, tiles taller than a
+chunk, fewer tiles than SMs, one tile and segments wider than a chunk.
 """
 
 import numpy as np
@@ -571,6 +574,46 @@ def test_route_xr_exp_forms_match_plain(cuda, case, dt):
             npanels, 1))
 
 
+# K11 on seeded synthetic routes: (npanels, ⊗ kind)
+_EXPAND_CASES = {
+    "none": (300, "none"),
+    "mul": (300, "mul"),
+    "add_sat": (300, "add_sat"),
+    "one": (1, "mul"),
+    "many": (1001, "add_sat"),              # past the persistent grid
+}
+
+
+@pytest.mark.parametrize("dt", sorted(_STREAM_DTYPES))
+@pytest.mark.parametrize("case", sorted(_EXPAND_CASES))
+def test_route_expand_forms_match_plain(cuda, case, dt):
+    """K11 (K1's plan ring: each panel's plan block and x_ext block staged
+    by TMA, K1's expand stage) against its plain version bit for bit, one
+    launch per call, the same bits on a second call; fill slots where a
+    sel names band 4 or 5 of the 4-band x_ext panel. Its two stages fit
+    two blocks an SM for 4-byte values, one for 8-byte."""
+    npanels, mul = _EXPAND_CASES[case]
+    dtype, fill = _STREAM_DTYPES[dt]
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    assert pk.ring_blocks_per_sm("route_expand", dtype) == {
+        4: 2, 8: 1}[itemsize]
+    rng = np.random.default_rng(13)
+    x_ext = _values(rng, dt, (npanels * 32, 128))
+    plan = torch.from_numpy(np.concatenate(
+        [_route_block(rng, 32, 64, 2, 6) for _ in range(npanels)]).astype(
+        np.uint8))
+    w = _values(rng, dt, (npanels * 64, 128))
+    x_ext, plan, w = (a.to(cuda) for a in (x_ext, plan, w))
+    args = (x_ext, plan, None if mul == "none" else w, fill, npanels, mul)
+    before = dict(pk.LAUNCHES)
+    got = pk.route_expand(*args)
+    assert _launched(before) == {"route_expand": 1}
+    want = pk.route_expand_plain(*args)
+    assert bool((want == fill).any()) or mul != "none"
+    assert torch.equal(got, want)
+    assert torch.equal(pk.route_expand(*args), got)
+
+
 # K3 on seeded synthetic routes: (npanels, nwin, share of panels pointed at
 # the fill block or None for a static launch)
 _FOLD_CASES = {
@@ -937,12 +980,24 @@ def test_f32_pagerank_converges(cuda, monkeypatch, kernel, comp):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
 def test_probe_copy_matches_plain(cuda, dtype):
+    """P1 (TMA chunk copies) equals x.clone() bit for bit on the table's
+    tile shapes and on 16-byte segments, a tile taller than one chunk,
+    fewer tiles than SMs, one tile, and segments wider than a chunk."""
     x = torch.randint(-100, 100, (512, 1024), device=cuda).to(dtype)
+    b16 = 16 // x.element_size()
+    shapes = [((512, 1024), 8, 1024), ((512, 1024), 64, 128),
+              ((512, 1024), 256, 512), ((512, 1024), 64, b16),
+              ((512, 1024), 512, b16), ((512, 1024), 256, 1024),
+              ((512, 1024), 512, 1024), ((16, 16384), 16, 16384),
+              ((24, 12288), 8, 12288)]
     before = bw_probe.LAUNCHES["copy_blocks"]
-    for bm, bn in ((8, 1024), (64, 128), (256, 512)):
-        assert torch.equal(bw_probe.copy_blocks(x, bm, bn),
-                           bw_probe.copy_blocks_plain(x, bm, bn))
-    assert bw_probe.LAUNCHES["copy_blocks"] == before + 3
+    for shape, bm, bn in shapes:
+        xs = x.reshape(shape) if shape == x.shape else torch.randint(
+            -100, 100, shape, device=cuda).to(dtype)
+        assert torch.equal(bw_probe.copy_blocks(xs, bm, bn),
+                           bw_probe.copy_blocks_plain(xs, bm, bn)), (
+            shape, bm, bn)
+    assert bw_probe.LAUNCHES["copy_blocks"] == before + len(shapes)
     out, gbs = bw_probe.copy_1d(64, 1024, dtype, device=cuda,
                                 target_bytes=1 << 22)
     assert gbs > 0 and bool(torch.all(out == 1))

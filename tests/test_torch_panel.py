@@ -288,13 +288,23 @@ def test_passa_form_follows_its_rule(two_layer, itemsize):
 
 @pytest.mark.parametrize("kernel,itemsize", [("route_xr_exp", 4),
                                              ("route_xr_exp", 8),
-                                             ("route_fold", 4)])
+                                             ("route_fold", 4),
+                                             ("route_expand", 4),
+                                             ("route_expand", 8)])
 def test_ring_footprint_follows_its_rule(kernel, itemsize):
-    """K1's and K3's plan rings on the card: K1 holds two plan blocks (an
-    8-byte mbarrier each) and its 32x128 x_ext panel, K3 two plan blocks
-    while they fit the 232,448 bytes a block may have and one after, and
-    asks for at least 116 KB; past that each raises. And where the repo's
-    routes land."""
+    """K1's, K3's and K11's plan rings on the card: K1 holds two plan
+    blocks (an 8-byte mbarrier each) and its 32x128 x_ext panel, K3 two
+    plan blocks while they fit the 232,448 bytes a block may have and one
+    after, and asks for at least 116 KB; past that each raises. K11 holds
+    two stages of an expand plan block (224 rows) and the panel's x_ext
+    block, whatever the meta's nwin (the blocks an SM that gives are
+    checked on the card). And where the repo's routes land."""
+    if kernel == "route_expand":
+        stage = pk.plan_rows(32) * 128 + 32 * 128 * itemsize
+        assert stage == {4: 45056, 8: 61440}[itemsize]
+        assert pk.expand_smem(itemsize) == 2 * (stage + 8) == {
+            4: 90128, 8: 122896}[itemsize]
+        return
     fits = {}
     for nwin in range(1, 260):
         if kernel == "route_xr_exp":

@@ -169,3 +169,55 @@ def test_route_like_checks_bases_once_per_version():
     with pytest.raises(ValueError):
         route_cost_probe.route_like(t[:32], torch.tensor(
             [0, 4], dtype=torch.int32), 1, 2)
+
+
+def _table_shapes():
+    """(rows, cols, itemsize, bm, bn) of every P1 row of the probe's quick
+    and full tables (``bw_probe.table``), at the probe's TARGET_BYTES."""
+    return sorted({(*shape, torch.empty((), dtype=dt).element_size(), bm, bn)
+                   for quick in (True, False)
+                   for _, shape, dt, bm, bn, _ in bw_probe.copy_shapes(quick)})
+
+
+# the card tests' shapes (tests/test_torch_cuda.py): 16-byte segments, a
+# tile taller than a chunk, fewer tiles than SMs, one tile, a segment wider
+# than a chunk, in int8 and f32
+_CARD_SHAPES = [(512, 1024, 4, 8, 1024), (512, 1024, 4, 64, 128),
+                (512, 1024, 4, 256, 512), (512, 1024, 1, 64, 16),
+                (512, 1024, 4, 512, 4), (512, 1024, 4, 256, 1024),
+                (512, 1024, 1, 512, 1024), (512, 1024, 4, 512, 1024),
+                (16, 16384, 4, 16, 16384), (24, 12288, 4, 8, 12288)]
+
+
+@pytest.mark.parametrize("rows,cols,itemsize,bm,bn",
+                         _table_shapes() + _CARD_SHAPES)
+def test_copy_chunks_follow_their_rule(rows, cols, itemsize, bm, bn):
+    """P1's chunks (``copy_chunks``), walked as the kernel walks a tile:
+    each chunk is whole row segments of one tile, or one piece of one row
+    where a segment is wider than a chunk, in 16-byte multiples; it fits
+    CHUNK_BYTES, and the chunks cover each tile in order, each byte
+    once."""
+    seg = bn * itemsize
+    ch = bw_probe.copy_chunks(rows, cols * itemsize, bm, seg)
+    assert ch.piece_bytes % 16 == 0
+    assert ch.chunk_rows * ch.piece_bytes <= bw_probe.CHUNK_BYTES
+    end = 0                      # bytes of the tile covered, row-major
+    for rc in range(-(-bm // ch.chunk_rows)):
+        r0 = rc * ch.chunk_rows
+        nr = min(ch.chunk_rows, bm - r0)
+        for pc in range(ch.pieces):
+            b0 = pc * ch.piece_bytes
+            nb = min(ch.piece_bytes, seg - b0)
+            assert nb > 0 and nb % 16 == 0
+            assert (b0, nb) == (0, seg) if ch.pieces == 1 else nr == 1
+            assert r0 * seg + b0 == end
+            end += nr * nb
+    assert end == bm * seg
+    if seg <= bw_probe.CHUNK_BYTES:      # the most whole rows a chunk holds
+        assert ch.chunk_rows == min(bm, bw_probe.CHUNK_BYTES // seg)
+
+
+def test_copy_chunks_reject_what_copy_blocks_rejects():
+    for args in ((16, 4096, 3, 4096), (16, 24, 8, 8), (16, 4096, 8, 24)):
+        with pytest.raises(ValueError, match="copy_chunks"):
+            bw_probe.copy_chunks(*args)

@@ -361,3 +361,25 @@ def test_cached_rmat(tmp_path, weighted):
         np.testing.assert_array_equal(a, b)
         np.testing.assert_array_equal(a, d)
     assert os.listdir(tmp_path) == files
+
+
+def test_ring_times_rows_agree_on_cpu(tmp_path):
+    """The ring-kernel timer's calls on the CPU at RMAT-10: K1, K11 and P1
+    equal their plain versions and their PyTorch calls (the take over the
+    index precomputed from the plan; the copy) bit for bit; the meta it
+    wrote, under a name that carries its scale and seed, is read back the
+    same."""
+    from graphtap_tpu_torch.tools import ring_times
+    path = ring_times.meta_path(str(tmp_path), scale=10)
+    assert os.path.basename(path) == (
+        "ring_times_rmat10_ef16_seed1_tcsc_f32.npz")
+    meta = ring_times.load_meta(path, scale=10)
+    again = ring_times.load_meta(path, scale=10)
+    for k, v in meta.arrays.items():
+        np.testing.assert_array_equal(v[0], again.arrays[k][0], err_msg=k)
+    got = ring_times.rows(again, "cpu", copy_bytes=1 << 20)
+    assert [r[0] for r in got] == ["route_xr_exp", "route_expand",
+                                   "copy_blocks"]
+    for name, kern, plain, lib, nbytes in got:
+        ring_times.check(name, kern, plain, lib)
+        assert nbytes > 0

@@ -88,8 +88,11 @@ Phases, each printed as it runs; any failure exits non-zero:
               (unweighted), K6, K7 (one take over the radix passes'
               composed index); torch.scatter_reduce for K8, and for K3
               when no source slot of its route feeds two (row, lane)
-              slots (checked here). K7 also in f64 and int32 on seeded
-              random streams of the degree plan, bit for bit, and its
+              slots (checked here). K6's plan figures on the degree
+              plan logged (steps, slots, valid slots, windows, runs of
+              one window, all-invalid 4-slot groups). K7 also in f64 and
+              int32 on seeded random streams of the degree plan, bit for
+              bit, and its
               earlier yardstick (one take per pass) logged; then the
               degree SpMV's warm time (median of five calls).
   5b. staged  the staged SpMV (kernels/panel_engine.py::spmv3_staged) on
@@ -1563,15 +1566,24 @@ def phase_shuffle_kernels(torch, np, g, launches):
     SpMV's warm time, the median of five calls (CUDA events)."""
     from graphtap_tpu_torch.kernels import shuffle_kernels as sk
     from graphtap_tpu_torch.kernels.semiring import INF_I32, plus_times
-    from graphtap_tpu_torch.kernels.shuffle_engine import (spmv_local,
-                                                           spmv_stages)
-    from graphtap_tpu_torch.tools import timing
+    from graphtap_tpu_torch.kernels.shuffle_engine import spmv_stages
+    from graphtap_tpu_torch.tools import ring_times, timing
     from graphtap_tpu_torch.tools.convert import meta_from_numpy
     meta = _prebuilt("shuffle", "COL", g.config)
     log(f"kernels: degree shuffle plans: {meta.nsupers} supers of "
         f"{meta.rows_per_super} rows, {meta.npasses} passes, SMAX "
         f"{meta.SMAX}, {meta.nblocks} y blocks")
     t = meta_from_numpy(meta.arrays, DEVICE)
+    for tag, grp, ev in (("stream", t["grp"], t["ev_x"]),
+                         ("mexp A", t["mexp_grp_a"], t["mexp_ev_a"]),
+                         ("mexp B", t["mexp_grp_b"], t["mexp_ev_b"])):
+        f = sk.expand_figures(grp, ev)
+        log(f"kernels: expand_stream {tag} plan: {f['steps']} steps, "
+            f"{f['slots']} slots, {f['valid']} valid "
+            f"({f['valid'] / max(f['slots'], 1):.4f}), {f['windows']} "
+            f"windows, {f['runs']} runs of one window (mean "
+            f"{f['mean_run']:.2f}, median {f['median_run']:g} steps), "
+            f"all-invalid 4-slot groups {f['empty4']:.4f}")
     sem = plus_times()
     x = torch.ones(g.part.tile_cols, dtype=torch.float32, device=DEVICE)
     st = spmv_stages(x, t, meta, sem, g.part.tile_rows)
@@ -1611,18 +1623,9 @@ def phase_shuffle_kernels(torch, np, g, launches):
                     sk.group_stream(c, *gargs, fill, src=gsrc),
                     sk.group_stream_plain(c, *gargs, fill))
     del c
-    times = []
-    for _ in range(6):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        spmv_local(x, t, meta, sem, g.part.tile_rows)
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    warm = sorted(times[1:])
+    med, times = ring_times.degree_spmv(t, meta)
     log(f"kernels: RMAT-{SCALE} degree SpMV on shuffle, warm: median "
-        f"{warm[2]:.4f} ms of 5 calls (CUDA events; "
+        f"{med:.4f} ms of 5 calls (CUDA events; "
         f"{', '.join(f'{v:.4f}' for v in times[1:])}; first "
         f"{times[0]:.4f})")
     del t, st

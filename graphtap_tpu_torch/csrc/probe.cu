@@ -11,10 +11,10 @@
 //
 // What they compute. P1: y = x, a row-major (rows, cols) array copied in
 // (bm rows, bn columns) tiles, tile by tile as the Pallas grid steps. P2:
-// o = ((x0 + x1) + x2) + x3 over 2 or 4 f32 streams, one block per
-// (bm, lanes) tile. P3: per panel i, the sum of its nwin
-// (8, 128) f32 windows x2d[bases[i*nwin + t]*8 : +8] in order t = 0 ..
-// nwin-1, written 8 times into the (64, 128) output panel i.
+// o = ((x0 + x1) + x2) + x3 over 2 or 4 f32 streams. P3: per panel i,
+// the sum of its nwin (8, 128) f32 windows x2d[bases[i*nwin + t]*8 : +8]
+// in order t = 0 .. nwin-1, written 8 times into the (64, 128) output
+// panel i.
 //
 // What bounds them on the card: bytes. P1 and P2 do no arithmetic (P2 one
 // add per input element); P3 reads nwin windows and writes 8 copies of
@@ -43,12 +43,20 @@
 // KB), handed out in tile order by the block scheduler as blocks end.
 // Persistent blocks walking a ring of stages, chunk c to block c mod
 // grid, were 3% slower on the H100, and taking the chunks from a global
-// counter was no faster than this (PERF.md). P2 and P3: simple, one
-// block per tile or panel as the Pallas grid walks them; 16-byte vector
-// loads and stores, neighbouring threads on neighbouring addresses. The
-// launchers are extern "C" (bound with ctypes), launch on the caller's
-// stream, allocate nothing, check the shapes they need, and return
-// cudaGetLastError(). Offsets are 64-bit.
+// counter was no faster than this (PERF.md). P2 does not take the TPU's
+// (64, 1024) blocks as its grid: their 536 blocks at the kernels-line
+// shape leave 8 SMs a fifth block to finish alone. Each 256-thread block
+// sums a 16 KB chunk of every stream (~8,600 blocks), four float4s a
+// thread, every load of the chunk issued before the first add, the
+// stores streaming (evict-first), the last chunk guarded. Streaming loads
+// as well were no faster on the H100, and streaming loads with plain
+// stores 3% slower; bringing the chunks into shared memory by TMA, as P1
+// does, and summing from there was no faster either (PERF.md). P3:
+// simple, one block per panel as the Pallas grid walks them; 16-byte
+// vector loads and stores, neighbouring threads on neighbouring
+// addresses. The launchers are extern "C" (bound with ctypes), launch on
+// the caller's stream, allocate nothing, check the shapes they need, and
+// return cudaGetLastError(). Offsets are 64-bit.
 
 #include <cstdint>
 
@@ -133,17 +141,39 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
-// P2: block b sums the streams over elements b*n .. +n (n = bm * lanes,
-// in float4 units), in stream order.
+// P2: block b sums the streams over float4s b*SUM_CHUNK .. +SUM_CHUNK
+// (the last block's chunk may be partial), SUM_VEC a thread: every load
+// of the chunk, for all NS streams, is issued before the first add, and
+// the stores stream (evict-first: nothing reads the output again). The
+// adds keep the stream order.
+constexpr int SUM_VEC = 4;                    // float4s a thread, a stream
+constexpr int SUM_CHUNK = THREADS * SUM_VEC;  // float4s a block (16 KB)
+
+template <int NS>
 __global__ void __launch_bounds__(THREADS)
 stream_sum_kernel(const float4* __restrict__ a, const float4* __restrict__ b,
                   const float4* __restrict__ c, const float4* __restrict__ d,
-                  float4* __restrict__ o, int n) {
-  const long long base = static_cast<long long>(blockIdx.x) * n;
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    float4 acc = add4(a[base + e], b[base + e]);
-    if (c != nullptr) acc = add4(add4(acc, c[base + e]), d[base + e]);
-    o[base + e] = acc;
+                  float4* __restrict__ o, long long n4) {
+  const float4* in[4] = {a, b, c, d};
+  const long long base =
+      static_cast<long long>(blockIdx.x) * SUM_CHUNK + threadIdx.x;
+  float4 v[NS][SUM_VEC];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+#pragma unroll
+    for (int k = 0; k < SUM_VEC; ++k) {
+      const long long e = base + k * THREADS;
+      if (e < n4) v[s][k] = in[s][e];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < SUM_VEC; ++k) {
+    const long long e = base + k * THREADS;
+    if (e < n4) {
+      float4 acc = add4(v[0][k], v[1][k]);
+      if constexpr (NS == 4) acc = add4(add4(acc, v[2][k]), v[3][k]);
+      __stcs(o + e, acc);
+    }
   }
 }
 
@@ -231,23 +261,35 @@ int gt_probe_copy_blocks_per_sm(long long chunk_bytes, int* per_sm) {
   return rc;
 }
 
-// nstreams 2 (c, d NULL) or 4 f32 streams of (rows, lanes) in (bm, lanes)
-// blocks; lanes a multiple of 4, bm dividing rows.
+// nstreams 2 (c, d NULL) or 4 f32 streams of (rows, lanes), validated in
+// (bm, lanes) blocks as the Pallas probe cuts them (bm dividing rows,
+// lanes a multiple of 4); bm does not set the grid: SUM_CHUNK float4s a
+// block.
 int gt_probe_stream_sum(const void* a, const void* b, const void* c,
                         const void* d, void* o, int nstreams, long long rows,
                         int lanes, int bm, void* stream) {
   const bool four = nstreams == 4;
   if ((nstreams != 2 && !four) || (four && (c == nullptr || d == nullptr)) ||
-      rows <= 0 || bm <= 0 || rows % bm || lanes % 4 || !aligned(a) ||
-      !aligned(b) || !aligned(o) || (four && (!aligned(c) || !aligned(d)))) {
+      rows <= 0 || bm <= 0 || rows % bm || lanes <= 0 || lanes % 4 ||
+      !aligned(a) || !aligned(b) || !aligned(o) ||
+      (four && (!aligned(c) || !aligned(d)))) {
     return cudaErrorInvalidValue;
   }
-  stream_sum_kernel<<<static_cast<unsigned>(rows / bm), THREADS, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(a), static_cast<const float4*>(b),
-      four ? static_cast<const float4*>(c) : nullptr,
-      four ? static_cast<const float4*>(d) : nullptr,
-      static_cast<float4*>(o), bm * lanes / 4);
+  const long long n4 = rows * lanes / 4;
+  const long long grid = (n4 + SUM_CHUNK - 1) / SUM_CHUNK;
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float4* fa = static_cast<const float4*>(a);
+  const float4* fb = static_cast<const float4*>(b);
+  float4* fo = static_cast<float4*>(o);
+  if (four) {
+    stream_sum_kernel<4><<<static_cast<unsigned>(grid), THREADS, 0, st>>>(
+        fa, fb, static_cast<const float4*>(c), static_cast<const float4*>(d),
+        fo, n4);
+  } else {
+    stream_sum_kernel<2><<<static_cast<unsigned>(grid), THREADS, 0, st>>>(
+        fa, fb, nullptr, nullptr, fo, n4);
+  }
   return cudaGetLastError();
 }
 

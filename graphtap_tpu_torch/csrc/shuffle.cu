@@ -35,8 +35,20 @@
 // than a handful of operations per byte, far under the card's ~20 per byte
 // in f32, so each is held to (bytes moved) / 3.35 TB/s.
 //
-// Design, simple first. K6: one thread per slot, grid-stride, coalesced
-// plan reads, the x value a gather. K7: on the TPU each pass of each super
+// Design. K6: one 256-thread block per 8-row step (1,024 slots; the
+// step is blockIdx.x, so no division), grp[step] read once a block, four
+// consecutive slots a thread: one 4-byte streaming load each of ev, slot
+// and lane (and the 16-byte weight word under a ⊗) where one thread a
+// slot made three 1-byte loads, then four independent gathers from the
+// step's window through the read-only path, the ⊗, and one 16-byte
+// streaming store (two for f64). The stream is ~49% padding at RMAT-20,
+// in whole 4-slot groups: for a group whose four ev bytes are 0 no slot,
+// lane or weight is loaded (12% less time on the H100 than loading
+// them). Staging a window in shared memory by TMA for a chunk of up to 8
+// steps that read it, and gathering from there, lost to the block a step
+// (PERF.md): a run of steps on one window is short (median 1 at
+// RMAT-20), and a step's gathers walk its window in column order, a few
+// L1/L2 lines. K7: on the TPU each pass of each super
 // is a sequential grid walking source vregs and writing prefetch-addressed
 // destination rows of a VMEM-resident block, later writes winning. Run
 // pass by pass here, each pass would fill the whole stream, read ~14
@@ -84,24 +96,46 @@ constexpr int CHUNK_EL = RED_ROWS * LANES;
 constexpr int GROUP_VEC = 4;   // K7 output slots per thread
 
 // ---------------------------------------------------------------- K6
+// One 256-thread block per 8-row step (1,024 slots, one grp entry), four
+// consecutive slots a thread: slots 4t .. 4t+3 of step blockIdx.x.
+constexpr int STEP_EL = SUB * LANES;
+constexpr int WIN_EL = WROWS * LANES;   // values of one x window
+
+// byte k of a word, as the signed int8 the plan holds
+__device__ __forceinline__ int byte_at(unsigned word, int k) {
+  return static_cast<int>(static_cast<int8_t>((word >> (8 * k)) & 0xffu));
+}
+
+// The thread's four ev bytes, and only where any is set its slot and
+// lane bytes and weights; then four gathers from the step's window.
 template <typename T, int MUL>
 __global__ void __launch_bounds__(THREADS)
 expand_kernel(const T* __restrict__ x3d, const int* __restrict__ grp,
-              const int8_t* __restrict__ slot, const int8_t* __restrict__ lane,
-              const int8_t* __restrict__ ev, const T* __restrict__ w,
-              T* __restrict__ out, long long n, T fill) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long e = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       e < n; e += stride) {
-    T v = fill;
-    if (ev[e] != 0) {
-      const long long win = grp[(e / LANES) / SUB];
-      const T g = x3d[(win * WROWS + slot[e]) * LANES + lane[e]];
-      v = apply_mul<T, MUL>(g, w, e, fill);
-    }
-    out[e] = v;
+              const unsigned* __restrict__ slot4,
+              const unsigned* __restrict__ lane4,
+              const unsigned* __restrict__ ev4, const T* __restrict__ w,
+              T* __restrict__ out, T fill) {
+  const unsigned g = blockIdx.x * (STEP_EL / 4) + threadIdx.x;
+  const unsigned ev = __ldcs(ev4 + g);
+  unsigned slot = 0, lane = 0;
+  T wv[4];
+  if (ev != 0) {
+    slot = __ldcs(slot4 + g);
+    lane = __ldcs(lane4 + g);
+    if constexpr (MUL != MUL_NONE) load4<T>(w, g, wv);
   }
+  const T* win = x3d + static_cast<long long>(__ldg(grp + blockIdx.x)) *
+                           WIN_EL;
+  T v[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[k] = fill;
+    if (byte_at(ev, k) != 0) {
+      const int e = byte_at(slot, k) * LANES + byte_at(lane, k);
+      v[k] = apply_mul<T, MUL>(__ldg(win + e), wv, k, fill);
+    }
+  }
+  store4<T>(out, g, v[0], v[1], v[2], v[3]);
 }
 
 // ---------------------------------------------------------------- K7
@@ -135,28 +169,28 @@ int launch_expand(const void* x3d, const void* grp, const void* slot,
                   const void* lane, const void* ev, const void* w, void* out,
                   long long rows, int mul_kind, double fill,
                   cudaStream_t st) {
-  const long long n = rows * LANES;
+  const unsigned steps = static_cast<unsigned>(rows / SUB);
+  if (steps == 0) return cudaGetLastError();
   const T* xs = static_cast<const T*>(x3d);
   const int* g = static_cast<const int*>(grp);
-  const int8_t* sl = static_cast<const int8_t*>(slot);
-  const int8_t* ln = static_cast<const int8_t*>(lane);
-  const int8_t* e = static_cast<const int8_t*>(ev);
+  const unsigned* sl = static_cast<const unsigned*>(slot);
+  const unsigned* ln = static_cast<const unsigned*>(lane);
+  const unsigned* e = static_cast<const unsigned*>(ev);
   const T* ws = static_cast<const T*>(w);
   T* o = static_cast<T*>(out);
   const T f = static_cast<T>(fill);
-  const unsigned blocks = stride_blocks(n);
   switch (mul_kind) {
     case MUL_NONE:
-      expand_kernel<T, MUL_NONE><<<blocks, THREADS, 0, st>>>(
-          xs, g, sl, ln, e, ws, o, n, f);
+      expand_kernel<T, MUL_NONE><<<steps, THREADS, 0, st>>>(xs, g, sl, ln, e,
+                                                            ws, o, f);
       break;
     case MUL_MUL:
-      expand_kernel<T, MUL_MUL><<<blocks, THREADS, 0, st>>>(
-          xs, g, sl, ln, e, ws, o, n, f);
+      expand_kernel<T, MUL_MUL><<<steps, THREADS, 0, st>>>(xs, g, sl, ln, e,
+                                                           ws, o, f);
       break;
     case MUL_ADD_SAT:
-      expand_kernel<T, MUL_ADD_SAT><<<blocks, THREADS, 0, st>>>(
-          xs, g, sl, ln, e, ws, o, n, f);
+      expand_kernel<T, MUL_ADD_SAT><<<steps, THREADS, 0, st>>>(
+          xs, g, sl, ln, e, ws, o, f);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -196,12 +230,17 @@ int launch_reduce(const void* c, const void* lr, const void* ev,
 
 extern "C" {
 
+// K6 over rows (a multiple of 8, rows * 128 < 2^32) stream rows: slot,
+// lane and ev 4-byte aligned, w and out 16-byte aligned.
 int gt_expand_stream(const void* x3d, const void* grp, const void* slot,
                      const void* lane, const void* ev, const void* w,
                      void* out, long long rows, int dtype, int mul_kind,
                      double fill, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (w == nullptr && mul_kind != MUL_NONE) return cudaErrorInvalidValue;
+  if ((w == nullptr && mul_kind != MUL_NONE) || rows < 0 || rows % SUB ||
+      rows * LANES >= (1LL << 32)) {
+    return cudaErrorInvalidValue;
+  }
   switch (dtype) {
     case F32:
       return launch_expand<float>(x3d, grp, slot, lane, ev, w, out, rows,

@@ -187,7 +187,10 @@ class Executor:
         self.graph = graph
         self.program = program
         self.engine = engine or EngineConfig(stationary=program.stationary)
-        if self.engine.sparse_exchange_capacity != 0:
+        # the JAX executor ignores K for stationary programs and exchanges
+        # dense; the nonstationary sparse exchange is not ported yet
+        if (self.engine.sparse_exchange_capacity != 0
+                and not program.stationary):
             raise NotImplementedError("the sparse exchange comes with the "
                                       "mesh and is not ported yet")
         mode = gate_mode(os.environ.get(GATE_ENV))

@@ -151,6 +151,25 @@ def grouped_reduce_plain(contrib, lr, evalid, chunk_block, nblocks: int,
                             identity).view(nblocks, LANES)
 
 
+def expand_figures(grp, evalid) -> dict:
+    """What K6's design turns on, for one expand plan: steps, slots, valid
+    slots, distinct windows, runs of steps on one window (their mean and
+    median length), and the share of 4-slot groups whose ev bytes are all
+    0 (the kernel loads no slot, lane or weight for them)."""
+    n = grp.numel()
+    new = torch.ones(n, dtype=torch.bool, device=grp.device)
+    new[1:] = grp[1:] != grp[:-1]
+    starts = torch.nonzero(new).squeeze(1)
+    runs = torch.diff(starts, append=starts.new_full((1,), n)).double()
+    valid = evalid != 0
+    return {"steps": n, "slots": evalid.numel(), "valid": int(valid.sum()),
+            "windows": int(grp.unique().numel()), "runs": runs.numel(),
+            "mean_run": float(runs.mean()) if n else 0.0,
+            "median_run": float(runs.median()) if n else 0.0,
+            "empty4": float((~valid.reshape(-1, 4).any(1)).double().mean())
+            if n else 0.0}
+
+
 # ------------------------------------------------------------- validation
 def _check(name, t, dtype, shape=None, device=None):
     if not isinstance(t, torch.Tensor):
@@ -185,7 +204,8 @@ def expand_stream(x3d, grp, slot, lane, evalid, weights, fill,
     """K6: x table (Sx3, 64, 128) -> (rows, 128) per-edge contributions,
     each the x value at (window grp[r//8], slot, lane) ⊗ its weight, or
     the fill where ev is 0. ``mul_kind``: 'none' | 'mul' | 'add_sat'
-    (saturating at the fill). Replaces ``shuffle_kernels.py::
+    (saturating at the fill). On the card one block resolves each 8-row
+    step, four slots a thread. Replaces ``shuffle_kernels.py::
     expand_stream``."""
     if x3d.dim() != 3 or x3d.shape[1:] != (WROWS, LANES):
         raise ValueError(f"x3d: expected (windows, {WROWS}, {LANES}), got "
@@ -210,6 +230,13 @@ def expand_stream(x3d, grp, slot, lane, evalid, weights, fill,
     if not _on_cuda(x3d):
         return expand_stream_plain(x3d, grp, slot, lane, evalid, weights,
                                    fill, mul_kind)
+    if rows * LANES >= 2 ** 32:
+        raise ValueError(f"expand_stream: {rows} rows exceed the kernel's "
+                         f"32-bit slot index")
+    for nm, t, a in (("slot", slot, 4), ("lane", lane, 4),
+                     ("evalid", evalid, 4), ("weights", weights, 16)):
+        if t is not None and t.data_ptr() % a:
+            raise ValueError(f"{nm}: not {a}-byte aligned")
     lib = _cuda.library()
     out = torch.empty((rows, LANES), dtype=x3d.dtype, device=dev)
     if rows == 0:

@@ -14,7 +14,8 @@ dependent calls, timed by CUDA events after a warm call; GB/s counts read
     (rows_per_block, lanes) blocks;
   * ``copy_2d(bm, bn)``: an (m, 8192) f32 array in (bm, bn) blocks;
   * ``multi_stream_sum(nstreams)``: 2 or 4 f32 (rows, 1024) streams
-    summed into one output per (64, 1024) block.
+    summed into one output, cut in (64, 1024) blocks (on the card each
+    CUDA block sums a 16 KB chunk of every stream, whatever the blocks).
 
 Each returns (its output tensor, GB/s). On the card the kernels of
 ``csrc/probe.cu`` run (``copy_blocks``, ``stream_sum``, each counted in
@@ -139,9 +140,11 @@ def copy_blocks(x: torch.Tensor, bm: int, bn: int) -> torch.Tensor:
 
 
 def stream_sum(xs: List[torch.Tensor], bm: int = 64) -> torch.Tensor:
-    """P2: ((x0 + x1) + x2) + x3 of 2 or 4 f32 (rows, lanes) streams, one
-    CUDA block per (bm, lanes) block. Replaces ``tools_dev/bw_probe.py``'s
-    ``multi_stream_sum`` kernel."""
+    """P2: ((x0 + x1) + x2) + x3 of 2 or 4 f32 (rows, lanes) streams, cut
+    in (bm, lanes) blocks as the Pallas probe cuts them. On the card the
+    grid does not follow bm: each block sums a 16 KB chunk of every
+    stream. Replaces ``tools_dev/bw_probe.py``'s ``multi_stream_sum``
+    kernel."""
     if len(xs) not in (2, 4):
         raise ValueError("stream_sum: 2 or 4 streams")
     x0 = xs[0]

@@ -1,23 +1,31 @@
-"""Device times of the plan-ring kernels K1 (``route_xr_exp``) and K11
-(``route_expand``) at the RMAT-20 f32 PageRank shapes, and of P1
-(``copy_blocks``) at its kernels-line shape, each beside its PyTorch call.
+"""Device times of hand kernels at their main-path shapes, each beside
+its PyTorch call: the plan-ring kernels K1 (``route_xr_exp``) and K11
+(``route_expand``) at the RMAT-20 f32 PageRank shapes, K6
+(``expand_stream``, its three launches of the degree SpMV) on the RMAT-20
+degree shuffle plan, and P1 (``copy_blocks``) and P2 (``stream_sum``) at
+their kernels-line shapes.
 
-    python -m graphtap_tpu_torch.tools.ring_times
+    python -m graphtap_tpu_torch.tools.ring_times [name ...]
 
-The RMAT-20 panel meta (edge factor 16, seed 1, transposed TCSC, f32, as
-``run_pagerank`` plans it) is planned once (minutes) and kept in the
-package's build directory under a name that carries those settings
-(``meta_path``). So two checkouts can be timed in one run on the same
-plan: run this file by its path with the other checkout first on
-``PYTHONPATH``, and its kernels are the ones timed (that checkout's
-``tools/timing.py`` must have ``device_ms``). x is seeded, unweighted
-PageRank-like values. Each kernel is held against its plain version and
-its PyTorch call bit for bit, then timed device-only
-(``timing.device_ms``: ten calls replayed as one CUDA graph). Prints the
-card's name and power limit, then one JSON line per kernel: name, device
-ms, the PyTorch call's device ms (``torch.take`` over an index
-precomputed from the plan; ``Tensor.copy_``), bytes moved (each input
-read once, each output written once). Needs a card.
+Names pick rows (``route_xr_exp``, ``route_expand``, ``expand_stream``,
+``copy_blocks``, ``stream_sum``, and ``degree_spmv``: the degree SpMV's
+warm time on the shuffle plan, the median of five calls after a first
+one by CUDA events, as the smoke times it; none: all). The RMAT-20 panel meta
+(edge factor 16, seed 1, transposed TCSC, f32, as ``run_pagerank`` plans
+it) and the degree shuffle plan (its COL ordering) are planned once
+(minutes; seconds) and kept in the package's build directory under names
+that carry those settings (``meta_path``, ``shuffle_path``). So two
+checkouts can be timed in one run on the same plans: run this file by its
+path with the other checkout first on ``PYTHONPATH``, and its kernels are
+the ones timed (that checkout's ``tools/timing.py`` must have
+``device_ms``). x is seeded, unweighted PageRank-like values. Each kernel
+is held against its plain version and its PyTorch call bit for bit, then
+timed device-only (``timing.device_ms``: ten calls replayed as one CUDA
+graph). Prints the card's name and power limit, then one JSON line per
+row: name, device ms, the PyTorch call's device ms (``torch.take`` over
+an index precomputed from the plan, three for K6; ``Tensor.copy_``;
+``torch.add``), bytes moved (each input read once, each output written
+once). Needs a card.
 """
 
 from __future__ import annotations
@@ -59,6 +67,86 @@ def load_meta(path: str, scale: int = SCALE):
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     ac.save_spmv3_meta(meta, path)
     return meta
+
+
+def shuffle_path(directory: str = BUILD, scale: int = SCALE) -> str:
+    """Where the degree shuffle plan of RMAT-``scale`` is kept."""
+    return os.path.join(directory, f"ring_times_rmat{scale}_ef{EDGE_FACTOR}"
+                                   f"_seed{SEED}_tcsc_col_shuffle_f32.npz")
+
+
+def load_shuffle(path: str, scale: int = SCALE):
+    """The f32 degree-phase shuffle plan of RMAT-``scale`` (COL ordering,
+    as ``run_pagerank``'s degree phase plans it), read from ``path``
+    (``shuffle_path``) where it exists, else planned and written there."""
+    from graphtap_tpu_torch import Graph, GraphConfig, Ordering
+    from graphtap_tpu_torch.ingest import rmat_edges
+    from graphtap_tpu_torch.kernels.shuffle_engine import build_shuffle_plans
+    from graphtap_tpu_torch.tools import artifact_cache as ac
+    if os.path.exists(path):
+        return ac.load_shuffle_plans(path)
+    r, c, _ = rmat_edges(scale, EDGE_FACTOR, seed=SEED)
+    g = Graph.from_edges(r, c, None, GraphConfig(num_vertices=1 << scale,
+                                                 transpose=True))
+    meta = build_shuffle_plans(g.tiled(Ordering.COL),
+                               value_dtype=np.float32)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    ac.save_shuffle_plans(meta, path)
+    return meta
+
+
+def expand_row(meta, device="cuda"):
+    """(name, kernel call, plain call, PyTorch call, bytes) of K6's three
+    launches of the degree SpMV on the shuffle plan ``meta`` (x all ones,
+    as the degree phase's): the stream expand and the dense expansion's A
+    and B windows, unweighted; each call returns the three outputs.
+    Bytes count what this data needs: the table, grp and ev whole, slot
+    and lane where ev is set, the output written once."""
+    from graphtap_tpu_torch.kernels import shuffle_kernels as sk
+    from graphtap_tpu_torch.kernels.semiring import plus_times
+    from graphtap_tpu_torch.kernels.shuffle_engine import spmv_stages
+    from graphtap_tpu_torch.kernels.shuffle_plan import LANES, SUB, WROWS
+    from graphtap_tpu_torch.tools.convert import meta_from_numpy
+    t = meta_from_numpy(meta.arrays, device)
+    x = torch.ones(meta.NC, dtype=torch.float32, device=device)
+    st = spmv_stages(x, t, meta, plus_times(), meta.NR)
+    calls = [(st["x3d"], t["grp"], t["slot"], t["lane"], t["ev_x"])] + [
+        (st["ytab"], t[f"mexp_grp_{h}"], t[f"mexp_slot_{h}"],
+         t["mexp_lane"], t[f"mexp_ev_{h}"]) for h in ("a", "b")]
+    nbytes, takes = 0, []
+    for tab, grp, slot, lane, ev in calls:
+        valid = ev != 0
+        nbytes += (tab.numel() * 4 + grp.numel() * 4 + ev.numel()
+                   + 2 * int(valid.sum()) + slot.numel() * 4)
+        ext = torch.cat([tab.reshape(-1), tab.new_zeros(1)])
+        win = grp.long().repeat_interleave(SUB)[:, None]
+        takes.append((ext, torch.where(
+            valid, (win * WROWS + slot.long()) * LANES + lane.long(),
+            ext.numel() - 1)))
+
+    def kern():
+        return tuple(sk.expand_stream(*a, None, 0.0) for a in calls)
+
+    def plain():
+        return tuple(sk.expand_stream_plain(*a, None, 0.0) for a in calls)
+
+    def lib():
+        return tuple(torch.take(e, i) for e, i in takes)
+    return ("expand_stream", kern, plain, lib, nbytes)
+
+
+def sum_row(device="cuda", sum_bytes=None):
+    """(name, kernel call, plain call, PyTorch call, bytes) of P2 on two
+    f32 (rows, 1024) streams of ``sum_bytes`` in all (default the probe's
+    TARGET_BYTES: (34,304, 1024), the smoke's kernels-line shape)."""
+    from graphtap_tpu_torch.tools import bw_probe as bw
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    rows = (sum_bytes or bw.TARGET_BYTES) // (1024 * 4 * 2) // 64 * 64
+    xs = [torch.rand((rows, 1024), device=device, generator=gen)
+          for _ in range(2)]
+    return ("stream_sum", lambda: bw.stream_sum(xs),
+            lambda: bw.stream_sum_plain(xs), lambda: torch.add(xs[0], xs[1]),
+            3 * xs[0].numel() * 4)
 
 
 def copy_row(device="cuda", copy_bytes=None):
@@ -108,15 +196,66 @@ def rows(meta, device="cuda", copy_bytes=None):
 
 def check(name, kern, plain, lib) -> None:
     """The kernel call equals its plain version and its PyTorch call bit
-    for bit."""
-    a = kern()
-    if not torch.equal(a, plain()) or not torch.equal(lib().view(a.shape),
-                                                      a):
-        raise AssertionError(f"{name}: the kernel, its plain version and "
-                             f"its PyTorch call disagree")
+    for bit (each output of a call that returns several)."""
+    def outs(v):
+        return v if isinstance(v, tuple) else (v,)
+    a = outs(kern())
+    for b, c in zip(outs(plain()), outs(lib())):
+        k = a[0]
+        a = a[1:]
+        if not torch.equal(k, b) or not torch.equal(c.view(k.shape), k):
+            raise AssertionError(f"{name}: the kernel, its plain version "
+                                 f"and its PyTorch call disagree")
 
 
-def main() -> int:
+def degree_spmv(t, meta, calls: int = 6):
+    """The degree SpMV (``spmv_local``, x all ones) on the shuffle plan
+    ``meta`` with its plan tensors ``t`` on the card: ``calls`` calls,
+    each between two CUDA events; (the median of all but the first, in
+    ms; each call's ms)."""
+    from graphtap_tpu_torch.kernels.semiring import plus_times
+    from graphtap_tpu_torch.kernels.shuffle_engine import spmv_local
+    x = torch.ones(meta.NC, dtype=torch.float32, device=t["grp"].device)
+    times = []
+    for _ in range(calls):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        spmv_local(x, t, meta, plus_times(), meta.NR)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    warm = sorted(times[1:])
+    return warm[len(warm) // 2], times
+
+
+PANEL_ROWS = ("route_xr_exp", "route_expand")
+NAMES = PANEL_ROWS + ("expand_stream", "copy_blocks", "stream_sum",
+                      "degree_spmv")
+
+
+def all_rows(names, device="cuda"):
+    """The rows of ``names`` (NAMES), planning only what they need."""
+    out = []
+    if set(names) & set(PANEL_ROWS):
+        out += [r for r in rows(load_meta(meta_path()), device)
+                if r[0] in names]
+    elif "copy_blocks" in names:
+        out.append(copy_row(device))
+    if "expand_stream" in names:
+        out.append(expand_row(load_shuffle(shuffle_path()), device))
+    if "stream_sum" in names:
+        out.append(sum_row(device))
+    return out
+
+
+def main(argv=None) -> int:
+    names = (sys.argv[1:] if argv is None else argv) or list(NAMES)
+    bad = set(names) - set(NAMES)
+    if bad:
+        print(f"ring_times: unknown rows {sorted(bad)}; use {NAMES}",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("ring_times: no CUDA device; it times the card",
               file=sys.stderr)
@@ -125,11 +264,17 @@ def main() -> int:
     from graphtap_tpu_torch.tools.bw_probe import card
     print(f"{card()} ({torch.cuda.get_device_name(0)}); package "
           f"{os.path.dirname(graphtap_tpu_torch.__file__)}", flush=True)
-    for name, kern, plain, lib, nbytes in rows(load_meta(meta_path())):
+    for name, kern, plain, lib, nbytes in all_rows(names):
         check(name, kern, plain, lib)
         print(json.dumps({"name": name, "device_ms": device_ms(kern),
                           "library_device_ms": device_ms(lib),
                           "bytes": nbytes}), flush=True)
+    if "degree_spmv" in names:
+        from graphtap_tpu_torch.tools.convert import meta_from_numpy
+        meta = load_shuffle(shuffle_path())
+        med, times = degree_spmv(meta_from_numpy(meta.arrays, "cuda"), meta)
+        print(json.dumps({"name": "degree_spmv", "warm_median_ms": med,
+                          "ms": times}), flush=True)
     return 0
 
 

@@ -28,6 +28,10 @@ seeded synthetic plans, and so does K11 on K1's plan ring (every ⊗ in
 f32, f64 and int32, npanels 1 and past the grid, fill slots), twice. P1's
 TMA chunk copies equal x.clone() on 16-byte segments, tiles taller than a
 chunk, fewer tiles than SMs, one tile and segments wider than a chunk.
+K6 (one block a step, no plan loads for all-invalid 4-slot groups)
+matches bit for bit in f32, f64 and int32 under each ⊗ on 1-step runs, a
+long run, all-invalid steps, the last window and a window read again
+after a gap; P2 (16 KB chunks) on shapes whose last chunk is partial.
 """
 
 import numpy as np
@@ -1030,3 +1034,69 @@ def test_probe_route_like_matches_plain(cuda, nwin):
     assert torch.equal(got, route_cost_probe.route_like_plain(x, b, 40, nwin))
     _, us = route_cost_probe.measure(64, nwin)
     assert us > 0
+
+
+# K6's synthetic plan: 1-step runs, a long run, all-invalid steps, the
+# last window (Sx3 - 1) and a window read again after a gap
+_K6_GRP = [0, 3] + [5] * 11 + [3, 3, 9, 9, 9, 0, 2]
+_K6_EMPTY_STEPS = (4, 16)
+_K6_WINDOWS = 10
+
+
+def _k6_plan(rng):
+    """(grp, slot, lane, ev) of the synthetic K6 plan: ev set on about
+    half the slots, none in _K6_EMPTY_STEPS, and whole 4-slot groups unset
+    besides."""
+    rows = len(_K6_GRP) * 8
+    slot = rng.integers(0, 64, (rows, 128)).astype(np.int8)
+    lane = rng.integers(0, 128, (rows, 128)).astype(np.int8)
+    ev = (rng.random((rows, 128)) < 0.5).astype(np.int8)
+    ev.reshape(-1, 4)[rng.random(rows * 32) < 0.2] = 0
+    for s in _K6_EMPTY_STEPS:
+        ev[s * 8:(s + 1) * 8] = 0
+    return [torch.from_numpy(a) for a in (np.array(_K6_GRP, np.int32), slot,
+                                          lane, ev)]
+
+
+@pytest.mark.parametrize("mul", ["none", "mul", "add_sat"])
+@pytest.mark.parametrize("dt", sorted(_STREAM_DTYPES))
+def test_expand_stream_edges_match_plain(cuda, dt, mul):
+    """K6 against its plain version bit for bit, in f32, f64 and int32
+    under each ⊗ (add_sat from the min-plus fill, with x values at the
+    fill), on 1-step runs, a long run, all-invalid steps and 4-slot
+    groups, the last window and a window read again after a gap; twice
+    with the same bits."""
+    rng = np.random.default_rng(6)
+    fill = {"add_sat": float("inf"), "mul": 1.0, "none": 0.0}[mul]
+    if dt == "i32":
+        fill = tsr.INF_I32 if mul == "add_sat" else int(fill)
+    x3d = _values(rng, dt, (_K6_WINDOWS, 64, 128))
+    if mul == "add_sat":
+        x3d.view(-1)[torch.from_numpy(rng.random(x3d.numel()) < 0.1)] = fill
+    x3d = x3d.to(cuda)
+    plan = [a.to(cuda) for a in _k6_plan(rng)]
+    w = None if mul == "none" else _values(
+        rng, dt, tuple(plan[1].shape)).to(cuda)
+    args = (x3d, *plan, w, fill, mul)
+    before = sk.LAUNCHES["expand_stream"]
+    got = sk.expand_stream(*args)
+    assert sk.LAUNCHES["expand_stream"] == before + 1
+    assert torch.equal(got, sk.expand_stream_plain(*args))
+    assert torch.equal(got, sk.expand_stream(*args))
+    for s in _K6_EMPTY_STEPS:
+        assert bool((got[s * 8:(s + 1) * 8] == fill).all())
+
+
+@pytest.mark.parametrize("nstreams", [2, 4])
+def test_probe_stream_sum_partial_chunk(cuda, nstreams):
+    """P2 against its plain version bit for bit on shapes whose last 16 KB
+    chunk is partial: (250, 1024) in (2, 1024) blocks and (63, 132) in
+    (9, 132) blocks (two chunks and 496 bytes)."""
+    gen = torch.Generator(device=cuda).manual_seed(nstreams)
+    for shape, bm in (((250, 1024), 2), ((63, 132), 9)):
+        xs = [torch.randn(shape, device=cuda, generator=gen)
+              for _ in range(nstreams)]
+        before = bw_probe.LAUNCHES["stream_sum"]
+        assert torch.equal(bw_probe.stream_sum(xs, bm),
+                           bw_probe.stream_sum_plain(xs)), shape
+        assert bw_probe.LAUNCHES["stream_sum"] == before + 1

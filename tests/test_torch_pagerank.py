@@ -116,3 +116,58 @@ def test_executor_lifecycle_errors(rmat10, port_f64):
     with pytest.raises(NotImplementedError):
         Executor(csc, PageRankProgram(torch.float64), kernel="scan",
                  device="cpu")
+
+
+def test_stationary_sparse_exchange_capacity_runs_dense(rmat10):
+    """A stationary program ignores ``sparse_exchange_capacity`` and
+    exchanges dense, as the JAX executor does (its ``_exchange_x`` and
+    ``_exchange_y`` take the dense branch for stationary programs): the
+    K = 64 run equals the K = 0 run bit for bit, and the JAX executor's
+    K = 64 run within the f32 tolerance of this file. A nonstationary
+    program with K > 0 still raises."""
+    from graphtap_tpu.apps.degree import DegreeProgram as JDegreeProgram
+    from graphtap_tpu.apps.pagerank import PageRankProgram as JPageRank
+    from graphtap_tpu.config import EngineConfig as JEngineConfig
+    from graphtap_tpu.config import Ordering as JOrdering
+    from graphtap_tpu.engine.executor import Executor as JExecutor
+    from graphtap_tpu_torch.apps import BFSProgram
+    from graphtap_tpu_torch.apps.degree import run_degree
+
+    r, c, g, _ = rmat10
+    k0 = run_pagerank(g, ITERS, torch.float32, kernel="panel", device="cpu")
+    deg = run_degree(g, torch.float32, Ordering.COL, "shuffle", "cpu")
+    ex = Executor(g, PageRankProgram(torch.float32),
+                  EngineConfig(stationary=True, ordering=Ordering.ROW,
+                               sparse_exchange_capacity=64),
+                  kernel="panel", device="cpu")
+    ex.initialize(other=deg)
+    ex.execute(ITERS)
+    assert ex.iteration == ITERS
+    assert torch.equal(ex.state["rank"], k0.state["rank"])
+    assert torch.equal(ex.state["degree"], k0.state["degree"])
+
+    jg = JGraph.from_edges(r, c, None,
+                           JGraphConfig(num_vertices=N, transpose=True),
+                           mesh=make_mesh(jax.devices()[:1], shape=(1, 1)))
+    jdeg = JExecutor(jg, JDegreeProgram(value_dtype=jnp.float32),
+                     JEngineConfig(stationary=True, ordering=JOrdering.COL,
+                                   sparse_exchange_capacity=64),
+                     kernel="scan")
+    jdeg.initialize()
+    jdeg.execute(1)
+    jex = JExecutor(jg, JPageRank(value_dtype=jnp.float32),
+                    JEngineConfig(stationary=True, ordering=JOrdering.ROW,
+                                  sparse_exchange_capacity=64),
+                    kernel="scan")
+    jex.initialize(other=jdeg)
+    jex.execute(ITERS)
+    mine = ex.state_vector()
+    theirs = jex.state_vector()
+    np.testing.assert_array_equal(mine["degree"], theirs["degree"])
+    want = np.asarray(theirs["rank"], dtype=np.float64)
+    got = mine["rank"].astype(np.float64)
+    assert np.abs(got - want).max() / np.abs(want).max() <= 1e-5
+
+    with pytest.raises(NotImplementedError, match="sparse exchange"):
+        Executor(g, BFSProgram(0), EngineConfig(
+            stationary=False, sparse_exchange_capacity=64), device="cpu")

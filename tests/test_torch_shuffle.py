@@ -577,3 +577,22 @@ def test_artifact_cache_shuffle_roundtrip_and_key(tmp_path, small):
     assert key != artifact_cache.meta_key(8, 16, 1, cfg, Ordering.ROW,
                                           np.float32, False)
     assert files[0].name == key + ".npz"
+
+
+def test_expand_figures_match_numpy(small):
+    """``expand_figures`` (the smoke's log of K6's plan) counts the RMAT-8
+    plan as numpy does: steps, slots, valid slots, windows, runs of one
+    window and the share of all-invalid 4-slot groups."""
+    _, plans, t, _ = small
+    grp, ev = plans.arrays["grp"][0], plans.arrays["ev_x"][0]
+    fig = sk.expand_figures(t["grp"], t["ev_x"])
+    starts = np.flatnonzero(np.r_[True, grp[1:] != grp[:-1]])
+    runs = np.diff(np.r_[starts, grp.size])
+    assert fig["steps"] == grp.size and fig["slots"] == ev.size
+    assert fig["valid"] == int(np.count_nonzero(ev))
+    assert fig["windows"] == np.unique(grp).size
+    assert fig["runs"] == runs.size
+    assert fig["mean_run"] == pytest.approx(runs.mean())
+    assert fig["median_run"] == float(np.sort(runs)[(runs.size - 1) // 2])
+    assert fig["empty4"] == pytest.approx(
+        float(np.mean(~(ev.reshape(-1, 4) != 0).any(1))))

@@ -383,3 +383,26 @@ def test_ring_times_rows_agree_on_cpu(tmp_path):
     for name, kern, plain, lib, nbytes in got:
         ring_times.check(name, kern, plain, lib)
         assert nbytes > 0
+
+
+def test_ring_times_k6_p2_rows_agree_on_cpu(tmp_path):
+    """The timer's K6 and P2 rows on the CPU: K6's three launches of the
+    RMAT-10 degree SpMV and P2's two-stream sum equal their plain versions
+    and their PyTorch calls (three takes; one add) bit for bit; the
+    shuffle plan it wrote, under a name that carries its scale and seed,
+    is read back the same."""
+    from graphtap_tpu_torch.tools import ring_times
+    path = ring_times.shuffle_path(str(tmp_path), scale=10)
+    assert os.path.basename(path) == (
+        "ring_times_rmat10_ef16_seed1_tcsc_col_shuffle_f32.npz")
+    meta = ring_times.load_shuffle(path, scale=10)
+    again = ring_times.load_shuffle(path, scale=10)
+    for k, v in meta.arrays.items():
+        np.testing.assert_array_equal(v[0], again.arrays[k][0], err_msg=k)
+    got = [ring_times.expand_row(again, "cpu"),
+           ring_times.sum_row("cpu", sum_bytes=1 << 20)]
+    assert [r[0] for r in got] == ["expand_stream", "stream_sum"]
+    for name, kern, plain, lib, nbytes in got:
+        ring_times.check(name, kern, plain, lib)
+        assert nbytes > 0
+    assert len(got[0][1]()) == 3

@@ -90,7 +90,11 @@ Phases, each printed as it runs; any failure exits non-zero:
               when no source slot of its route feeds two (row, lane)
               slots (checked here). K6's plan figures on the degree
               plan logged (steps, slots, valid slots, windows, runs of
-              one window, all-invalid 4-slot groups). K7 also in f64 and
+              one window, all-invalid 4-slot groups), and K8's chunk
+              figures (ring_times.chunk_figures: chunks, row blocks,
+              longest lane of a chunk, single-lane chunks, chunks with no
+              valid slot, all-invalid 4-slot groups, longest fold list;
+              K5's on the one-hot plan in 4b). K7 also in f64 and
               int32 on seeded random streams of the degree plan, bit for
               bit, and its
               earlier yardstick (one take per pass) logged; then the
@@ -1584,6 +1588,8 @@ def phase_shuffle_kernels(torch, np, g, launches):
             f"windows, {f['runs']} runs of one window (mean "
             f"{f['mean_run']:.2f}, median {f['median_run']:g} steps), "
             f"all-invalid 4-slot groups {f['empty4']:.4f}")
+    _log_chunks("grouped_reduce", t["lr"], t["ev_r"] != 0, 8 * 128,
+                t["chunk_block"], meta.nblocks, True)
     sem = plus_times()
     x = torch.ones(g.part.tile_cols, dtype=torch.float32, device=DEVICE)
     st = spmv_stages(x, t, meta, sem, g.part.tile_rows)
@@ -1713,6 +1719,9 @@ def phase_new_paths(torch, np, g, deg_ex, ref, conv32):
                      {"segment_reduce": ITERS + 1})     # + the degree SpMV
     sem = ex.program.semiring
     x = ex.program.messenger(ex.state).to(torch.float32)
+    _log_chunks("segment_reduce", ex._dev["oh_lrows"],
+                ex._dev["oh_evalid"] != 0, oh.CHUNK,
+                ex._dev["oh_chunk_block"], ex.meta.nblocks, False)
     call = _k5_call(torch, ex._dev, ex.meta, ex.tiles.NR, sem,
                     oh.onehot_contrib(x, ex._dev, sem))
     _kernel_row(torch, rows, call, launches.get("segment_reduce", 0),
@@ -1728,6 +1737,23 @@ def phase_new_paths(torch, np, g, deg_ex, ref, conv32):
     _converge32("scan", ex, deg_ex, conv32)
     ex.free()
     return list(rows.values())
+
+
+def _log_chunks(name, lanes, keep, chunk, chunk_block, nblocks,
+                live_only) -> None:
+    """The chunk figures K5's and K8's fold turns on
+    (``ring_times.chunk_figures``), over the entries ``keep`` marks (K5:
+    the real edges; K8: the valid slots)."""
+    from graphtap_tpu_torch.tools.ring_times import chunk_figures
+    f = chunk_figures(lanes, keep, chunk, chunk_block, nblocks, live_only)
+    log(f"kernels: {name} chunk plan: {f['chunks']} chunks of {chunk} over "
+        f"{f['blocks']} row blocks, {f['entries']} entries kept; longest "
+        f"lane of a chunk median {f['median_longest']:g}, max "
+        f"{f['max_longest']}, summed {f['sum_longest']}; single-lane "
+        f"chunks {f['single_lane']}; largest row {f['max_row']} entries; "
+        f"most chunks of a block {f['max_block_chunks']}; chunks with no "
+        f"kept entry {f['empty_chunks']}, 4-entry groups with none "
+        f"{f['empty4']:.4f}; longest fold list {f['max_list']}")
 
 
 def _kernel_row(torch, rows, call, launches, dtype) -> None:

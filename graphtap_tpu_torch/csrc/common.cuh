@@ -259,96 +259,9 @@ int dispatch_red(int red, F&& f) {
 // 128 lane partials into a scratch table (the caller's); (b) per (row,
 // lane) of y, the partials of the row's list in list order, in runs of
 // GROUP folded from the ⊕-identity and then the runs' results in order,
-// written once. No atomics, no fill pass.
+// written once. No atomic ⊕, no fill pass.
 
 constexpr unsigned FULL_MASK = 0xffffffffu;
-
-// Pass (a) of K5 and K8: one 128-thread block per chunk of CHUNK entries;
-// entry e goes to lane lane[e] (skipped where ev[e] == 0; ev == nullptr:
-// none skipped), and thread l folds lane l's entries one at a time in index
-// order. To hand each thread its entries without a scan of the whole chunk
-// per lane, the block sorts the chunk's values by lane in shared memory,
-// stably: thread t holds entries r*128 + t (r = 0 .. CHUNK/128-1) in
-// registers; a shared histogram gives each lane's start; then, round r by
-// round r, each warp ranks its entries among equal lanes (__match_any_sync)
-// and places them after those of earlier warps and rounds. A lane with many
-// entries (a hub row) costs a chain of that many adds out of shared memory,
-// and nothing more.
-template <typename T, int RED, typename L, int CHUNK>
-__global__ void __launch_bounds__(LANES)
-chunk_lanes_kernel(const T* __restrict__ c, const L* __restrict__ lane,
-                   const int8_t* __restrict__ ev, T* __restrict__ part,
-                   T ident) {
-  constexpr int R = CHUNK / LANES;
-  constexpr int NW = LANES / 32;
-  __shared__ T s_val[CHUNK];            // kept values, by lane, index order
-  __shared__ int s_count[LANES];        // kept entries per lane
-  __shared__ int s_next[LANES];         // next free slot of each lane
-  __shared__ int s_warp[NW][LANES];     // this round's entries per warp, lane
-  __shared__ int s_wsum[NW];
-  const int t = threadIdx.x;
-  const int tid = t & 31;
-  const int w = t >> 5;
-  const long long base = static_cast<long long>(blockIdx.x) * CHUNK;
-  s_count[t] = 0;
-#pragma unroll
-  for (int k = 0; k < NW; ++k) s_warp[k][t] = 0;
-  __syncthreads();
-  int l[R];
-  T v[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const long long e = base + r * LANES + t;
-    l[r] = static_cast<int>(lane[e]);
-    if (ev != nullptr && ev[e] == 0) l[r] = -1;
-    v[r] = c[e];
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    if (l[r] >= 0) atomicAdd(&s_count[l[r]], 1);   // an integer count
-  }
-  __syncthreads();
-  // exclusive scan of the counts over the lanes: each lane's first slot
-  const int cnt = s_count[t];
-  int incl = cnt;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(FULL_MASK, incl, d);
-    if (tid >= d) incl += y;
-  }
-  if (tid == 31) s_wsum[w] = incl;
-  __syncthreads();
-  int start = incl - cnt;
-  for (int k = 0; k < w; ++k) start += s_wsum[k];
-  s_next[t] = start;
-  __syncthreads();
-  const unsigned below = (1u << tid) - 1u;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const unsigned peers = __match_any_sync(FULL_MASK, l[r]);
-    const int rank = __popc(peers & below);
-    if (l[r] >= 0 && rank == 0) s_warp[w][l[r]] = __popc(peers);
-    __syncthreads();
-    if (l[r] >= 0) {
-      int pos = s_next[l[r]] + rank;
-      for (int k = 0; k < w; ++k) pos += s_warp[k][l[r]];
-      s_val[pos] = v[r];
-    }
-    __syncthreads();
-    int add = 0;
-#pragma unroll
-    for (int k = 0; k < NW; ++k) {
-      add += s_warp[k][t];
-      s_warp[k][t] = 0;
-    }
-    s_next[t] += add;
-    __syncthreads();
-  }
-  T acc = ident;
-#pragma unroll 8
-  for (int k = start; k < start + cnt; ++k) acc = combine<RED>(acc, s_val[k]);
-  part[static_cast<long long>(blockIdx.x) * LANES + t] = acc;
-}
 
 // Pass (b), one level: out[r, l] = ident ⊕ src[i_0, l] ⊕ ... ⊕ src[i_k, l]
 // over the list positions k = ptr[r] .. ptr[r+1]-1 in order, i_k = idx[k]
@@ -408,24 +321,217 @@ void launch_row_fold(const void* part, const void* rptr, const void* gptr,
   }
 }
 
-// K5 and K8: pass (a) over nchunks chunks into part (nchunks, 128), then
-// pass (b) over the nblocks row blocks of y by the block -> chunks lists.
-template <typename T, typename L, int CHUNK>
-int launch_chunk_fold(const void* c, const void* lane, const void* ev,
-                      const void* rptr, const void* gptr, const void* idx,
-                      void* part, void* gpart, void* y, long long nchunks,
-                      long long nblocks, long long ngroups, int red,
-                      double identity, cudaStream_t st) {
-  const T ident = static_cast<T>(identity);
-  const int rc = dispatch_red(red, [&](auto r) {
-    constexpr int RED = decltype(r)::value;
-    if (nchunks > 0) {
-      chunk_lanes_kernel<T, RED, L, CHUNK>
-          <<<static_cast<unsigned>(nchunks), LANES, 0, st>>>(
-              static_cast<const T*>(c), static_cast<const L*>(lane),
-              static_cast<const int8_t*>(ev), static_cast<T*>(part), ident);
+// ------------------------------------------------ K5's and K8's chunk fold
+// Pass (a): one CHUNK_FOLD_THREADS-thread block per item k of the chunk
+// list (kernels/fold_order.py::chunk_lists): chunks[k], or -1, a null
+// item whose lane partials are the identity. The block folds its chunk's
+// kept entries into 128 lane partials, part[k], in the order of
+// fold_order.py: each lane's entries, in index order, cut into runs of
+// CHUNK_FOLD_RUN, each run folded from the ⊕-identity, then the lane's
+// runs' results in order from the ⊕-identity. Pass (b) is
+// launch_row_fold over the list positions.
+//
+// Warp w owns the chunk's slots [w SEG, (w+1) SEG) and its thread i the
+// slots w SEG + i + 32 j, j = 0 .. SEG/32 - 1 (coalesced loads; K8 loads
+// every slot's lane and value and masks by ev after, which measured
+// faster than loading them only where ev is set). The kept values go to
+// shared memory sorted by lane, stably (val, one word of skew every 32
+// entries, so that runs CHUNK_FOLD_RUN apart start in other banks), with
+// each lane's bounds; then thread r folds run r (its lane from a run ->
+// lane table) and thread l < 128 folds lane l's runs. A hub chunk's
+// critical path is so CHUNK_FOLD_RUN + CHUNK / CHUNK_FOLD_RUN dependent
+// ⊕s, where one thread folded up to CHUNK.
+//
+// Each warp ranks its segment's kept entries within their lanes, round j
+// by round j (index order in the segment): __match_any_sync finds the
+// round's equal lanes, and a per-warp count of each lane in shared
+// memory gives the earlier rounds' share; then warp 0 turns the warps'
+// counts of each lane into each warp's first rank, the lane's count and
+// bounds. Two block barriers, no block-wide sort. (A rotation that placed
+// K5's row-sorted chunks without the rank measured no faster: the H100,
+// RMAT-20, 0.0861 and 0.0871 ms against 0.0843 and 0.0788 without it.)
+//
+// MASKED (K8) masks the slots by ev; its lanes are short (a chunk's
+// longest lane has a median of 64 entries at RMAT-20), so a run folds to
+// its end, at 8 blocks an SM. K5 reads no mask (its padding carries the
+// identity); its lanes are long (median 466), so a run keeps all
+// CHUNK_FOLD_RUN loads in flight, at 6 blocks an SM (0.1087 ms at 8
+// with K8's run fold). Occupancy is what the fold buys time with (K8
+// 0.137 ms at 8 blocks an SM and 32 registers against 0.179 at 50), so
+// the registers are capped.
+constexpr int CHUNK_FOLD_RUN = 32;   // entries per run (fold_order.py::RUN)
+constexpr int CHUNK_FOLD_THREADS = 256;
+constexpr int CHUNK_FOLD_WARPS = CHUNK_FOLD_THREADS / 32;
+
+__device__ __forceinline__ int chunk_skew(int p) { return p + (p >> 5); }
+
+template <typename T, int CHUNK>
+struct alignas(16) ChunkFoldSmem {
+  T val[CHUNK + CHUNK / 32];       // kept values, by lane, skewed
+  T runres[CHUNK / CHUNK_FOLD_RUN + LANES];
+  int hist[CHUNK_FOLD_WARPS][LANES];   // per-warp counts of each lane
+  int start[LANES];                // each lane's first sorted position
+  int end[LANES];                  // its end
+  int runbase[LANES + 1];          // each lane's first run
+  unsigned char runlane[CHUNK / CHUNK_FOLD_RUN + LANES];   // each run's lane
+};
+
+// Warp 0: from the warps' counts of each lane in hist (which become each
+// warp's first rank of the lane), each lane's start (the exclusive scan
+// of the counts) and end, its first run (runbase, and the total at
+// [LANES]) and each run's lane (runlane). A count and its runs share one
+// 32-bit scan (at most CHUNK entries, CHUNK / RUN + 128 runs).
+template <typename S>
+__device__ __forceinline__ void lane_runs(S& s) {
+  const int id = threadIdx.x;
+  int c[4], pk[4], tot = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int l = 4 * id + j;
+    int n = 0;
+#pragma unroll
+    for (int k = 0; k < CHUNK_FOLD_WARPS; ++k) {
+      const int h = s.hist[k][l];
+      s.hist[k][l] = n;
+      n += h;
     }
-    launch_row_fold<T, RED>(part, rptr, gptr, idx, gpart, y, nblocks,
+    c[j] = n;
+    pk[j] = tot;
+    tot += c[j] | (((c[j] + CHUNK_FOLD_RUN - 1) / CHUNK_FOLD_RUN) << 16);
+  }
+  int incl = tot;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(FULL_MASK, incl, d);
+    if (id >= d) incl += y;
+  }
+  const int base = incl - tot;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int l = 4 * id + j;
+    const int e = base + pk[j];
+    s.start[l] = e & 0xffff;
+    s.end[l] = (e & 0xffff) + c[j];
+    s.runbase[l] = e >> 16;
+    const int nr = (c[j] + CHUNK_FOLD_RUN - 1) / CHUNK_FOLD_RUN;
+    for (int r = e >> 16; r < (e >> 16) + nr; ++r) {
+      s.runlane[r] = static_cast<unsigned char>(l);
+    }
+  }
+  if (id == 31) s.runbase[LANES] = incl >> 16;
+}
+
+template <typename T, int RED, typename L, int CHUNK, bool MASKED>
+__global__ void __launch_bounds__(CHUNK_FOLD_THREADS, MASKED ? 8 : 6)
+chunk_fold_kernel(const T* __restrict__ c, const L* __restrict__ lane,
+                  const int8_t* __restrict__ ev,
+                  const int* __restrict__ chunks, T* __restrict__ part,
+                  T ident) {
+  constexpr int SEG = CHUNK / CHUNK_FOLD_WARPS;   // slots of a warp
+  constexpr int E = SEG / 32;                     // slots of a thread
+  static_assert(E * 32 * CHUNK_FOLD_WARPS == CHUNK, "whole rounds");
+  __shared__ ChunkFoldSmem<T, CHUNK> s;
+  const int t = threadIdx.x, i = t & 31, w = t >> 5;
+  const int chunk = __ldg(chunks + blockIdx.x);
+  T acc = ident;                 // thread t < 128: lane t's partial
+  if (chunk >= 0) {              // the same in the whole block
+    const int p0 = w * SEG + i;  // slot p0 + 32 j of the chunk
+    const long long base = static_cast<long long>(chunk) * CHUNK + p0;
+    const T* cp = c + base;
+    const L* lp = lane + base;
+    T v[E];
+    int ln[E];                   // the lane, -1 where not kept
+#pragma unroll
+    for (int j = 0; j < E; ++j) {
+      ln[j] = static_cast<int>(__ldcs(lp + 32 * j));
+      v[j] = __ldcs(cp + 32 * j);
+      if constexpr (MASKED) {    // every load, then the mask
+        if (__ldcs(ev + base + 32 * j) == 0) ln[j] = -1;
+      }
+    }
+    // ranks within the warp's segment: ln[j] becomes lane | rank << 8
+    int* hist = s.hist[w];
+    reinterpret_cast<int4*>(hist)[i] = make_int4(0, 0, 0, 0);
+    __syncwarp();
+    const unsigned below = (1u << i) - 1u;
+#pragma unroll
+    for (int j = 0; j < E; ++j) {
+      const int l = ln[j];
+      const unsigned peers = __match_any_sync(FULL_MASK, l >= 0 ? l
+                                                         : LANES + i);
+      const int before = l >= 0 ? hist[l] : 0;
+      __syncwarp();
+      if (l >= 0 && (peers & below) == 0) {
+        hist[l] = before + __popc(peers);
+      }
+      __syncwarp();
+      if (l >= 0) ln[j] = l | (before + __popc(peers & below)) << 8;
+    }
+    __syncthreads();
+    if (t < 32) lane_runs(s);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < E; ++j) {
+      if (ln[j] >= 0) {
+        const int l = ln[j] & 0xff;
+        s.val[chunk_skew(s.start[l] + hist[l] + (ln[j] >> 8))] = v[j];
+      }
+    }
+    __syncthreads();
+    const int nruns = s.runbase[LANES];
+    for (int r = t; r < nruns; r += CHUNK_FOLD_THREADS) {
+      const int l = s.runlane[r];
+      const int from = s.start[l] + (r - s.runbase[l]) * CHUNK_FOLD_RUN;
+      const int to = min(from + CHUNK_FOLD_RUN, s.end[l]);
+      T x = ident;
+      if constexpr (MASKED) {   // short runs (K8: ~7 entries a lane)
+#pragma unroll 8
+        for (int e = from; e < to; ++e) {
+          x = combine<RED>(x, s.val[chunk_skew(e)]);
+        }
+      } else {                  // long runs: all their loads in flight
+#pragma unroll
+        for (int e = 0; e < CHUNK_FOLD_RUN; ++e) {
+          if (from + e < to) {
+            x = combine<RED>(x, s.val[chunk_skew(from + e)]);
+          }
+        }
+      }
+      s.runres[r] = x;
+    }
+    __syncthreads();
+    if (t < LANES) {
+      const int end = s.runbase[t + 1];
+#pragma unroll 4
+      for (int r = s.runbase[t]; r < end; ++r) {
+        acc = combine<RED>(acc, s.runres[r]);
+      }
+    }
+  }
+  if (t < LANES) part[static_cast<long long>(blockIdx.x) * LANES + t] = acc;
+}
+
+// K5 and K8: pass (a) over the nitems list items into part (nitems, 128),
+// then pass (b) by launch_row_fold over the list positions into y
+// (nblocks, 128).
+template <typename T, typename L, int CHUNK, bool MASKED>
+int launch_chunk_fold(const void* c, const void* lane, const void* ev,
+                      const void* chunks, const void* rptr,
+                      const void* gptr, void* part, void* gpart, void* y,
+                      long long nitems, long long nblocks, long long ngroups,
+                      int red, double identity, cudaStream_t st) {
+  const T ident = static_cast<T>(identity);
+  const int rc = dispatch_red(red, [&](auto rk) {
+    constexpr int RED = decltype(rk)::value;
+    if (nitems > 0) {
+      chunk_fold_kernel<T, RED, L, CHUNK, MASKED>
+          <<<static_cast<unsigned>(nitems), CHUNK_FOLD_THREADS, 0, st>>>(
+              static_cast<const T*>(c), static_cast<const L*>(lane),
+              static_cast<const int8_t*>(ev),
+              static_cast<const int*>(chunks), static_cast<T*>(part),
+              ident);
+    }
+    launch_row_fold<T, RED>(part, rptr, gptr, nullptr, gpart, y, nblocks,
                             ngroups, ident, st);
   });
   return rc != cudaSuccess ? rc : cudaGetLastError();

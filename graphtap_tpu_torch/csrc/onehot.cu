@@ -17,25 +17,29 @@
 // like the Pallas one, reads no validity mask.
 //
 // What bounds it on the card: bytes. Per contribution one value and one
-// int32 lrows read, one ⊕; per chunk 128 lane partials written and read
-// back once; y written once. Far below the card's ~20 operations per byte,
-// so a call is held to (bytes moved) / 3.35 TB/s.
+// int32 lrows read, one ⊕; y written once (the chunks' lane partials go
+// out and back through L2). Far below the card's ~20
+// operations per byte, so a call is held to (bytes moved) / 3.35 TB/s.
 //
-// Design, simple first. The Pallas grid walks chunks in order and folds
-// each with a one-hot select and a column reduction of a (2048, 128)
-// register tile into a VMEM-resident y, so its float sums come out the
-// same on every call. Blocks here run in no order, and a fold with
-// atomics rounds in another order on every call, which kept f32 PageRank's
-// absolute convergence vote from ever closing. So the fold runs in two
-// passes in a fixed order (common.cuh): (a) one 128-thread block per chunk
-// sorts the chunk by lane in shared memory, stably, and thread l folds
-// lane l's contributions in index order into the (nchunks, 128) scratch;
-// (b) one thread per (block, lane) folds its block's chunk partials in
-// chunk order, in runs of 64 and then the runs' results, from the
-// ⊕-identity, and writes y once. The block -> chunks lists are built once
-// per upload from chunk_block (kernels/fold_order.py::fold_lists). The
-// result equals the plain version's (segment_reduce_plain, the same
-// order) bit for bit.
+// Design. The Pallas grid walks chunks in order and folds each with a
+// one-hot select and a column reduction of a (2048, 128) register tile
+// into a VMEM-resident y, so its float sums come out the same on every
+// call. Blocks here run in no order, and a fold with atomics rounds in
+// another order on every call, which kept f32 PageRank's absolute
+// convergence vote from ever closing. So the fold runs in a fixed order
+// (common.cuh: chunk_fold_kernel, kernels/fold_order.py), in two passes:
+// (a) one 256-thread block per chunk loads its 2,048 contributions and
+// lrows, eight a thread; each lane's contributions fold in runs of 32
+// (each from the ⊕-identity) and then the runs' results in order, so a
+// chunk of one hub row folds in a chain of 32 + 64 steps over 64 threads,
+// where one thread folded 2,048; each warp ranks its slots within their
+// lanes (__match_any_sync rounds over per-warp lane counts), and the
+// values go to shared memory sorted by lane. (b) one thread per
+// (block, lane) folds the block's chunk partials in chunk order, in runs
+// of 64 and then the runs' results, from the ⊕-identity, and writes y
+// once. The chunk list is built once per upload from chunk_block
+// (kernels/fold_order.py::chunk_lists). The result equals the plain
+// version's (segment_reduce_plain, the same order) bit for bit.
 //
 // The launcher is extern "C" (bound with ctypes), launches on the
 // caller's stream, allocates nothing (the scratch is the caller's), and
@@ -54,43 +58,44 @@ namespace {
 constexpr int CHUNK = 2048;                // contributions per chunk
 
 template <typename T>
-int launch_segment_reduce(const void* c, const void* lr, const void* rptr,
-                          const void* gptr, const void* idx, void* part,
-                          void* gpart, void* y, long long nchunks,
+int launch_segment_reduce(const void* c, const void* lr, const void* chunks,
+                          const void* rptr, const void* gptr, void* part,
+                          void* gpart, void* y, long long nitems,
                           long long nblocks, long long ngroups, int red,
                           double identity, cudaStream_t st) {
-  return launch_chunk_fold<T, int, CHUNK>(c, lr, nullptr, rptr, gptr, idx,
-                                          part, gpart, y, nchunks, nblocks,
-                                          ngroups, red, identity, st);
+  return launch_chunk_fold<T, int, CHUNK, false>(
+      c, lr, nullptr, chunks, rptr, gptr, part, gpart, y, nitems, nblocks,
+      ngroups, red, identity, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The block -> chunks lists (kernels/fold_order.py::fold_lists): idx
-// (nchunks) the chunks by block, in chunk order; gptr (ngroups + 1) the
-// runs in idx; rptr (nblocks + 1) each block's runs. part (nchunks, 128)
-// and gpart (ngroups, 128): scratch.
+// The chunk list (kernels/fold_order.py::chunk_lists): chunks (nitems)
+// int32, by row block in chunk order, -1 for a block with no chunk; gptr
+// (ngroups + 1) its runs; rptr (nblocks + 1) each block's runs. part
+// (nitems, 128), gpart (ngroups, 128): scratch.
 int gt_segment_reduce(const void* contrib, const void* lrows,
-                      const void* rptr, const void* gptr, const void* idx,
-                      void* part, void* gpart, void* y, long long nchunks,
+                      const void* chunks, const void* rptr, const void* gptr,
+                      void* part, void* gpart, void* y, long long nitems,
                       long long nblocks, long long ngroups, int dtype,
                       int reduce_kind, double identity, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case F32:
-      return launch_segment_reduce<float>(contrib, lrows, rptr, gptr, idx,
-                                          part, gpart, y, nchunks, nblocks,
-                                          ngroups, reduce_kind, identity, st);
+      return launch_segment_reduce<float>(contrib, lrows, chunks, rptr,
+                                          gptr, part, gpart, y, nitems,
+                                          nblocks, ngroups, reduce_kind,
+                                          identity, st);
     case F64:
-      return launch_segment_reduce<double>(contrib, lrows, rptr, gptr, idx,
-                                           part, gpart, y, nchunks, nblocks,
-                                           ngroups, reduce_kind, identity,
-                                           st);
+      return launch_segment_reduce<double>(contrib, lrows, chunks, rptr,
+                                           gptr, part, gpart, y, nitems,
+                                           nblocks, ngroups, reduce_kind,
+                                           identity, st);
     case I32:
-      return launch_segment_reduce<int>(contrib, lrows, rptr, gptr, idx,
-                                        part, gpart, y, nchunks, nblocks,
+      return launch_segment_reduce<int>(contrib, lrows, chunks, rptr, gptr,
+                                        part, gpart, y, nitems, nblocks,
                                         ngroups, reduce_kind, identity, st);
     default:
       return cudaErrorInvalidValue;

@@ -30,8 +30,10 @@
 // plan bytes and one gathered x value and writes one value (f32: 3 + 4 + 4
 // B, the gather mostly hitting L2, x being at most tens of MB); K7 reads
 // one int32 index and, for a live slot, one source value, and writes one
-// value (f32: 4 + 4 + 4 B); K8 reads the value and two int8 bytes per slot
-// and writes and reads back 128 lane partials per chunk. None does more
+// value (f32: 4 + 4 + 4 B); K8 reads one ev byte per slot of a listed
+// chunk and the value and lane byte of a valid one, and writes y once
+// (128 lane partials per chunk of a multi-chunk row block go out and back
+// through L2). None does more
 // than a handful of operations per byte, far under the card's ~20 per byte
 // in f32, so each is held to (bytes moved) / 3.35 TB/s.
 //
@@ -63,16 +65,21 @@
 // super (2 MB in f32 at rps 4096), so the gather mostly hits the 50 MB L2,
 // and the kernel streams ~12 B a slot in f32. A gather has no order: the
 // result equals the pass-by-pass plain version bit for bit.
-// K8: the TPU folds chunks in grid order into a resident y;
-// here the fold runs in two passes in a fixed order (common.cuh), as K5's
-// does: (a) one 128-thread block per chunk folds each lane's valid slots
-// in index order into an (nchunks, 128) scratch; (b) one thread per
-// (block, lane) folds the block's chunk partials in chunk order (in runs of
-// 64, then the runs' results: a degree SpMV's hub block has thousands of
-// chunks) from the ⊕-identity and writes y once. Float sums come out the
-// same on every call and equal the plain version's bit for bit; the block
-// -> chunks lists are built once per upload from chunk_block
-// (kernels/fold_order.py).
+// K8: the TPU folds chunks in grid order into a resident y; here the
+// fold runs in a fixed order in two passes (common.cuh), as K5's does:
+// (a) one 256-thread block per chunk of the chunk list, which leaves out
+// the chunks with no valid slot (43% at the RMAT-20 degree plan) and is
+// built once per upload from chunk_block and ev
+// (kernels/fold_order.py::chunk_lists); a thread loads every slot's lane
+// and value and masks them by its ev byte. The lanes of a chunk come in
+// no order, so each warp ranks its valid slots within their lanes by
+// __match_any_sync rounds over per-warp lane counts, and the values go to
+// shared memory sorted by lane; each lane's values fold in runs of 32,
+// then the runs' results, into the list's (nitems, 128) partials.
+// (b) one thread per (block, lane) folds the block's partials in list
+// order (runs of 64, then the runs' results) from the ⊕-identity and
+// writes y once. Float sums come out the same on every call and equal the
+// plain version's bit for bit.
 //
 // The launchers are extern "C" (bound with ctypes), launch on the caller's
 // stream, allocate nothing (K8's scratch is the caller's), and return
@@ -217,13 +224,13 @@ int launch_group(const void* in, const void* src, void* out, long long n,
 
 template <typename T>
 int launch_reduce(const void* c, const void* lr, const void* ev,
-                  const void* rptr, const void* gptr, const void* idx,
-                  void* part, void* gpart, void* y, long long nchunks,
+                  const void* chunks, const void* rptr, const void* gptr,
+                  void* part, void* gpart, void* y, long long nitems,
                   long long nblocks, long long ngroups, int red,
                   double identity, cudaStream_t st) {
-  return launch_chunk_fold<T, int8_t, CHUNK_EL>(
-      c, lr, ev, rptr, gptr, idx, part, gpart, y, nchunks, nblocks, ngroups,
-      red, identity, st);
+  return launch_chunk_fold<T, int8_t, CHUNK_EL, true>(
+      c, lr, ev, chunks, rptr, gptr, part, gpart, y, nitems, nblocks,
+      ngroups, red, identity, st);
 }
 
 }  // namespace
@@ -276,28 +283,28 @@ int gt_group_gather(const void* in, const void* src, void* out, long long n,
   }
 }
 
-// The block -> chunks lists (kernels/fold_order.py::fold_lists): idx
-// (nchunks) the chunks by block, in chunk order; gptr (ngroups + 1) the
-// runs in idx; rptr (nblocks + 1) each block's runs. part (nchunks, 128)
-// and gpart (ngroups, 128): scratch.
+// The chunk list (kernels/fold_order.py::chunk_lists): chunks (nitems)
+// int32, by row block, the chunks with no valid slot left out, -1 for a
+// block left with none; gptr (ngroups + 1) its runs; rptr (nblocks + 1)
+// each block's runs. part (nitems, 128), gpart (ngroups, 128): scratch.
 int gt_grouped_reduce(const void* c, const void* lr, const void* ev,
-                      const void* rptr, const void* gptr, const void* idx,
-                      void* part, void* gpart, void* y, long long nchunks,
+                      const void* chunks, const void* rptr, const void* gptr,
+                      void* part, void* gpart, void* y, long long nitems,
                       long long nblocks, long long ngroups, int dtype,
                       int reduce_kind, double identity, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case F32:
-      return launch_reduce<float>(c, lr, ev, rptr, gptr, idx, part, gpart, y,
-                                  nchunks, nblocks, ngroups, reduce_kind,
-                                  identity, st);
+      return launch_reduce<float>(c, lr, ev, chunks, rptr, gptr, part,
+                                  gpart, y, nitems, nblocks, ngroups,
+                                  reduce_kind, identity, st);
     case F64:
-      return launch_reduce<double>(c, lr, ev, rptr, gptr, idx, part, gpart,
-                                   y, nchunks, nblocks, ngroups, reduce_kind,
-                                   identity, st);
+      return launch_reduce<double>(c, lr, ev, chunks, rptr, gptr, part,
+                                   gpart, y, nitems, nblocks, ngroups,
+                                   reduce_kind, identity, st);
     case I32:
-      return launch_reduce<int>(c, lr, ev, rptr, gptr, idx, part, gpart, y,
-                                nchunks, nblocks, ngroups, reduce_kind,
+      return launch_reduce<int>(c, lr, ev, chunks, rptr, gptr, part, gpart,
+                                y, nitems, nblocks, ngroups, reduce_kind,
                                 identity, st);
     default:
       return cudaErrorInvalidValue;

@@ -38,7 +38,8 @@ _F64 = ctypes.c_double
 # plan_idx is NULL for a static launch, else the (npanels,) int32 plan
 # block of each panel (gated); fill_block is the route's all-fill block.
 # rptr/gptr/idx are a fixed-order fold's row -> runs -> partials lists,
-# part/gpart its scratch (kernels/fold_order.py).
+# part/gpart its scratch; chunks a chunk fold's list (kernels/
+# fold_order.py).
 _SIGNATURES = {
     # x2d, bases, plan, w, out, npanels, nwin, dtype, mul_kind, fill,
     # plan_idx, fill_block, stream
@@ -69,7 +70,7 @@ _SIGNATURES = {
                          _P],
     # in, src, out, n, dtype, fill, stream
     "gt_group_gather": [_P, _P, _P, _I64, _I32, _F64, _P],
-    # c, lr, ev, rptr, gptr, idx, part, gpart, y, nchunks, nblocks,
+    # c, lr, ev, chunks, rptr, gptr, part, gpart, y, nitems, nblocks,
     # ngroups, dtype, reduce_kind, identity, stream
     "gt_grouped_reduce": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
                           _I64, _I32, _I32, _F64, _P],
@@ -81,7 +82,7 @@ _SIGNATURES = {
     # cidx_blocks, dtype, fill, stream
     "gt_windowed_gather64": [_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I64,
                              _I64, _I32, _F64, _P],
-    # contrib, lrows, rptr, gptr, idx, part, gpart, y, nchunks, nblocks,
+    # contrib, lrows, chunks, rptr, gptr, part, gpart, y, nitems, nblocks,
     # ngroups, dtype, reduce_kind, identity, stream
     "gt_segment_reduce": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
                           _I32, _I32, _F64, _P],

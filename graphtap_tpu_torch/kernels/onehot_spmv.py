@@ -16,8 +16,8 @@ chunks of ``CHUNK`` contributions:
     CUDA tensor — never a fallback; ``segment_reduce_plain`` is its plain
     torch version, which folds floats in the kernel's fixed order
     (``fold_order.py``), and ``LAUNCHES`` its launch count;
-  * ``fold_tables``: K5's block -> chunks list and scratch, kept in the
-    device dict once per upload;
+  * ``fold_tables``: K5's chunk list and scratch, kept in the device dict
+    once per upload;
   * ``spmv_onehot``: the gather of x by the plan's cols, ⊗ by its weights
     and the mask of padding to the ⊕-identity (plain torch, as the JAX
     package leaves them to XLA), then K5.
@@ -34,7 +34,7 @@ import torch
 from graphtap_tpu_torch.format.tiles import TileSet
 from graphtap_tpu_torch.kernels import _cuda
 from graphtap_tpu_torch.kernels.fold_order import (chunk_fold_plain,
-                                                   fold_args)
+                                                   chunk_lists, fold_args)
 from graphtap_tpu_torch.kernels.fold_order import \
     fold_tables as _fold_tables
 from graphtap_tpu_torch.kernels.panel_kernels import (_DTYPES,
@@ -180,10 +180,11 @@ def validate_pallas_plan(plan: PallasPlan, ncols: int) -> None:
 # --------------------------------------------------------- plain version
 def segment_reduce_plain(contrib, lrows, chunk_block, nblocks: int, NR: int,
                          reduce_kind: str, identity):
-    """y (nblocks, 128): each chunk folds its contributions into lane
-    lrows[e] in index order, then each block folds its chunks' lane
-    partials in chunk order from the identity (the kernel's fixed order,
-    ``fold_order.chunk_fold_plain``); returns y.reshape(-1)[:NR]."""
+    """y (nblocks, 128): each chunk folds each lane's contributions in
+    runs of RUN in index order, then the runs' results; then each block
+    folds its chunks' lane partials in chunk order from the identity (the
+    kernel's fixed order, ``fold_order.chunk_fold_plain``); returns
+    y.reshape(-1)[:NR]."""
     return chunk_fold_plain(contrib, lrows, None, CHUNK, chunk_block,
                             nblocks, reduce_kind, identity).reshape(-1)[:NR]
 
@@ -195,10 +196,10 @@ def segment_reduce(contrib, lrows, chunk_block, nblocks: int, NR: int,
     space (NR,). Padding must carry the ⊕-identity (``spmv_onehot`` masks
     it); the kernel reads no validity mask, as the Pallas one reads none.
     Float sums fold in a fixed order, the plain version's, so a call gives
-    the same bits every time. ``lists``: the block -> chunks lists
-    (``fold_order.fold_lists(chunk_block, nblocks)``, built here if None);
-    ``scratch``: the chunks' and runs' lane partials (allocated here if
-    None); the plain version reads neither. Replaces
+    the same bits every time. ``lists``: the chunk list
+    (``fold_order.chunk_lists(chunk_block, nblocks)``, built here if
+    None); ``scratch``: the lists' and their runs' lane partials
+    (allocated here if None); the plain version reads neither. Replaces
     ``pallas_spmv.py::pallas_segment_reduce``."""
     _check_values("contrib", contrib)
     dev = contrib.device
@@ -216,17 +217,19 @@ def segment_reduce(contrib, lrows, chunk_block, nblocks: int, NR: int,
     if not _on_cuda(contrib):
         return segment_reduce_plain(contrib, lrows, chunk_block, nblocks,
                                     NR, reduce_kind, identity)
-    rptr, gptr, idx, part, gpart = fold_args(
-        lists, scratch, chunk_block, nblocks, nchunks, contrib.dtype, dev)
+    if lists is None:
+        lists = chunk_lists(chunk_block, nblocks)
+    rptr, gptr, chunks, part, gpart = fold_args(
+        lists, scratch, nblocks, lists[2].shape[0], contrib.dtype, dev)
     lib = _cuda.library()
     y = torch.empty((nblocks * RB,), dtype=contrib.dtype, device=dev)
     with torch.cuda.device(dev):
         rc = lib.gt_segment_reduce(
-            contrib.data_ptr(), lrows.data_ptr(), rptr.data_ptr(),
-            gptr.data_ptr(), idx.data_ptr(), part.data_ptr(),
-            gpart.data_ptr(), y.data_ptr(), nchunks, nblocks,
-            gptr.shape[0] - 1, _DTYPES[contrib.dtype],
-            _REDUCE_KINDS[reduce_kind],
+            contrib.data_ptr(), lrows.data_ptr(), chunks.data_ptr(),
+            rptr.data_ptr(), gptr.data_ptr(), part.data_ptr(),
+            gpart.data_ptr(), y.data_ptr(), chunks.shape[0], nblocks,
+            gptr.shape[0] - 1,
+            _DTYPES[contrib.dtype], _REDUCE_KINDS[reduce_kind],
             float(identity), _stream(contrib))
     LAUNCHES["segment_reduce"] += 1
     _cuda.check(rc, "segment_reduce")
@@ -234,10 +237,10 @@ def segment_reduce(contrib, lrows, chunk_block, nblocks: int, NR: int,
 
 
 def fold_tables(t: Dict[str, torch.Tensor], plan: PallasPlan, dtype):
-    """K5's block -> chunks list and scratch, kept in ``t`` (once per
-    upload); returns segment_reduce's (lists, scratch) arguments."""
-    return _fold_tables(t, "oh", t["oh_chunk_block"], plan.nblocks,
-                        plan.nchunks, dtype)
+    """K5's chunk list and scratch, kept in ``t`` (once per upload);
+    returns segment_reduce's (lists, scratch) arguments."""
+    return _fold_tables(t, "oh", lambda: chunk_lists(t["oh_chunk_block"],
+                                                      plan.nblocks), dtype)
 
 
 def onehot_contrib(x: torch.Tensor, t: Dict[str, torch.Tensor],

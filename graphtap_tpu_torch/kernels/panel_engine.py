@@ -42,6 +42,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from graphtap_tpu_torch.kernels.fold_order import fold_lists
 from graphtap_tpu_torch.kernels.fold_order import \
     fold_tables as _fold_tables
 from graphtap_tpu_torch.kernels.panel_kernels import (
@@ -189,12 +190,12 @@ def fold_tables(t: Dict[str, torch.Tensor], meta: Spmv3Meta, dtype):
     fold, kept in ``t`` once per upload (``fold_order.fold_tables``);
     returns each fold's route_fold (lists, scratch) arguments."""
     return {
-        "fixr": _fold_tables(t, "fixr", fold_rows(
+        "fixr": _fold_tables(t, "fixr", lambda: fold_lists(fold_rows(
             t["fix_dst"], t["fixr_seg"], meta.nrb, meta.fix_panels),
-            meta.nrb, meta.fix_panels * STRIPE, dtype),
-        "fix2": _fold_tables(t, "fix2", fold_rows(
+            meta.nrb), dtype),
+        "fix2": _fold_tables(t, "fix2", lambda: fold_lists(fold_rows(
             t["fix2_dst"], t["f2_seg"], meta.f2_rows, meta.f2_panels),
-            meta.f2_rows, meta.f2_panels * STRIPE, dtype)}
+            meta.f2_rows), dtype)}
 
 
 def _fold_tail(y_mid, t, meta: Spmv3Meta, kind: str, fill, dense_len: int,

@@ -46,7 +46,8 @@ import numpy as np
 import torch
 
 from graphtap_tpu_torch.kernels import _cuda
-from graphtap_tpu_torch.kernels.fold_order import fold_args, list_fold
+from graphtap_tpu_torch.kernels.fold_order import (fold_args, fold_lists,
+                                                   list_fold)
 from graphtap_tpu_torch.kernels.panel_plan import (FOLD_SEG_ROWS, LANES,
                                                    PROWS, STRIPE, XROWS)
 
@@ -654,9 +655,11 @@ def route_fold(stream0, bases, plan, dst, seg, nrows: int, reduce_kind: str,
     if not _on_cuda(stream0):
         return route_fold_plain(stream0, bases, plan, dst, seg, nrows,
                                 reduce_kind, fill, npanels, nwin, plan_idx)
+    if lists is None:
+        lists = fold_lists(fold_rows(dst, seg, nrows, npanels), nrows)
     rptr, gptr, idx, part, gpart = fold_args(
-        lists, scratch, fold_rows(dst, seg, nrows, npanels) if lists is None
-        else None, nrows, npanels * STRIPE, stream0.dtype, stream0.device)
+        lists, scratch, nrows, npanels * STRIPE, stream0.dtype,
+        stream0.device)
     _check_aligned(plan=plan)
     lib = _cuda.library()
     y = torch.empty((nrows, LANES), dtype=stream0.dtype,

@@ -20,8 +20,9 @@ one slot of the same super, so the whole regroup is one gather,
 ``group_tables`` keeps it in the plan tensors once per upload; the CUDA
 kernel is that gather, one launch per call. K8's float sums fold in a
 fixed order (``fold_order.py``), which its plain version follows;
-``reduce_tables`` keeps its block -> chunks list and scratch in the plan
-tensors once per upload.
+``reduce_tables`` keeps its chunk list (the chunks with a valid slot, by
+row block) and scratch in the plan tensors once per upload, with the
+stamp of the ev_r it came from, which ``grouped_reduce`` checks.
 
 The plans come from ``kernels/shuffle_plan.py``; ``shuffle_engine.
 validate_shuffle_plans`` checks every index the kernels follow before a
@@ -34,7 +35,8 @@ import torch
 
 from graphtap_tpu_torch.kernels import _cuda
 from graphtap_tpu_torch.kernels.fold_order import (chunk_fold_plain,
-                                                   fold_args, fold_tables)
+                                                   chunk_lists, fold_args,
+                                                   fold_tables)
 from graphtap_tpu_torch.kernels.panel_kernels import (_DTYPES, _MUL_KINDS,
                                                       _REDUCE_KINDS,
                                                       _REDUCE_OK, _on_cuda,
@@ -143,12 +145,19 @@ def group_gather_plain(contrib, src, fill):
 def grouped_reduce_plain(contrib, lr, evalid, chunk_block, nblocks: int,
                          reduce_kind: str, identity):
     """y (nblocks, 128): each 8-row chunk folds its elements with ev set
-    into lane lr in index order, then each block folds its chunks' lane
-    partials in chunk order from the identity (the kernel's fixed order,
-    ``fold_order.chunk_fold_plain``)."""
+    into lane lr, each lane's in runs of RUN in index order and then the
+    runs' results; then each block folds the lane partials of its chunks
+    with a valid slot in chunk order from the identity (the kernel's
+    fixed order, ``fold_order.chunk_fold_plain``)."""
     return chunk_fold_plain(contrib, lr, evalid != 0, RED_ROWS * LANES,
                             chunk_block, nblocks, reduce_kind,
                             identity).view(nblocks, LANES)
+
+
+def live_chunks(evalid) -> torch.Tensor:
+    """(nchunks,) bool: the 8-row chunks with a valid slot, the ones K8's
+    chunk list holds."""
+    return (evalid.reshape(-1, RED_ROWS * LANES) != 0).any(1)
 
 
 def expand_figures(grp, evalid) -> dict:
@@ -319,9 +328,10 @@ def grouped_reduce(contrib, lr, evalid, chunk_block, nblocks: int,
     starts at the identity: each 8-row chunk i folds its valid elements
     into row chunk_block[i], lane lr. Float sums fold in a fixed order, the
     plain version's, so a call gives the same bits every time. ``lists``:
-    the block -> chunks lists (``fold_order.fold_lists(chunk_block,
-    nblocks)``, built here if None); ``scratch``: the chunks' and runs'
-    lane partials (allocated here if None); the plain version reads
+    the chunk list of the chunks with a valid slot and the evalid it was
+    built from (``reduce_lists``, built here if None; raises ValueError
+    if built from another evalid); ``scratch``: the lists' and their
+    runs' lane partials (allocated here if None); the plain version reads
     neither.
     Replaces ``shuffle_kernels.py::grouped_reduce``."""
     _check_values("contrib", contrib)
@@ -338,28 +348,50 @@ def grouped_reduce(contrib, lr, evalid, chunk_block, nblocks: int,
         raise ValueError(f"grouped_reduce: {reduce_kind} on {contrib.dtype}")
     if nblocks < 1:
         raise ValueError(f"nblocks {nblocks}")
+    if lists is not None and lists[3:] != (ev_stamp(evalid),):
+        raise ValueError("grouped_reduce: lists built from another evalid")
     if not _on_cuda(contrib):
         return grouped_reduce_plain(contrib, lr, evalid, chunk_block,
                                     nblocks, reduce_kind, identity)
-    rptr, gptr, idx, part, gpart = fold_args(
-        lists, scratch, chunk_block, nblocks, nchunks, contrib.dtype, dev)
+    if lists is None:
+        lists = reduce_lists(chunk_block, nblocks, evalid)
+    rptr, gptr, chunks, part, gpart = fold_args(
+        lists[:3], scratch, nblocks, lists[2].shape[0], contrib.dtype, dev)
     lib = _cuda.library()
     y = torch.empty((nblocks, LANES), dtype=contrib.dtype, device=dev)
     with torch.cuda.device(dev):
         rc = lib.gt_grouped_reduce(
             contrib.data_ptr(), lr.data_ptr(), evalid.data_ptr(),
-            rptr.data_ptr(), gptr.data_ptr(), idx.data_ptr(),
-            part.data_ptr(), gpart.data_ptr(), y.data_ptr(), nchunks,
-            nblocks, gptr.shape[0] - 1, _DTYPES[contrib.dtype],
-            _REDUCE_KINDS[reduce_kind], float(identity), _stream(contrib))
+            chunks.data_ptr(), rptr.data_ptr(), gptr.data_ptr(),
+            part.data_ptr(), gpart.data_ptr(), y.data_ptr(),
+            chunks.shape[0], nblocks, gptr.shape[0] - 1,
+            _DTYPES[contrib.dtype], _REDUCE_KINDS[reduce_kind],
+            float(identity), _stream(contrib))
     LAUNCHES["grouped_reduce"] += 1
     _cuda.check(rc, "grouped_reduce")
     return y
 
 
+def ev_stamp(evalid):
+    """What ties K8's chunk list to the evalid it was built from: its
+    device, address and shape."""
+    return (str(evalid.device), evalid.data_ptr(), tuple(evalid.shape))
+
+
+def reduce_lists(chunk_block, nblocks: int, evalid):
+    """K8's lists: ``fold_order.chunk_lists`` of the chunks with a valid
+    slot, and ``ev_stamp(evalid)``."""
+    return chunk_lists(chunk_block, nblocks,
+                       live_chunks(evalid)) + (ev_stamp(evalid),)
+
+
 def reduce_tables(t, nblocks: int, dtype):
-    """K8's block -> chunks list and scratch for the plan tensors ``t``
-    (``chunk_block`` there), kept in ``t`` (once per upload); returns
-    grouped_reduce's (lists, scratch) arguments."""
-    cb = t["chunk_block"]
-    return fold_tables(t, "rd", cb, nblocks, cb.shape[0], dtype)
+    """K8's lists (``reduce_lists`` of ``chunk_block`` and ``ev_r`` in the
+    plan tensors ``t``; the stamp kept as ``rd_fev``) and scratch, kept in
+    ``t`` (once per upload); returns grouped_reduce's (lists, scratch)
+    arguments."""
+    ev = t["ev_r"]
+    folds = fold_tables(t, "rd", lambda: chunk_lists(
+        t["chunk_block"], nblocks, live_chunks(ev)), dtype)
+    folds["lists"] += (t.setdefault("rd_fev", ev_stamp(ev)),)
+    return folds

@@ -1,31 +1,37 @@
 """Device times of hand kernels at their main-path shapes, each beside
 its PyTorch call: the plan-ring kernels K1 (``route_xr_exp``) and K11
 (``route_expand``) at the RMAT-20 f32 PageRank shapes, K6
-(``expand_stream``, its three launches of the degree SpMV) on the RMAT-20
-degree shuffle plan, and P1 (``copy_blocks``) and P2 (``stream_sum``) at
-their kernels-line shapes.
+(``expand_stream``, its three launches of the degree SpMV) and K8
+(``grouped_reduce``) on the RMAT-20 degree shuffle plan, K5
+(``segment_reduce``) on the RMAT-20 f32 PageRank one-hot plan, and P1
+(``copy_blocks``) and P2 (``stream_sum``) at their kernels-line shapes.
 
     python -m graphtap_tpu_torch.tools.ring_times [name ...]
 
 Names pick rows (``route_xr_exp``, ``route_expand``, ``expand_stream``,
-``copy_blocks``, ``stream_sum``, and ``degree_spmv``: the degree SpMV's
-warm time on the shuffle plan, the median of five calls after a first
-one by CUDA events, as the smoke times it; none: all). The RMAT-20 panel meta
-(edge factor 16, seed 1, transposed TCSC, f32, as ``run_pagerank`` plans
-it) and the degree shuffle plan (its COL ordering) are planned once
-(minutes; seconds) and kept in the package's build directory under names
-that carry those settings (``meta_path``, ``shuffle_path``). So two
-checkouts can be timed in one run on the same plans: run this file by its
-path with the other checkout first on ``PYTHONPATH``, and its kernels are
-the ones timed (that checkout's ``tools/timing.py`` must have
-``device_ms``). x is seeded, unweighted PageRank-like values. Each kernel
-is held against its plain version and its PyTorch call bit for bit, then
-timed device-only (``timing.device_ms``: ten calls replayed as one CUDA
-graph). Prints the card's name and power limit, then one JSON line per
-row: name, device ms, the PyTorch call's device ms (``torch.take`` over
-an index precomputed from the plan, three for K6; ``Tensor.copy_``;
+``segment_reduce``, ``grouped_reduce``, ``copy_blocks``, ``stream_sum``,
+and ``degree_spmv``: the degree SpMV's warm time on the shuffle plan, the
+median of five calls after a first one by CUDA events, as the smoke times
+it; none: all). The RMAT-20 panel meta (edge factor 16, seed 1,
+transposed TCSC, f32, as ``run_pagerank`` plans it), the degree shuffle
+plan (its COL ordering) and the one-hot plan (ROW, as ``run_pagerank``'s
+onehot kernel plans it) are planned once (minutes; seconds) and kept in
+the package's build directory under names that carry those settings
+(``meta_path``, ``shuffle_path``, ``onehot_path``). So two checkouts can
+be timed in one run on the same plans: run this file by its path with
+the other checkout first on ``PYTHONPATH``, and its kernels are the ones
+timed (that checkout's ``tools/timing.py`` must have ``device_ms``). x is
+seeded, unweighted PageRank-like values (all ones for the degree plan).
+Each kernel is held against its plain version bit for bit, and against
+its PyTorch call bit for bit (K5's f32 atomic sum within 1e-4 of the
+largest |y|), then timed device-only (``timing.device_ms``: ten calls
+replayed as one CUDA graph). Prints the card's name and power limit,
+then one JSON line per row: name, device ms, the PyTorch call's device
+ms (``torch.take`` over an index precomputed from the plan, three for
+K6; ``torch.scatter_reduce`` for K5 and K8; ``Tensor.copy_``;
 ``torch.add``), bytes moved (each input read once, each output written
-once). Needs a card.
+once); K5's and K8's rows first print their plan's chunk figures
+(``chunk_figures``, which the smoke logs too). Needs a card.
 """
 
 from __future__ import annotations
@@ -93,6 +99,156 @@ def load_shuffle(path: str, scale: int = SCALE):
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     ac.save_shuffle_plans(meta, path)
     return meta
+
+
+def onehot_path(directory: str = BUILD, scale: int = SCALE) -> str:
+    """Where the one-hot plan of RMAT-``scale`` is kept."""
+    return os.path.join(directory, f"ring_times_rmat{scale}_ef{EDGE_FACTOR}"
+                                   f"_seed{SEED}_tcsc_row_onehot.npz")
+
+
+def load_onehot(path: str, scale: int = SCALE):
+    """(the one-hot plan of RMAT-``scale``'s ROW tiles, as
+    ``build_onehot_plan`` makes it, NR, NC), read from ``path``
+    (``onehot_path``) where it exists, else planned and written there."""
+    from graphtap_tpu_torch.kernels.onehot_spmv import (PallasPlan,
+                                                        build_onehot_plan)
+    if os.path.exists(path):
+        with np.load(path) as z:
+            plan = PallasPlan(Ep=int(z["Ep"]), nblocks=int(z["nblocks"]),
+                              nchunks=int(z["nchunks"]), lrows=z["lrows"],
+                              cols=z["cols"], weights=None,
+                              evalid=z["evalid"],
+                              chunk_block=z["chunk_block"])
+            return plan, int(z["NR"]), int(z["NC"])
+    from graphtap_tpu_torch import Graph, GraphConfig
+    from graphtap_tpu_torch.ingest import rmat_edges
+    r, c, _ = rmat_edges(scale, EDGE_FACTOR, seed=SEED)
+    g = Graph.from_edges(r, c, None, GraphConfig(num_vertices=1 << scale,
+                                                 transpose=True))
+    ts = g.tiled()
+    plan = build_onehot_plan(ts)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, Ep=plan.Ep, nblocks=plan.nblocks, nchunks=plan.nchunks,
+             lrows=plan.lrows, cols=plan.cols, evalid=plan.evalid,
+             chunk_block=plan.chunk_block, NR=ts.NR,
+             NC=g.part.tile_cols)
+    return plan, ts.NR, g.part.tile_cols
+
+
+def chunk_figures(lanes, keep, chunk: int, chunk_block: torch.Tensor,
+                  nblocks: int, live_only: bool) -> dict:
+    """What K5's and K8's fold turns on, for one chunked stream: chunks,
+    row blocks with a chunk, the entries ``keep`` marks (None: all), the
+    longest lane of each chunk (its median and maximum, and the sum over
+    chunks: the old kernel's serial folds), the chunks whose entries all
+    fall in one lane, the largest lane of one row block across its
+    chunks, the most chunks of one row block, the chunks with no kept
+    entry, the 4-entry groups with none, and the longest list of pass
+    (b) (``live_only``: the chunks with no kept entry left out, as
+    K8's lists leave them; else every chunk is listed)."""
+    from graphtap_tpu_torch.kernels.fold_order import LANES
+    nchunks = chunk_block.shape[0]
+    n = nchunks * chunk
+    ln = lanes.reshape(-1)[:n].long().view(nchunks, chunk)
+    k = (torch.ones_like(ln, dtype=torch.bool) if keep is None
+         else keep.reshape(-1)[:n].view(nchunks, chunk).bool())
+    cnt = torch.zeros((nchunks, LANES), dtype=torch.long, device=ln.device)
+    cnt.scatter_add_(1, ln, k.long())
+    longest = cnt.max(1).values
+    live = k.any(1)
+    cb = chunk_block.long()
+    per_row = torch.zeros((nblocks, LANES), dtype=torch.long,
+                          device=ln.device)
+    per_row.index_add_(0, cb, cnt)
+    chunks_per = torch.bincount(cb, minlength=nblocks)
+    listed = torch.bincount(cb[live] if live_only else cb,
+                            minlength=nblocks)
+    return {"chunks": nchunks, "blocks": int((chunks_per > 0).sum()),
+            "entries": int(k.sum()),
+            "median_longest": float(longest.double().median()),
+            "max_longest": int(longest.max()) if nchunks else 0,
+            "sum_longest": int(longest.sum()),
+            "single_lane": int(((cnt > 0).sum(1) == 1).sum()),
+            "max_row": int(per_row.max()) if nblocks else 0,
+            "max_block_chunks": int(chunks_per.max()) if nblocks else 0,
+            "empty_chunks": int((~live).sum()),
+            "empty4": float((~k.view(-1, 4).any(1)).double().mean())
+            if n else 0.0,
+            "max_list": int(listed.max()) if nblocks else 0}
+
+
+def _scatter_call(vals, dst, nrows, identity, kind="sum"):
+    """One torch.scatter_reduce of ``vals`` into ``nrows`` slots from the
+    identity (index ``dst`` precomputed), the PyTorch call of K5 and K8."""
+    y0 = torch.full((nrows,), identity, dtype=vals.dtype, device=vals.device)
+    op = {"sum": "sum", "min": "amin", "max": "amax"}[kind]
+    return lambda: torch.scatter_reduce(y0, 0, dst, vals.reshape(-1), op)
+
+
+def segment_row(plan, nr, nc, device="cuda"):
+    """(name, kernel call, plain call, PyTorch call, bytes, figures) of K5
+    on the one-hot plan ``plan`` (nr rows, nc columns): the f32 PageRank
+    contributions of seeded x, summed. Bytes: every contribution and its
+    int32 row (the kernel cannot know the padding), chunk_block, and y
+    written once."""
+    from graphtap_tpu_torch.kernels import onehot_spmv as oh
+    from graphtap_tpu_torch.kernels.semiring import plus_times
+    from graphtap_tpu_torch.tools.convert import meta_from_numpy
+    t = meta_from_numpy(plan.arrays, device)
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(rng.random(nc).astype(np.float32)).to(device)
+    contrib = oh.onehot_contrib(x, t, plus_times())
+    args = (contrib, t["oh_lrows"], t["oh_chunk_block"], plan.nblocks, nr,
+            "sum", 0.0)
+    folds = oh.fold_tables(t, plan, torch.float32)
+    dst = (t["oh_chunk_block"].long().repeat_interleave(oh.CHUNK) * oh.RB
+           + t["oh_lrows"].long())
+    lib = _scatter_call(contrib, dst, plan.nblocks * oh.RB, 0.0)
+    nbytes = (contrib.numel() * 8 + plan.nchunks * 4
+              + plan.nblocks * oh.RB * 4)
+    figs = chunk_figures(t["oh_lrows"], t["oh_evalid"] != 0, oh.CHUNK,
+                         t["oh_chunk_block"], plan.nblocks, False)
+    return ("segment_reduce", lambda: oh.segment_reduce(*args, **folds),
+            lambda: oh.segment_reduce_plain(*args),
+            lambda: lib()[:nr], nbytes, figs)
+
+
+def grouped_row(meta, device="cuda"):
+    """(name, kernel call, plain call, PyTorch call, bytes, figures) of K8
+    on the degree shuffle plan ``meta``'s grouped stream (x all ones).
+    Bytes: every ev byte, the value and lane byte of each valid slot,
+    chunk_block, and y written once; the PyTorch call sends the holes to
+    scratch slots past y."""
+    from graphtap_tpu_torch.kernels import shuffle_kernels as sk
+    from graphtap_tpu_torch.kernels.semiring import plus_times
+    from graphtap_tpu_torch.kernels.shuffle_engine import spmv_stages
+    from graphtap_tpu_torch.kernels.shuffle_plan import LANES, RED_ROWS
+    from graphtap_tpu_torch.tools.convert import meta_from_numpy
+    t = meta_from_numpy(meta.arrays, device)
+    x = torch.ones(meta.NC, dtype=torch.float32, device=device)
+    st = spmv_stages(x, t, meta, plus_times(), meta.NR)
+    grouped = st["grouped"]
+    del st
+    args = (grouped, t["lr"], t["ev_r"], t["chunk_block"], meta.nblocks,
+            "sum", 0.0)
+    folds = sk.reduce_tables(t, meta.nblocks, torch.float32)
+    valid = t["ev_r"] != 0
+    nvalid = int(valid.sum())
+    blk = t["chunk_block"].long().repeat_interleave(RED_ROWS * LANES).view(
+        -1, LANES)
+    hole = meta.nblocks * LANES + torch.arange(
+        valid.numel(), device=valid.device).view(valid.shape) % 4096
+    dst = torch.where(valid, blk * LANES + t["lr"].long(), hole).reshape(-1)
+    lib = _scatter_call(grouped, dst, meta.nblocks * LANES + 4096, 0.0)
+    nbytes = (valid.numel() + nvalid * 5 + t["chunk_block"].numel() * 4
+              + meta.nblocks * LANES * 4)
+    figs = chunk_figures(t["lr"], valid, RED_ROWS * LANES,
+                         t["chunk_block"], meta.nblocks, True)
+    return ("grouped_reduce", lambda: sk.grouped_reduce(*args, **folds),
+            lambda: sk.grouped_reduce_plain(*args),
+            lambda: lib()[:meta.nblocks * LANES].view(-1, LANES), nbytes,
+            figs)
 
 
 def expand_row(meta, device="cuda"):
@@ -194,16 +350,21 @@ def rows(meta, device="cuda", copy_bytes=None):
         copy_row(device, copy_bytes)]
 
 
-def check(name, kern, plain, lib) -> None:
-    """The kernel call equals its plain version and its PyTorch call bit
-    for bit (each output of a call that returns several)."""
+def check(name, kern, plain, lib, rtol=None) -> None:
+    """The kernel call equals its plain version bit for bit, and its
+    PyTorch call bit for bit, or within ``rtol`` of the largest |value|
+    (each output of a call that returns several)."""
     def outs(v):
         return v if isinstance(v, tuple) else (v,)
     a = outs(kern())
     for b, c in zip(outs(plain()), outs(lib())):
         k = a[0]
         a = a[1:]
-        if not torch.equal(k, b) or not torch.equal(c.view(k.shape), k):
+        c = c.view(k.shape)
+        lib_ok = (torch.equal(c, k) if rtol is None else
+                  float((c.double() - k.double()).abs().max())
+                  <= rtol * float(k.double().abs().max()))
+        if not torch.equal(k, b) or not lib_ok:
             raise AssertionError(f"{name}: the kernel, its plain version "
                                  f"and its PyTorch call disagree")
 
@@ -230,8 +391,10 @@ def degree_spmv(t, meta, calls: int = 6):
 
 
 PANEL_ROWS = ("route_xr_exp", "route_expand")
-NAMES = PANEL_ROWS + ("expand_stream", "copy_blocks", "stream_sum",
-                      "degree_spmv")
+NAMES = PANEL_ROWS + ("expand_stream", "segment_reduce", "grouped_reduce",
+                      "copy_blocks", "stream_sum", "degree_spmv")
+# K5's PyTorch call sums in f32 with atomics, in another order each call
+LIB_RTOL = {"segment_reduce": 1e-4}
 
 
 def all_rows(names, device="cuda"):
@@ -244,6 +407,10 @@ def all_rows(names, device="cuda"):
         out.append(copy_row(device))
     if "expand_stream" in names:
         out.append(expand_row(load_shuffle(shuffle_path()), device))
+    if "segment_reduce" in names:
+        out.append(segment_row(*load_onehot(onehot_path()), device))
+    if "grouped_reduce" in names:
+        out.append(grouped_row(load_shuffle(shuffle_path()), device))
     if "stream_sum" in names:
         out.append(sum_row(device))
     return out
@@ -264,8 +431,11 @@ def main(argv=None) -> int:
     from graphtap_tpu_torch.tools.bw_probe import card
     print(f"{card()} ({torch.cuda.get_device_name(0)}); package "
           f"{os.path.dirname(graphtap_tpu_torch.__file__)}", flush=True)
-    for name, kern, plain, lib, nbytes in all_rows(names):
-        check(name, kern, plain, lib)
+    for name, kern, plain, lib, nbytes, *figs in all_rows(names):
+        if figs:
+            print(json.dumps({"name": name, "chunk_figures": figs[0]}),
+                  flush=True)
+        check(name, kern, plain, lib, LIB_RTOL.get(name))
         print(json.dumps({"name": name, "device_ms": device_ms(kern),
                           "library_device_ms": device_ms(lib),
                           "bytes": nbytes}), flush=True)

@@ -32,6 +32,10 @@ K6 (one block a step, no plan loads for all-invalid 4-slot groups)
 matches bit for bit in f32, f64 and int32 under each ⊗ on 1-step runs, a
 long run, all-invalid steps, the last window and a window read again
 after a gap; P2 (16 KB chunks) on shapes whose last chunk is partial.
+K5 and K8 (each lane's entries folded in runs of 32 in a block a chunk)
+match bit for bit, twice, and equal the CPU, on hub chunks, sorted and
+unsorted K5 chunks, padding tails, K8's all-invalid groups and chunks
+and row blocks with no chunk, in every value type and ⊕.
 """
 
 import numpy as np
@@ -1100,3 +1104,79 @@ def test_probe_stream_sum_partial_chunk(cuda, nstreams):
         assert torch.equal(bw_probe.stream_sum(xs, bm),
                            bw_probe.stream_sum_plain(xs)), shape
         assert bw_probe.LAUNCHES["stream_sum"] == before + 1
+
+
+def _k5_chunks(rng, dt, ident):
+    """K5 input of 200 chunks over 9 row blocks: block 1 of 150 chunks
+    (three runs of GROUP in pass (b)), among them 20 one-lane chunks (hub
+    rows) and 30 of random lanes (the general path); every block's last
+    chunk ends in a padding tail of lane 0 and the identity; an
+    all-padding chunk; block 7 with no chunk."""
+    from graphtap_tpu_torch.kernels.onehot_spmv import CHUNK
+    counts = [5, 150, 12, 1, 3, 20, 8, 0, 1]
+    cb = np.repeat(np.arange(len(counts)), counts).astype(np.int32)
+    nchunks = cb.size
+    lr = np.sort(rng.integers(0, 128, (nchunks, CHUNK)), 1)
+    lr[10:30] = rng.integers(0, 128, (20, 1))           # one lane each
+    lr[40:70] = rng.integers(0, 128, (30, CHUNK))       # unsorted
+    c = _values(rng, dt, (nchunks, CHUNK))
+    ends = np.cumsum(counts)[np.array(counts) > 0] - 1
+    for i, cut in zip(ends, rng.integers(1, CHUNK, ends.size)):
+        lr[i, cut:] = 0
+        c[i, cut:] = ident
+    lr[170], c[170] = 0, ident                          # all padding
+    return (c.reshape(-1), torch.from_numpy(lr.reshape(-1).astype(np.int32)),
+            torch.from_numpy(cb), len(counts))
+
+
+def _k8_chunks(rng, dt, ident):
+    """K8 input of 200 8-row chunks over 9 row blocks in no order: ev set
+    on 60% of slots with 30% of the 4-slot groups all invalid, 20 chunks
+    with no valid slot (left out of the list), two one-lane chunks, block
+    4 with no live chunk and block 7 with no chunk; a block of 70 live
+    chunks (two runs of GROUP)."""
+    nchunks, nblocks = 200, 9
+    cb = rng.choice(np.array([0, 1, 2, 3, 5, 6, 8]), nchunks)
+    cb[:70] = 6
+    cb[100:103] = 4
+    cb = rng.permutation(cb).astype(np.int32)
+    ev = (rng.random((nchunks, 1024)) < 0.6).astype(np.int8)
+    ev.reshape(-1, 4)[rng.random(nchunks * 256) < 0.3] = 0
+    ev[rng.choice(nchunks, 20, replace=False)] = 0
+    ev[cb == 4] = 0
+    lr = rng.integers(0, 128, (nchunks, 1024)).astype(np.int8)
+    lr[:2] = 77
+    c = _values(rng, dt, (nchunks * 8, 128))
+    return (c, torch.from_numpy(lr.reshape(-1, 128)),
+            torch.from_numpy(ev.reshape(-1, 128)), torch.from_numpy(cb),
+            nblocks)
+
+
+@pytest.mark.parametrize("kind", sorted(_FOLD_KINDS))
+@pytest.mark.parametrize("kernel", ["segment_reduce", "grouped_reduce"])
+def test_chunk_folds_match_plain(cuda, kernel, kind):
+    """K5 and K8 equal their plain versions bit for bit, twice, and the
+    CPU, on hub chunks, sorted and unsorted K5 chunks, padding tails, an
+    all-padding chunk, K8's all-invalid 4-slot groups and chunks, and row
+    blocks with no chunk, for every value type and ⊕."""
+    dt, red, ident = _FOLD_KINDS[kind]
+    rng = np.random.default_rng(11)
+    if kernel == "segment_reduce":
+        c, lr, cb, nblocks = _k5_chunks(rng, dt, ident)
+        args = tuple(a.to(cuda) if torch.is_tensor(a) else a for a in (
+            c, lr, cb)) + (nblocks, nblocks * oh.RB, red, ident)
+        mod = oh
+    else:
+        c, lr, ev, cb, nblocks = _k8_chunks(rng, dt, ident)
+        args = tuple(a.to(cuda) for a in (c, lr, ev, cb)) + (
+            nblocks, red, ident)
+        mod = sk
+    before = mod.LAUNCHES[kernel]
+    call = getattr(mod, kernel)
+    got = call(*args)
+    assert mod.LAUNCHES[kernel] == before + 1
+    assert torch.equal(got, getattr(mod, kernel + "_plain")(*args))
+    assert torch.equal(call(*args), got)
+    cpu = getattr(mod, kernel)(*(a.cpu() if torch.is_tensor(a) else a
+                                 for a in args))
+    assert torch.equal(got.cpu(), cpu)

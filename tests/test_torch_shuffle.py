@@ -485,6 +485,25 @@ def _bad(plans, key, edit):
     return types.SimpleNamespace(**{**plans.__dict__, "arrays": arrays})
 
 
+def test_grouped_reduce_rejects_lists_of_another_evalid(small):
+    """K8's kept chunk list names the evalid it was built from
+    (``reduce_tables``): a call with another evalid raises, on any
+    device, rather than fold the other one's chunks."""
+    _, plans, t, st = small
+    t, c = dict(t), st["grouped"]
+    folds = sk.reduce_tables(t, plans.nblocks, c.dtype)
+    args = (t["lr"], t["ev_r"], t["chunk_block"], plans.nblocks, "sum", 0.0)
+    sk.grouped_reduce(c, *args, **folds)
+    other = t["ev_r"].clone()
+    with pytest.raises(ValueError, match="another evalid"):
+        sk.grouped_reduce(c, t["lr"], other, *args[2:], **folds)
+    lists = sk.reduce_lists(t["chunk_block"], plans.nblocks, other)
+    assert all(torch.equal(a, b) for a, b in zip(lists[:3], folds["lists"]))
+    sk.grouped_reduce(c, t["lr"], other, *args[2:], lists=lists)
+    with pytest.raises(ValueError, match="another evalid"):
+        sk.grouped_reduce(c, *args, lists=lists[:3])
+
+
 @pytest.mark.parametrize("key,edit,match", [
     ("grp", lambda a: a.__setitem__(0, 99), "grp"),
     ("mexp_grp_b", lambda a: a.__setitem__(-1, 99), "mexp_grp_b"),

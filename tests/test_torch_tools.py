@@ -406,3 +406,35 @@ def test_ring_times_k6_p2_rows_agree_on_cpu(tmp_path):
         ring_times.check(name, kern, plain, lib)
         assert nbytes > 0
     assert len(got[0][1]()) == 3
+
+
+def test_ring_times_k5_k8_rows_agree_on_cpu(tmp_path):
+    """The timer's K5 and K8 rows on the CPU at RMAT-10: K5 on the one-hot
+    plan's PageRank contributions and K8 on the degree SpMV's grouped
+    stream equal their plain versions bit for bit and their
+    scatter_reduce calls (K5 within its LIB_RTOL); each row carries its
+    chunk figures; the one-hot plan it wrote, under a name that carries
+    its scale and seed, is read back the same."""
+    from graphtap_tpu_torch.tools import ring_times
+    path = ring_times.onehot_path(str(tmp_path), scale=10)
+    assert os.path.basename(path) == (
+        "ring_times_rmat10_ef16_seed1_tcsc_row_onehot.npz")
+    plan, nr, nc = ring_times.load_onehot(path, scale=10)
+    again, nr2, nc2 = ring_times.load_onehot(path, scale=10)
+    assert (nr, nc) == (nr2, nc2)
+    for k, v in plan.arrays.items():
+        np.testing.assert_array_equal(v, again.arrays[k], err_msg=k)
+    meta = ring_times.load_shuffle(ring_times.shuffle_path(str(tmp_path),
+                                                           scale=10),
+                                   scale=10)
+    got = [ring_times.segment_row(again, nr, nc, "cpu"),
+           ring_times.grouped_row(meta, "cpu")]
+    assert [r[0] for r in got] == ["segment_reduce", "grouped_reduce"]
+    for name, kern, plain, lib, nbytes, figs in got:
+        ring_times.check(name, kern, plain, lib,
+                         ring_times.LIB_RTOL.get(name))
+        assert nbytes > 0
+        assert figs["chunks"] > 0 and figs["max_list"] >= 1
+    assert got[0][5]["chunks"] == again.nchunks
+    assert got[1][5]["empty_chunks"] > 0
+    assert got[1][5]["max_list"] < got[1][5]["max_block_chunks"]

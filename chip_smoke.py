@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the torch port's PageRank (TCSC and TCSC_CF, fixed iterations
-and f32 convergence), staged-panel, shuffle, shuffle2, one-hot and
-frontier paths, its device-memory probes, and its five mains, on one
-NVIDIA GPU.
+"""Drive the torch port's PageRank (TCSC, TCSC_CF and CSC, fixed
+iterations and f32 convergence), staged-panel, shuffle, shuffle2, one-hot
+and frontier paths, its kernel lab, its device-memory probes, and its
+five mains, on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -153,6 +153,27 @@ Phases, each printed as it runs; any failure exits non-zero:
               f32 convergence run of the smoke (scan, onehot, shuffle2,
               panel on TCSC; onehot on TCSC_CF) is held against the f64
               run of its compression: checksum within 1e-4 relative.
+  8b. csc     RMAT-20 PageRank in the kernel lab's CSC config (transposed,
+              f32; raw local rows, NR = C*L): the degree phase on onehot
+              (shuffle takes no CSC), equal to golden.degree; 20
+              iterations on onehot and on panel (its ROW plan built by a
+              worker), each checksum within 1e-4 of the f64 golden, the
+              launches of PATH_LAUNCHES per superstep, warm GTEPS beside
+              TCSC's; K5 and the panel superstep's five launches on the CSC
+              shapes against their plain versions bit for bit (the folds
+              twice), their device ms (CUDA-graph replay) beside TCSC's.
+              Then 20 iterations on shuffle2 on CSC at RMAT-18 (its v2 plan
+              built by a worker: at RMAT-20 the v2 plans take minutes).
+  8c. lab     the kernel lab (tools/kernel_lab.py through
+              tools/lab_table.py): variants 0, 1, 2, 6, 7 and 8 at RMAT-20,
+              20 iterations each, on one RMAT-20 binary written once under
+              graphtap_tpu_torch/build/smoke_lab/, and variants 3, 4 and 5
+              at RMAT-16 (each plans its degree and PageRank phases, minutes
+              of host time a plan at RMAT-20, and their kernels run at
+              RMAT-20 in phases 4, 4b and 8); the rows printed as the
+              markdown table; at each scale operations equal, checksums
+              within 1e-5 relative of each other and within 1e-4 of the f64
+              golden; variant 6 launches K5 (the degree SpMV and 2 x 20).
   9. cli      RMAT-14 binary edge files (io.write_binary; weighted for
               SSSP), then `python3 -m graphtap_tpu_torch.apps.<app>
               <file> 16384 [20|0]` for pr, pr1, bfs, cc and sssp, as
@@ -162,8 +183,9 @@ Phases, each printed as it runs; any failure exits non-zero:
 
 Five worker processes, started after the build and stopped at exit, plan
 the RMAT-20 v2 (ROW), degree shuffle (COL) and the three TCSC_CF panel
-phase plans into graphtap_tpu_torch/build/smoke_plans/ while the card
-runs phases 3 to 5; phases 5, 4b and 8 read them back. Once phase 4b has
+phase plans, then the RMAT-20 CSC panel (ROW) and RMAT-18 CSC v2 plans,
+into graphtap_tpu_torch/build/smoke_plans/ while the card runs phases 3
+to 5; phases 5, 4b, 8 and 8b read them back. Once phase 4b has
 timed its kernels they also plan the panel and v2 plans of the RMAT-18
 BFS, CC and SSSP graphs, which phases 6 and 7 read back.
 
@@ -235,7 +257,12 @@ DUMP = 4096                  # K8 library call: scratch slots for holes
 # TCSC_CF config, f32), and of the RMAT-SUITE_SCALE graphs of BFS, CC and
 # SSSP, each through its own config (int32)
 PREBUILD = (("spmv2", "ROW", "main", "pr"), ("shuffle", "COL", "main", "pr"),
-            *(("spmv3", "ROW", ph, "pr") for ph in CF_PHASES))
+            *(("spmv3", "ROW", ph, "pr") for ph in CF_PHASES),
+            ("spmv3", "ROW", "main", "csc"), ("spmv2", "ROW", "main", "csc18"))
+# the CSC PageRank graphs the csc phase plans ahead ("app" -> scale): the
+# panel plan at RMAT-SCALE, and the v2 plan at RMAT-SUITE_SCALE, since
+# the v2 plans of an RMAT-20 graph take minutes of host time
+CSC_APPS = {"csc": SCALE, "csc18": SUITE_SCALE}
 # ... and the suite's, handed to the workers only once the kernel rows of
 # the PageRank phases are timed, so that their planners (and the route
 # solver processes they start) do not crowd the host while it times
@@ -246,6 +273,14 @@ _POOL = []                   # the worker pool, while main() runs
 PLAN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "graphtap_tpu_torch", "build", "smoke_plans")
 _PREBUILT = {}               # PREBUILD entry -> AsyncResult of _prebuild
+_SMI = []                    # the card's name and power limit (nvidia-smi)
+# the kernel lab: variants 0-2, 6-8 at RMAT-SCALE; 3-5 (shuffle, shuffle2,
+# panel), which plan both their phases, at RMAT-LAB_SMALL_SCALE
+LAB_VARIANTS = (0, 1, 2, 6, 7, 8)
+LAB_SMALL_VARIANTS = (3, 4, 5)
+LAB_SMALL_SCALE = 16
+LAB_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "graphtap_tpu_torch", "build", "smoke_lab")
 REPLACES = {
     "route_xr_exp": "graphtap_tpu/kernels/panel_kernels.py:217",
     "route_passa": "graphtap_tpu/kernels/panel_kernels.py:435",
@@ -283,6 +318,7 @@ def run(cmd) -> str:
 def phase_device(torch) -> None:
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"])
+    _SMI.append(smi)
     print(smi, flush=True)
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     ver = run([nvcc, "--version"]).splitlines()[-1] if os.path.exists(
@@ -1051,15 +1087,16 @@ def phase_gather_parity(torch, np) -> None:
                                  f"plain one ({tag})")
 
 
-def _pagerank_graph(scale, cf=False):
-    """(r, c, graph) of the RMAT PageRank graph: transposed, TCSC, or
-    TCSC_CF (pr.cpp's config) for ``cf``."""
+def _pagerank_graph(scale, comp="TCSC"):
+    """(r, c, graph) of the RMAT PageRank graph: transposed, in the
+    compression named ``comp`` (TCSC; TCSC_CF, pr.cpp's config; CSC, the
+    kernel lab's)."""
     from graphtap_tpu_torch import Compression, GraphConfig, Graph
     from graphtap_tpu_torch.ingest import rmat_edges
     r, c, _ = rmat_edges(scale, EDGE_FACTOR, seed=SEED)
-    comp = Compression.TCSC_CF if cf else Compression.TCSC
     return r, c, Graph.from_edges(r, c, None, GraphConfig(
-        num_vertices=1 << scale, transpose=True, compression=comp))
+        num_vertices=1 << scale, transpose=True,
+        compression=Compression[comp]))
 
 
 def _suite_graph(app):
@@ -1078,6 +1115,8 @@ def _suite_graph(app):
 def _plan_key(app):
     """(scale, value dtype, weighted) of ``app``'s plans."""
     import numpy as np
+    if app in CSC_APPS:
+        return CSC_APPS[app], np.float32, False
     return ((SCALE, np.float32, False) if app == "pr"
             else (SUITE_SCALE, np.int32, app == "sssp"))
 
@@ -1085,12 +1124,13 @@ def _plan_key(app):
 def _prebuild(kind, ordering, phase, app, plan_dir):
     """Worker process: build ``app``'s ``kind`` plans in ``ordering`` into
     ``plan_dir``, of its graph's main tiles or (PageRank in the TCSC_CF
-    config) of the TCSC_CF ``phase``; returns the seconds it took (tiles
-    included)."""
+    config) of the TCSC_CF ``phase``, or of the CSC PageRank graph at its
+    scale (``CSC_APPS``); returns the seconds it took (tiles included)."""
     from graphtap_tpu_torch import Ordering
     from graphtap_tpu_torch.tools import artifact_cache as ac
-    g = (_pagerank_graph(SCALE, cf=phase != "main")[2] if app == "pr"
-         else _suite_graph(app)[3])
+    g = (_pagerank_graph(SCALE, "TCSC" if phase == "main" else "TCSC_CF")[2]
+         if app == "pr" else _pagerank_graph(CSC_APPS[app], "CSC")[2]
+         if app in CSC_APPS else _suite_graph(app)[3])
     scale, dtype, _ = _plan_key(app)
     t0 = time.perf_counter()
     build = {"spmv2": ac.cached_spmv2_meta, "spmv3": ac.cached_spmv3_meta,
@@ -1715,8 +1755,9 @@ def phase_new_paths(torch, np, g, deg_ex, ref, conv32):
     if not ok:
         raise AssertionError("the one-hot degree phase differs from "
                              "golden.degree")
-    _pagerank_checks(np, "onehot", ex, ref, launches,
-                     {"segment_reduce": ITERS + 1})     # + the degree SpMV
+    ref["gteps_onehot"] = _pagerank_checks(
+        np, "onehot", ex, ref, launches,
+        {"segment_reduce": ITERS + 1})                  # + the degree SpMV
     sem = ex.program.semiring
     x = ex.program.messenger(ex.state).to(torch.float32)
     _log_chunks("segment_reduce", ex._dev["oh_lrows"],
@@ -2200,6 +2241,172 @@ def phase_cf(torch, np, g, ref, main_meta, conv32) -> None:
         _log_ring(f"cf panel {ph}", plans[ph], torch.float32)
     run("panel", plans=main_meta, phase_plans=plans).free()
 
+def _csc_run(torch, np, tag, g, kernel, deg, ref, plans=None):
+    """PageRank, ITERS iterations in f32 on ``kernel``, on the CSC graph
+    ``g`` handed ``deg``'s degrees: its launches per superstep
+    (PATH_LAUNCHES), its checksum against the f64 golden ``ref`` and its
+    warm GTEPS (``_pagerank_checks``); returns (executor, GTEPS)."""
+    from graphtap_tpu_torch import EngineConfig, Ordering
+    from graphtap_tpu_torch.apps import PageRankProgram
+    from graphtap_tpu_torch.engine.executor import Executor
+    _reset_all_launches()
+    t0 = time.perf_counter()
+    ex = Executor(g, PageRankProgram(torch.float32),
+                  EngineConfig(stationary=True, ordering=Ordering.ROW),
+                  kernel=kernel, plans=plans, device=DEVICE)
+    ex.initialize(other=deg)
+    ex.execute(ITERS)
+    wall = time.perf_counter() - t0
+    tm = ex.timings
+    log(f"{tag}: NR {ex.tiles.NR} (C*L {ex.part.tile_rows}, raw local "
+        f"rows), tiles {tm['tiles']:.1f} s, plans {tm.get('plans', 0.0):.1f}"
+        f" s ({ex.device_bytes} bytes on the device), upload "
+        f"{tm['upload']:.2f} s; wall {wall:.1f} s")
+    gteps = _pagerank_checks(
+        np, tag, ex, ref, {k: v for k, v in _all_launches().items() if v},
+        {k: v * ITERS for k, v in PATH_LAUNCHES[kernel].items()})
+    return ex, gteps
+
+
+def _csc_device_ms(torch, tag, calls):
+    """Each (name, kernel call, plain call, ...) of ``calls`` against its
+    plain version, bit for bit (a fold twice); returns the calls' summed
+    device-only ms (``timing.device_ms``), None if any is not measured."""
+    from graphtap_tpu_torch.tools import timing
+    total = 0.0
+    for name, kern, plain, *_ in calls:
+        _check_call(tag, name, kern(), plain(), kern)
+        ms = timing.device_ms(kern, 10, log)
+        log(f"{tag} {name}: device {_fmt(ms)}")
+        total = None if ms is None or total is None else total + ms
+    return total
+
+
+def phase_csc(torch, np, ref, kernels) -> None:
+    """RMAT-SCALE PageRank in the kernel lab's CSC config (transposed,
+    f32; raw local rows, so NR = C*L): the degree phase on onehot (the
+    shuffle kernel takes no CSC), then ITERS iterations on onehot and on
+    panel (its plan built by a worker), each held to the golden and to
+    its launches, warm GTEPS beside TCSC's; K5's and the panel
+    superstep's kernels' device ms on the CSC shapes beside TCSC's
+    (``kernels``' rows). Then shuffle2 on CSC at RMAT-SUITE_SCALE."""
+    from graphtap_tpu_torch import Compression, Graph, GraphConfig, Ordering
+    from graphtap_tpu_torch.apps.degree import run_degree
+    from graphtap_tpu_torch.kernels import onehot_spmv as oh
+    from graphtap_tpu_torch.kernels.panel_engine import spmv3_stages
+    rows = {r["name"]: r for r in kernels}
+    g = Graph.from_edges(*ref["edges"], None, GraphConfig(
+        num_vertices=1 << SCALE, transpose=True,
+        compression=Compression.CSC))
+    _reset_all_launches()
+    deg = run_degree(g, torch.float32, Ordering.COL, "onehot", DEVICE)
+    deg.free()
+    _need_launches("csc degree", _all_launches(), {"segment_reduce": 1})
+    if not np.array_equal(deg.state_vector()["degree"],
+                          ref["degree"].astype(np.float32)):
+        raise AssertionError("csc: onehot degrees differ from golden.degree")
+    log(f"csc: degree phase (onehot, COL) equal to golden.degree; NR "
+        f"{deg.tiles.NR}, {deg.timings['plans']:.1f} s plan")
+    ex, gteps = _csc_run(torch, np, "csc onehot", g, "onehot", deg, ref)
+    log(f"csc onehot: {gteps:.4f} GTEPS warm (median) vs TCSC onehot's "
+        f"{ref['gteps_onehot']:.4f}")
+    sem = ex.program.semiring
+    x = ex.program.messenger(ex.state).to(torch.float32)
+    log(f"csc onehot: {ex.meta.nchunks} chunks over {ex.meta.nblocks} row "
+        f"blocks")
+    k5 = _csc_device_ms(torch, "kernels csc", [_k5_call(
+        torch, ex._dev, ex.meta, ex.tiles.NR, sem,
+        oh.onehot_contrib(x, ex._dev, sem))])
+    log(f"csc: K5 device {_fmt(k5)} on the CSC one-hot plan vs "
+        f"{_fmt(rows['segment_reduce']['device_ms'])} on TCSC's")
+    ex.free()
+    ex, _ = _csc_run(torch, np, "csc panel", g, "panel", deg, ref,
+                     _prebuilt("spmv3", "ROW", g.config, app="csc"))
+    meta = ex.meta
+    log(f"csc panel: exp {meta.exp_panels}, pa {meta.pa_panels}, fix "
+        f"{meta.fix_panels}, f2 {meta.f2_panels} panels, dense rows "
+        f"{meta.dense_rows}")
+    _log_ring(f"kernels csc RMAT-{SCALE}", meta, torch.float32)
+    x = ex.program.messenger(ex.state).to(torch.float32)
+    st = spmv3_stages(x, ex._dev, meta, ex.program.semiring,
+                      ex.part.tile_rows)
+    dev = _csc_device_ms(torch, "kernels csc",
+                         _kernel_calls(ex._dev, meta, ex.program.semiring,
+                                       st))
+    tcsc = [rows[k]["device_ms"] for k in ("route_xr_exp", "route_passa",
+                                           "route_fold", "hub_fold")]
+    log(f"csc: the panel superstep's five launches take {_fmt(dev)} of "
+        f"device time on CSC vs "
+        f"{_fmt(None if None in tcsc else sum(tcsc))} on TCSC")
+    ex.free()
+    del ex, st
+    # shuffle2 at RMAT-SUITE_SCALE: its v2 plans of an RMAT-20 graph take
+    # minutes of host time, more than this phase's share of the smoke
+    r, c, g = _pagerank_graph(SUITE_SCALE, "CSC")
+    n = 1 << SUITE_SCALE
+    golden = _golden()
+    ref18 = {"checksum": float(golden.pagerank(r, c, n + 1, ITERS).sum()),
+             "gteps": ref["gteps"]}
+    deg = run_degree(g, torch.float32, Ordering.COL, "onehot", DEVICE)
+    deg.free()
+    if not np.array_equal(deg.state_vector()["degree"],
+                          golden.degree(r, c, n + 1).astype(np.float32)):
+        raise AssertionError("csc RMAT-18: degrees differ from golden")
+    log(f"csc shuffle2 at RMAT-{SUITE_SCALE}: the v2 plans of an "
+        f"RMAT-{SCALE} graph take minutes of host time; GTEPS below are "
+        f"set beside RMAT-{SCALE} TCSC panel's")
+    ex, _ = _csc_run(torch, np, f"csc shuffle2 RMAT-{SUITE_SCALE}", g,
+                     "shuffle2", deg, ref18,
+                     _prebuilt("spmv2", "ROW", g.config, app="csc18"))
+    ex.free()
+
+
+def phase_lab(torch, np, ref) -> None:
+    """The kernel lab (``tools/kernel_lab.py``) through ``tools/
+    lab_table.py``: variants LAB_VARIANTS at RMAT-SCALE and
+    LAB_SMALL_VARIANTS at RMAT-LAB_SMALL_SCALE, ITERS iterations each, on
+    one RMAT binary of each scale written once; the rows printed as the
+    markdown table; at each scale the cross-variant gates (operations
+    equal, checksums within 1e-5 relative) and every checksum within 1e-4
+    of the f64 golden; variant 6 must launch K5."""
+    from graphtap_tpu_torch.tools import artifact_cache as ac
+    from graphtap_tpu_torch.tools import lab_table
+    golden = _golden()
+    log(f"lab: variants {LAB_SMALL_VARIANTS} at RMAT-{LAB_SMALL_SCALE}: each "
+        f"plans its degree (COL) and PageRank (ROW) phases, minutes of host "
+        f"time a plan at RMAT-{SCALE}, and their kernels run at RMAT-{SCALE} "
+        f"in phases 4, 4b and 8")
+    for scale, variants in ((SCALE, LAB_VARIANTS),
+                            (LAB_SMALL_SCALE, LAB_SMALL_VARIANTS)):
+        r, c, _ = ac.cached_rmat(scale, EDGE_FACTOR, SEED, LAB_DIR)
+        path = os.path.join(LAB_DIR, f"rmat{scale}_ef{EDGE_FACTOR}_s{SEED}"
+                                     f".bin")
+        n = 1 << scale
+        want = (ref["checksum"] if scale == SCALE else
+                float(golden.pagerank(r, c, n + 1, ITERS).sum()))
+        rows = []
+        for which in variants:
+            _reset_all_launches()
+            rows += lab_table.run_rows(path, n, ITERS, [which], DEVICE,
+                                       printer=log)
+            launches = {k: v for k, v in _all_launches().items() if v}
+            log(f"lab RMAT-{scale} {which}: launches {launches}")
+            if which == 6:
+                _need_launches("lab 6", launches,
+                               {"segment_reduce": 1 + 2 * ITERS})
+        for ln in lab_table.render(scale, rows, f"{_SMI[0]}; ITERS "
+                                   f"{ITERS}, f32").splitlines():
+            log(f"lab RMAT-{scale} | {ln}")
+        lab_table.gates(rows)
+        for r_ in rows:
+            rel = abs(r_["checksum"] - want) / abs(want)
+            if not rel < GOLDEN_RTOL:
+                raise AssertionError(f"lab {r_['which']}: checksum rel err "
+                                     f"{rel} >= {GOLDEN_RTOL}")
+        log(f"lab RMAT-{scale}: operations equal, checksums within "
+            f"{lab_table.CHECKSUM_RTOL} of each other and within "
+            f"{GOLDEN_RTOL} of the f64 golden {want!r}")
+
 
 def phase_probes(torch):
     """P1-P3: the quick copy-rate table and the per-panel table, their
@@ -2363,6 +2570,7 @@ def main() -> int:
     phase_device(torch)
     phase_build()
     shutil.rmtree(PLAN_DIR, ignore_errors=True)
+    shutil.rmtree(LAB_DIR, ignore_errors=True)
     pool = multiprocessing.get_context("spawn").Pool(PREBUILD_WORKERS)
     _POOL.append(pool)
     try:
@@ -2372,14 +2580,22 @@ def main() -> int:
         pool.terminate()
         pool.join()
         shutil.rmtree(PLAN_DIR, ignore_errors=True)
+        shutil.rmtree(LAB_DIR, ignore_errors=True)
+
+
+def _mark(phase) -> None:
+    log(f"{phase}: done at {time.perf_counter() - T_START:.1f} s of the "
+        f"smoke wall")
 
 
 def _phases(torch, np) -> int:
     kernels, best_copy = phase_probes(torch)
+    _mark("probes")
     phase_parity(torch, np)
     phase_gated_parity(torch, np)
     phase_shuffle_parity(torch, np)
     phase_gather_parity(torch, np)
+    _mark("parity")
     g, ex, launches, ref = phase_main(torch, np)
     kernels += phase_kernels(torch, ex, launches, best_copy)
     kernels += phase_staged(torch, ex)
@@ -2390,14 +2606,23 @@ def _phases(torch, np) -> int:
     ex.free()
     deg_ex = ex.degree_phase
     del ex
+    _mark("main, kernels, staged")
     kernels += phase_shuffle_kernels(torch, np, g, launches)
     kernels += phase_new_paths(torch, np, g, deg_ex, ref, conv32)
     del deg_ex
+    _mark("paths")
     _submit(SUITE_PREBUILD)
     phase_cf(torch, np, g, ref, main_meta, conv32)
     del g, main_meta
+    _mark("cf")
+    phase_csc(torch, np, ref, kernels)
+    _mark("csc")
+    phase_lab(torch, np, ref)
+    _mark("lab")
     kernels += phase_bfs(torch, np)
+    _mark("bfs")
     phase_cc_sssp(torch, np)
+    _mark("cc/sssp")
     phase_cli(torch, np)
     log("ms per call group of one SpMV: route_fold sums its fixr and fix2 "
         "calls, expand_stream its three calls, "

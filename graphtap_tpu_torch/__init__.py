@@ -14,12 +14,13 @@ numpy-only host planner is the port's own copy of the JAX package's
 the JAX package's and nothing of that package is read.
 
 This version runs on one device: the degree phase and PageRank, for a
-fixed count of iterations or to convergence, on TCSC or TCSC_CF tiles
-(``apps.run_pagerank``, ``run_pagerank_two_load``; the ``apps.pr``,
-``pr1`` and ``deg`` mains), and BFS, CC and SSSP to convergence with
-frontier gating (``apps.run_bfs``, ``run_cc``, ``run_sssp``). Entry
-points run on the card (``device="cuda"``) unless the caller passes
-``device="cpu"``.
+fixed count of iterations or to convergence, on CSC, DCSC, TCSC or
+TCSC_CF tiles (``apps.run_pagerank``, ``run_pagerank_two_load``; the
+``apps.pr``, ``pr1`` and ``deg`` mains), BFS, CC and SSSP to convergence
+with frontier gating (``apps.run_bfs``, ``run_cc``, ``run_sssp``), and
+the kernel lab's nine format/kernel variants (``tools.kernel_lab``,
+``tools.lab_table``). Entry points run on the card (``device="cuda"``)
+unless the caller passes ``device="cpu"``.
 """
 
 from graphtap_tpu_torch.config import (Compression, EngineConfig,

@@ -7,16 +7,20 @@ superstep is messenger -> exchange x -> combine (the SpMV) -> exchange y
 both exchanges are the identity; they assert the 1x1 layout instead of
 running a collective.
 
-Ported: fixed-iteration and convergence mode on TCSC and TCSC_CF tiles,
-stationary and nonstationary programs (messages masked to the
-⊕-identity outside the frontier, the panel pipeline frontier-gated),
-every kernel choice of the JAX executor (``KERNELS``),
-``initialize(other=)`` with the I-masked handoff, ``free()``,
-``execute_profiled`` (per-phase timing) and the oracles
-(``state_vector``, ``checksum``, ``stats``, ``display``). An unknown kernel
-name raises ``ValueError``. Other tile formats (CSC, DCSC), the sparse
-exchange and the mesh raise ``NotImplementedError`` until a later version
-ports them.
+Ported: fixed-iteration and convergence mode on every tile format (CSC,
+DCSC, TCSC, TCSC_CF), stationary and nonstationary programs (messages
+masked to the ⊕-identity outside the frontier, the panel pipeline
+frontier-gated), every kernel choice of the JAX executor (``KERNELS``),
+prebuilt ``tiles=``, ``initialize(other=)`` with the I-masked handoff,
+``free()``, ``execute_profiled`` (per-phase timing) and the oracles
+(``state_vector``, ``checksum``, ``stats``, ``display``). The format is
+the tiles' own, and the JAX executor's rules hold: CSC and DCSC keep raw
+local rows, so the SpMV's y is the dense row block itself and apply masks
+nothing but the padding (the I mask is TCSC's, :1655-1670); DCSC gathers
+x through its JC table first and runs on scan and segment only; shuffle
+needs renumbered (TCSC) rows. Those two and an unknown kernel name raise
+``ValueError``; the sparse exchange and the mesh raise
+``NotImplementedError`` until a later version ports them.
 
 TCSC_CF (computation filtering, reference: spmv_stationary's phase
 gating, vertex_program.hpp:1243-1320; apply :1671-1692) runs three edge
@@ -151,6 +155,9 @@ class Executor:
     validated here, else built here. ``phase_plans``: on a TCSC_CF graph,
     prebuilt plans of the "first", "middle" and "last" phase tiles (any
     of them; the rest are built), validated as ``plans`` is.
+    ``tiles``: a prebuilt TileSet of this graph (e.g. the TCSC tiles of a
+    TCSC_CF graph, which then runs as TCSC), else the graph's tiles of
+    the engine's ordering; the format is the tiles' compression.
     ``device``: 'cuda' (the default) or 'cpu', where the kernels run
     their plain versions; without CUDA a 'cuda' executor raises.
     ``GRAPHTAP_PANEL_GATE`` is read once, here (``gate_mode``); it sets
@@ -171,19 +178,12 @@ class Executor:
 
     def __init__(self, graph: Graph, program: VertexProgram,
                  engine: Optional[EngineConfig] = None, kernel: str = "scan",
-                 plans=None, device="cuda", phase_plans=None):
+                 plans=None, device="cuda", phase_plans=None,
+                 tiles: Optional[TileSet] = None):
         self.device = _device(device)
         if kernel not in KERNELS:
             raise ValueError(f"unknown kernel {kernel!r}; use one of "
                              f"{KERNELS}")
-        comp = graph.config.compression
-        if comp not in (Compression.TCSC, Compression.TCSC_CF):
-            raise NotImplementedError(f"{comp} tiles are not ported yet")
-        self.is_cf = comp == Compression.TCSC_CF
-        if phase_plans and (not self.is_cf
-                            or set(phase_plans) - set(CF_PHASES)):
-            raise ValueError(f"phase_plans: {sorted(phase_plans)}; only a "
-                             f"TCSC_CF graph takes plans of {CF_PHASES}")
         self.graph = graph
         self.program = program
         self.engine = engine or EngineConfig(stationary=program.stationary)
@@ -200,8 +200,24 @@ class Executor:
         self.timings: Dict[str, float] = {}
         self._phase_plans = dict(phase_plans or {})
         t0 = time.perf_counter()
-        self.tiles = graph.tiled(self.engine.ordering)
+        self.tiles = tiles if tiles is not None \
+            else graph.tiled(self.engine.ordering)
         self.timings["tiles"] = time.perf_counter() - t0
+        comp = self.tiles.compression
+        # the JAX executor's format rules (its executor.py:88-104)
+        self._renumber = self.tiles.ir is not None
+        if comp == Compression.DCSC and kernel not in ("scan", "segment"):
+            raise ValueError("DCSC (compact col ids + JC gather) is a "
+                             "kernel-lab format; only the scan/segment "
+                             "kernels consume it")
+        if kernel == "shuffle" and not self._renumber:
+            raise ValueError("shuffle kernel requires TCSC compression")
+        self._apply_i_mask = comp in (Compression.TCSC, Compression.TCSC_CF)
+        self.is_cf = comp == Compression.TCSC_CF
+        if phase_plans and (not self.is_cf
+                            or set(phase_plans) - set(CF_PHASES)):
+            raise ValueError(f"phase_plans: {sorted(phase_plans)}; only a "
+                             f"TCSC_CF graph takes plans of {CF_PHASES}")
         t0 = time.perf_counter()
         self.meta = self._plans(self.tiles, plans)
         if self.meta is not None:
@@ -251,16 +267,16 @@ class Executor:
             # the fixed-order float folds' lists and scratch (K3, K5, K8),
             # and K7's composed index
             _FOLD_TABLES[self.kernel](dev, meta, self.program.value_dtype)
-            if self.kernel == "onehot":
+            if self.kernel == "onehot" and tiles.iv_dense is not None:
                 dev["iv_dense"] = self._tensor(tiles.iv_dense[0])
             return dev
         n = int(tiles.nnz[0, 0])
         dev.update(rows=self._tensor(tiles.rows[0].astype(np.int64)),
                    cols=self._tensor(tiles.cols[0].astype(np.int64)),
-                   ja=self._tensor(tiles.ja[0]), nnz=n,
-                   iv_dense=self._tensor(tiles.iv_dense[0]))
-        if tiles.weights is not None:
-            dev["weights"] = self._tensor(tiles.weights[0])
+                   ja=self._tensor(tiles.ja[0]), nnz=n)
+        for k in ("iv_dense", "jc", "weights"):
+            if getattr(tiles, k) is not None:
+                dev[k] = self._tensor(getattr(tiles, k)[0])
         return dev
 
     def _cf_phases(self) -> None:
@@ -337,7 +353,9 @@ class Executor:
         """Tile SpMV of ``phase``'s tiles -> (the dense row block (C*L,),
         whether the panel pipeline ran gated; None on the other kernels,
         which are never gated, as in the JAX package) (reference: combine,
-        vertex_program.hpp:1017-1573)."""
+        vertex_program.hpp:1017-1573). The compact y of renumbered (TCSC)
+        tiles is expanded to the dense block; CSC and DCSC rows are dense
+        already."""
         tiles, meta, d = self._phases[phase]
         sem, n = self.program.semiring, self.part.tile_rows
         if self.kernel == "panel":
@@ -349,24 +367,35 @@ class Executor:
             return spmv2_local(x, d, meta, sem, dense_len=n), None
         if self.kernel == "onehot":
             y = spmv_onehot(x, d, meta, sem, tiles.NR)
-        elif self.kernel == "segment":
-            y = spmv_segment(x, d["rows"], d["cols"], d.get("weights"),
-                             d["nnz"], tiles.NR, sem)
         else:
-            y = spmv_sorted_scan(x, d["rows"], d["cols"], d.get("weights"),
-                                 d["nnz"], d["ja"], sem)
-        return expand_compact(y, d["iv_dense"], sem), None
+            if "jc" in d:
+                # DCSC: cols hold compact nnz-col ids; gather x through JC
+                # first (reference: dcsc_spmv.hpp:216-230)
+                x = torch.index_select(x, 0, d["jc"])
+            if self.kernel == "segment":
+                y = spmv_segment(x, d["rows"], d["cols"], d.get("weights"),
+                                 d["nnz"], tiles.NR, sem)
+            else:
+                y = spmv_sorted_scan(x, d["rows"], d["cols"],
+                                     d.get("weights"), d["nnz"], d["ja"],
+                                     sem)
+        if self._renumber:
+            y = expand_compact(y, d["iv_dense"], sem)
+        return y, None
 
     def _apply(self, V: State, y_own: torch.Tensor, it: int,
                phase: str) -> Tuple[State, torch.Tensor]:
-        """(reference: apply_*, vertex_program.hpp:1610-1802): TCSC applies
-        only where the I bit is set (:1655-1670); a TCSC_CF phase where
-        its apply mask is (:1671-1692)."""
+        """(reference: apply_*, vertex_program.hpp:1610-1802): a TCSC_CF
+        phase applies where its apply mask is (:1671-1692), TCSC and
+        TCSC_CF's main tiles only where the I bit is set (:1655-1670), CSC
+        and DCSC everywhere; padding vertices never vote."""
         V2, changed = self.program.applicator(V, y_own, it)
-        d = self._phases[phase][2]
-        mask = d.get("apply_mask", self._dev["i_own"])
-        V2 = {k: torch.where(mask, v2, V[k]) for k, v2 in V2.items()}
-        changed = changed & mask
+        mask = self._phases[phase][2].get("apply_mask")
+        if mask is None and self._apply_i_mask:
+            mask = self._dev["i_own"]
+        if mask is not None:
+            V2 = {k: torch.where(mask, v2, V[k]) for k, v2 in V2.items()}
+            changed = changed & mask
         return V2, changed & (self._dev["vids"] < self.graph.nv)
 
     def _messages(self, V: State, C: torch.Tensor) -> torch.Tensor:

@@ -1,14 +1,18 @@
 """Tile construction: filtering, renumbering, compression (numpy).
 
 Counterpart of ``graphtap_tpu/format/tiles.py`` (``build_tileset``,
-``classify_vertices``, ``build_cf_tilesets``) for one process and the CSC,
-TCSC and TCSC_CF formats: the same arrays, byte for byte, without the
-device placement (``device_arrays``) and without the multi-process
-OR/max/sum reductions, which are the identity on one process. TCSC_CF
+``classify_vertices``, ``build_cf_tilesets``) for one process and every
+format (CSC, DCSC, TCSC, TCSC_CF): the same arrays, byte for byte,
+without the device placement (``device_arrays``) and without the
+multi-process OR/max/sum reductions, which are the identity on one
+process. TCSC_CF
 renumbers rows as TCSC does; its first/middle/last edge subsets are
 ``build_cf_tilesets``'s, and the engine runs them as phases
-(``engine/executor.py``). DCSC is not ported yet. The engine moves the
-fields it needs to the device itself.
+(``engine/executor.py``). DCSC (reference: compressed_column.hpp:156-271)
+renumbers the columns into the compact nnz-col space and keeps the JC
+table, compact id -> dense local col, through which the engine gathers x
+(dcsc_spmv.hpp:216-230). The engine moves the fields it needs to the
+device itself.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ class TileSet:
 
     rows: np.ndarray             # (D, Ep) int32, ⊕-segment ids, sorted ascending
     cols: np.ndarray             # (D, Ep) int32, local col in [0, R*L)
+                                 # (DCSC: compact nnz-col id)
     weights: Optional[np.ndarray]  # (D, Ep) or None
     nnz: np.ndarray              # (D, 1) int32 valid-edge counts
     ja: np.ndarray               # (D, NR+1) int32 row pointer over valid edges
@@ -52,7 +57,9 @@ class TileSet:
     source_own: np.ndarray       # (D, L) bool — i_own & ~j_own
     sink_own: np.ndarray         # (D, L) bool — j_own & ~i_own
     nnzcols: np.ndarray          # (D, 1) int32 nnz cols of the col group
-    jc: Optional[np.ndarray] = None   # DCSC's JC table; not ported (None)
+    # DCSC only: compact col id -> dense local col (reference JC,
+    # compressed_column.hpp:163), NCp = nnz cols rounded up to 128
+    jc: Optional[np.ndarray] = None   # (D, NCp) int32 or None
 
     def edge_balance(self) -> dict:
         """Imbalance report (analog of Matrix::balance, matrix.hpp:563-687)."""
@@ -144,8 +151,6 @@ def build_tileset(
     """Build the tiled, compressed representation from a host edge list
     (global, already transformed row/col ids; ``w`` optional weights).
     Dedup of parallel edges keeps the minimum weight."""
-    if compression == Compression.DCSC:
-        raise NotImplementedError(f"{compression} tiles are not ported yet")
     R, C, L, D = part.R, part.C, part.L, part.D
     r = np.asarray(r, dtype=np.int64)
     c = np.asarray(c, dtype=np.int64)
@@ -171,6 +176,11 @@ def build_tileset(
     nnzcols_grp = cols_mask.sum(axis=1).astype(np.int64)
 
     renumber = compression in (Compression.TCSC, Compression.TCSC_CF)
+    # DCSC: the col-side prefix renumbering JV (reference:
+    # DCSC_BASE::populate, compressed_column.hpp:237-271)
+    renumber_cols = compression == Compression.DCSC
+    jv = np.cumsum(cols_mask, axis=1, dtype=np.int64) - 1 \
+        if renumber_cols else None
 
     # per-device binning (native counting sort when available)
     if r.size and r.max() < (1 << 32) and c.max() < (1 << 32):
@@ -188,12 +198,15 @@ def build_tileset(
         s, e = starts[b], ends[b]
         blr, blc = lr_s[s:e], lc_s[s:e]
         bw = w_s[s:e] if w_s is not None else None
-        o = np.lexsort((blc, blr))  # sort by destination row, then col
-        blr, blc = blr[o], blc[o]
+        # sort by destination row, then col, ties in input order: the JAX
+        # package's lexsort((blc, blr)) order, as one stable sort of an
+        # int64 key (about half lexsort's time at RMAT-18)
+        key = blr * np.int64(R * L) + blc
+        o = np.argsort(key, kind="stable")
+        blr, blc, key = blr[o], blc[o], key[o]
         bw = bw[o] if bw is not None else None
         if not parallel_edges and blr.size:
             # dedup on (row, col); keep min weight for determinism
-            key = blr * np.int64(R * L) + blc
             if bw is not None:
                 o2 = np.lexsort((bw, key))
                 key2, blr, blc, bw = key[o2], blr[o2], blc[o2], bw[o2]
@@ -225,6 +238,10 @@ def build_tileset(
     iv_arr = np.full((D, C * L), -1, dtype=np.int32) if renumber else None
     nnzrows_arr = np.zeros((D, 1), dtype=np.int32)
     nnzcols_arr = np.zeros((D, 1), dtype=np.int32)
+    jc_arr = None
+    if renumber_cols:
+        NCp = _round_up(int(max(nnzcols_grp.max(), 1)), 128)
+        jc_arr = np.zeros((D, NCp), dtype=np.int32)
 
     for b in range(D):
         i, j = divmod(b, C)
@@ -234,7 +251,12 @@ def build_tileset(
         rows_arr[b, :n] = seg_ids
         if n < Ep:  # pad with last valid id to keep sortedness
             rows_arr[b, n:] = seg_ids[-1] if n else 0
-        cols_arr[b, :n] = blc
+        if renumber_cols:
+            cols_arr[b, :n] = jv[j, blc]
+            nzc = np.flatnonzero(cols_mask[j])
+            jc_arr[b, :nzc.size] = nzc
+        else:
+            cols_arr[b, :n] = blc
         if w_arr is not None and bw is not None:
             w_arr[b, :n] = bw
         nnz_arr[b, 0] = n
@@ -261,5 +283,5 @@ def build_tileset(
         ja=ja_arr, ir=ir_arr, iv_dense=iv_arr,
         nnzrows=nnzrows_arr, i_own=i_own, j_own=j_own,
         regular_own=i_own & j_own, source_own=i_own & ~j_own,
-        sink_own=j_own & ~i_own, nnzcols=nnzcols_arr,
+        sink_own=j_own & ~i_own, nnzcols=nnzcols_arr, jc=jc_arr,
     )

@@ -35,7 +35,9 @@ after a gap; P2 (16 KB chunks) on shapes whose last chunk is partial.
 K5 and K8 (each lane's entries folded in runs of 32 in a block a chunk)
 match bit for bit, twice, and equal the CPU, on hub chunks, sorted and
 unsorted K5 chunks, padding tails, K8's all-invalid groups and chunks
-and row blocks with no chunk, in every value type and ⊕.
+and row blocks with no chunk, in every value type and ⊕. On RMAT-14
+plans of CSC tiles (raw local rows, NR = C*L), K5 on the one-hot plan and
+K1-K4 on the panel meta match bit for bit, twice.
 """
 
 import numpy as np
@@ -1180,3 +1182,55 @@ def test_chunk_folds_match_plain(cuda, kernel, kind):
     cpu = getattr(mod, kernel)(*(a.cpu() if torch.is_tensor(a) else a
                                  for a in args))
     assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.parametrize("kernel", ["segment_reduce", "panel"])
+def test_csc_kernels_match_plain(cuda, kernel):
+    """On RMAT-14 f32 plans of CSC tiles (raw local rows, NR = C*L, about
+    twice TCSC's row blocks): K5 on the one-hot plan, and K1-K4 on the
+    panel meta, each twice with the same bits as its plain version."""
+    n = 1 << 14
+    r, c, _ = rmat_edges(14, 16, seed=1)
+    g = Graph.from_edges(r, c, None, GraphConfig(
+        num_vertices=n, transpose=True, compression=Compression.CSC))
+    ts = g.tiled()
+    assert ts.ir is None and ts.NR == g.part.tile_rows
+    sem = tsr.plus_times()
+    x = torch.from_numpy(_x(g, np.float32)).to(cuda)
+    if kernel == "segment_reduce":
+        plan = oh.build_onehot_plan(ts)
+        t = meta_from_numpy(plan.arrays, cuda)
+        args = (oh.onehot_contrib(x, t, sem), t["oh_lrows"],
+                t["oh_chunk_block"], plan.nblocks, ts.NR, "sum", 0.0)
+        before = oh.LAUNCHES[kernel]
+        got = _twice_equal(lambda: oh.segment_reduce(*args),
+                           lambda: oh.segment_reduce_plain(*args))
+        assert oh.LAUNCHES[kernel] == before + 2
+        assert got.shape == (ts.NR,)
+        return
+    meta = build_spmv3_meta(ts, value_dtype=np.float32)
+    t = meta_from_numpy(meta.arrays, cuda)
+    st = spmv3_stages(x, t, meta, sem, g.part.tile_rows)
+    xe = (st["x2d"], t["xr_bases"], t["xe_plan"], None, 0.0,
+          meta.exp_panels + 1, meta.xr_nwin, "none")
+    pa = (st["s0"], t["pa_bases"], t["pa_plan"], 0.0, meta.pa_panels + 1,
+          meta.pa_nwin)
+    fx = (st["s1"], t["fixr_bases"], t["fixr_plan"], t["fix_dst"],
+          t["fixr_seg"], meta.nrb, "sum", 0.0, meta.fix_panels,
+          meta.fixr_nwin)
+    f2 = (st["y_hub"], t["f2_bases"], t["f2_plan"], t["fix2_dst"],
+          t["f2_seg"], meta.f2_rows, "sum", 0.0, meta.f2_panels,
+          meta.f2_nwin)
+    before = dict(pk.LAUNCHES)
+    for call, plain, args in (
+            (pk.route_xr_exp, pk.route_xr_exp_plain, xe),
+            (pk.route_passa, pk.route_passa_plain, pa),
+            (pk.hub_fold, pk.hub_fold_plain, (st["y_mid"], t["hub_mask"],
+                                               "sum")),
+            (pk.route_fold, pk.route_fold_plain, fx),
+            (pk.route_fold, pk.route_fold_plain, f2)):
+        _twice_equal(lambda: call(*args), lambda: plain(*args))
+    assert {k: pk.LAUNCHES[k] - before[k] for k in (
+        "route_xr_exp", "route_passa", "route_fold", "hub_fold")} == {
+        "route_xr_exp": 2, "route_passa": 2, "route_fold": 4, "hub_fold": 2}
+    assert torch.equal(st["s0"], pk.route_xr_exp_plain(*xe))

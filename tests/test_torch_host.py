@@ -214,7 +214,8 @@ def test_copied_package_runs_alone(tmp_path):
     unimportable and an audit hook that fails any open of a path under
     the repository's graphtap_tpu/: it imports, builds its own native
     library, plans a panel meta, a shuffle plan, a v2 meta and a one-hot
-    plan, and runs the scan SpMV."""
+    plan, runs the scan SpMV, and runs the kernel lab's variant 8 (DCSC
+    tiles) on an edge file it writes."""
     import shutil
     shutil.copytree(os.path.join(REPO, "graphtap_tpu_torch"),
                     tmp_path / "graphtap_tpu_torch",
@@ -269,6 +270,12 @@ def test_copied_package_runs_alone(tmp_path):
         "                     T(ts.ja[0]), plus_times())\n"
         "y = expand_compact(y, T(ts.iv_dense[0]), plus_times())\n"
         "assert int(y.sum()) == n\n"
+        "from graphtap_tpu_torch.ingest.io import write_binary\n"
+        "from graphtap_tpu_torch.tools import kernel_lab\n"
+        "write_binary('rmat8.bin', r, c)\n"
+        "lab = kernel_lab.run_variant(8, 'rmat8.bin', 257, 3, device='cpu')\n"
+        "assert lab['variant'] == 'scan/dcsc'\n"
+        "assert lab['operations'] == 3 * r.size, lab\n"
         "bad = [k for k in sys.modules if k == 'graphtap_tpu'\n"
         "       or k.startswith('graphtap_tpu.')\n"
         "       or (k.startswith('jax') and sys.modules[k] is not None)]\n"

@@ -101,8 +101,9 @@ def test_executor_lifecycle_errors(rmat10, port_f64):
     g = rmat10[2]
     dcsc = Graph.from_edges(rmat10[0], rmat10[1], None, GraphConfig(
         num_vertices=N, transpose=True, compression=Compression.DCSC))
-    with pytest.raises(NotImplementedError):
-        run_pagerank(dcsc, 0, torch.float64, device="cpu")     # DCSC
+    with pytest.raises(ValueError, match="DCSC"):              # as JAX's
+        Executor(dcsc, PageRankProgram(torch.float64), kernel="panel",
+                 device="cpu")
     ex = Executor(g, PageRankProgram(torch.float64), kernel="scan",
                   device="cpu")
     ex.free()
@@ -113,8 +114,8 @@ def test_executor_lifecycle_errors(rmat10, port_f64):
                  device="cpu")
     csc = Graph.from_edges(rmat10[0], rmat10[1], None, GraphConfig(
         num_vertices=N, transpose=True, compression=Compression.CSC))
-    with pytest.raises(NotImplementedError):
-        Executor(csc, PageRankProgram(torch.float64), kernel="scan",
+    with pytest.raises(ValueError, match="requires TCSC"):     # as JAX's
+        Executor(csc, PageRankProgram(torch.float64), kernel="shuffle",
                  device="cpu")
 
 

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the torch port's PageRank (TCSC, TCSC_CF and CSC, fixed
 iterations and f32 convergence), staged-panel, shuffle, shuffle2, one-hot
-and frontier paths, its kernel lab, its device-memory probes, and its
-five mains, on one NVIDIA GPU.
+and frontier paths, its kernel lab, its device-memory probes, its five
+mains and its 2x2 mesh (four ranks on the one card), on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -61,8 +61,8 @@ Phases, each printed as it runs; any failure exits non-zero:
               5b: f32 PageRank to convergence (execute(0)) on the same
               executor, re-initialized from the degree phase, and one
               execute_profiled of 20 iterations with its PhaseTimer report
-              (scatter_gather, combine, apply, each fenced by a device
-              synchronize).
+              (scatter_gather, exchange, combine, apply, each fenced by a
+              device synchronize).
   5. kernels  each kernel's time beside its plain version's, its bound
               and, where one PyTorch call computes the same function, that
               call's time, at the RMAT-20 shapes of the main path (K1-K4:
@@ -165,12 +165,15 @@ Phases, each printed as it runs; any failure exits non-zero:
               Then 20 iterations on shuffle2 on CSC at RMAT-18 (its v2 plan
               built by a worker: at RMAT-20 the v2 plans take minutes).
   8c. lab     the kernel lab (tools/kernel_lab.py through
-              tools/lab_table.py): variants 0, 1, 2, 6, 7 and 8 at RMAT-20,
-              20 iterations each, on one RMAT-20 binary written once under
-              graphtap_tpu_torch/build/smoke_lab/, and variants 3, 4 and 5
-              at RMAT-16 (each plans its degree and PageRank phases, minutes
-              of host time a plan at RMAT-20, and their kernels run at
-              RMAT-20 in phases 4, 4b and 8); the rows printed as the
+              tools/lab_table.py), 20 iterations a variant, on one RMAT
+              binary of each scale written once under
+              graphtap_tpu_torch/build/smoke_lab/: variant 6 (onehot) at
+              RMAT-20; the plain torch variants 0, 1, 2, 7 and 8 beside 6
+              at RMAT-18 (at RMAT-20 their host tiles take ~150 s of the
+              smoke's time limit); variants 3, 4 and 5 at RMAT-16 (each
+              plans its degree and PageRank phases, minutes of host time
+              a plan at RMAT-20, and their kernels run at RMAT-20 in
+              phases 4, 4b and 8); the rows printed as the
               markdown table; at each scale operations equal, checksums
               within 1e-5 relative of each other and within 1e-4 of the f64
               golden; variant 6 launches K5 (the degree SpMV and 2 x 20).
@@ -180,6 +183,26 @@ Phases, each printed as it runs; any failure exits non-zero:
               subprocesses on the card: the balance line and the five
               oracle lines, each checksum equal to (bfs, cc, sssp) or
               within 1e-4 of (pr, pr1) the golden model's.
+  10. mesh    the R x C mesh on torch.distributed, one rank per shard
+              (parallel/launch.py starting tools/mesh_run.py; a rank's
+              failure fails the smoke): (a) four ranks of a 2x2 mesh on
+              this one card (gloo; every exchange staged through host
+              memory), each reading its byte range of the RMAT-20 binary
+              file written under graphtap_tpu_torch/build/ and exchanging
+              edges: degree on shuffle (bit for bit with golden.degree),
+              20 PageRank iterations on panel and on onehot (each
+              checksum within 1e-4 of the f64 golden and 1e-5 of phase
+              4's), each rank's K1-K4, K6-K8 and K5 launch counts > 0,
+              per rank the plan seconds and superstep ms, and one more
+              onehot run through execute_profiled (bit for bit with the
+              first), its exchange, combine and apply ms per rank (the
+              four ranks time-share the card: no multi-GPU figure); (b)
+              BFS, CC and SSSP at RMAT-18 on onehot and shuffle2 at 2x2
+              with the sparse exchange, K = 4096 and K = 8: bit for bit
+              with the golden models, both branches seen; (c) one rank
+              in an NCCL group (1x1: NCCL cannot put two ranks on one
+              card): PageRank on onehot at RMAT-18, bit for bit with the
+              group-free run.
 
 Five worker processes, started after the build and stopped at exit, plan
 the RMAT-20 v2 (ROW), degree shuffle (COL) and the three TCSC_CF panel
@@ -234,6 +257,14 @@ STAGED_LAUNCHES = {"route_passa_single": 1, "route_expand": 1,
                    "route_fold": 1, "fold_stripes": 1}
 CF_PHASES = ("first", "middle", "last")
 DEVICE = "cuda"
+# phase 10: the mesh; its launches' hard timeout (seconds) and the
+# sparse exchange's capacities (K); each rank of (a) must launch these
+MESH_SHAPE = (2, 2)
+MESH_TIMEOUT = 600
+MESH_CAPS = (4096, 8)
+MESH_KERNELS = ("route_xr_exp", "route_passa", "route_fold", "hub_fold",
+                "expand_stream", "group_stream", "grouped_reduce",
+                "segment_reduce")
 GOLDEN_RTOL = 1e-4
 FOLD_RTOL = {"float32": 1e-5, "float64": 1e-12}
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -272,13 +303,16 @@ PREBUILD_WORKERS = 5
 _POOL = []                   # the worker pool, while main() runs
 PLAN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "graphtap_tpu_torch", "build", "smoke_plans")
+MESH_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "graphtap_tpu_torch", "build", "smoke_mesh")
+_SUITE_WANT = {}             # app -> its golden state at RMAT-SUITE_SCALE
 _PREBUILT = {}               # PREBUILD entry -> AsyncResult of _prebuild
 _SMI = []                    # the card's name and power limit (nvidia-smi)
-# the kernel lab: variants 0-2, 6-8 at RMAT-SCALE; 3-5 (shuffle, shuffle2,
-# panel), which plan both their phases, at RMAT-LAB_SMALL_SCALE
-LAB_VARIANTS = (0, 1, 2, 6, 7, 8)
-LAB_SMALL_VARIANTS = (3, 4, 5)
-LAB_SMALL_SCALE = 16
+# the kernel lab, (scale, variants) a table: 6 (onehot, K5) at RMAT-SCALE;
+# the plain torch variants 0-2, 7, 8 beside 6 at RMAT-18 (at RMAT-20 their
+# host tiles put the smoke near its time limit); 3-5 (shuffle, shuffle2,
+# panel), which plan both their phases, at RMAT-16
+LAB_SETS = ((SCALE, (6,)), (18, (0, 1, 2, 6, 7, 8)), (16, (3, 4, 5)))
 LAB_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "graphtap_tpu_torch", "build", "smoke_lab")
 REPLACES = {
@@ -1242,7 +1276,7 @@ def phase_main(torch, np):
     first = tm["execute"]
     log(f"main: {ITERS} iterations {first:.4f} s first "
         f"({nnz * ITERS / first / 1e9:.4f} GTEPS), nnz {nnz}")
-    ref = {"degree": want, "checksum": gsum,
+    ref = {"degree": want, "checksum": gsum, "pr_checksum": checksum,
            "gteps": _warm_gteps("main", ex), "edges": (r, c)}
     return g, ex, launches, ref
 
@@ -1929,6 +1963,7 @@ def phase_bfs(torch, np):
     t0 = time.perf_counter()
     parent, hops = _golden().bfs(r.astype(np.int64), c.astype(np.int64),
                                  n + 1, 0)
+    _SUITE_WANT["bfs"] = {"hops": hops, "parent": parent}
     sv = ex.state_vector()
     ok = (np.array_equal(sv["hops"], hops)
           and np.array_equal(sv["parent"], parent))
@@ -2084,6 +2119,7 @@ def phase_cc_sssp(torch, np) -> None:
             want = golden.cc(r64, c64, n + 1)
             got = ex.state_vector()["label"]
         ok = np.array_equal(got, want)
+        _SUITE_WANT[app] = {"distance" if weighted else "label": want}
         log(f"{app}: state vs golden.{app} {'equal' if ok else 'DIFFER'} "
             f"(golden {time.perf_counter() - t0:.1f} s); checksum "
             f"{ex.checksum()}")
@@ -2363,21 +2399,19 @@ def phase_csc(torch, np, ref, kernels) -> None:
 
 def phase_lab(torch, np, ref) -> None:
     """The kernel lab (``tools/kernel_lab.py``) through ``tools/
-    lab_table.py``: variants LAB_VARIANTS at RMAT-SCALE and
-    LAB_SMALL_VARIANTS at RMAT-LAB_SMALL_SCALE, ITERS iterations each, on
-    one RMAT binary of each scale written once; the rows printed as the
-    markdown table; at each scale the cross-variant gates (operations
-    equal, checksums within 1e-5 relative) and every checksum within 1e-4
-    of the f64 golden; variant 6 must launch K5."""
+    lab_table.py``: each (scale, variants) of LAB_SETS, ITERS iterations
+    each, on one RMAT binary of each scale written once; the rows printed
+    as the markdown table; at each scale the cross-variant gates
+    (operations equal, checksums within 1e-5 relative) and every checksum
+    within 1e-4 of the f64 golden; variant 6 must launch K5."""
     from graphtap_tpu_torch.tools import artifact_cache as ac
     from graphtap_tpu_torch.tools import lab_table
     golden = _golden()
-    log(f"lab: variants {LAB_SMALL_VARIANTS} at RMAT-{LAB_SMALL_SCALE}: each "
-        f"plans its degree (COL) and PageRank (ROW) phases, minutes of host "
-        f"time a plan at RMAT-{SCALE}, and their kernels run at RMAT-{SCALE} "
-        f"in phases 4, 4b and 8")
-    for scale, variants in ((SCALE, LAB_VARIANTS),
-                            (LAB_SMALL_SCALE, LAB_SMALL_VARIANTS)):
+    log(f"lab: variants 3-5 each plan their degree (COL) and PageRank (ROW) "
+        f"phases, minutes of host time a plan at RMAT-{SCALE}, and their "
+        f"kernels run at RMAT-{SCALE} in phases 4, 4b and 8; the plain "
+        f"variants' host tiles run at RMAT-18 (the smoke's time limit)")
+    for scale, variants in LAB_SETS:
         r, c, _ = ac.cached_rmat(scale, EDGE_FACTOR, SEED, LAB_DIR)
         path = os.path.join(LAB_DIR, f"rmat{scale}_ef{EDGE_FACTOR}_s{SEED}"
                                      f".bin")
@@ -2406,6 +2440,170 @@ def phase_lab(torch, np, ref) -> None:
         log(f"lab RMAT-{scale}: operations equal, checksums within "
             f"{lab_table.CHECKSUM_RTOL} of each other and within "
             f"{GOLDEN_RTOL} of the f64 golden {want!r}")
+
+
+def _mesh_launch(spec, nranks, tag) -> str:
+    """Run ``spec`` (tools/mesh_run.py) on ``nranks`` ranks; log every
+    rank's lines; return its output directory. A rank's failure or the
+    timeout raises (parallel/launch.py kills the other ranks)."""
+    from graphtap_tpu_torch.parallel.launch import launch
+    spec["out"] = os.path.join(MESH_DIR, tag)
+    path = os.path.join(MESH_DIR, f"{tag}.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    t0 = time.perf_counter()
+    results = launch([sys.executable, "-m",
+                      "graphtap_tpu_torch.tools.mesh_run", path], nranks,
+                     MESH_TIMEOUT, env=dict(os.environ, PYTHONPATH=ROOT),
+                     cwd=ROOT)
+    for res in results:
+        for ln in res.stdout.splitlines():
+            log(f"mesh {tag}: {ln}")
+    log(f"mesh {tag}: {nranks} rank(s) done in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return spec["out"]
+
+
+def _mesh_result(np, out, name):
+    """(state in vertex order, meta) that rank 0 of a mesh run wrote."""
+    with np.load(os.path.join(out, f"{name}.npz")) as z:
+        state = {k: z[k] for k in z.files}
+    with open(os.path.join(out, f"{name}.json")) as f:
+        return state, json.load(f)
+
+
+def _median(xs):
+    xs = sorted(x for x in xs if x is not None)
+    return xs[len(xs) // 2] if xs else float("nan")
+
+
+def phase_mesh(torch, np, ref) -> None:
+    """(a), (b) and (c) of phase 10 (see the module docstring)."""
+    from graphtap_tpu_torch.ingest import rmat_edges
+    from graphtap_tpu_torch.ingest.io import write_binary
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR)
+    label = (f"one card time-shared by the ranks, exchanges staged through "
+             f"host memory; {_SMI[0]}")
+    # (a) RMAT-20 on 2x2: degree on shuffle, PageRank on panel and onehot
+    pr20 = os.path.join(MESH_DIR, f"rmat{SCALE}.bin")
+    write_binary(pr20, *ref["edges"])
+    runs = [{"name": "degree", "graph": "pr", "app": "degree",
+             "kernel": "shuffle", "dtype": "float32"}]
+    runs += [{"name": f"pr_{k}", "graph": "pr", "app": "pagerank",
+              "kernel": k, "dtype": "float32", "iters": ITERS,
+              "degree_kernel": "shuffle"} for k in ("panel", "onehot")]
+    runs.append(dict(runs[-1], name="pr_onehot_profiled", profiled=True))
+    out = _mesh_launch({"shape": list(MESH_SHAPE), "backend": "gloo",
+                        "device": DEVICE, "runs": runs, "graphs": {
+                            "pr": {"path": pr20, "nv": 1 << SCALE,
+                                   "config": "pr"}}},
+                       MESH_SHAPE[0] * MESH_SHAPE[1], "a")
+    state, meta = _mesh_result(np, out, "degree")
+    got = state["degree"]
+    if not (got.dtype == np.float32 and np.array_equal(
+            got.astype(np.int64), ref["degree"])):
+        raise AssertionError("mesh: the 2x2 degrees differ from "
+                             "golden.degree")
+    log(f"mesh a: 2x2 degrees (shuffle) equal to golden.degree; exchange "
+        f"{meta['exchange']}")
+    launches = [dict() for _ in meta["ranks"]]
+    for name in ("degree", "pr_panel", "pr_onehot"):
+        state, meta = _mesh_result(np, out, name)
+        for b, rk in enumerate(meta["ranks"]):
+            for k, v in rk["launches"].items():
+                launches[b][k] = launches[b].get(k, 0) + v
+            tm = rk["timings"]
+            log(f"mesh a {name}: rank {b}: tiles {tm.get('tiles', 0):.2f} "
+                f"s, plans {tm.get('plans', 0):.2f} s, upload "
+                f"{tm.get('upload', 0):.2f} s, superstep median "
+                f"{_median(s['ms'] for s in rk['supersteps']):.3f} ms over "
+                f"{len(rk['supersteps'])} ({label})")
+        if name == "degree":
+            continue
+        cs = meta["checksum"]
+        rel_g = abs(cs - ref["checksum"]) / ref["checksum"]
+        rel_1 = abs(cs - ref["pr_checksum"]) / ref["pr_checksum"]
+        log(f"mesh a {name}: checksum {cs!r} (reachable "
+            f"{meta['reachable']}): rel err {rel_g:.3e} vs the f64 golden, "
+            f"{rel_1:.3e} vs phase 4's 1x1 {ref['pr_checksum']!r}")
+        if not (rel_g < GOLDEN_RTOL and rel_1 < FOLD_RTOL["float32"]):
+            raise AssertionError(f"mesh {name}: checksum {cs}")
+    # the superstep's split: each exchange, combine and apply fenced
+    want, _ = _mesh_result(np, out, "pr_onehot")
+    state, meta = _mesh_result(np, out, "pr_onehot_profiled")
+    if not all(np.array_equal(state[k], v) for k, v in want.items()):
+        raise AssertionError("mesh: execute_profiled differs from execute")
+    for b, rk in enumerate(meta["ranks"]):
+        ph = rk["phases"]
+        total = sum(ms for ms, _ in ph.values())
+        log(f"mesh a pr_onehot_profiled: rank {b}: " + ", ".join(
+            f"{k} {ms:.3f} ms / {n}" for k, (ms, n) in ph.items())
+            + f"; exchange {100 * ph['exchange'][0] / total:.1f}% of the "
+            f"fenced phases, bit for bit with pr_onehot ({label})")
+    for b, got in enumerate(launches):
+        log(f"mesh a: rank {b} launches {got}")
+        _need_launches(f"mesh rank {b}", {k: got.get(k, 0)
+                                          for k in MESH_KERNELS},
+                       {k: 1 for k in MESH_KERNELS})
+    _mark("mesh a")
+    # (b) BFS, CC and SSSP at RMAT-18 with the sparse exchange
+    files = {}
+    for tag, weighted in (("", False), ("w", True)):
+        files[tag] = os.path.join(MESH_DIR, f"rmat{SUITE_SCALE}{tag}.bin")
+        write_binary(files[tag], *rmat_edges(SUITE_SCALE, EDGE_FACTOR,
+                                             seed=SEED, weighted=weighted))
+    graphs = {app: {"path": files["w" if app == "sssp" else ""],
+                    "nv": 1 << SUITE_SCALE, "config": app}
+              for app in SUITE_APPS}
+    runs = [{"name": f"{app}_{k}_k{K}", "graph": app, "app": app,
+             "kernel": k, "capacity": K} for app in SUITE_APPS
+            for k in ("onehot", "shuffle2") for K in MESH_CAPS]
+    out = _mesh_launch({"shape": list(MESH_SHAPE), "backend": "gloo",
+                        "device": DEVICE, "graphs": graphs, "runs": runs},
+                       MESH_SHAPE[0] * MESH_SHAPE[1], "b")
+    for app in SUITE_APPS:
+        for k in ("onehot", "shuffle2"):
+            seen = set()
+            for K in MESH_CAPS:
+                state, meta = _mesh_result(np, out, f"{app}_{k}_k{K}")
+                ok = all(np.array_equal(state[key], v)
+                         for key, v in _SUITE_WANT[app].items())
+                steps = [rk["supersteps"] for rk in meta["ranks"]]
+                seen |= {st["sparse"] for rk in steps for st in rk}
+                ms = _median(st["ms"] for rk in steps for st in rk)
+                log(f"mesh b {app} {k} K={K}: {meta['iteration']} "
+                    f"iterations, state vs golden "
+                    f"{'equal' if ok else 'DIFFER'}; rank 0 branches (x, "
+                    f"y) {[(st['sparse'], st['sparse_y']) for st in steps[0]]}"
+                    f", launches {meta['ranks'][0]['launches']}; superstep "
+                    f"median {ms:.3f} ms ({label})")
+                if not ok:
+                    raise AssertionError(f"mesh {app} {k} K={K} differs "
+                                         f"from golden")
+            if seen != {True, False}:
+                raise AssertionError(f"mesh {app} {k}: sparse branches "
+                                     f"seen {seen}")
+    _mark("mesh b")
+    # (c) one rank in an NCCL group against the group-free run
+    out = _mesh_launch({"shape": [1, 1], "backend": "nccl",
+                        "device": DEVICE, "graphs": {"pr": {
+                            "path": files[""], "nv": 1 << SUITE_SCALE,
+                            "config": "pr"}},
+                        "runs": [{"name": "pr", "graph": "pr",
+                                  "app": "pagerank", "kernel": "onehot",
+                                  "dtype": "float32", "iters": ITERS,
+                                  "degree_kernel": "onehot",
+                                  "plain": True}]}, 1, "c")
+    (sa, ma), (sb, mb) = (_mesh_result(np, out, n) for n in ("pr", "pr_1x1"))
+    same = all(np.array_equal(sa[k], sb[k]) for k in sb)
+    log(f"mesh c: PageRank on onehot through {ma['exchange']} (1x1 "
+        f"group) vs group-free ({mb['exchange']}): "
+        f"{'bit for bit' if same else 'DIFFER'}; checksum {ma['checksum']!r}")
+    if ma["exchange"] != "nccl" or mb["exchange"] is not None or not same:
+        raise AssertionError("mesh c: the NCCL 1x1 run differs from the "
+                             "group-free run")
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
 
 
 def phase_probes(torch):
@@ -2624,6 +2822,9 @@ def _phases(torch, np) -> int:
     phase_cc_sssp(torch, np)
     _mark("cc/sssp")
     phase_cli(torch, np)
+    _mark("cli")
+    phase_mesh(torch, np, ref)
+    _mark("mesh")
     log("ms per call group of one SpMV: route_fold sums its fixr and fix2 "
         "calls, expand_stream its three calls, "
         "windowed_gather its six stage calls; the static panel rows at a "

@@ -13,19 +13,22 @@ numpy-only host planner is the port's own copy of the JAX package's
 ``native/``, built into ``build/`` at first use), so its plan bytes equal
 the JAX package's and nothing of that package is read.
 
-This version runs on one device: the degree phase and PageRank, for a
-fixed count of iterations or to convergence, on CSC, DCSC, TCSC or
-TCSC_CF tiles (``apps.run_pagerank``, ``run_pagerank_two_load``; the
-``apps.pr``, ``pr1`` and ``deg`` mains), BFS, CC and SSSP to convergence
-with frontier gating (``apps.run_bfs``, ``run_cc``, ``run_sssp``), and
-the kernel lab's nine format/kernel variants (``tools.kernel_lab``,
-``tools.lab_table``). Entry points run on the card (``device="cuda"``)
+It runs the degree phase and PageRank, for a fixed count of iterations
+or to convergence, on CSC, DCSC, TCSC or TCSC_CF tiles
+(``apps.run_pagerank``, ``run_pagerank_two_load``; the ``apps.pr``,
+``pr1`` and ``deg`` mains), BFS, CC and SSSP to convergence with
+frontier gating and the sparse exchange (``apps.run_bfs``, ``run_cc``,
+``run_sssp``), and the kernel lab's nine format/kernel variants
+(``tools.kernel_lab``, ``tools.lab_table``), on one device or on an
+R x C mesh of ``torch.distributed`` ranks, one a shard
+(``parallel.layout.make_mesh``; ``parallel.launch`` starts N ranks; the
+kernel lab stays 1x1). Entry points run on the card (``device="cuda"``)
 unless the caller passes ``device="cpu"``.
 """
 
 from graphtap_tpu_torch.config import (Compression, EngineConfig,
                                        GraphConfig, Ordering)
-from graphtap_tpu_torch.parallel.layout import Partition
+from graphtap_tpu_torch.parallel.layout import Mesh, Partition, make_mesh
 from graphtap_tpu_torch.ingest.graph import Graph
 from graphtap_tpu_torch.engine.program import VertexProgram
 from graphtap_tpu_torch.engine.executor import Executor
@@ -36,6 +39,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "GraphConfig", "EngineConfig", "Compression", "Ordering", "Partition",
+    "Mesh", "make_mesh",
     "Graph", "VertexProgram", "Executor", "Semiring", "plus_times",
     "min_plus", "min_select",
 ]

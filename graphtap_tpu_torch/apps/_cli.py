@@ -21,6 +21,12 @@ asks for ``cpu``. ``--kernel``: ``auto`` (the default) is the panel
 pipeline on the card and the portable scan kernel on the CPU, as the JAX
 package's ``auto`` picks its chip's fast kernel; or any name of
 ``engine.executor.KERNELS``.
+
+Started by a launcher (RANK and WORLD_SIZE set: ``parallel/launch.py``,
+the analog of ``mpirun -np N``), every rank joins the process group (gloo)
+and runs on the world's near-square mesh, each reading its byte range of
+the file; the balance line prints on rank 0 only, the oracle lines on
+every rank (the same values: the checksum gathers every rank's state).
 """
 
 from __future__ import annotations
@@ -29,14 +35,16 @@ import argparse
 import time
 
 from graphtap_tpu_torch.engine.executor import KERNELS
+from graphtap_tpu_torch.parallel import multihost
+from graphtap_tpu_torch.parallel.layout import make_mesh
 
 
 def app_main(name: str, run, third_arg: str = "iters", default_third=0,
              argv=None):
     """Parse the reference-style argv, run the app, print the oracle
     lines (the balance line first). ``run(graph_path, nvertices, third,
-    kernel, device)`` must return (the finished Executor, its execute
-    seconds)."""
+    kernel, device, mesh)`` must return (the finished Executor, its
+    execute seconds); ``mesh``: the launcher's mesh, or None."""
     p = argparse.ArgumentParser(prog=f"graphtap_tpu_torch.apps.{name}")
     p.add_argument("file")
     p.add_argument("nvertices", type=int)
@@ -47,13 +55,17 @@ def app_main(name: str, run, third_arg: str = "iters", default_third=0,
     if args.kernel == "auto":
         args.kernel = "panel" if args.device == "cuda" else "scan"
 
+    rank, world = multihost.initialize()
+    mesh = make_mesh() if world > 1 else None
+
     t0 = time.perf_counter()
     ex, t_exec = run(args.file, args.nvertices, getattr(args, third_arg),
-                     args.kernel, args.device)
+                     args.kernel, args.device, mesh)
     t_total = time.perf_counter() - t0
 
     checksum, reachable = ex.checksum()
-    print(ex.tiles.balance_report())
+    if rank == 0:
+        print(ex.tiles.balance_report())
     print(f"{name} end-to-end time: {t_total:f} seconds")
     print(f"Execute time: {t_exec:f} seconds")
     print(f"Iterations: {ex.iteration}")

@@ -73,16 +73,21 @@ def bfs_config(num_vertices: int) -> GraphConfig:
 
 
 def run_bfs(graph: Graph, root: int = 0, kernel: str = "panel",
-            device="cuda", plans=None) -> Executor:
+            device="cuda", plans=None,
+            sparse_exchange_capacity: int = 0) -> Executor:
     """BFS from ``root`` to convergence on ``device`` ('cuda' unless the
     caller passes 'cpu'; ``kernel`` 'panel': the frontier-gated K1-K4
     pipeline; 'shuffle': K6-K8; 'shuffle2': K9 and K8; 'onehot': K5;
     'segment' or 'scan': plain torch). ``graph`` is read through
     ``bfs_config``; ``plans``: the kernel's prebuilt int32 plans of its
-    ROW tiles (``tools/artifact_cache.py``), as ``Executor`` takes them."""
+    ROW tiles (``tools/artifact_cache.py``), as ``Executor`` takes them;
+    ``sparse_exchange_capacity``: K of the sparse exchange (0: dense;
+    ``engine/executor.py``)."""
     ex = Executor(graph, BFSProgram(root=root),
                   EngineConfig(stationary=False, apply_depends_on_iter=True,
-                               ordering=Ordering.ROW),
+                               ordering=Ordering.ROW,
+                               sparse_exchange_capacity=(
+                                   sparse_exchange_capacity)),
                   kernel=kernel, plans=plans, device=device)
     ex.initialize()
     ex.execute(0)
@@ -92,8 +97,8 @@ def run_bfs(graph: Graph, root: int = 0, kernel: str = "panel",
 if __name__ == "__main__":
     from graphtap_tpu_torch.apps._cli import app_main, timed
 
-    def _run(path, nv, root, kernel, device):
-        g = Graph.load(path, bfs_config(nv))
+    def _run(path, nv, root, kernel, device, mesh):
+        g = Graph.load(path, bfs_config(nv), mesh=mesh)
         return timed(run_bfs, g, root=root, kernel=kernel, device=device)
 
     app_main("bfs", _run, third_arg="root", default_third=0)

@@ -60,14 +60,17 @@ def cc_config(num_vertices: int) -> GraphConfig:
 
 
 def run_cc(graph: Graph, kernel: str = "panel", device="cuda",
-           plans=None) -> Executor:
+           plans=None, sparse_exchange_capacity: int = 0) -> Executor:
     """CC to convergence on ``device`` ('cuda' unless the caller passes
     'cpu'; ``kernel`` any of ``Executor``'s: 'panel', 'shuffle',
     'shuffle2', 'onehot', 'segment' or 'scan'); ``graph`` is read
-    through ``cc_config``; ``plans``: as ``run_bfs`` takes them."""
+    through ``cc_config``; ``plans`` and ``sparse_exchange_capacity``: as
+    ``run_bfs`` takes them."""
     ex = Executor(graph, CCProgram(),
                   EngineConfig(stationary=False, gather_depends_on_apply=True,
-                               ordering=Ordering.ROW),
+                               ordering=Ordering.ROW,
+                               sparse_exchange_capacity=(
+                                   sparse_exchange_capacity)),
                   kernel=kernel, plans=plans, device=device)
     ex.initialize()
     ex.execute(0)
@@ -77,8 +80,8 @@ def run_cc(graph: Graph, kernel: str = "panel", device="cuda",
 if __name__ == "__main__":
     from graphtap_tpu_torch.apps._cli import app_main, timed
 
-    def _run(path, nv, _third, kernel, device):
-        g = Graph.load(path, cc_config(nv))
+    def _run(path, nv, _third, kernel, device, mesh):
+        g = Graph.load(path, cc_config(nv), mesh=mesh)
         return timed(run_cc, g, kernel=kernel, device=device)
 
     app_main("cc", _run, third_arg="iters", default_third=0)

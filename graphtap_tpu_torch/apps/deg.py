@@ -7,10 +7,11 @@ from graphtap_tpu_torch.config import Compression, GraphConfig
 from graphtap_tpu_torch.ingest.graph import Graph
 
 
-def _run(path, nv, _third, kernel, device):
+def _run(path, nv, _third, kernel, device, mesh):
     g = Graph.load(path, GraphConfig(num_vertices=nv, directed=True,
                                      transpose=False,
-                                     compression=Compression.TCSC))
+                                     compression=Compression.TCSC),
+                   mesh=mesh)
     return timed(run_degree, g, kernel=kernel, device=device)
 
 

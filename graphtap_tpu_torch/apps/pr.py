@@ -10,10 +10,11 @@ from graphtap_tpu_torch.config import Compression, GraphConfig
 from graphtap_tpu_torch.ingest.graph import Graph
 
 
-def _run(path, nv, iters, kernel, device):
+def _run(path, nv, iters, kernel, device, mesh):
     g = Graph.load(path, GraphConfig(num_vertices=nv, directed=True,
                                      transpose=True,
-                                     compression=Compression.TCSC_CF))
+                                     compression=Compression.TCSC_CF),
+                   mesh=mesh)
     return timed(run_pagerank, g, num_iterations=iters, kernel=kernel,
                  device=device)
 

@@ -5,9 +5,9 @@ from graphtap_tpu_torch.apps._cli import app_main, timed
 from graphtap_tpu_torch.apps.pagerank import run_pagerank_two_load
 
 
-def _run(path, nv, iters, kernel, device):
+def _run(path, nv, iters, kernel, device, mesh):
     return timed(run_pagerank_two_load, path, nv, num_iterations=iters,
-                 kernel=kernel, device=device)
+                 kernel=kernel, device=device, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -72,16 +72,20 @@ def sssp_config(num_vertices: int, weighted: bool = True) -> GraphConfig:
 
 
 def run_sssp(graph: Graph, root: int = 0, weighted: bool = True,
-             kernel: str = "panel", device="cuda", plans=None) -> Executor:
+             kernel: str = "panel", device="cuda", plans=None,
+             sparse_exchange_capacity: int = 0) -> Executor:
     """SSSP from ``root`` to convergence on ``device`` ('cuda' unless the
     caller passes 'cpu'; ``kernel`` any of ``Executor``'s: 'panel',
     'shuffle', 'shuffle2' (its ⊗ is K9's add_sat), 'onehot', 'segment' or
     'scan');
     ``graph`` is read through ``sssp_config`` (with its weights when
-    ``weighted``); ``plans``: as ``run_bfs`` takes them."""
+    ``weighted``); ``plans`` and ``sparse_exchange_capacity``: as
+    ``run_bfs`` takes them."""
     ex = Executor(graph, SSSPProgram(root=root, weighted=weighted),
                   EngineConfig(stationary=False, gather_depends_on_apply=True,
-                               ordering=Ordering.ROW),
+                               ordering=Ordering.ROW,
+                               sparse_exchange_capacity=(
+                                   sparse_exchange_capacity)),
                   kernel=kernel, plans=plans, device=device)
     ex.initialize()
     ex.execute(0)
@@ -91,8 +95,8 @@ def run_sssp(graph: Graph, root: int = 0, weighted: bool = True,
 if __name__ == "__main__":
     from graphtap_tpu_torch.apps._cli import app_main, timed
 
-    def _run(path, nv, root, kernel, device):
-        g = Graph.load(path, sssp_config(nv))
+    def _run(path, nv, root, kernel, device, mesh):
+        g = Graph.load(path, sssp_config(nv), mesh=mesh)
         return timed(run_sssp, g, root=root, kernel=kernel, device=device)
 
     app_main("sssp", _run, third_arg="root", default_third=0)

@@ -1,1 +1,1 @@
-"""VertexProgram protocol and the one-device Executor."""
+"""VertexProgram protocol and the Executor (one device, or one mesh shard)."""

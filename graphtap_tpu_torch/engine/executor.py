@@ -1,26 +1,57 @@
-"""Executor: the BSP superstep loop on one device.
+"""Executor: the BSP superstep loop of one mesh shard.
 
-Counterpart of ``graphtap_tpu/engine/executor.py`` for a 1x1 mesh
-(reference: Vertex_Program::execute, vertex_program.hpp:407-441). One
-superstep is messenger -> exchange x -> combine (the SpMV) -> exchange y
--> apply (masked to the I rows under TCSC, :1655-1670). On one device
-both exchanges are the identity; they assert the 1x1 layout instead of
-running a collective.
+Counterpart of ``graphtap_tpu/engine/executor.py`` (reference:
+Vertex_Program::execute, vertex_program.hpp:407-441). One superstep is
+messenger -> exchange x -> combine (the SpMV) -> exchange y -> apply
+(masked to the I rows under TCSC, :1655-1670). The JAX executor runs the
+superstep under ``shard_map`` on its ('rows', 'cols') mesh; the port runs
+one ``torch.distributed`` rank per shard (``parallel/layout.py::Mesh``,
+rank = shard b = i*C + j), on the graph's mesh, and each rank uploads
+its own row of the tiles and plans. The exchanges follow the JAX
+executor's (its executor.py:257-343):
+
+  * x: an all-gather of the messages over the rank's mesh column
+    (``xgroup``), which concatenates, in i order, the contiguous column
+    block of the tile;
+  * y: an all-to-all of the (C, L) partials over the mesh row
+    (``ygroup``), then a ⊕-fold of the C received parts in shard order,
+    for every semiring (the JAX executor reduce-scatters sums with
+    ``psum_scatter``, which sums in its own order: f32 sums agree within
+    tolerance, not bit for bit);
+  * the vote: an all-reduce of every rank's all(~changed) over the world,
+    compared with D, read to the host once a superstep;
+  * with ``EngineConfig.sparse_exchange_capacity = K`` and a
+    nonstationary program, the sparse protocol (reference :865-966,
+    :1543-1573), on 1x1 as well: if every member of the group has at
+    most K active slots (a fits-vote summed over the group, so every
+    member takes the same branch), the first K active slots are
+    compacted (a stable argsort), exchanged as (index, value) pairs and
+    rebuilt (x) or ⊕-scattered (y, min/max only: sums always exchange
+    dense); else the dense exchange. ``supersteps[i]["sparse"]`` and
+    ``["sparse_y"]`` record the branch each side took (None: dense by
+    rule, K = 0 or a sum).
+
+Collectives run on the group's device: the CUDA tensors themselves on
+NCCL, CPU tensors on gloo, and with CUDA tensors on gloo (ranks sharing
+one card) each exchange copies to the host and back (``exchange``:
+"nccl", "gloo", "gloo-host", or None without a mesh, where every
+exchange but the sparse protocol's compaction is the identity).
 
 Ported: fixed-iteration and convergence mode on every tile format (CSC,
 DCSC, TCSC, TCSC_CF), stationary and nonstationary programs (messages
 masked to the ⊕-identity outside the frontier, the panel pipeline
 frontier-gated), every kernel choice of the JAX executor (``KERNELS``),
-prebuilt ``tiles=``, ``initialize(other=)`` with the I-masked handoff,
+prebuilt ``tiles=``, ``initialize(other=)`` with the I-masked handoff
+(both programs share one partition, so each rank's segment is local),
 ``free()``, ``execute_profiled`` (per-phase timing) and the oracles
-(``state_vector``, ``checksum``, ``stats``, ``display``). The format is
+(``state_vector``, ``checksum``, ``stats``, ``display``, which gather the
+state from every rank and return the same values on each). The format is
 the tiles' own, and the JAX executor's rules hold: CSC and DCSC keep raw
 local rows, so the SpMV's y is the dense row block itself and apply masks
 nothing but the padding (the I mask is TCSC's, :1655-1670); DCSC gathers
 x through its JC table first and runs on scan and segment only; shuffle
 needs renumbered (TCSC) rows. Those two and an unknown kernel name raise
-``ValueError``; the sparse exchange and the mesh raise
-``NotImplementedError`` until a later version ports them.
+``ValueError``.
 
 TCSC_CF (computation filtering, reference: spmv_stationary's phase
 gating, vertex_program.hpp:1243-1320; apply :1671-1692) runs three edge
@@ -38,9 +69,11 @@ tiles and plans are built at the first run that needs them.
 
 Convergence mode (``execute(0)``, reference :407-441) runs supersteps
 until every vertex votes unchanged, then one flush: combine and apply on
-the last superstep's messages (:425-429). Each superstep reads the vote
-to the host once, and the panel kernel's "auto" gate reads its
-panel-activity vote once more; both are synchronizing reads.
+the last superstep's messages (:425-429), their x exchanged dense, as
+the JAX executor's flush gathers it. Each superstep reads the vote to
+the host once, each sparse side its fits-vote once, and the panel
+kernel's "auto" gate its panel-activity vote once more; all are
+synchronizing reads.
 """
 
 from __future__ import annotations
@@ -76,6 +109,7 @@ from graphtap_tpu_torch.kernels.shuffle_engine import (
     ShufflePlans, build_shuffle_plans, spmv_local, validate_shuffle_plans)
 from graphtap_tpu_torch.kernels.spmv import (expand_compact, spmv_segment,
                                              spmv_sorted_scan)
+from graphtap_tpu_torch.parallel import multihost as mh
 from graphtap_tpu_torch.tools.convert import meta_from_numpy
 
 KERNELS = ("scan", "segment", "onehot", "shuffle", "shuffle2", "panel")
@@ -124,6 +158,20 @@ def _nbytes(dev: Dict) -> int:
                if isinstance(v, torch.Tensor))
 
 
+def _transport(mesh, device: torch.device) -> Optional[str]:
+    """How the exchanges move data: None without a mesh; 'nccl' (the CUDA
+    tensors themselves); 'gloo' (CPU tensors) or 'gloo-host' (CUDA
+    tensors copied to the host and back)."""
+    if mesh is None:
+        return None
+    if mesh.backend == "nccl":
+        if device.type != "cuda":
+            raise ValueError("an nccl mesh exchanges CUDA tensors; the "
+                             "executor's device is the CPU")
+        return "nccl"
+    return "gloo-host" if device.type == "cuda" else "gloo"
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -142,7 +190,8 @@ def _fenced(timer, name: str, device: torch.device):
 
 
 class Executor:
-    """Runs one VertexProgram over one TileSet on one device.
+    """Runs one VertexProgram over this rank's shard of one TileSet (the
+    graph's mesh; without one, the whole 1x1 TileSet on one device).
 
     ``kernel``: 'panel' (the v3 panel-route pipeline, K1-K4), 'shuffle'
     (the v1 shuffle pipeline, K6-K8), 'shuffle2' (the v2 windowed-gather
@@ -169,12 +218,15 @@ class Executor:
     ``cf_upload``). ``supersteps`` lists the last ``execute``'s
     supersteps: the tile phase each ran (``phase``: "main", or a TCSC_CF
     phase), the branch its SpMV took (``gated``: True/False on 'panel',
-    None on the other kernels) and, on a CUDA device, its time by CUDA
+    None on the other kernels), the branches of its sparse exchange
+    (``sparse`` for x, ``sparse_y`` for y: True/False, None where the
+    exchange is dense by rule) and, on a CUDA device, its time by CUDA
     events (``ms``; None on the CPU); the flush of convergence mode is not
-    among them. ``device_bytes`` is the size of the arrays uploaded for
-    the superstep (tiles or plans, and the fold lists and scratch of K3,
-    K5 and K8), those of the TCSC_CF phases included once they are
-    built."""
+    among them. ``device_bytes`` is the size of the arrays this rank
+    uploaded for the superstep (its row of the tiles or plans, and the
+    fold lists and scratch of K3, K5 and K8), those of the TCSC_CF phases
+    included once they are built. ``exchange`` names the exchanges'
+    transport (``_transport``)."""
 
     def __init__(self, graph: Graph, program: VertexProgram,
                  engine: Optional[EngineConfig] = None, kernel: str = "scan",
@@ -187,16 +239,13 @@ class Executor:
         self.graph = graph
         self.program = program
         self.engine = engine or EngineConfig(stationary=program.stationary)
-        # the JAX executor ignores K for stationary programs and exchanges
-        # dense; the nonstationary sparse exchange is not ported yet
-        if (self.engine.sparse_exchange_capacity != 0
-                and not program.stationary):
-            raise NotImplementedError("the sparse exchange comes with the "
-                                      "mesh and is not ported yet")
         mode = gate_mode(os.environ.get(GATE_ENV))
         self.gate = False if program.stationary else mode
         self.kernel = kernel
         self.part = graph.part
+        self.mesh = graph.mesh
+        self.shard = mh.shard_of(self.part, self.mesh)
+        self.exchange = _transport(self.mesh, self.device)
         self.timings: Dict[str, float] = {}
         self._phase_plans = dict(phase_plans or {})
         t0 = time.perf_counter()
@@ -258,25 +307,26 @@ class Executor:
         return plans
 
     def _upload(self, tiles: TileSet, meta) -> Dict[str, torch.Tensor]:
-        """The device-resident arrays the superstep reads (device 0 of the
-        tiles' leading device axis)."""
-        dev = {"i_own": self._tensor(tiles.i_own[0]),
-               "vids": self._tensor(self.part.owner_vids()[0])}
+        """The device-resident arrays the superstep reads: this rank's row
+        of the tiles' leading device axis, or its plans."""
+        b = self.shard
+        dev = {"i_own": self._tensor(tiles.i_own[b]),
+               "vids": self._tensor(self.part.owner_vids()[b])}
         if self.kernel in _PLANNERS:
             dev.update(meta_from_numpy(meta.arrays, self.device))
             # the fixed-order float folds' lists and scratch (K3, K5, K8),
             # and K7's composed index
             _FOLD_TABLES[self.kernel](dev, meta, self.program.value_dtype)
             if self.kernel == "onehot" and tiles.iv_dense is not None:
-                dev["iv_dense"] = self._tensor(tiles.iv_dense[0])
+                dev["iv_dense"] = self._tensor(tiles.iv_dense[b])
             return dev
-        n = int(tiles.nnz[0, 0])
-        dev.update(rows=self._tensor(tiles.rows[0].astype(np.int64)),
-                   cols=self._tensor(tiles.cols[0].astype(np.int64)),
-                   ja=self._tensor(tiles.ja[0]), nnz=n)
+        n = int(tiles.nnz[b, 0])
+        dev.update(rows=self._tensor(tiles.rows[b].astype(np.int64)),
+                   cols=self._tensor(tiles.cols[b].astype(np.int64)),
+                   ja=self._tensor(tiles.ja[b]), nnz=n)
         for k in ("iv_dense", "jc", "weights"):
             if getattr(tiles, k) is not None:
-                dev[k] = self._tensor(getattr(tiles, k)[0])
+                dev[k] = self._tensor(getattr(tiles, k)[b])
         return dev
 
     def _cf_phases(self) -> None:
@@ -298,7 +348,7 @@ class Executor:
             meta = self._plans(cf[ph], self._phase_plans.pop(ph, None))
             t1 = time.perf_counter()
             dev = self._upload(cf[ph], meta)
-            dev["apply_mask"] = self._tensor(masks[ph][0])
+            dev["apply_mask"] = self._tensor(masks[ph][self.shard])
             self.device_bytes += _nbytes(dev)
             _sync(self.device)
             self.timings["cf_plans"] += t1 - t0
@@ -307,14 +357,17 @@ class Executor:
 
     # ------------------------------------------------------------- lifecycle
     def initialize(self, other: Optional["Executor"] = None) -> None:
-        """Build the initial state (reference: initialize(), :444-503); the
-        handoff variant takes the predecessor's final state (:467-483)."""
-        vids = self.part.owner_vids()
+        """Build this rank's initial state (reference: initialize(),
+        :444-503); the handoff variant takes the predecessor's final state
+        (:467-483), which lies on this rank: both programs share one
+        partition."""
+        rows = slice(self.shard, self.shard + 1)
+        vids = self.part.owner_vids()[rows]
         other_state = None
         if other is not None:
             other_state = {k: v.cpu().numpy()[None]
                            for k, v in other.state.items()}
-        state_np, changed_np = self.program.init(vids, self.tiles.i_own,
+        state_np, changed_np = self.program.init(vids, self.tiles.i_own[rows],
                                                  other_state)
         self.state = {k: self._tensor(np.asarray(v)[0])
                       for k, v in state_np.items()}
@@ -333,21 +386,126 @@ class Executor:
         self._phases = None
         self._phase_plans = {}
 
+    # -------------------------------------------------------------- exchange
+    def _wire(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` on the group's device (the host for 'gloo-host')."""
+        t = t.contiguous()
+        return t.cpu() if self.exchange == "gloo-host" else t
+
+    def _home(self, t: torch.Tensor) -> torch.Tensor:
+        return t.to(self.device) if self.exchange == "gloo-host" else t
+
+    def _gather_x(self, t: torch.Tensor) -> torch.Tensor:
+        """(n,) -> (R*n,): every mesh-column member's ``t``, in i order."""
+        if self.mesh is None:
+            return t
+        import torch.distributed as dist
+        src = self._wire(t)
+        out = torch.empty(self.part.R * src.numel(), dtype=src.dtype,
+                          device=src.device)
+        dist.all_gather_into_tensor(out, src, group=self.mesh.xgroup)
+        return self._home(out)
+
+    def _all_to_all_y(self, t: torch.Tensor) -> torch.Tensor:
+        """(C, n) -> (C, n): part k goes to mesh-row member k, and part k
+        of the result came from it."""
+        if self.mesh is None:
+            return t
+        import torch.distributed as dist
+        src = self._wire(t)
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src, group=self.mesh.ygroup)
+        return self._home(out)
+
+    def _count(self, flag: torch.Tensor, group: str) -> int:
+        """The number of the mesh ``group``'s members ("xgroup", "ygroup"
+        or "world") whose ``flag`` is set: one all-reduce, read to the
+        host."""
+        t = flag.to(torch.int32).reshape(1)
+        if self.mesh is None:
+            return int(t.item())
+        import torch.distributed as dist
+        t = self._wire(t)
+        dist.all_reduce(t, group=getattr(self.mesh, group))
+        return int(t.item())
+
+    def _sparse_k(self) -> int:
+        """The sparse exchange's capacity, capped at L; 0: dense."""
+        K = self.engine.sparse_exchange_capacity
+        return 0 if self.program.stationary else min(K, self.part.L)
+
+    def _exchange_x(self, m: torch.Tensor, c: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, Optional[bool]]:
+        """Messages -> the x block of the tile's columns (R*L,): an
+        all-gather over the mesh column; or, with the sparse exchange and
+        the frontier ``c``, its (index, value) pairs when every member's
+        frontier fits in K (reference :865-966). Returns (x, the sparse
+        branch: True/False, None if dense by rule)."""
+        K = self._sparse_k() if c is not None else 0
+        if not K:
+            return self._gather_x(m), None
+        R, L = self.part.R, self.part.L
+        nact = c.sum()
+        if self._count(nact <= K, "xgroup") != R:
+            return self._gather_x(m), False
+        idx = torch.argsort((~c).to(torch.uint8), stable=True)[:K]
+        val = m[idx]
+        ok = torch.arange(K, device=m.device) < nact
+        idx = torch.where(ok, idx, R * L).to(torch.int32)
+        gidx = self._gather_x(idx).view(R, K).long()
+        gval = self._gather_x(val).view(R, K)
+        off = torch.arange(R, device=m.device).view(R, 1) * L
+        gi = torch.where(gidx < L, gidx + off, R * L)      # R*L: parked
+        x = torch.full((R * L + 1,), self.program.semiring.identity,
+                       dtype=m.dtype, device=m.device)
+        x[gi.reshape(-1)] = gval.reshape(-1)
+        return x[:R * L], True
+
+    def _fold_parts(self, parts: torch.Tensor) -> torch.Tensor:
+        """(C, L) received partials -> their ⊕-fold, in shard order."""
+        add = self.program.semiring.add
+        y = parts[0]
+        for k in range(1, parts.shape[0]):
+            y = add(y, parts[k])
+        return y
+
+    def _exchange_y(self, y_dense: torch.Tensor
+                    ) -> Tuple[torch.Tensor, Optional[bool]]:
+        """Partial y (C*L,) -> the owner's segment (L,): an all-to-all over
+        the mesh row and a ⊕-fold of the parts in shard order; or, with
+        the sparse exchange on a min/max semiring, the active (index,
+        value) pairs ⊕-scattered when every member's parts fit in K
+        (reference :912-966, :1543-1573). Returns (y, the sparse branch:
+        True/False, None if dense by rule)."""
+        sem, C, L = self.program.semiring, self.part.C, self.part.L
+        y2 = y_dense.view(C, L)
+        K = self._sparse_k() if sem.reduce_kind != "sum" else 0
+        if not K:
+            return self._fold_parts(self._all_to_all_y(y2)), None
+        act = y2 != sem.identity
+        nact = act.sum(dim=1)
+        if self._count(nact.max() <= K, "ygroup") != C:
+            return self._fold_parts(self._all_to_all_y(y2)), False
+        idx = torch.argsort((~act).to(torch.uint8), dim=1, stable=True)[:, :K]
+        val = torch.gather(y2, 1, idx)
+        ok = torch.arange(K, device=y2.device).view(1, K) < nact.view(C, 1)
+        idx = torch.where(ok, idx, L).to(torch.int32)      # L: parked
+        gi = self._all_to_all_y(idx).reshape(-1).long()
+        gv = self._all_to_all_y(val).reshape(-1)
+        y = torch.full((L + 1,), sem.identity, dtype=y2.dtype,
+                       device=y2.device)
+        y.scatter_reduce_(0, gi, gv, "amin" if sem.reduce_kind == "min"
+                          else "amax", include_self=True)
+        return y[:L], True
+
+    def _voted(self, C: torch.Tensor) -> bool:
+        """The convergence vote: every rank's vertices unchanged (one
+        all-reduce over the world, read to the host)."""
+        if self.mesh is None:
+            return not bool(C.any())
+        return self._count(~C.any(), "world") == self.part.D
+
     # ------------------------------------------------------------- superstep
-    def _exchange_x(self, m: torch.Tensor) -> torch.Tensor:
-        """Messages -> the x block of the tile's columns: an all-gather
-        along the mesh rows, the identity on one device."""
-        if self.part.R != 1:
-            raise NotImplementedError("mesh exchange is not ported yet")
-        return m
-
-    def _exchange_y(self, y_dense: torch.Tensor) -> torch.Tensor:
-        """Partial y -> the owner's segment: a reduce-scatter along the
-        mesh cols, the identity on one device."""
-        if self.part.C != 1:
-            raise NotImplementedError("mesh exchange is not ported yet")
-        return y_dense
-
     def _combine(self, x: torch.Tensor, phase: str
                  ) -> Tuple[torch.Tensor, Optional[bool]]:
         """Tile SpMV of ``phase``'s tiles -> (the dense row block (C*L,),
@@ -409,14 +567,22 @@ class Executor:
         return m
 
     def _step(self, V: State, m: torch.Tensor, it: int, phase: str,
-              timer=None) -> Tuple[State, torch.Tensor, Optional[bool]]:
-        """Exchange x, combine, exchange y, apply -> (V', C', gated);
-        ``timer`` (a ``PhaseTimer``) times combine and apply, fenced."""
+              timer=None, c: Optional[torch.Tensor] = None
+              ) -> Tuple[State, torch.Tensor, Dict]:
+        """Exchange x (sparse only given the frontier ``c`` of ``m``),
+        combine, exchange y, apply -> (V', C', the branches taken:
+        ``gated``, ``sparse``, ``sparse_y``); ``timer`` (a
+        ``PhaseTimer``) times each exchange, combine and apply, fenced."""
+        with _fenced(timer, "exchange", self.device):
+            x, sparse = self._exchange_x(m, c)
         with _fenced(timer, "combine", self.device):
-            y, gated = self._combine(self._exchange_x(m), phase)
+            y, gated = self._combine(x, phase)
+        with _fenced(timer, "exchange", self.device):
+            y_own, sparse_y = self._exchange_y(y)
         with _fenced(timer, "apply", self.device):
-            V2, C2 = self._apply(V, self._exchange_y(y), it, phase)
-        return V2, C2, gated
+            V2, C2 = self._apply(V, y_own, it, phase)
+        return V2, C2, {"gated": gated, "sparse": sparse,
+                        "sparse_y": sparse_y}
 
     def _superstep(self, V: State, C: torch.Tensor, it: int, phase: str,
                    timer=None) -> Tuple[State, torch.Tensor, torch.Tensor]:
@@ -431,8 +597,8 @@ class Executor:
         t0 = time.perf_counter()
         with _fenced(timer, "scatter_gather", self.device):
             m = self._messages(V, C)
-        V2, C2, gated = self._step(V, m, it, phase, timer)
-        rec = {"phase": phase, "gated": gated, "ms": None}
+        V2, C2, branches = self._step(V, m, it, phase, timer, c=C)
+        rec = {"phase": phase, **branches, "ms": None}
         if ev is not None:
             ev[1].record()
             rec["events"] = ev
@@ -458,11 +624,12 @@ class Executor:
         vertex_program.hpp:422, :2134-2152); returns the ``PhaseTimer``
         (``tools/timing.py``), whose report ``printer`` gets last.
 
-        Each superstep's scatter_gather (the messages), combine (exchange
-        x and the SpMV) and apply (exchange y and the applicator) is timed
-        on the host clock, each fenced by a device synchronize on the card;
-        so is the flush of convergence mode (combine and apply). The run
-        is ``execute``'s loop, so the result is its result bit for bit.
+        Each superstep's scatter_gather (the messages), exchange (x, then
+        y, each a sample; in convergence mode the vote a third), combine
+        (the SpMV) and apply (the applicator) is timed on the host clock,
+        each fenced by a device synchronize on the card; so is the flush of
+        convergence mode (its exchanges, combine and apply). The run is
+        ``execute``'s loop, so the result is its result bit for bit.
         ``supersteps`` records each superstep's fenced host ms."""
         from graphtap_tpu_torch.tools.timing import PhaseTimer
         timer = timer or PhaseTimer()
@@ -498,10 +665,12 @@ class Executor:
             if printer is not None:
                 printer(f"Iteration: {it}")
             if converge:
-                converged = not bool(C.any())       # the vote: a host read
+                with _fenced(timer, "exchange", self.device):
+                    converged = self._voted(C)      # a host read
         if converge:
             # one extra combine + apply on the last superstep's messages,
-            # to flush source/sink contributions (reference :425-429)
+            # to flush source/sink contributions (reference :425-429); their
+            # x is exchanged dense
             V, C, _ = self._step(V, m, it, "last" if cf else "main", timer)
         self.iteration = it
         self.state, self.changed = V, C
@@ -515,9 +684,12 @@ class Executor:
 
     # -------------------------------------------------------------- oracles
     def state_vector(self) -> Dict[str, np.ndarray]:
-        """Full state in vertex-id order, truncated to nv."""
-        return {k: self.part.to_vertex_order(v.cpu().numpy()[None])
-                [: self.graph.nv] for k, v in self.state.items()}
+        """Full state in vertex-id order, truncated to nv, gathered from
+        every rank (``multihost.allgather_state``; every rank must call
+        it, and every rank gets it)."""
+        return {k: self.part.to_vertex_order(
+                    mh.allgather_state(v, self.mesh))[: self.graph.nv]
+                for k, v in self.state.items()}
 
     def checksum(self) -> Tuple[float, int]:
         """(value checksum, reachable count) (reference: checksum(),

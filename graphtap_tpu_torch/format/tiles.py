@@ -1,13 +1,16 @@
 """Tile construction: filtering, renumbering, compression (numpy).
 
 Counterpart of ``graphtap_tpu/format/tiles.py`` (``build_tileset``,
-``classify_vertices``, ``build_cf_tilesets``) for one process and every
-format (CSC, DCSC, TCSC, TCSC_CF): the same arrays, byte for byte,
-without the device placement (``device_arrays``) and without the
-multi-process OR/max/sum reductions, which are the identity on one
-process. TCSC_CF
-renumbers rows as TCSC does; its first/middle/last edge subsets are
-``build_cf_tilesets``'s, and the engine runs them as phases
+``classify_vertices``, ``build_cf_tilesets``) for every format (CSC,
+DCSC, TCSC, TCSC_CF): the same arrays, byte for byte, without the device
+placement (``device_arrays``). On a mesh of D > 1 ranks (``mesh=``) each
+rank holds only its shard's edges (after ``exchange_edges``), so the
+filter masks are OR-combined across the ranks and the per-device counts
+max- and sum-reduced, at the JAX package's three points
+(``parallel/multihost.py``): every rank then holds the (D, ...) tiles of
+the JAX multi-process layout, its own row equal to the single-process
+build's. TCSC_CF renumbers rows as TCSC does; its first/middle/last edge
+subsets are ``build_cf_tilesets``'s, and the engine runs them as phases
 (``engine/executor.py``). DCSC (reference: compressed_column.hpp:156-271)
 renumbers the columns into the compact nnz-col space and keeps the JC
 table, compact id -> dense local col, through which the engine gathers x
@@ -17,14 +20,15 @@ device itself.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
 
 from graphtap_tpu_torch import native
 from graphtap_tpu_torch.config import Compression
-from graphtap_tpu_torch.parallel.layout import Partition
+from graphtap_tpu_torch.parallel import multihost as mh
+from graphtap_tpu_torch.parallel.layout import Mesh, Partition
 
 
 def _round_up(x: int, m: int) -> int:
@@ -60,10 +64,15 @@ class TileSet:
     # DCSC only: compact col id -> dense local col (reference JC,
     # compressed_column.hpp:163), NCp = nnz cols rounded up to 128
     jc: Optional[np.ndarray] = None   # (D, NCp) int32 or None
+    # every device's valid-edge count across the mesh (nnz holds only
+    # this rank's row on a mesh), and the mesh the tiles were built on
+    dev_nnz: Optional[np.ndarray] = None   # (D,) int64
+    mesh: Optional[Mesh] = field(default=None, repr=False, compare=False)
 
     def edge_balance(self) -> dict:
         """Imbalance report (analog of Matrix::balance, matrix.hpp:563-687)."""
-        counts = self.nnz[:, 0].astype(np.float64)
+        counts = (self.nnz[:, 0] if self.dev_nnz is None
+                  else self.dev_nnz).astype(np.float64)
         mean = counts.mean() if counts.size else 0.0
         return {
             "per_device": counts.astype(np.int64).tolist(),
@@ -86,15 +95,20 @@ class TileSet:
         return line
 
 
-def classify_vertices(r: np.ndarray, c: np.ndarray, n_pad: int):
+def classify_vertices(r: np.ndarray, c: np.ndarray, n_pad: int,
+                      mesh: Optional[Mesh] = None):
     """Vertex classes over the stored matrix (reference:
     classify_vertices, matrix.hpp:1125-1282): regular = row and col
     present, source rows = rows without cols, sink cols = cols without
-    rows."""
+    rows. On a mesh each rank holds its share of the edges, so the
+    presence bitvectors are OR-combined across the ranks (matrix.hpp:
+    990-1006)."""
     has_row = np.zeros(n_pad, dtype=bool)
     has_col = np.zeros(n_pad, dtype=bool)
     has_row[np.asarray(r, np.int64)] = True
     has_col[np.asarray(c, np.int64)] = True
+    has_row = mh.global_or(has_row, mesh)
+    has_col = mh.global_or(has_col, mesh)
     return {"regular": has_row & has_col,
             "source_row": has_row & ~has_col,
             "sink_col": has_col & ~has_row}
@@ -102,7 +116,8 @@ def classify_vertices(r: np.ndarray, c: np.ndarray, n_pad: int):
 
 def build_cf_tilesets(r: np.ndarray, c: np.ndarray, w: Optional[np.ndarray],
                       part: Partition, parallel_edges: bool = True,
-                      edge_align: int = 1024, weight_dtype=np.int32):
+                      edge_align: int = 1024, weight_dtype=np.int32,
+                      mesh: Optional[Mesh] = None):
     """TCSC_CF: the full tileset and three edge-subset tilesets for the
     first / middle / last iteration phases (reference: the JA/JC pointer
     sets of TCSC_CF_BASE, compressed_column.hpp:606-1120, run per phase in
@@ -117,7 +132,7 @@ def build_cf_tilesets(r: np.ndarray, c: np.ndarray, w: Optional[np.ndarray],
     sink-col edges after iteration 0 sound."""
     r = np.asarray(r, np.int64)
     c = np.asarray(c, np.int64)
-    cls = classify_vertices(r, c, part.n_pad)
+    cls = classify_vertices(r, c, part.n_pad, mesh)
     row_is_source = cls["source_row"][r]
     col_is_sink = cls["sink_col"][c]
 
@@ -127,11 +142,12 @@ def build_cf_tilesets(r: np.ndarray, c: np.ndarray, w: Optional[np.ndarray],
                              compression=Compression.TCSC_CF,
                              parallel_edges=parallel_edges,
                              edge_align=edge_align,
-                             weight_dtype=weight_dtype)
+                             weight_dtype=weight_dtype, mesh=mesh)
 
     full = build_tileset(r, c, w, part, compression=Compression.TCSC_CF,
                          parallel_edges=parallel_edges,
-                         edge_align=edge_align, weight_dtype=weight_dtype)
+                         edge_align=edge_align, weight_dtype=weight_dtype,
+                         mesh=mesh)
     return {"full": full,
             "first": subset(~row_is_source),
             "middle": subset(~row_is_source & ~col_is_sink),
@@ -147,10 +163,13 @@ def build_tileset(
     parallel_edges: bool = True,
     edge_align: int = 1024,
     weight_dtype=np.int32,
+    mesh: Optional[Mesh] = None,
 ) -> TileSet:
     """Build the tiled, compressed representation from a host edge list
     (global, already transformed row/col ids; ``w`` optional weights).
-    Dedup of parallel edges keeps the minimum weight."""
+    Dedup of parallel edges keeps the minimum weight. ``mesh``: the ranks
+    whose edge shares together make the matrix (see the module
+    docstring); None on one process."""
     R, C, L, D = part.R, part.C, part.L, part.D
     r = np.asarray(r, dtype=np.int64)
     c = np.asarray(c, dtype=np.int64)
@@ -169,6 +188,10 @@ def build_tileset(
     rows_mask[i_e, lr] = True
     cols_mask = np.zeros((C, R * L), dtype=bool)
     cols_mask[j_e, lc] = True
+    # each rank sees only its shard's edges: OR the partial bitvectors
+    # (reference: the leader combine, matrix.hpp:990-1006)
+    rows_mask = mh.global_or(rows_mask, mesh)
+    cols_mask = mh.global_or(cols_mask, mesh)
 
     # prefix renumbering IV (reference: matrix.hpp:1044-1097)
     iv = np.cumsum(rows_mask, axis=1, dtype=np.int64) - 1
@@ -222,9 +245,12 @@ def build_tileset(
         per_w.append(bw)
         per_nnz.append(blr.size)
 
-    per_nnz_a = np.asarray(per_nnz, np.int64)
-    nnz_total = int(per_nnz_a.sum())
-    Ep = _round_up(int(max(int(per_nnz_a.max()) if per_nnz_a.size else 0, 1)),
+    # per-device counts are exact on the owning rank and zero (or, from
+    # every edge, exact) elsewhere, so the global counts are their max
+    # (reference invariant: matrix.hpp:802-804)
+    per_nnz_g = mh.global_max(np.asarray(per_nnz, np.int64), mesh)
+    nnz_total = int(per_nnz_g.sum())
+    Ep = _round_up(int(max(int(per_nnz_g.max()) if per_nnz_g.size else 0, 1)),
                    edge_align)
     NR = _round_up(int(max(nnzrows_grp.max(), 1)), 128) if renumber \
         else C * L
@@ -284,4 +310,5 @@ def build_tileset(
         nnzrows=nnzrows_arr, i_own=i_own, j_own=j_own,
         regular_own=i_own & j_own, source_own=i_own & ~j_own,
         sink_own=j_own & ~i_own, nnzcols=nnzcols_arr, jc=jc_arr,
+        dev_nnz=per_nnz_g, mesh=mesh,
     )

@@ -1,10 +1,11 @@
-"""The v2 windowed-gather SpMV on one device: host plans and x (NC,) ->
+"""The v2 windowed-gather SpMV of one shard: host plans and x (NC,) ->
 y_dense.
 
-Counterpart of ``graphtap_tpu/kernels/gather_engine.py`` for one device
-(the JAX package's 1x1 mesh, where its ``multihost.global_max`` calls are
-the identity): ``build_spmv2_meta`` gives the same arrays, byte for byte,
-with a leading device axis of 1; ``validate_spmv2_meta`` checks every
+Counterpart of ``graphtap_tpu/kernels/gather_engine.py``:
+``build_spmv2_meta`` plans this rank's shard and gives row b of the JAX
+package's single-process (D, ...) arrays, byte for byte, with a leading
+axis of 1 (its ``multihost.global_max`` normalizations run across the
+mesh's ranks); ``validate_spmv2_meta`` checks every
 index K9 and K8 follow, once, on the host; ``spmv2_stages`` /
 ``spmv2_local`` run the pipeline
 
@@ -33,6 +34,7 @@ from graphtap_tpu_torch.kernels.semiring import Semiring
 from graphtap_tpu_torch.kernels.shuffle_engine import mul_kind
 from graphtap_tpu_torch.kernels.shuffle_kernels import (grouped_reduce,
                                                         reduce_tables)
+from graphtap_tpu_torch.parallel import multihost as mh
 
 STAGES = ("exp",) + tuple(f"p{p}" for p in range(NPASSES)) + ("mx",)
 _PLAN_KEYS = ("wsel", "base", "nact", "cidx", "meta")
@@ -40,7 +42,7 @@ _PLAN_KEYS = ("wsel", "base", "nact", "cidx", "meta")
 
 @dataclass
 class Spmv2Meta:
-    """Static meta + device-stacked plan arrays (dict of (1, ...) numpy)."""
+    """Static meta + this shard's plan arrays (dict of (1, ...) numpy)."""
     NC: int
     nblocks: int            # padded compact y rows (mult of 8)
     dense_rows: int
@@ -52,26 +54,35 @@ class Spmv2Meta:
     arrays: Dict[str, np.ndarray]
 
 
-def _pad_steps(g: GatherPlan, nsteps: int) -> Dict[str, np.ndarray]:
-    """A stage's kernel arrays, padded to ``nsteps`` steps as the JAX
-    package's ``_pad_gather_plan`` pads them on one device (where its
-    mesh-common nsub and cidx blocks are the stage's own). Pad steps repeat
+def _pad_steps(g: GatherPlan, nsteps: int, nsub: int,
+               cidx_blocks: int) -> Dict[str, np.ndarray]:
+    """A stage's kernel arrays, padded to the mesh-common ``nsteps``,
+    ``nsub`` and ``cidx_blocks`` as the JAX package's ``_pad_gather_plan``
+    pads them. Extra subops repeat a step's last window; pad steps repeat
     the last step's windows and have nact 0, all-invalid meta and a base
-    of the total, so they read nothing."""
+    of the total, so they read nothing; cidx grows by zero blocks that no
+    step streams."""
     gn = g.out_rows // SUB
     wsel = g.wsel.reshape(gn, g.nsub)
+    if nsub > g.nsub:
+        wsel = np.concatenate(
+            [wsel, np.repeat(wsel[:, -1:], nsub - g.nsub, axis=1)], axis=1)
     nact, base, meta = g.nact, g.base, g.meta
     if nsteps > gn:
         pad = nsteps - gn
         wsel = np.concatenate([wsel, np.repeat(wsel[-1:], pad, axis=0)
-                               if gn else np.zeros((pad, g.nsub), np.int32)])
+                               if gn else np.zeros((pad, nsub), np.int32)])
         nact = np.concatenate([nact, np.zeros(pad, np.int32)])
         base = np.concatenate([base, np.full(pad, np.int32(g.nact.sum()),
                                              np.int32)])
         meta = np.concatenate([meta, np.full((pad, SUB, LANES),
                                              SID_INVALID << 3, np.uint8)])
+    cidx = g.cidx
+    if cidx_blocks > cidx.shape[0]:
+        cidx = np.concatenate([cidx, np.zeros(
+            (cidx_blocks - cidx.shape[0], SUB, LANES), np.int8)])
     return {"wsel": wsel.reshape(-1), "base": base, "nact": nact,
-            "cidx": g.cidx, "meta": meta}
+            "cidx": cidx, "meta": meta}
 
 
 def x_rows(nc: int) -> int:
@@ -82,27 +93,36 @@ def x_rows(nc: int) -> int:
 
 def build_spmv2_meta(tiles: TileSet, value_dtype=np.float32,
                      bchg_cap: int = 10) -> Spmv2Meta:
-    """The v2 plans of one device's tiles, validated."""
-    part = tiles.part
-    if part.D != 1:
-        raise NotImplementedError("the v2 plans of a mesh are not ported "
-                                  "yet")
-    n = int(tiles.nnz[0, 0])
-    w = tiles.weights[0, :n] if tiles.weights is not None else None
-    iv = tiles.iv_dense[0] if tiles.ir is not None else None
-    p = build_spmv2_plan(tiles.rows[0, :n].astype(np.int64),
-                         tiles.cols[0, :n].astype(np.int64), w, tiles.NR,
+    """The v2 plans of this rank's shard of ``tiles``, validated; every
+    normalized dimension (y blocks, dense rows, each stage's subops, rows
+    and cidx blocks) is the mesh's maximum, as the JAX package's
+    ``multihost.global_max`` makes it. On a mesh every rank must call it:
+    the maxima are collectives."""
+    part, mesh = tiles.part, tiles.mesh
+    b = mh.shard_of(part, mesh)
+    n = int(tiles.nnz[b, 0])
+    w = tiles.weights[b, :n] if tiles.weights is not None else None
+    iv = tiles.iv_dense[b] if tiles.ir is not None else None
+    p = build_spmv2_plan(tiles.rows[b, :n].astype(np.int64),
+                         tiles.cols[b, :n].astype(np.int64), w, tiles.NR,
                          part.tile_cols, part.tile_rows, iv,
                          value_dtype=value_dtype, bchg_cap=bchg_cap)
-    nblocks = -(-p.nblocks // SUB) * SUB
-    dense_rows = seg_round_rows(p.dense_rows)
+
+    def gmax(v):
+        return int(mh.global_max(v, mesh))
+
+    nblocks = -(-gmax(p.nblocks) // SUB) * SUB
+    dense_rows = seg_round_rows(gmax(p.dense_rows))
     stage = dict(zip(STAGES, [p.expand, *p.passes, p.mexp]))
     nsub, out_rows, arrs = {}, {}, {}
     for k in STAGES:
         g = stage[k]
-        nsub[k] = g.nsub
-        out_rows[k] = dense_rows if k == "mx" else seg_round_rows(g.out_rows)
-        for a, v in _pad_steps(g, out_rows[k] // SUB).items():
+        nsub[k] = gmax(g.nsub)
+        out_rows[k] = dense_rows if k == "mx" \
+            else seg_round_rows(gmax(g.out_rows))
+    for k in STAGES:
+        for a, v in _pad_steps(stage[k], out_rows[k] // SUB, nsub[k],
+                               gmax(stage[k].cidx.shape[0])).items():
             arrs[f"{k}_{a}"] = v
     final_rows = out_rows[f"p{NPASSES - 1}"]
     lr = np.zeros((final_rows, LANES), np.int8)
@@ -156,7 +176,7 @@ def validate_spmv2_meta(meta: Spmv2Meta) -> None:
     [0, 128). Pad steps (nact 0, all-invalid meta) pass. Raises
     ValueError."""
     if any(v.shape[0] != 1 for v in meta.arrays.values()):
-        _fail("one device (D = 1) only")
+        _fail("one shard's row (a leading axis of 1) only")
     a = {k: v[0] for k, v in meta.arrays.items()}
     if meta.has_w != ("w_stream" in a):
         _fail("has_w and w_stream disagree")

@@ -43,6 +43,7 @@ from graphtap_tpu_torch.kernels.panel_kernels import (_DTYPES,
                                                       _stream)
 from graphtap_tpu_torch.kernels.semiring import Semiring
 from graphtap_tpu_torch.kernels.shuffle_kernels import _check, _check_values
+from graphtap_tpu_torch.parallel import multihost as mh
 
 RB = 128          # rows per block = lane width
 CHUNK = 2048      # contributions per chunk
@@ -59,7 +60,8 @@ def reset_launches() -> None:
 @dataclass
 class PallasPlan:
     """Host-side edge regrouping for the blocked reduce (arrays
-    device-stacked, leading D axis, like TileSet fields)."""
+    device-stacked, leading D axis, like TileSet fields; a shard's own
+    plan has one row)."""
     Ep: int                   # padded edge-array length (multiple of CHUNK)
     nblocks: int              # number of RB-row blocks (NR rounded up)
     nchunks: int              # Ep // CHUNK
@@ -139,25 +141,46 @@ def build_pallas_plan(rows: np.ndarray, cols: np.ndarray,
 
 
 def build_onehot_plan(tiles: TileSet, value_dtype=None) -> PallasPlan:
-    """The one-hot plan of one device's tiles, validated (``value_dtype``
-    is unused: the plan keeps the tiles' weight type, as the JAX
-    executor's does)."""
-    if tiles.part.D != 1:
-        raise NotImplementedError("the one-hot plan of a mesh is not "
-                                  "ported yet")
-    plan = build_pallas_plan(tiles.rows, tiles.cols, tiles.weights,
-                             tiles.nnz, tiles.NR)
+    """The one-hot plan of this rank's shard of ``tiles``, validated
+    (``value_dtype`` is unused: the plan keeps the tiles' weight type, as
+    the JAX executor's does). On a mesh its length is the mesh's longest
+    (``multihost.global_max``), so it equals row b of the JAX package's
+    single-process plan: pad chunks hold no valid edge and point at the
+    shard's last chunk's block. Every rank must call it."""
+    b = mh.shard_of(tiles.part, tiles.mesh)
+    rows = slice(b, b + 1)
+    plan = build_pallas_plan(
+        tiles.rows[rows], tiles.cols[rows],
+        None if tiles.weights is None else tiles.weights[rows],
+        tiles.nnz[rows], tiles.NR)
+    ep = int(mh.global_max(plan.Ep, tiles.mesh))
+    if ep > plan.Ep:
+        pad = ep - plan.Ep
+
+        def grow(a, fill=0):
+            return np.concatenate([a, np.full((1, pad), fill, a.dtype)],
+                                  axis=1)
+        cb = plan.chunk_block
+        plan = PallasPlan(
+            Ep=ep, nblocks=plan.nblocks, nchunks=ep // CHUNK,
+            lrows=grow(plan.lrows), cols=grow(plan.cols),
+            weights=None if plan.weights is None else grow(plan.weights),
+            evalid=grow(plan.evalid),
+            chunk_block=np.concatenate(
+                [cb, np.full((1, pad // CHUNK), cb[0, -1], cb.dtype)],
+                axis=1))
     validate_pallas_plan(plan, tiles.part.tile_cols)
     return plan
 
 
 def validate_pallas_plan(plan: PallasPlan, ncols: int) -> None:
     """Check every index the one-hot SpMV follows: lrows in [0, 128),
-    chunk_block below nblocks, cols in [0, ncols), and the shapes. Raises
-    ValueError."""
+    chunk_block below nblocks, cols in [0, ncols), and the shapes of one
+    shard's row (a leading axis of 1). Raises ValueError."""
     ep, nch = plan.Ep, plan.nchunks
     if plan.lrows.shape[0] != 1:
-        raise ValueError("one-hot plan: one device (D = 1) only")
+        raise ValueError("one-hot plan: one shard's row (a leading axis of "
+                         "1) only")
     if ep != nch * CHUNK or plan.nblocks < 1:
         raise ValueError(f"one-hot plan: Ep {ep}, {nch} chunks, "
                          f"{plan.nblocks} blocks")

@@ -2,11 +2,14 @@
 package's.
 
 Counterpart of ``graphtap_tpu/kernels/panel_engine.py::build_spmv3_meta``
-and its helpers, without jax: one device, so the multi-process maxima are
-the device's own values. The plans come from ``kernels/panel_plan.py``,
-the port's unchanged copy of the JAX package's planner, so the CUDA
-kernels read the very bytes the Pallas kernels read. ``validate_meta`` checks every index
-a kernel follows, once, before any plan reaches the card.
+and its helpers, without jax. Each rank plans its own shard's tiles; every
+shape that must agree across the mesh is its maximum over the ranks
+(``multihost.global_max``), so rank b's arrays equal row b of the JAX
+package's single-process (D, ...) meta. The plans come from
+``kernels/panel_plan.py``, the port's unchanged copy of the JAX package's
+planner, so the CUDA kernels read the very bytes the Pallas kernels
+read. ``validate_meta`` checks every index a kernel follows, once,
+before any plan reaches the card.
 """
 
 from __future__ import annotations
@@ -21,13 +24,14 @@ from graphtap_tpu_torch.kernels import panel_plan as _pp
 from graphtap_tpu_torch.kernels.panel_kernels import (
     FOLD_SEG_ROWS, LANES, PROWS, STRIPE, XROWS, pack_route_plan, plan_rows,
     xe_plan_rows)
+from graphtap_tpu_torch.parallel import multihost as mh
 
 RoutePlan = _pp.RoutePlan
 
 
 @dataclass
 class Spmv3Meta:
-    """Static meta + device-stacked plan arrays (dict of (D, ...) numpy)."""
+    """Static meta + this shard's plan arrays (dict of (1, ...) numpy)."""
     NC: int
     nblocks: int            # compact y rows + 8 scratch (diagnostic only)
     dense_rows: int
@@ -149,38 +153,41 @@ def _pad_route(rt, npanels: int, tgt: int, out_rows: int = PROWS):
 
 
 def build_spmv3_meta(tiles: TileSet, value_dtype=np.float32) -> Spmv3Meta:
-    """Plan the v3 panel SpMV of a one-device TileSet (see the JAX
-    package's ``build_spmv3_meta`` for the layout of every array)."""
-    part = tiles.part
+    """Plan the v3 panel SpMV of this rank's shard of a TileSet (see the
+    JAX package's ``build_spmv3_meta`` for the layout of every array). On
+    a mesh every rank must call it: the maxima are collectives."""
+    part, mesh = tiles.part, tiles.mesh
+    b = mh.shard_of(part, mesh)
     NC = part.tile_cols
     dense_len = part.tile_rows
 
-    plans = []
-    for b in range(part.D):
-        n = int(tiles.nnz[b, 0])
-        r = tiles.rows[b, :n].astype(np.int64)
-        c = tiles.cols[b, :n].astype(np.int64)
-        w = tiles.weights[b, :n] if tiles.weights is not None else None
-        iv = tiles.iv_dense[b] if tiles.ir is not None else None
-        plans.append(_pp.build_spmv3_plan(r, c, w, tiles.NR, NC, dense_len,
-                                          iv, value_dtype=value_dtype))
+    n = int(tiles.nnz[b, 0])
+    p = _pp.build_spmv3_plan(
+        tiles.rows[b, :n].astype(np.int64),
+        tiles.cols[b, :n].astype(np.int64),
+        tiles.weights[b, :n] if tiles.weights is not None else None,
+        tiles.NR, NC, dense_len,
+        tiles.iv_dense[b] if tiles.ir is not None else None,
+        value_dtype=value_dtype)
 
-    nwin = plans[0].pa_nwin
-    exp_panels = max(p.exp_panels for p in plans)
-    pa_panels = max(p.pa_panels for p in plans)
-    fix_panels = max(p.fix_panels for p in plans)
-    fixr_nwin = max(p.fixr_nwin for p in plans)
-    f2_panels = max(p.f2_panels for p in plans)
-    f2_nwin = max(p.f2_nwin for p in plans)
+    def gmax(v):
+        return int(mh.global_max(v, mesh))
+
+    nwin = p.pa_nwin
+    exp_panels = gmax(p.exp_panels)
+    pa_panels = gmax(p.pa_panels)
+    fix_panels = gmax(p.fix_panels)
+    fixr_nwin = gmax(p.fixr_nwin)
+    f2_panels = gmax(p.f2_panels)
+    f2_nwin = gmax(p.f2_nwin)
     fix2_chunks = f2_panels * STRIPE
-    nrb = max((int(p.fix_dst.max()) + 1 if p.fix_dst.size else 1)
-              for p in plans)
+    nrb = gmax(int(p.fix_dst.max()) + 1 if p.fix_dst.size else 1)
     nrb = -(-nrb // STRIPE) * STRIPE + STRIPE     # + scratch row block
     if nrb > FOLD_SEG_ROWS:
         # multi-segment fold: nrb rounds to whole segments
         nrb = -(-nrb // FOLD_SEG_ROWS) * FOLD_SEG_ROWS
-    nblocks = max(p.nblocks for p in plans) + STRIPE
-    dense_rows = max(p.dense_rows for p in plans)
+    nblocks = gmax(p.nblocks) + STRIPE
+    dense_rows = gmax(p.dense_rows)
     # fix2 folds straight into the DENSE y layout (one scratch block for
     # pad chunks past dense_len), in whole segments when it spans several
     f2_rows = dense_rows + STRIPE
@@ -191,132 +198,130 @@ def build_spmv3_meta(tiles: TileSet, value_dtype=np.float32) -> Spmv3Meta:
     xr_nwin = _pp.NWIN_X
 
     sx = -(-(-(-NC // LANES)) // STRIPE) * STRIPE
-    arrs: Dict[str, List[np.ndarray]] = {}
-    for b, p in enumerate(plans):
-        er = _append_fill_panel(_pad_route(p.exp_route, p.exp_panels,
-                                           exp_panels))
-        pr = _append_fill_panel(_pad_route(p.pa_route, p.pa_panels,
-                                           pa_panels))
-        # x -> x_ext route: pad + its own fill panel (content don't-care,
-        # read only by the exp fill panel whose sel is all-0xF8)
-        xr = _append_fill_panel(
-            _pad_route(p.xr_route, p.exp_panels, exp_panels,
-                       out_rows=XROWS), out_rows=XROWS)
-        xb = np.zeros((exp_panels + 1) * xr_nwin, np.int32)
-        xb[:p.xr_bases.size] = p.xr_bases
-        # fix2: pad panels/windows (pad windows read y_mid block 0; pad
-        # chunks' slots are unrouted = fill = fold identity)
-        f2 = _pad_route(
-            _pad_route_nwin(p.f2_route, p.f2_panels, p.f2_nwin, f2_nwin),
-            p.f2_panels, f2_panels)
-        f2b = np.zeros((f2_panels, f2_nwin), np.int32)
-        lb2 = p.f2_bases.reshape(p.f2_panels, p.f2_nwin)
-        f2b[:p.f2_panels, :p.f2_nwin] = lb2
-        fr = _pad_route(
-            _pad_route_nwin(p.fixr_route, p.fix_panels, p.fixr_nwin,
-                            fixr_nwin),
-            p.fix_panels, fix_panels)
-        # pa bases cover the fill panel too: its windows read s0's fill
-        # panel (block exp_panels*8)
-        bases = np.full((pa_panels + 1) * nwin, exp_panels * 8, np.int32)
-        bases[:p.pa_bases.size] = p.pa_bases
-        # fixr bases: pad windows and panels read s1's fill panel
-        gfill = pa_panels * STRIPE
-        fb = np.full((fix_panels, fixr_nwin), gfill, np.int32)
-        lb = p.fixr_bases.reshape(p.fix_panels, p.fixr_nwin)
-        fb[:p.fix_panels, :p.fixr_nwin] = np.where(
-            lb >= p.pa_panels * STRIPE, gfill, lb)
-        bases, pr = _match_window_slots(bases, pr, nwin)
-        fb, fr = _match_window_slots(fb.reshape(-1), fr, fixr_nwin)
-        xb, xr = _match_window_slots(xb, xr, xr_nwin, out_rows=XROWS)
-        f2b, f2 = _match_window_slots(f2b.reshape(-1), f2, f2_nwin)
-        arrs.setdefault("pa_bases", []).append(bases)
-        arrs.setdefault("fixr_bases", []).append(fb)
-        arrs.setdefault("xr_bases", []).append(xb)
-        arrs.setdefault("f2_bases", []).append(f2b)
-        # one packed uint8 plan stream per route; fixr carries one extra
-        # all-fill plan block past its fix_panels panels (the gated path's
-        # target, kept so the arrays match the JAX package's)
-        for nm, rt, npan in (
-                ("pa", pr, pa_panels + 1),
-                ("fixr", _append_fill_panel(fr), fix_panels + 1),
-                ("f2", f2, f2_panels)):
-            arrs.setdefault(f"{nm}_plan", []).append(pack_route_plan(
-                rt.idx1, rt.sel_a, rt.sel_b, rt.idx3, npan, rt.src_rows))
-        # fused x->x_ext + expand: both routes' plan blocks per panel
-        npan_xe = exp_panels + 1
-        xr_pk = pack_route_plan(
-            xr.idx1, xr.sel_a, xr.sel_b, xr.idx3, npan_xe, xr.src_rows,
-            out_rows=XROWS, two_layer=False).reshape(npan_xe, -1, LANES)
-        ex_pk = pack_route_plan(
-            er.idx1, er.sel_a, er.sel_b, er.idx3, npan_xe, er.src_rows
-        ).reshape(npan_xe, -1, LANES)
-        arrs.setdefault("xe_plan", []).append(
-            np.concatenate([xr_pk, ex_pk], axis=1).reshape(-1, LANES))
-        # fixr: segment-relative dst per chunk, per-panel segment ids
-        # (non-decreasing), pad panels fold into the scratch rows
-        fd = np.full(fix_panels * STRIPE, nrb - STRIPE, np.int64)
-        fd[:p.fix_dst.size] = p.fix_dst
-        sg = np.full(fix_panels, (nrb - STRIPE) // FOLD_SEG_ROWS, np.int64)
-        sg[:p.fixr_seg.size] = p.fixr_seg
-        # point pad panels at segments no real panel visits, so every
-        # segment of y_mid is initialized by a fold pass
-        nseg1 = nrb // FOLD_SEG_ROWS if nrb > FOLD_SEG_ROWS else 1
-        have1 = set(sg[:p.fix_panels].tolist())
-        miss1 = [s_ for s_ in range(nseg1) if s_ not in have1]
-        npad1 = fix_panels - p.fix_panels
-        if miss1 and len(miss1) > npad1:
-            raise ValueError(f"fixr: {len(miss1)} uncovered fold segments "
-                             f"but only {npad1} pad panels")
-        for k_, s_ in enumerate(miss1):
-            sg[p.fix_panels + k_] = s_
-            fd[(p.fix_panels + k_) * STRIPE:(p.fix_panels + k_ + 1)
-               * STRIPE] = s_ * FOLD_SEG_ROWS
-        if not (np.diff(sg) >= 0).all():
-            raise ValueError("fixr panels not segment-sorted")
-        fd_rel = fd - np.repeat(sg, STRIPE) * FOLD_SEG_ROWS
-        ini = np.zeros(fix_panels, np.int32)
-        ini[0] = 1
-        ini[1:] = (sg[1:] != sg[:-1]).astype(np.int32)
-        arrs.setdefault("fix_dst", []).append(fd_rel.astype(np.int32))
-        arrs.setdefault("fixr_seg", []).append(sg.astype(np.int32))
-        arrs.setdefault("fixr_ini", []).append(ini)
-        hm = np.zeros(nrb, dtype=np.uint8)
-        hm[:min(p.hub_mask.size, nrb)] = \
-            p.hub_mask[:nrb].astype(np.uint8)
-        arrs.setdefault("hub_mask", []).append(
-            np.broadcast_to(hm[:, None], (nrb, LANES)).copy())
-        # fix2: pad panels fold into the scratch block in the LAST
-        # segment; real dst entries become segment-relative (dense rows)
-        seg_rows2 = min(f2_rows, FOLD_SEG_ROWS)
-        fd2 = np.full(fix2_chunks, f2_rows - STRIPE, np.int64)
-        fd2[:p.fix2_dst.size] = p.fix2_dst
-        sg2 = np.full(f2_panels, (f2_rows - STRIPE) // FOLD_SEG_ROWS,
-                      np.int64)
-        sg2[:p.f2_seg.size] = p.f2_seg
-        if not (np.diff(sg2) >= 0).all():
-            raise ValueError("f2 panels not segment-sorted")
-        fd2_rel = fd2 - np.repeat(sg2, STRIPE) * FOLD_SEG_ROWS
-        ini2 = np.zeros(f2_panels, np.int32)
-        ini2[0] = 1
-        ini2[1:] = (sg2[1:] != sg2[:-1]).astype(np.int32)
-        arrs.setdefault("fix2_dst", []).append(fd2_rel.astype(np.int32))
-        arrs.setdefault("f2_seg", []).append(sg2.astype(np.int32))
-        arrs.setdefault("f2_ini", []).append(ini2)
-        # dense segments no panel visits are never written by the fold;
-        # spmv3_local masks them to the ⊕-identity
-        nseg2 = max(1, f2_rows // seg_rows2)
-        segok = np.zeros(nseg2, np.int32)
-        segok[np.unique(sg2)] = 1
-        arrs.setdefault("f2_segok", []).append(segok)
-        if has_w:
-            ws = np.zeros(((exp_panels + 1) * PROWS, LANES),
-                          dtype=value_dtype)
-            if p.w_stream is not None:
-                ws[:p.w_stream.shape[0]] = p.w_stream
-            arrs.setdefault("w_stream", []).append(ws)
+    arrays: Dict[str, np.ndarray] = {}
+    er = _append_fill_panel(_pad_route(p.exp_route, p.exp_panels,
+                                       exp_panels))
+    pr = _append_fill_panel(_pad_route(p.pa_route, p.pa_panels,
+                                       pa_panels))
+    # x -> x_ext route: pad + its own fill panel (content don't-care,
+    # read only by the exp fill panel whose sel is all-0xF8)
+    xr = _append_fill_panel(
+        _pad_route(p.xr_route, p.exp_panels, exp_panels,
+                   out_rows=XROWS), out_rows=XROWS)
+    xb = np.zeros((exp_panels + 1) * xr_nwin, np.int32)
+    xb[:p.xr_bases.size] = p.xr_bases
+    # fix2: pad panels/windows (pad windows read y_mid block 0; pad
+    # chunks' slots are unrouted = fill = fold identity)
+    f2 = _pad_route(
+        _pad_route_nwin(p.f2_route, p.f2_panels, p.f2_nwin, f2_nwin),
+        p.f2_panels, f2_panels)
+    f2b = np.zeros((f2_panels, f2_nwin), np.int32)
+    lb2 = p.f2_bases.reshape(p.f2_panels, p.f2_nwin)
+    f2b[:p.f2_panels, :p.f2_nwin] = lb2
+    fr = _pad_route(
+        _pad_route_nwin(p.fixr_route, p.fix_panels, p.fixr_nwin,
+                        fixr_nwin),
+        p.fix_panels, fix_panels)
+    # pa bases cover the fill panel too: its windows read s0's fill
+    # panel (block exp_panels*8)
+    bases = np.full((pa_panels + 1) * nwin, exp_panels * 8, np.int32)
+    bases[:p.pa_bases.size] = p.pa_bases
+    # fixr bases: pad windows and panels read s1's fill panel
+    gfill = pa_panels * STRIPE
+    fb = np.full((fix_panels, fixr_nwin), gfill, np.int32)
+    lb = p.fixr_bases.reshape(p.fix_panels, p.fixr_nwin)
+    fb[:p.fix_panels, :p.fixr_nwin] = np.where(
+        lb >= p.pa_panels * STRIPE, gfill, lb)
+    bases, pr = _match_window_slots(bases, pr, nwin)
+    fb, fr = _match_window_slots(fb.reshape(-1), fr, fixr_nwin)
+    xb, xr = _match_window_slots(xb, xr, xr_nwin, out_rows=XROWS)
+    f2b, f2 = _match_window_slots(f2b.reshape(-1), f2, f2_nwin)
+    arrays["pa_bases"] = bases[None]
+    arrays["fixr_bases"] = fb[None]
+    arrays["xr_bases"] = xb[None]
+    arrays["f2_bases"] = f2b[None]
+    # one packed uint8 plan stream per route; fixr carries one extra
+    # all-fill plan block past its fix_panels panels (the gated path's
+    # target, kept so the arrays match the JAX package's)
+    for nm, rt, npan in (
+            ("pa", pr, pa_panels + 1),
+            ("fixr", _append_fill_panel(fr), fix_panels + 1),
+            ("f2", f2, f2_panels)):
+        arrays[f"{nm}_plan"] = pack_route_plan(
+            rt.idx1, rt.sel_a, rt.sel_b, rt.idx3, npan, rt.src_rows)[None]
+    # fused x->x_ext + expand: both routes' plan blocks per panel
+    npan_xe = exp_panels + 1
+    xr_pk = pack_route_plan(
+        xr.idx1, xr.sel_a, xr.sel_b, xr.idx3, npan_xe, xr.src_rows,
+        out_rows=XROWS, two_layer=False).reshape(npan_xe, -1, LANES)
+    ex_pk = pack_route_plan(
+        er.idx1, er.sel_a, er.sel_b, er.idx3, npan_xe, er.src_rows
+    ).reshape(npan_xe, -1, LANES)
+    arrays["xe_plan"] = np.concatenate(
+        [xr_pk, ex_pk], axis=1).reshape(1, -1, LANES)
+    # fixr: segment-relative dst per chunk, per-panel segment ids
+    # (non-decreasing), pad panels fold into the scratch rows
+    fd = np.full(fix_panels * STRIPE, nrb - STRIPE, np.int64)
+    fd[:p.fix_dst.size] = p.fix_dst
+    sg = np.full(fix_panels, (nrb - STRIPE) // FOLD_SEG_ROWS, np.int64)
+    sg[:p.fixr_seg.size] = p.fixr_seg
+    # point pad panels at segments no real panel visits, so every
+    # segment of y_mid is initialized by a fold pass
+    nseg1 = nrb // FOLD_SEG_ROWS if nrb > FOLD_SEG_ROWS else 1
+    have1 = set(sg[:p.fix_panels].tolist())
+    miss1 = [s_ for s_ in range(nseg1) if s_ not in have1]
+    npad1 = fix_panels - p.fix_panels
+    if miss1 and len(miss1) > npad1:
+        raise ValueError(f"fixr: {len(miss1)} uncovered fold segments "
+                         f"but only {npad1} pad panels")
+    for k_, s_ in enumerate(miss1):
+        sg[p.fix_panels + k_] = s_
+        fd[(p.fix_panels + k_) * STRIPE:(p.fix_panels + k_ + 1)
+           * STRIPE] = s_ * FOLD_SEG_ROWS
+    if not (np.diff(sg) >= 0).all():
+        raise ValueError("fixr panels not segment-sorted")
+    fd_rel = fd - np.repeat(sg, STRIPE) * FOLD_SEG_ROWS
+    ini = np.zeros(fix_panels, np.int32)
+    ini[0] = 1
+    ini[1:] = (sg[1:] != sg[:-1]).astype(np.int32)
+    arrays["fix_dst"] = fd_rel.astype(np.int32)[None]
+    arrays["fixr_seg"] = sg.astype(np.int32)[None]
+    arrays["fixr_ini"] = ini[None]
+    hm = np.zeros(nrb, dtype=np.uint8)
+    hm[:min(p.hub_mask.size, nrb)] = \
+        p.hub_mask[:nrb].astype(np.uint8)
+    arrays["hub_mask"] = np.broadcast_to(hm[:, None],
+                                         (1, nrb, LANES)).copy()
+    # fix2: pad panels fold into the scratch block in the LAST
+    # segment; real dst entries become segment-relative (dense rows)
+    seg_rows2 = min(f2_rows, FOLD_SEG_ROWS)
+    fd2 = np.full(fix2_chunks, f2_rows - STRIPE, np.int64)
+    fd2[:p.fix2_dst.size] = p.fix2_dst
+    sg2 = np.full(f2_panels, (f2_rows - STRIPE) // FOLD_SEG_ROWS,
+                  np.int64)
+    sg2[:p.f2_seg.size] = p.f2_seg
+    if not (np.diff(sg2) >= 0).all():
+        raise ValueError("f2 panels not segment-sorted")
+    fd2_rel = fd2 - np.repeat(sg2, STRIPE) * FOLD_SEG_ROWS
+    ini2 = np.zeros(f2_panels, np.int32)
+    ini2[0] = 1
+    ini2[1:] = (sg2[1:] != sg2[:-1]).astype(np.int32)
+    arrays["fix2_dst"] = fd2_rel.astype(np.int32)[None]
+    arrays["f2_seg"] = sg2.astype(np.int32)[None]
+    arrays["f2_ini"] = ini2[None]
+    # dense segments no panel visits are never written by the fold;
+    # spmv3_local masks them to the ⊕-identity
+    nseg2 = max(1, f2_rows // seg_rows2)
+    segok = np.zeros(nseg2, np.int32)
+    segok[np.unique(sg2)] = 1
+    arrays["f2_segok"] = segok[None]
+    if has_w:
+        ws = np.zeros(((exp_panels + 1) * PROWS, LANES),
+                      dtype=value_dtype)
+        if p.w_stream is not None:
+            ws[:p.w_stream.shape[0]] = p.w_stream
+        arrays["w_stream"] = ws[None]
 
-    arrays = {k: np.stack(v) for k, v in arrs.items()}
     meta = Spmv3Meta(NC=NC, nblocks=nblocks, dense_rows=dense_rows,
                      f2_rows=f2_rows, exp_panels=exp_panels,
                      pa_panels=pa_panels, pa_nwin=nwin,
@@ -353,7 +358,8 @@ def validate_meta(meta) -> None:
     kernels may skip a gated-off panel's gathers). Raises ValueError."""
     a = {k: v[0] for k, v in meta.arrays.items()}
     if any(v.shape[0] != 1 for v in meta.arrays.values()):
-        raise ValueError("meta: one device (D = 1) only")
+        raise ValueError("meta: one shard's row (a leading axis of 1) "
+                         "only")
     nxe, npa = meta.exp_panels + 1, meta.pa_panels + 1
     x_blocks = meta.sx_rows // STRIPE + 1        # x table + fill block
     checks = [

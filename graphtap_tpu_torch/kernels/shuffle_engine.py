@@ -1,8 +1,10 @@
-"""The v1 shuffle SpMV on one device: host plans and x (NC,) -> y_dense.
+"""The v1 shuffle SpMV of one shard: host plans and x (NC,) -> y_dense.
 
-Counterpart of ``graphtap_tpu/kernels/shuffle_engine.py`` for one device
-(the JAX package's 1x1 mesh): ``build_shuffle_plans`` gives the same
-arrays, byte for byte, with a leading device axis of 1;
+Counterpart of ``graphtap_tpu/kernels/shuffle_engine.py``:
+``build_shuffle_plans`` plans this rank's shard and gives row b of the
+JAX package's single-process (D, ...) arrays, byte for byte, with a
+leading axis of 1 (on a mesh the super size, pass count, supers and
+fragment width are the mesh's maxima);
 ``validate_shuffle_plans`` checks every index K6-K8 follow, once, on the
 host; ``spmv_stages`` / ``spmv_local`` run the pipeline
 
@@ -32,13 +34,14 @@ from graphtap_tpu_torch.kernels.shuffle_kernels import (expand_stream,
 from graphtap_tpu_torch.kernels.shuffle_plan import (LANES, RED_ROWS, SUB,
                                                      WROWS, build_spmv_plan,
                                                      plan_monotone_expand)
+from graphtap_tpu_torch.parallel import multihost as mh
 
 WIN = WROWS * LANES          # columns per x window (8192)
 
 
 @dataclass
 class ShufflePlans:
-    """Static meta + device-stacked plan arrays (dict of (1, ...) numpy)."""
+    """Static meta + this shard's plan arrays (dict of (1, ...) numpy)."""
     NWIN: int
     total_rows: int
     rows_per_super: int
@@ -53,36 +56,65 @@ class ShufflePlans:
     arrays: Dict[str, np.ndarray]
 
 
+def _pad_to(a: np.ndarray, shape, fill) -> np.ndarray:
+    out = np.full(shape, fill, dtype=a.dtype)
+    out[tuple(slice(0, n) for n in a.shape)] = a
+    return out
+
+
 def build_shuffle_plans(tiles: TileSet, value_dtype=np.float32,
                         nwin: int = 8, rows_per_super: int = 4096
                         ) -> ShufflePlans:
-    """The shuffle plans of one device's tiles, validated."""
-    if tiles.part.D != 1:
-        raise NotImplementedError("the shuffle plans of a mesh are not "
-                                  "ported yet")
-    n = int(tiles.nnz[0, 0])
-    w = tiles.weights[0, :n] if tiles.weights is not None else None
-    p = build_spmv_plan(tiles.rows[0, :n].astype(np.int64),
-                        tiles.cols[0, :n].astype(np.int64), w, tiles.NR,
-                        tiles.part.tile_cols, nwin=nwin,
-                        rows_per_super=rows_per_super,
-                        value_dtype=value_dtype)
-    mp = plan_monotone_expand(tiles.iv_dense[0].astype(np.int64))
-    arrs = {"grp": p.grp, "slot": p.slot, "lane": p.lane, "ev_x": p.ev_x,
-            "w_stream": p.w_stream, "frag_dst": p.frag_dst,
-            "frag_idx": p.frag_idx, "chunk_block": p.chunk_block,
-            "lr": p.lr, "ev_r": p.ev_r, "mexp_grp_a": mp.grp_a,
-            "mexp_grp_b": mp.grp_b, "mexp_slot_a": mp.slot_a,
-            "mexp_slot_b": mp.slot_b, "mexp_lane": mp.lane,
-            "mexp_ev_a": mp.ev_a, "mexp_ev_b": mp.ev_b}
-    has_w = tiles.weights is not None
-    if not has_w:
-        del arrs["w_stream"]
+    """The shuffle plans of this rank's shard of ``tiles``, validated. As
+    the JAX package normalizes its devices' plans (one program runs them
+    all): a shard whose super size is below the mesh's largest re-plans
+    with it, then one whose pass count is below the mesh's re-plans with
+    that count (extra passes are the identity); the supers and the
+    fragment width pad to the mesh's maxima. On a mesh every rank must
+    call it: the maxima are collectives."""
+    part, mesh = tiles.part, tiles.mesh
+    b = mh.shard_of(part, mesh)
+    n = int(tiles.nnz[b, 0])
+    r = tiles.rows[b, :n].astype(np.int64)
+    c = tiles.cols[b, :n].astype(np.int64)
+    w = tiles.weights[b, :n] if tiles.weights is not None else None
+
+    def plan(rps, force_npasses=None):
+        return build_spmv_plan(r, c, w, tiles.NR, part.tile_cols, nwin=nwin,
+                               rows_per_super=rps, value_dtype=value_dtype,
+                               force_npasses=force_npasses)
+
+    def gmax(v):
+        return int(mh.global_max(v, mesh))
+
+    p = plan(rows_per_super)
+    rps = gmax(p.rows_per_super)
+    if p.rows_per_super != rps:
+        p = plan(rps)
+    npasses = gmax(p.npasses)
+    if p.npasses != npasses:
+        p = plan(rps, npasses)
+    nsupers, smax = gmax(p.nsupers), gmax(p.SMAX)
+    rows = nsupers * rps
+    mp = plan_monotone_expand(tiles.iv_dense[b].astype(np.int64))
+    arrs = {"grp": _pad_to(p.grp, (rows // SUB,), 0)}
+    for k in ("slot", "lane", "ev_x", "w_stream"):
+        if k != "w_stream" or w is not None:
+            arrs[k] = _pad_to(getattr(p, k), (rows, LANES), 0)
+    arrs.update(
+        frag_dst=_pad_to(p.frag_dst, (nsupers, npasses, rps, smax), -1),
+        frag_idx=_pad_to(p.frag_idx, (nsupers, npasses, rps, smax * LANES),
+                         -1),
+        chunk_block=_pad_to(p.chunk_block, (rows // RED_ROWS,), 0),
+        lr=_pad_to(p.lr, (rows, LANES), 0),
+        ev_r=_pad_to(p.ev_r, (rows, LANES), 0),
+        mexp_grp_a=mp.grp_a, mexp_grp_b=mp.grp_b, mexp_slot_a=mp.slot_a,
+        mexp_slot_b=mp.slot_b, mexp_lane=mp.lane, mexp_ev_a=mp.ev_a,
+        mexp_ev_b=mp.ev_b)
     plans = ShufflePlans(
-        NWIN=nwin, total_rows=p.nsupers * p.rows_per_super,
-        rows_per_super=p.rows_per_super, nsupers=p.nsupers,
-        npasses=p.npasses, SMAX=p.SMAX, nblocks=p.nblocks, NR=tiles.NR,
-        NC=tiles.part.tile_cols, has_w=has_w, mexp_rows=mp.out_rows,
+        NWIN=nwin, total_rows=rows, rows_per_super=rps, nsupers=nsupers,
+        npasses=npasses, SMAX=smax, nblocks=p.nblocks, NR=tiles.NR,
+        NC=part.tile_cols, has_w=w is not None, mexp_rows=mp.out_rows,
         arrays={k: np.ascontiguousarray(v)[None] for k, v in arrs.items()})
     validate_shuffle_plans(plans)
     return plans
@@ -118,7 +150,8 @@ def validate_shuffle_plans(meta: ShufflePlans) -> None:
     and pass no (destination row, lane) written twice. Raises
     ValueError."""
     if any(v.shape[0] != 1 for v in meta.arrays.values()):
-        raise ValueError("shuffle plans: one device (D = 1) only")
+        raise ValueError("shuffle plans: one shard's row (a leading axis "
+                         "of 1) only")
     a = {k: v[0] for k, v in meta.arrays.items()}
     rows, rps, S, P = (meta.total_rows, meta.rows_per_super, meta.nsupers,
                        meta.npasses)

@@ -1,1 +1,2 @@
-"""Vertex/tile partition (one device in this version)."""
+"""The vertex/tile partition, the R x C mesh on torch.distributed, the
+multi-process runtime and the rank launcher."""

@@ -14,10 +14,14 @@ edge factor, seed), every field of the ``GraphConfig`` (BFS and CC read
 one RMAT edge list through different configs — self-loops dropped or
 kept — and get different plans), whether the tiles carry weights, the
 ordering, the tile phase ("main", or the TCSC_CF "first", "middle" and
-"last" edge subsets of one graph, whose plans differ), the dtype and a
-hash of every source file the plan bytes depend on, so a plan built by
-older planner code is never served (a key that leaves out what the
-artifact depends on serves a wrong artifact).
+"last" edge subsets of one graph, whose plans differ), the dtype, the
+mesh shape and the shard (a rank plans its own shard, so a 1x1 plan is
+never served to a mesh rank, nor one rank's to another) and a hash of
+every source file the plan bytes depend on, so a plan built by older
+planner code is never served (a key that leaves out what the artifact
+depends on serves a wrong artifact). On a mesh every rank must call the
+``cached_*`` functions: the ranks load only when every rank's plan is on
+disk, else every rank builds (planning is collective).
 """
 
 from __future__ import annotations
@@ -42,7 +46,8 @@ from graphtap_tpu_torch.kernels.panel_meta import (Spmv3Meta,
                                                    validate_meta)
 from graphtap_tpu_torch.kernels.shuffle_engine import (
     ShufflePlans, build_shuffle_plans, validate_shuffle_plans)
-from graphtap_tpu_torch.parallel.layout import Partition
+from graphtap_tpu_torch.parallel import multihost as mh
+from graphtap_tpu_torch.parallel.layout import Mesh, Partition
 
 PKG = Path(__file__).resolve().parent.parent
 DEFAULT_DIR = PKG / "build" / "plan_cache"
@@ -70,12 +75,13 @@ _PLAN_SOURCES = {
 # ----------------------------------------------------------------- TileSet
 _TS_ARRAYS = ("rows", "cols", "weights", "nnz", "ja", "ir", "iv_dense",
               "nnzrows", "i_own", "j_own", "regular_own", "source_own",
-              "sink_own", "nnzcols", "jc")
+              "sink_own", "nnzcols", "jc", "dev_nnz")
 
 
 def save_tileset(ts: TileSet, path) -> None:
     """A tile set as one ``.npz``: its arrays and a JSON meta entry of its
-    scalar fields and partition."""
+    scalar fields and partition (the mesh's R x C: a mesh rank's tiles
+    hold its own row)."""
     arrays = {k: getattr(ts, k) for k in _TS_ARRAYS
               if getattr(ts, k) is not None}
     meta = {"compression": ts.compression.value,
@@ -86,13 +92,16 @@ def save_tileset(ts: TileSet, path) -> None:
     np.savez(path, **arrays)
 
 
-def load_tileset(path) -> TileSet:
-    """The tile set ``save_tileset`` wrote."""
+def load_tileset(path, mesh: Optional[Mesh] = None) -> TileSet:
+    """The tile set ``save_tileset`` wrote, on ``mesh`` (which must be
+    of its partition's shape; None for 1x1 tiles)."""
     with np.load(path) as z:
         meta = json.loads(bytes(z[_META]).decode())
         arrays = {k: (z[k] if k in z.files else None) for k in _TS_ARRAYS}
     nv, R, C, L = meta["part"]
-    return TileSet(part=Partition(nv=nv, R=R, C=C, L=L),
+    part = Partition(nv=nv, R=R, C=C, L=L)
+    mh.shard_of(part, mesh)
+    return TileSet(part=part, mesh=mesh,
                    compression=Compression(meta["compression"]),
                    has_weight=meta["has_weight"], Ep=meta["Ep"],
                    NR=meta["NR"], nnz_total=meta["nnz_total"], **arrays)
@@ -148,13 +157,14 @@ PHASES = ("main", "first", "middle", "last")
 
 def meta_key(scale: int, edge_factor: int, seed: int, config, ordering,
              value_dtype, weighted: bool, kind: str = "spmv3",
-             phase: str = "main") -> str:
+             phase: str = "main", mesh_shape=(1, 1), shard: int = 0) -> str:
     if phase not in PHASES:
         raise ValueError(f"phase {phase!r}: expected one of {PHASES}")
+    R, C = mesh_shape
     return (f"{kind}_rmat{scale}_ef{edge_factor}_s{seed}_"
             f"cfg{config_hash(config)}_{'w' if weighted else 'nw'}_"
             f"{ordering.value}_{phase}_{np.dtype(value_dtype).name}_"
-            f"{source_hash(kind)}")
+            f"m{R}x{C}b{shard}_{source_hash(kind)}")
 
 
 def _plain(v):
@@ -217,10 +227,12 @@ def _cached(kind, tiles, scale, edge_factor, seed, config, ordering,
             value_dtype, cache_dir, phase):
     build, save, load = _KINDS[kind]
     d = Path(cache_dir) if cache_dir is not None else DEFAULT_DIR
+    part = tiles.part
     path = d / (meta_key(scale, edge_factor, seed, config, ordering,
-                         value_dtype, tiles.weights is not None, kind, phase)
+                         value_dtype, tiles.weights is not None, kind, phase,
+                         (part.R, part.C), mh.shard_of(part, tiles.mesh))
                 + ".npz")
-    if path.exists():
+    if int(mh.global_sum(int(path.exists()), tiles.mesh)) == part.D:
         return load(path)
     meta = build(tiles, value_dtype=value_dtype)
     d.mkdir(parents=True, exist_ok=True)

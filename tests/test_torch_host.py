@@ -85,18 +85,35 @@ def test_import_without_jax_builds_meta():
 @pytest.mark.parametrize("nv,segment_align", [(1025, 1024), (5000, 1024),
                                               (300, 128)])
 def test_partition_matches_jax(nv, segment_align):
-    p = Partition.build(nv, 1, 1, segment_align=segment_align)
-    q = JPartition.build(nv, 1, 1, segment_align=segment_align)
-    assert (p.nv, p.R, p.C, p.L) == (q.nv, q.R, q.C, q.L)
-    assert (p.n_pad, p.tile_rows, p.tile_cols) == \
-        (q.n_pad, q.tile_rows, q.tile_cols)
-    _same_array(p.owner_vids(), q.owner_vids(), "owner_vids")
-    v = np.arange(p.n_pad) * 2 + 1
-    _same_array(p.edge_device(v, v[::-1]), q.edge_device(v, v[::-1]), "dev")
-    _same_array(p.local_row(v), q.local_row(v), "local_row")
-    _same_array(p.local_col(v), q.local_col(v), "local_col")
-    with pytest.raises(NotImplementedError):
-        Partition.build(nv, 2, 2)
+    """The 1x1 layout and the mesh layouts (2x2, 1x4, 2x4) equal the JAX
+    package's: sizes, the shard <-> segment maps, the edge -> shard map,
+    local/global rows and cols, and the vector layouts."""
+    for R, C in ((1, 1), (2, 2), (1, 4), (2, 4)):
+        p = Partition.build(nv, R, C, segment_align=segment_align)
+        q = JPartition.build(nv, R, C, segment_align=segment_align)
+        assert (p.nv, p.R, p.C, p.L) == (q.nv, q.R, q.C, q.L)
+        assert (p.n_pad, p.tile_rows, p.tile_cols) == \
+            (q.n_pad, q.tile_rows, q.tile_cols)
+        _same_array(p.owner_vids(), q.owner_vids(), "owner_vids")
+        _same_array(p.shard_perm(), q.shard_perm(), "shard_perm")
+        assert [p.shard_of_seg(s) for s in range(p.D)] == \
+            [q.shard_of_seg(s) for s in range(q.D)]
+        v = np.arange(p.n_pad) * 2 % p.n_pad
+        _same_array(p.edge_device(v, v[::-1]), q.edge_device(v, v[::-1]),
+                    "dev")
+        _same_array(p.local_row(v), q.local_row(v), "local_row")
+        _same_array(p.local_col(v), q.local_col(v), "local_col")
+        for i in range(R):
+            lr = np.arange(p.tile_rows)
+            _same_array(p.global_row(i, lr), q.global_row(i, lr), "grow")
+        for j in range(C):
+            lc = np.arange(p.tile_cols)
+            _same_array(p.global_col(j, lc), q.global_col(j, lc), "gcol")
+        vec = np.arange(p.n_pad, dtype=np.float32)
+        _same_array(p.from_vertex_order(vec), q.from_vertex_order(vec),
+                    "from_vertex_order")
+        _same_array(p.to_vertex_order(p.from_vertex_order(vec)), vec,
+                    "round trip")
 
 
 def _jax_graph(r, c, w, cfg_kwargs):

@@ -162,9 +162,13 @@ def test_nonstationary_fixed_iterations_and_limits(edges, golden_states):
     want = golden_states["bfs"]["hops"]
     np.testing.assert_array_equal(hops, np.where(want <= 2, want,
                                                  golden.INF))
-    with pytest.raises(NotImplementedError, match="sparse exchange"):
-        Executor(g, BFSProgram(0), EngineConfig(
-            stationary=False, sparse_exchange_capacity=256), device="cpu")
+    # the sparse exchange (K = 256) gives the same two levels bit for bit
+    sp = Executor(g, BFSProgram(0), EngineConfig(
+        stationary=False, sparse_exchange_capacity=256), kernel="panel",
+        device="cpu")
+    sp.execute(2)
+    np.testing.assert_array_equal(sp.state_vector()["hops"], hops)
+    assert all(rec["sparse"] in (True, False) for rec in sp.supersteps)
 
 
 def test_pagerank_converges_like_jax_scan():

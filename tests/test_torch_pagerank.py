@@ -124,8 +124,9 @@ def test_stationary_sparse_exchange_capacity_runs_dense(rmat10):
     exchanges dense, as the JAX executor does (its ``_exchange_x`` and
     ``_exchange_y`` take the dense branch for stationary programs): the
     K = 64 run equals the K = 0 run bit for bit, and the JAX executor's
-    K = 64 run within the f32 tolerance of this file. A nonstationary
-    program with K > 0 still raises."""
+    K = 64 run within the f32 tolerance of this file, and records no
+    sparse branch. A nonstationary program with K > 0 takes the sparse
+    exchange."""
     from graphtap_tpu.apps.degree import DegreeProgram as JDegreeProgram
     from graphtap_tpu.apps.pagerank import PageRankProgram as JPageRank
     from graphtap_tpu.config import EngineConfig as JEngineConfig
@@ -169,6 +170,10 @@ def test_stationary_sparse_exchange_capacity_runs_dense(rmat10):
     got = mine["rank"].astype(np.float64)
     assert np.abs(got - want).max() / np.abs(want).max() <= 1e-5
 
-    with pytest.raises(NotImplementedError, match="sparse exchange"):
-        Executor(g, BFSProgram(0), EngineConfig(
-            stationary=False, sparse_exchange_capacity=64), device="cpu")
+    assert {(rec["sparse"], rec["sparse_y"]) for rec in ex.supersteps} \
+        == {(None, None)}
+    bfs = Executor(g, BFSProgram(0), EngineConfig(
+        stationary=False, sparse_exchange_capacity=64), device="cpu")
+    bfs.execute(0)
+    assert {rec["sparse"] for rec in bfs.supersteps} <= {True, False}
+    assert None not in {rec["sparse_y"] for rec in bfs.supersteps}

@@ -170,15 +170,18 @@ def test_execute_profiled_matches_fixed_run(edges, kernel):
     timer = ex_b.execute_profiled(5, printer=lines.append)
     assert lines[:5] == [f"Iteration: {i}" for i in range(1, 6)]
     assert lines[5] == timer.report()
-    assert set(timer.samples) == {"scatter_gather", "combine", "apply"}
-    assert all(len(v) == 5 for v in timer.samples.values())
+    assert set(timer.samples) == {"scatter_gather", "exchange", "combine",
+                                  "apply"}
+    assert {k: len(v) for k, v in timer.samples.items()} == {
+        "scatter_gather": 5, "exchange": 10, "combine": 5, "apply": 5}
     assert [s["phase"] for s in ex_b.supersteps] == ["main"] * 5
     _same_state(ex_b, ex_a)
 
 
 def test_execute_profiled_matches_convergence_flush(edges):
     """BFS to convergence: the same iterations and state as execute(0),
-    the flush included (its combine and apply timed once more)."""
+    the flush included (its exchanges, combine and apply timed once
+    more; the vote an exchange sample a superstep)."""
     r, c, _ = edges
     g = Graph.from_edges(r, c, None, bfs_config(N))
     ex_a = run_bfs(g, 0, kernel="scan", device="cpu")
@@ -189,6 +192,7 @@ def test_execute_profiled_matches_convergence_flush(edges):
     _same_state(ex_b, ex_a)
     assert len(timer.samples["scatter_gather"]) == ex_a.iteration
     assert len(timer.samples["combine"]) == ex_a.iteration + 1
+    assert len(timer.samples["exchange"]) == 3 * ex_a.iteration + 2
 
 
 @pytest.mark.parametrize("iters", [5, 1, 0])

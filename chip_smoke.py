@@ -2,7 +2,8 @@
 """Drive the torch port's PageRank (TCSC, TCSC_CF and CSC, fixed
 iterations and f32 convergence), staged-panel, shuffle, shuffle2, one-hot
 and frontier paths, its kernel lab, its device-memory probes, its five
-mains and its 2x2 mesh (four ranks on the one card), on one NVIDIA GPU.
+mains, its 2x2 mesh (four ranks on the one card), its top-level entry
+points and its two profiling tools, on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -105,7 +106,10 @@ Phases, each printed as it runs; any failure exits non-zero:
               every one launched; K11's s0 equal to K1's bit for bit; the
               staged y_mid and y within K3's tolerance of the fused ones
               (max |diff| <= 1e-5 x max |fused|, f32); K12's rows scattered
-              by chunk_dst with ⊕ equal to K13's y_mid at that tolerance.
+              by chunk_dst with ⊕ equal to K13's y_mid at that tolerance;
+              K13 (which folds each y row's chunks in ascending chunk
+              order, the Pallas grid's) equal to its plain version bit
+              for bit in f32, and twice with the same bits.
               K11's plan ring is logged (npanels, stage bytes, shared
               memory, blocks an SM). Then the kernel rows of K2
               single-layer, K11, K12 and K13, with torch.take (K2, K11),
@@ -203,6 +207,23 @@ Phases, each printed as it runs; any failure exits non-zero:
               in an NCCL group (1x1: NCCL cannot put two ranks on one
               card): PageRank on onehot at RMAT-18, bit for bit with the
               group-free run.
+  11. entry   the top-level entry points (graft_entry.py) and the profiling
+              tools: (a) entry() on the card, K1-K4 launched 1, 1, 2, 1
+              times, its step equal to the same step on the plain versions
+              on the card bit for bit and its sum within 1e-5 of the JAX
+              entry step's 1100.7751; (b) dryrun_multichip(4), four gloo
+              ranks of a 2x2 mesh on the one card (degree and PageRank on
+              panel, weighted SSSP on panel, BFS, TCSC_CF PageRank on
+              RMAT-10), each rank's launches logged (K1-K4 on every rank
+              of the panel programs; the gated K1-K3 on a rank with a
+              gated superstep), each program equal to dryrun_multichip(1)
+              (BFS and SSSP bit for bit, PageRank within 1e-6); (c)
+              tools/bfs_profile.py at RMAT-18 on the BFS panel plan the
+              workers built: the gate forced, off and auto agree (and
+              equal golden.bfs), their times and the per-phase totals;
+              (d) tools/sparse_exchange_bench.py at RMAT-18 on eight
+              ranks of a 2x4 mesh on the one card: every K gives K = 0's
+              checksum (golden.bfs's), the rows logged.
 
 Five worker processes, started after the build and stopped at exit, plan
 the RMAT-20 v2 (ROW), degree shuffle (COL) and the three TCSC_CF panel
@@ -221,6 +242,7 @@ errors, times (event and device-only), bounds and library times.
 
 from __future__ import annotations
 
+import collections
 import json
 import multiprocessing
 import os
@@ -266,6 +288,11 @@ MESH_KERNELS = ("route_xr_exp", "route_passa", "route_fold", "hub_fold",
                 "expand_stream", "group_stream", "grouped_reduce",
                 "segment_reduce")
 GOLDEN_RTOL = 1e-4
+# entry(): the JAX entry step's sum (interpret mode on the CPU), and the
+# launches of one step
+ENTRY_SUM = 1100.7751
+ENTRY_LAUNCHES = {"route_xr_exp": 1, "route_passa": 1, "route_fold": 2,
+                  "hub_fold": 1}
 FOLD_RTOL = {"float32": 1e-5, "float64": 1e-12}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SOURCES = {"panel": "graphtap_tpu_torch/csrc/panel_route.cu",
@@ -276,7 +303,7 @@ SOURCES = {"panel": "graphtap_tpu_torch/csrc/panel_route.cu",
 PROBES = ("copy_blocks", "stream_sum", "route_like")
 # the fixed-order float folds (ROADMAP F8): two calls give the same bits
 FOLDS = ("route_fold", "route_fold_gated", "grouped_reduce",
-         "segment_reduce")
+         "segment_reduce", "colsum_chunks")
 # the card's published peaks (NVIDIA H100 SXM data sheet): memory bytes/s,
 # and non-tensor-core operations/s by value type
 PEAK_BYTES = 3.35e12
@@ -1481,8 +1508,10 @@ def _staged_calls(torch, t, meta, sem, st):
     the ⊗ (none unweighted) and ⊕ the call must do. Library calls:
     torch.take over the index precomputed from the plan (K2, K11;
     unweighted), view(-1, 8, 128) reduced over dim 1 (K12), one
-    scatter_reduce over repeat_interleave(chunk_dst, 8) (K13)."""
+    scatter_reduce over repeat_interleave(chunk_dst, 8) (K13; K13's
+    bytes count its row -> chunks lists, which it reads for chunk_dst)."""
     from graphtap_tpu_torch.kernels import panel_kernels as pk
+    from graphtap_tpu_torch.kernels.panel_engine import CHUNK_LISTS
     from graphtap_tpu_torch.tools import timing
     fill, kind = sem.identity, sem.reduce_kind
     es = st["x2d"].element_size()
@@ -1526,15 +1555,17 @@ def _staged_calls(torch, t, meta, sem, st):
                    stack1.numel() * 7 // 8),
                   lambda: red(stack1.view(-1, pk.STRIPE, pk.LANES))))
     cs = (stack1, t["chunk_dst"], meta.nrb, kind, fill)
+    lists = tuple(t[k] for k in CHUNK_LISTS)    # as the path keeps them
     dest = (t["chunk_dst"].long().repeat_interleave(pk.STRIPE)[:, None]
             * pk.LANES + torch.arange(pk.LANES, device=stack1.device)
             ).reshape(-1)
     y0 = torch.full((meta.nrb * pk.LANES,), fill, dtype=stack1.dtype,
                     device=stack1.device)
     op = {"sum": "sum", "min": "amin", "max": "amax"}[kind]
-    calls.append(("colsum_chunks", lambda: pk.colsum_chunks(*cs),
+    calls.append(("colsum_chunks",
+                  lambda: pk.colsum_chunks(*cs, lists=lists),
                   lambda: pk.colsum_chunks_plain(*cs),
-                  (_nbytes(stack1) + _nbytes(t["chunk_dst"])
+                  (_nbytes(stack1) + sum(_nbytes(a) for a in lists)
                    + meta.nrb * pk.LANES * es, stack1.numel()),
                   lambda: torch.scatter_reduce(y0, 0, dest,
                                                stack1.reshape(-1), op
@@ -1544,28 +1575,33 @@ def _staged_calls(torch, t, meta, sem, st):
 
 def _staged_row(torch, rows, call, launches, dtype) -> None:
     """Check one staged call against its plain version (K12 elementwise
-    within rtol 1e-6, K13 as K3, the rest bit for bit) and its library
-    call (the take calls against the kernel bit for bit, K12 and K13
-    against the plain version at those tolerances), then time it."""
+    within rtol 1e-6, the rest bit for bit; K13, a fixed-order fold
+    (FOLDS), twice with the same bits) and its library call (the take
+    calls against the kernel bit for bit, K12 against the plain version
+    at its tolerance, K13's atomic scatter_reduce as K3's fold is held),
+    then time it."""
     name, kern, plain, work, lib = call
     a, b = kern(), plain()
     err = float((a.double() - b.double()).abs().max())
-
-    def ok(x, y):
-        if name == "fold_stripes" and y.dtype.is_floating_point:
-            return bool(torch.all((x.double() - y.double()).abs()
-                                  <= 1e-6 * y.double().abs()))
-        if name == "colsum_chunks":
-            return _scaled_ok(x, y, "sum", FOLD_RTOL["float32"])
-        return _same(x, y)
-    log(f"kernels staged {name}: {'ok' if ok(a, b) else 'MISMATCH'} (max "
-        f"|diff| {err!r})")
-    if not ok(a, b):
-        raise AssertionError(f"{name} disagrees with its plain version")
-    if lib is not None and not ok(lib(), b if name in (
-            "fold_stripes", "colsum_chunks") else a):
-        raise AssertionError(f"{name}: the library call computes another "
-                             f"function")
+    if name == "fold_stripes" and b.dtype.is_floating_point:
+        ok = bool(torch.all((a.double() - b.double()).abs()
+                            <= 1e-6 * b.double().abs()))
+        log(f"kernels staged {name}: {'ok' if ok else 'MISMATCH'} (max "
+            f"|diff| {err!r})")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version")
+    else:
+        _check_call("kernels staged", name, a, b, kern)
+    if lib is not None:
+        got = lib()
+        ok = (bool(torch.all((got.double() - b.double()).abs()
+                             <= 1e-6 * b.double().abs()))
+              if name == "fold_stripes" and b.dtype.is_floating_point else
+              _scaled_ok(got, b, "sum", FOLD_RTOL["float32"])
+              if name == "colsum_chunks" else _same(got, a))
+        if not ok:
+            raise AssertionError(f"{name}: the library call computes "
+                                 f"another function")
     _time_row(torch, rows, name, kern, plain, err, launches,
               _bound(*work, dtype), lib)
 
@@ -1581,8 +1617,14 @@ def phase_staged(torch, ex):
     t0 = time.perf_counter()
     t = staged_tables(meta_from_numpy(meta.arrays, DEVICE), meta)
     torch.cuda.synchronize()
-    log(f"staged: tables (xe_plan halves, chunk_dst) uploaded in "
-        f"{time.perf_counter() - t0:.2f} s")
+    log(f"staged: tables (xe_plan halves, chunk_dst, K13's lists) "
+        f"uploaded in {time.perf_counter() - t0:.2f} s")
+    per_row = t["chunk_ptr"][1:] - t["chunk_ptr"][:-1]
+    log(f"staged colsum_chunks lists: {meta.nrb} rows, "
+        f"{int(per_row.sum())} chunks, {int((per_row > 1).sum())} rows of "
+        f"more than one, {t['chunk_long'].numel()} of more than "
+        f"{pk.COLSUM_LONG} ({t['chunk_lpos'].numel()} chunks), the longest "
+        f"{int(per_row.max())}")
     x = ex.program.messenger(ex.state).to(torch.float32)
     n = ex.part.tile_rows
     fused = spmv3_stages(x, t, meta, sem, n)
@@ -2606,6 +2648,117 @@ def phase_mesh(torch, np, ref) -> None:
     shutil.rmtree(MESH_DIR, ignore_errors=True)
 
 
+def _entry_step(torch) -> None:
+    """(a) of phase 11: entry() on the card against the same step on the
+    plain versions on the card."""
+    from graphtap_tpu_torch import graft_entry
+    step, args = graft_entry.entry(DEVICE)
+    pstep, pargs = graft_entry.entry(DEVICE, plain=True)
+    _reset_all_launches()
+    out = step(*args)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _all_launches().items() if v}
+    want = pstep(*pargs)
+    total = float(out.sum())
+    rel = abs(total - ENTRY_SUM) / ENTRY_SUM
+    log(f"entry: {tuple(out.shape)} sum {total!r} (rel err {rel:.3e} vs "
+        f"{ENTRY_SUM}); launches {launches}; vs the plain step on the card "
+        f"{'bit for bit' if _same(out, want) else 'DIFFER'}; one step "
+        f"{_ms(lambda: step(*args), torch, 10):.4f} ms (CUDA events)")
+    if launches != ENTRY_LAUNCHES:
+        raise AssertionError(f"entry: launches {launches}, expected "
+                             f"{ENTRY_LAUNCHES}")
+    if not (_same(out, want) and rel <= 1e-5):
+        raise AssertionError("entry: the step differs from its plain "
+                             "version or from the reference sum")
+
+
+def _dryrun(np) -> None:
+    """(b) of phase 11: dryrun_multichip(4) on the one card against the
+    port's own 1x1 run of each program."""
+    from graphtap_tpu_torch import graft_entry
+    t0 = time.perf_counter()
+    got = graft_entry.dryrun_multichip(4, DEVICE, timeout=MESH_TIMEOUT)
+    t1 = time.perf_counter()
+    one = graft_entry.dryrun_multichip(1, DEVICE, timeout=MESH_TIMEOUT)
+    log(f"dryrun: 4 ranks in {t1 - t0:.1f} s, 1 rank in "
+        f"{time.perf_counter() - t1:.1f} s")
+    for name, r in got.items():
+        want = one[name]
+        exact = name in ("bfs", "sssp")
+        same = (all(np.array_equal(r["state"][k], v)
+                    for k, v in want["state"].items()) if exact else
+                abs(r["checksum"] - want["checksum"])
+                <= 1e-6 * abs(want["checksum"]))
+        log(f"dryrun {name}: 2x2 checksum {r['checksum']!r} (reachable "
+            f"{r['reachable']}, {r['iteration']} iterations, exchange "
+            f"{r['exchange']}) vs 1x1 {want['checksum']!r}: "
+            f"{'equal' if same else 'DIFFER'}"
+            f"{' bit for bit' if exact and same else ''}")
+        if not same or r["exchange"] != "gloo-host" or \
+                len(r["ranks"]) != 4:
+            raise AssertionError(f"dryrun {name}: the 2x2 run differs "
+                                 f"from the 1x1 run")
+        for b, rk in enumerate(r["ranks"]):
+            gated = sum(bool(st["gated"]) for st in rk["supersteps"])
+            log(f"dryrun {name}: rank {b} launches {rk['launches']}; "
+                f"{gated} of {len(rk['supersteps'])} supersteps gated")
+            if r["ranks"][0]["supersteps"][0]["gated"] is None:
+                continue                    # scan: no kernel to launch
+            # K1-K3 static or gated (a rank whose frontier is sparse, or
+            # empty, takes the gated launches), K4 on every superstep
+            got = collections.defaultdict(int, rk["launches"])
+            _need_launches(f"dryrun {name} rank {b}", got, {
+                **{(k, k + "_gated"): 1 for k in MESH_KERNELS[:3]},
+                "hub_fold": 1})
+            if gated:
+                _need_launches(f"dryrun {name} rank {b} (gated)", got,
+                               {k: 1 for k in GATED})
+
+
+def phase_entry(torch, np) -> None:
+    """Phase 11 (see the module docstring): (a) entry(), (b) the
+    dryrun, (c) the BFS gate A/B, (d) the sparse-exchange sweep."""
+    from graphtap_tpu_torch.tools import bfs_profile, sparse_exchange_bench
+    _entry_step(torch)
+    _mark("entry a")
+    _dryrun(np)
+    _mark("entry b")
+    # (c) on the RMAT-SUITE_SCALE BFS panel plan the workers built
+    _PREBUILT["spmv3", "ROW", "main", "bfs"].get(timeout=1200)
+    n = 1 << SUITE_SCALE
+    res = bfs_profile.profile(SUITE_SCALE, DEVICE, cache=PLAN_DIR, nv=n,
+                              log=log)
+    t = [res["gates"][gate]["seconds"] for gate in bfs_profile.GATES]
+    ok = all(np.array_equal(res["state"][k], v)
+             for k, v in _SUITE_WANT["bfs"].items())
+    log(f"bfs_profile RMAT-{SUITE_SCALE}: gate forced/off/auto "
+        f"{t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} s (best of "
+        f"{bfs_profile.REPS}, {res['gates']['auto']['iters']} iterations; "
+        f"auto's branches {res['gates']['auto']['gated']}), equal results; "
+        f"state vs golden.bfs {'equal' if ok else 'DIFFER'} ({_SMI[0]})")
+    for name, xs in res["phases"].items():
+        log(f"bfs_profile per-phase: {name} total {sum(xs) * 1e3:.3f} ms, "
+            f"per iteration (ms) {' '.join(f'{x * 1e3:.3f}' for x in xs)}")
+    if not ok:
+        raise AssertionError("bfs_profile: BFS differs from golden.bfs")
+    _mark("entry c")
+    # (d) eight ranks on the one card
+    rec = sparse_exchange_bench.sweep(SUITE_SCALE, DEVICE)
+    hops = _SUITE_WANT["bfs"]["hops"]
+    want = float(hops[hops < _golden().INF].sum())
+    for r in rec["detail"]["rows"]:
+        log(f"sparse exchange RMAT-{SUITE_SCALE} K={r['K']}: "
+            f"{r['seconds']:.4f} s / {r['iters']} iterations (best of "
+            f"{sparse_exchange_bench.REPS}; {rec['detail']['mesh']})")
+    log(f"sparse exchange: every K gives K=0's checksum "
+        f"{rec['detail']['checksum']!r} / {rec['detail']['reachable']} "
+        f"(golden {want!r}); {json.dumps(rec)}")
+    if rec["detail"]["checksum"] != want:
+        raise AssertionError("sparse exchange: the checksum differs from "
+                             "golden.bfs")
+
+
 def phase_probes(torch):
     """P1-P3: the quick copy-rate table and the per-panel table, their
     launches counted; then each kernel against its plain version at the
@@ -2825,6 +2978,8 @@ def _phases(torch, np) -> int:
     _mark("cli")
     phase_mesh(torch, np, ref)
     _mark("mesh")
+    phase_entry(torch, np)
+    _mark("entry")
     log("ms per call group of one SpMV: route_fold sums its fixr and fix2 "
         "calls, expand_stream its three calls, "
         "windowed_gather its six stage calls; the static panel rows at a "

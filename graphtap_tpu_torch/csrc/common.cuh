@@ -3,11 +3,11 @@
 //
 // The value types, ⊗ and ⊕ kinds as the wrappers number them
 // (kernels/panel_kernels.py: _DTYPES, _MUL_KINDS, _REDUCE_KINDS), the
-// saturating min-plus ⊗, the ⊕ combine and its atomic form, a grid-stride
-// fill, 16-byte stores and loads of four values, the Hopper TMA helpers
-// (mbarriers, bulk copies both ways, bulk groups) of the plan rings of
-// K1-K3 and K11 and of P1's copy ring, and the two fixed-order passes of
-// the K3, K5 and K8 folds.
+// saturating min-plus ⊗, the ⊕ combine, 16-byte stores and loads of four
+// values, the Hopper TMA helpers (mbarriers, bulk copies both ways, bulk
+// groups) of the plan rings of K1-K3 and K11, of P1's copy ring and of
+// K13's long rows, and the two fixed-order passes of the K3, K5 and K8
+// folds.
 
 #pragma once
 
@@ -50,18 +50,6 @@ __device__ __forceinline__ T combine(T a, T b) {
   }
 }
 
-// Works on global and shared memory alike (f32/f64 atomicAdd, int32 all).
-template <int RED, typename T>
-__device__ __forceinline__ void atomic_combine(T* addr, T v) {
-  if constexpr (RED == RED_SUM) {
-    atomicAdd(addr, v);
-  } else if constexpr (RED == RED_MIN) {
-    atomicMin(addr, v);
-  } else {
-    atomicMax(addr, v);
-  }
-}
-
 // ⊗ of one contribution with its weight pw[e] (MUL_NONE: none).
 template <typename T, int MUL>
 __device__ __forceinline__ T apply_mul(T v, const T* __restrict__ pw,
@@ -72,16 +60,6 @@ __device__ __forceinline__ T apply_mul(T v, const T* __restrict__ pw,
     return add_sat<T>(v, pw[e], fill);
   } else {
     return v;
-  }
-}
-
-template <typename T>
-__global__ void fill_kernel(T* __restrict__ y, long long n, T v) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride) {
-    y[i] = v;
   }
 }
 
@@ -227,11 +205,6 @@ __device__ __forceinline__ void fence_async_smem() {
 inline unsigned stride_blocks(long long n) {
   const long long want = (n + THREADS - 1) / THREADS;
   return static_cast<unsigned>(want < 65536 ? (want > 0 ? want : 1) : 65536);
-}
-
-template <typename T>
-void launch_fill(T* y, long long n, T v, cudaStream_t st) {
-  if (n > 0) fill_kernel<T><<<stride_blocks(n), THREADS, 0, st>>>(y, n, v);
 }
 
 // Call f with the ⊕ kind as a compile-time constant; an unknown kind is

@@ -71,11 +71,16 @@
 // version's bit for bit: an atomic fold, whose order changed from call to
 // call, kept f32 PageRank's convergence vote from closing.
 //
-// K13 still adds each staged chunk to y with one atomic per (chunk, lane)
-// after a fill pass (f32/f64 atomicAdd, int32 atomicMin/Max), so its
-// float sums round in no fixed order; no app path runs it. K12 needs no atomics: one thread per
-// output folds its 8 rows in order. K12 and K13 move each byte once and
-// are bound by device memory. K4 runs one 128-thread block per row: warp
+// K13 folds in the Pallas grid's order too: each y row from the identity,
+// its chunks in ascending chunk order (the row -> chunks list, built once
+// per upload), each chunk's 8 rows in row order into a part first; y is
+// written once, with no atomic and no fill pass, so its float sums equal
+// the plain version's bit for bit on every call. A row of many chunks (a
+// hub row) has its parts folded across the card first and its chain run
+// by a block that stages them in shared memory (see colsum_chunks_kernel).
+// K12 needs no atomics: one thread per output folds its 8 rows in order.
+// K12 moves each byte once, K13 too but for its long rows' parts; both are
+// bound by device memory. K4 runs one 128-thread block per row: warp
 // shuffles for the xor shifts 1..16 and shared memory for 32 and 64, in
 // the Pallas kernel's order, so it is bit-exact. All element offsets are
 // 64-bit.
@@ -609,31 +614,6 @@ fold_stripes_kernel(const T* __restrict__ s1, T* __restrict__ out,
   }
 }
 
-// ---------------------------------------------------------------- K13
-// Chunk fold: chunk c (rows c*8 .. c*8+7 of ystack) folded lane-wise in
-// registers and ⊕-ed into y row chunk_dst[c] with one atomic per lane. One
-// thread per (chunk, lane), two chunks per 256-thread block. y holds the
-// identity before the first block runs (fill_kernel on the same stream).
-template <typename T, int RED>
-__global__ void __launch_bounds__(THREADS)
-colsum_chunks_kernel(const T* __restrict__ ystack,
-                     const int* __restrict__ chunk_dst, T* __restrict__ y,
-                     long long n) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride) {
-    const long long c = i >> 7;
-    const int l = static_cast<int>(i & 127);
-    const T* src = ystack + c * STRIPE * LANES + l;
-    T acc = src[0];
-#pragma unroll
-    for (int k = 1; k < STRIPE; ++k) acc = combine<RED>(acc, src[k * LANES]);
-    atomic_combine<RED>(y + static_cast<long long>(chunk_dst[c]) * LANES + l,
-                        acc);
-  }
-}
-
 // ---------------------------------------------------------------- launch
 // A ring kernel (K1-K3) opted in to a block's whole shared memory, as a
 // kernel past 48 KB must be, once per kernel: Id names the kernel instance.
@@ -844,35 +824,194 @@ int launch_fold_stripes(const void* s1, void* out, long long nrows_out,
   return cudaGetLastError();
 }
 
-template <typename T>
-int launch_colsum(const void* ystack, const void* chunk_dst, void* y,
-                  long long nchunks, long long nblocks, int red,
-                  double identity, cudaStream_t st) {
-  if (red != RED_SUM && !std::is_same<T, int>::value) {
-    return cudaErrorInvalidValue;   // no float atomicMin/Max
+// ---------------------------------------------------------------- K13
+// y[r, l] = ident ⊕ part(c_0) ⊕ part(c_1) ⊕ ... over the chunks c_k =
+// idx[k], k = ptr[r] .. ptr[r+1]-1 (ascending c: the Pallas grid's order),
+// part(c) = ystack[8c, l] ⊕ ... ⊕ ystack[8c+7, l] in row order.
+//
+// A row of at most `longest` chunks (nearly all: one chunk each) is one
+// thread per (row, lane) reading its chunks' rows itself, two chunks' 16
+// loads in flight. A longer row (a hub row: one holds 4,282 of the 36,280
+// chunks of the RMAT-20 PageRank meta's fixr fold, over 32,768 rows) would
+// make that thread's chain the kernel's time, so
+// its parts are folded first, over the whole card (colsum_parts_kernel),
+// and the chain runs on one block per (long row, 16 lanes), which copies
+// the row's parts into shared memory by TMA, eight 4 KB tiles in flight,
+// while 16 threads fold them in order.
+
+template <typename T, int RED>
+__device__ __forceinline__ T chunk_part(const T* __restrict__ src) {
+  T part = src[0];
+#pragma unroll
+  for (int q = 1; q < STRIPE; ++q) part = combine<RED>(part, src[q * LANES]);
+  return part;
+}
+
+// Long rows' parts, 16-lane-group major: for the j-th of the npos list
+// positions pos[] of the long rows (long rows in order, each its chunks in
+// list order), gpart[(g * npos + j) * COLSUM_LG + l'] = part(idx[pos[j]])
+// at lane g * COLSUM_LG + l'. So a long row's parts of one lane group are
+// one contiguous run, which its block copies by TMA.
+constexpr int COLSUM_LG = 16;                       // lanes a long block
+constexpr int COLSUM_SPLIT = LANES / COLSUM_LG;     // long blocks a row
+constexpr int COLSUM_STAGES = 8;                    // tiles in flight
+constexpr int COLSUM_TILE = 4096;                   // bytes a tile
+
+template <typename T, int RED>
+__global__ void __launch_bounds__(THREADS)
+colsum_parts_kernel(const T* __restrict__ ystack, const int* __restrict__ idx,
+                    const int* __restrict__ pos, T* __restrict__ gpart,
+                    long long npos) {
+  const long long n = npos * LANES;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += stride) {
+    const long long j = i >> 7;
+    const int l = static_cast<int>(i & 127);
+    gpart[((l / COLSUM_LG) * npos + j) * COLSUM_LG + l % COLSUM_LG] =
+        chunk_part<T, RED>(ystack +
+                           static_cast<long long>(idx[pos[j]]) * STRIPE *
+                               LANES + l);
   }
-  T* yt = static_cast<T*>(y);
-  launch_fill<T>(yt, nblocks * LANES, static_cast<T>(identity), st);
-  const long long n = nchunks * LANES;
-  if (n > 0) {
-    const T* src = static_cast<const T*>(ystack);
-    const int* d = static_cast<const int*>(chunk_dst);
-    if (red == RED_SUM) {
-      colsum_chunks_kernel<T, RED_SUM><<<stride_blocks(n), THREADS, 0, st>>>(
-          src, d, yt, n);
-    } else if constexpr (std::is_same<T, int>::value) {
-      if (red == RED_MIN) {
-        colsum_chunks_kernel<T, RED_MIN>
-            <<<stride_blocks(n), THREADS, 0, st>>>(src, d, yt, n);
-      } else if (red == RED_MAX) {
-        colsum_chunks_kernel<T, RED_MAX>
-            <<<stride_blocks(n), THREADS, 0, st>>>(src, d, yt, n);
-      } else {
-        return cudaErrorInvalidValue;
+}
+
+// Blocks [0, COLSUM_SPLIT * nlong): long row longs[b / COLSUM_SPLIT], its
+// COLSUM_LG lanes from COLSUM_LG * (b % COLSUM_SPLIT), on warp 0 (the
+// block's other warps leave at once): lane 0 keeps COLSUM_STAGES tiles of
+// the row's parts in flight into shared memory by TMA (each on its stage's
+// mbarrier), and lanes 0..COLSUM_LG-1 fold them in order. The rest: the
+// short rows, grid-stride over (row, lane).
+template <typename T, int RED>
+__global__ void __launch_bounds__(THREADS)
+colsum_chunks_kernel(const T* __restrict__ ystack,
+                     const int* __restrict__ ptr, const int* __restrict__ idx,
+                     const int* __restrict__ longs,
+                     const T* __restrict__ gpart,
+                     T* __restrict__ y, long long nblocks, int nlong,
+                     long long npos, int longest, T ident) {
+  constexpr int TP = COLSUM_TILE / (COLSUM_LG * sizeof(T));  // parts a tile
+  __shared__ __align__(128) T buf[COLSUM_STAGES][TP * COLSUM_LG];
+  __shared__ uint64_t bar[COLSUM_STAGES];
+  const long long nlb = static_cast<long long>(COLSUM_SPLIT) * nlong;
+  if (blockIdx.x < nlb) {
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    const int i = blockIdx.x / COLSUM_SPLIT;
+    const int g = blockIdx.x % COLSUM_SPLIT;
+    const long long r = longs[i];
+    const int n = ptr[r + 1] - ptr[r];
+    long long off = 0;                         // the row's first position j
+    for (int q = 0; q < i; ++q) off += ptr[longs[q] + 1] - ptr[longs[q]];
+    const T* src = gpart + (g * npos + off) * COLSUM_LG;
+    const int ntiles = (n + TP - 1) / TP;
+    auto load = [&](int j, int s) {
+      if (lane == 0) {
+        const unsigned bytes = static_cast<unsigned>(
+            min(TP, n - j * TP) * COLSUM_LG * sizeof(T));
+        mbar_arrive_tx(&bar[s], bytes);
+        bulk_load(buf[s], src + static_cast<long long>(j) * TP * COLSUM_LG,
+                  bytes, &bar[s]);
+      }
+    };
+    if (lane == 0) {
+      for (int s = 0; s < COLSUM_STAGES; ++s) mbar_init(&bar[s], 1);
+      fence_mbar_init();
+    }
+    __syncwarp();
+    for (int s = 0; s < COLSUM_STAGES && s < ntiles; ++s) load(s, s);
+    T acc = ident;
+    for (int j = 0; j < ntiles; ++j) {
+      const int s = j % COLSUM_STAGES;
+      mbar_wait(&bar[s], (j / COLSUM_STAGES) & 1);
+      if (lane < COLSUM_LG) {
+        // 16 shared-memory loads in flight ahead of the ordered folds
+        const T* b = buf[s] + lane;
+        const int cnt = min(TP, n - j * TP);
+        int p = 0;
+        for (; p + 16 <= cnt; p += 16) {
+          T v[16];
+#pragma unroll
+          for (int q = 0; q < 16; ++q) v[q] = b[(p + q) * COLSUM_LG];
+#pragma unroll
+          for (int q = 0; q < 16; ++q) acc = combine<RED>(acc, v[q]);
+        }
+        for (; p < cnt; ++p) acc = combine<RED>(acc, b[p * COLSUM_LG]);
+      }
+      __syncwarp();                 // stage s is free for tile j + STAGES
+      if (j + COLSUM_STAGES < ntiles) {
+        if (lane == 0) fence_async_smem();
+        load(j + COLSUM_STAGES, s);
       }
     }
+    if (lane < COLSUM_LG) y[r * LANES + g * COLSUM_LG + lane] = acc;
+    return;
   }
-  return cudaGetLastError();
+  const long long stride =
+      (static_cast<long long>(gridDim.x) - nlb) * blockDim.x;
+  for (long long i = (static_cast<long long>(blockIdx.x) - nlb) *
+                         blockDim.x + threadIdx.x;
+       i < nblocks * LANES; i += stride) {
+    const long long r = i >> 7;
+    const int l = static_cast<int>(i & 127);
+    const int end = ptr[r + 1];
+    int k = ptr[r];
+    if (end - k > longest) continue;          // a long row's block writes it
+    auto chunk = [&](int q) {
+      return ystack + static_cast<long long>(idx[q]) * STRIPE * LANES + l;
+    };
+    T acc = ident;
+    for (; k + 2 <= end; k += 2) {
+      T v[2][STRIPE];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const T* src = chunk(k + j);
+#pragma unroll
+        for (int q = 0; q < STRIPE; ++q) v[j][q] = src[q * LANES];
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        T p = v[j][0];
+#pragma unroll
+        for (int q = 1; q < STRIPE; ++q) p = combine<RED>(p, v[j][q]);
+        acc = combine<RED>(acc, p);
+      }
+    }
+    if (k < end) acc = combine<RED>(acc, chunk_part<T, RED>(chunk(k)));
+    y[i] = acc;
+  }
+}
+
+// K13: the long rows' parts (colsum_parts_kernel over their npos list
+// positions `pos`, into part: npos * 128 values), then
+// colsum_chunks_kernel: COLSUM_SPLIT blocks a long row (`longs`, nlong of
+// them) ahead of the short rows' grid-stride blocks.
+template <typename T>
+int launch_colsum(const void* ystack, const void* ptr, const void* idx,
+                  const void* longs, const void* pos, void* part, void* y,
+                  long long nblocks, int nlong, long long npos, int longest,
+                  int red, double identity, cudaStream_t st) {
+  if (nblocks <= 0) return cudaGetLastError();
+  const int rc = dispatch_red(red, [&](auto r) {
+    constexpr int RED = decltype(r)::value;
+    const T* src = static_cast<const T*>(ystack);
+    const int* ix = static_cast<const int*>(idx);
+    if (npos > 0) {
+      colsum_parts_kernel<T, RED>
+          <<<stride_blocks(npos * LANES), THREADS, 0, st>>>(
+              src, ix, static_cast<const int*>(pos), static_cast<T*>(part),
+              npos);
+    }
+    colsum_chunks_kernel<T, RED>
+        <<<static_cast<unsigned>(COLSUM_SPLIT) * nlong +
+               stride_blocks(nblocks * LANES),
+           THREADS, 0, st>>>(
+            src, static_cast<const int*>(ptr), ix,
+            static_cast<const int*>(longs), static_cast<const T*>(part),
+            static_cast<T*>(y), nblocks, nlong, npos, longest,
+            static_cast<T>(identity));
+  });
+  return rc != cudaSuccess ? rc : cudaGetLastError();
 }
 
 // K3: pass (a) over npanels panels into part (npanels*8, 128) through a
@@ -1027,20 +1166,25 @@ int gt_fold_stripes(const void* s1, void* out, long long nrows_out,
   }
 }
 
-int gt_colsum_chunks(const void* ystack, const void* chunk_dst, void* y,
-                     long long nchunks, long long nblocks, int dtype,
-                     int reduce_kind, double identity, void* stream) {
+int gt_colsum_chunks(const void* ystack, const void* ptr, const void* idx,
+                     const void* longs, const void* pos, void* part, void* y,
+                     long long nblocks, int nlong, long long npos,
+                     int longest, int dtype, int reduce_kind,
+                     double identity, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case F32:
-      return launch_colsum<float>(ystack, chunk_dst, y, nchunks, nblocks,
-                                  reduce_kind, identity, st);
+      return launch_colsum<float>(ystack, ptr, idx, longs, pos, part, y,
+                                  nblocks, nlong, npos, longest, reduce_kind,
+                                  identity, st);
     case F64:
-      return launch_colsum<double>(ystack, chunk_dst, y, nchunks, nblocks,
+      return launch_colsum<double>(ystack, ptr, idx, longs, pos, part, y,
+                                   nblocks, nlong, npos, longest,
                                    reduce_kind, identity, st);
     case I32:
-      return launch_colsum<int>(ystack, chunk_dst, y, nchunks, nblocks,
-                                reduce_kind, identity, st);
+      return launch_colsum<int>(ystack, ptr, idx, longs, pos, part, y,
+                                nblocks, nlong, npos, longest, reduce_kind,
+                                identity, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -53,9 +53,10 @@ _SIGNATURES = {
     "gt_route_expand": [_P, _P, _P, _P, _I64, _I32, _I32, _F64, _P],
     # s1, out, nrows_out, dtype, reduce_kind, stream
     "gt_fold_stripes": [_P, _P, _I64, _I32, _I32, _P],
-    # ystack, chunk_dst, y, nchunks, nblocks, dtype, reduce_kind,
-    # identity, stream
-    "gt_colsum_chunks": [_P, _P, _P, _I64, _I64, _I32, _I32, _F64, _P],
+    # ystack, ptr, idx, longs, pos, part, y, nblocks, nlong, npos, longest,
+    # dtype, reduce_kind, identity, stream
+    "gt_colsum_chunks": [_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I64, _I32,
+                         _I32, _I32, _F64, _P],
     # src, bases, plan, rptr, gptr, idx, part, gpart, y, nrows, ngroups,
     # npanels, nwin, stages, dtype, reduce_kind, fill, plan_idx, fill_block,
     # stream

@@ -32,7 +32,9 @@ other partials' runs to be cut anew, which the plain version does too.
 
 ``fold_lists`` builds K3's lists of pass (b) from each partial's target
 row, once per upload: the partials in list order (``idx``), the runs'
-starts in it (``gptr``) and each row's first run (``rptr``).
+starts in it (``gptr``) and each row's first run (``rptr``);
+``row_lists`` the same lists without the runs, for K13, which folds each
+row's chunks as one chain in ascending chunk order, the Pallas grid's.
 ``chunk_lists`` builds K5's and K8's in the same form, with ``idx`` the
 chunks by row block, in chunk order, the chunks that hold no kept entry
 left out and one null item (-1, identity partials) for a row block left
@@ -84,6 +86,16 @@ def fold_lists(target: torch.Tensor, nrows: int
                           - rptr[grow]) * GROUP
     gptr = torch.cat([gstart, ptr[-1:]])
     return rptr.to(torch.int32), gptr.to(torch.int32), idx.to(torch.int32)
+
+
+def row_lists(target: torch.Tensor, nrows: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ptr (nrows + 1,), idx (n,)), int32: ``fold_lists`` without its
+    runs, for a fold that takes each row's list as one sequential chain
+    (K13, the Pallas grid's order): row r's partials are ``idx[ptr[r]:
+    ptr[r + 1]]``, ascending."""
+    rptr, gptr, idx = fold_lists(target, nrows)
+    return gptr[rptr.long()].contiguous(), idx
 
 
 def fold_args(lists, scratch, nrows: int, nparts: int, dtype, device):

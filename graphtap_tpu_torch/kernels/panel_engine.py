@@ -23,9 +23,9 @@ pipeline, the composition the JAX package keeps K11 and K13 for
     -> K13 colsum_chunks (y_mid) -> K4 hub_fold -> K3 route_fold (fix2)
 
 Its tables (the two halves of xe_plan, the absolute y_mid row of each
-fixr chunk) are derived once per upload by ``staged_tables``, and K3's
-row -> bands lists and scratch (its fixed fold order) by
-``fold_tables``, which keeps them in ``t``.
+fixr chunk and K13's row -> chunks lists) are derived once per upload by
+``staged_tables``, and K3's row -> bands lists and scratch (its fixed
+fold order) by ``fold_tables``, which keeps them in ``t``.
 
 Frontier gating (nonstationary programs, ``gate``): activity bits per
 8-row x block propagate through the panel graph (xe -> pa -> fixr), and
@@ -46,9 +46,10 @@ from graphtap_tpu_torch.kernels.fold_order import fold_lists
 from graphtap_tpu_torch.kernels.fold_order import \
     fold_tables as _fold_tables
 from graphtap_tpu_torch.kernels.panel_kernels import (
-    FOLD_SEG_ROWS, LANES, STRIPE, XROWS, colsum_chunks, fold_rows, hub_fold,
-    plan_rows, route_expand, route_fold, route_passa, route_xr_exp,
-    xe_plan_rows)
+    FOLD_SEG_ROWS, LANES, STRIPE, XROWS, colsum_chunks, colsum_lists,
+    fold_rows, hub_fold, hub_fold_plain, plan_rows, route_expand, route_fold,
+    route_fold_plain, route_passa, route_passa_plain, route_xr_exp,
+    route_xr_exp_plain, xe_plan_rows)
 from graphtap_tpu_torch.kernels.panel_meta import Spmv3Meta, fill_blocks
 from graphtap_tpu_torch.kernels.semiring import Semiring
 
@@ -56,6 +57,8 @@ from graphtap_tpu_torch.kernels.semiring import Semiring
 # the reference's sparse/dense vote threshold (vertex_program.hpp:767,
 # :1378), as in the JAX package
 GATE_RATIO = 0.6
+# K13's row -> chunks lists in staged_tables' dict (colsum_lists' order)
+CHUNK_LISTS = ("chunk_ptr", "chunk_idx", "chunk_long", "chunk_lpos")
 
 
 def _activity(x2d: torch.Tensor, sx: int, fill) -> torch.Tensor:
@@ -207,15 +210,43 @@ def _fold_tail(y_mid, t, meta: Spmv3Meta, kind: str, fill, dense_len: int,
     y_dense = route_fold(y_hub, t["f2_bases"], t["f2_plan"], t["fix2_dst"],
                          t["f2_seg"], meta.f2_rows, kind, fill,
                          meta.f2_panels, meta.f2_nwin, **fix2)
-    # dense segments no fix2 panel visits hold the ⊕-identity (the fold
-    # table starts filled; the mask keeps the JAX package's contract)
+    return y_hub, _segok(y_dense, t, meta, fill, dense_len)
+
+
+def _segok(y_dense, t, meta: Spmv3Meta, fill, dense_len: int):
+    """The fix2 fold's table -> y (dense_len,): dense segments no fix2
+    panel visits hold the ⊕-identity (the fold table starts filled; the
+    mask keeps the JAX package's contract)."""
     if not bool(np.all(meta.arrays["f2_segok"])):
         seg_rows2 = min(meta.f2_rows, FOLD_SEG_ROWS)
         ok = torch.repeat_interleave(t["f2_segok"] != 0, seg_rows2)[:, None]
         y_dense = torch.where(
             ok, y_dense, torch.tensor(fill, dtype=y_dense.dtype,
                                       device=y_dense.device))
-    return y_hub, y_dense.reshape(-1)[:dense_len]
+    return y_dense.reshape(-1)[:dense_len]
+
+
+def spmv3_plain(x: torch.Tensor, t: Dict[str, torch.Tensor],
+                meta: Spmv3Meta, semiring: Semiring,
+                dense_len: int) -> torch.Tensor:
+    """``spmv3_local``'s static branch through the plain versions of K1-K4
+    on x's device, whatever it is: on the card, the yardstick the kernels'
+    SpMV is held against (on the CPU, ``spmv3_local`` is this)."""
+    fill, kind = semiring.identity, semiring.reduce_kind
+    x2d = pad_x(x, meta, fill)
+    s0 = route_xr_exp_plain(x2d, t["xr_bases"], t["xe_plan"],
+                            t.get("w_stream"), fill, meta.exp_panels + 1,
+                            meta.xr_nwin, _mul_kind(meta, semiring))
+    s1 = route_passa_plain(s0, t["pa_bases"], t["pa_plan"], fill,
+                           meta.pa_panels + 1, meta.pa_nwin)
+    y_mid = route_fold_plain(s1, t["fixr_bases"], t["fixr_plan"],
+                             t["fix_dst"], t["fixr_seg"], meta.nrb, kind,
+                             fill, meta.fix_panels, meta.fixr_nwin)
+    y_hub = hub_fold_plain(y_mid, t["hub_mask"], kind)
+    y_dense = route_fold_plain(y_hub, t["f2_bases"], t["f2_plan"],
+                               t["fix2_dst"], t["f2_seg"], meta.f2_rows,
+                               kind, fill, meta.f2_panels, meta.f2_nwin)
+    return _segok(y_dense, t, meta, fill, dense_len)
 
 
 def spmv3_local(x: torch.Tensor, t: Dict[str, torch.Tensor],
@@ -229,9 +260,11 @@ def staged_tables(t: Dict[str, torch.Tensor],
                   meta: Spmv3Meta) -> Dict[str, torch.Tensor]:
     """``t`` plus the staged pipeline's tables, on t's device: ``xr_plan``
     and ``exp_plan``, the single-layer x -> x_ext half and the expand half
-    of each panel's packed ``xe_plan`` block (contiguous copies), and
+    of each panel's packed ``xe_plan`` block (contiguous copies),
     ``chunk_dst``, the absolute y_mid row ``fixr_seg*seg_rows + fix_dst``
-    of each fixr chunk (inside the nrb-row table: ``validate_meta``)."""
+    of each fixr chunk (inside the nrb-row table: ``validate_meta``), and
+    K13's row -> chunks lists (``CHUNK_LISTS``,
+    ``panel_kernels.colsum_lists``)."""
     npan = meta.exp_panels + 1
     xr_rows = plan_rows(meta.xr_nwin * STRIPE, XROWS, False)
     blocks = t["xe_plan"][:npan * xe_plan_rows(meta.xr_nwin)].view(
@@ -239,10 +272,12 @@ def staged_tables(t: Dict[str, torch.Tensor],
     seg_rows = min(meta.nrb, FOLD_SEG_ROWS)
     chunk_dst = (t["fixr_seg"][:meta.fix_panels].long().repeat_interleave(
         STRIPE) * seg_rows + t["fix_dst"][:meta.fix_panels * STRIPE].long())
+    lists = colsum_lists(chunk_dst, meta.nrb)
     return {**t,
             "xr_plan": blocks[:, :xr_rows].reshape(-1, LANES).contiguous(),
             "exp_plan": blocks[:, xr_rows:].reshape(-1, LANES).contiguous(),
-            "chunk_dst": chunk_dst.to(torch.int32)}
+            "chunk_dst": chunk_dst.to(torch.int32),
+            **dict(zip(CHUNK_LISTS, lists))}
 
 
 def spmv3_staged_stages(x: torch.Tensor, t: Dict[str, torch.Tensor],
@@ -265,7 +300,8 @@ def spmv3_staged_stages(x: torch.Tensor, t: Dict[str, torch.Tensor],
                      meta.pa_panels + 1, meta.pa_nwin)
     stack1 = route_passa(s1, t["fixr_bases"], t["fixr_plan"], fill,
                          meta.fix_panels, meta.fixr_nwin)
-    y_mid = colsum_chunks(stack1, t["chunk_dst"], meta.nrb, kind, fill)
+    y_mid = colsum_chunks(stack1, t["chunk_dst"], meta.nrb, kind, fill,
+                          lists=tuple(t[k] for k in CHUNK_LISTS))
     y_hub, y = _fold_tail(y_mid, t, meta, kind, fill, dense_len,
                           fold_tables(t, meta, x.dtype)["fix2"])
     return {"x2d": x2d, "x_ext": x_ext, "s0": s0, "s1": s1,
@@ -276,6 +312,7 @@ def spmv3_staged(x: torch.Tensor, t: Dict[str, torch.Tensor],
                  meta: Spmv3Meta, semiring: Semiring,
                  dense_len: int) -> torch.Tensor:
     """The staged v3 SpMV: x (NC,) -> y_dense (dense_len,), equal to
-    ``spmv3_local``'s (bit for bit in int32; float sums within the
-    atomic folds' tolerance)."""
+    ``spmv3_local``'s (bit for bit in int32; float sums within rounding:
+    K13 folds a row's chunks as one chain, K3 in runs of
+    ``fold_order.GROUP``)."""
     return spmv3_staged_stages(x, t, meta, semiring, dense_len)["y"]

@@ -47,7 +47,8 @@ import torch
 
 from graphtap_tpu_torch.kernels import _cuda
 from graphtap_tpu_torch.kernels.fold_order import (fold_args, fold_lists,
-                                                   list_fold)
+                                                   list_fold, ordered_fold,
+                                                   row_lists)
 from graphtap_tpu_torch.kernels.panel_plan import (FOLD_SEG_ROWS, LANES,
                                                    PROWS, STRIPE, XROWS)
 
@@ -63,6 +64,8 @@ _REDUCE_KINDS = {"sum": 0, "min": 1, "max": 2}
 # the ⊕ kinds each value type takes on the CUDA side
 _REDUCE_OK = {torch.float32: ("sum",), torch.float64: ("sum",),
               torch.int32: ("sum", "min", "max")}
+# K13: a y row of more chunks than this folds on blocks of its own
+COLSUM_LONG = 32
 
 
 def reset_launches() -> None:
@@ -309,12 +312,17 @@ def fold_stripes_plain(s1, reduce_kind: str, npanels: int):
 
 def colsum_chunks_plain(ystack, chunk_dst, nblocks: int, reduce_kind: str,
                         identity):
-    parts = _reduce8(ystack, reduce_kind)
-    y = torch.full((nblocks, LANES), identity, dtype=ystack.dtype,
-                   device=ystack.device)
-    rows = chunk_dst[:parts.shape[0]].long()[:, None].expand(-1, LANES)
-    op = {"sum": "sum", "min": "amin", "max": "amax"}[reduce_kind]
-    return y.scatter_reduce_(0, rows, parts, op, include_self=True)
+    """K13's fold in its order: each chunk's 8 rows ⊕-ed in row order into
+    a part, then row d = identity ⊕ part(i0) ⊕ part(i1) ⊕ ... over the
+    chunks i with chunk_dst[i] == d, ascending (the Pallas grid's)."""
+    v = ystack.view(-1, STRIPE, LANES)
+    op = {"sum": torch.add, "min": torch.minimum,
+          "max": torch.maximum}[reduce_kind]
+    parts = v[:, 0]
+    for k in range(1, STRIPE):
+        parts = op(parts, v[:, k])
+    return ordered_fold(parts, chunk_dst[:parts.shape[0]], nblocks,
+                        reduce_kind, identity)
 
 
 def _fold_rows(dst, seg, nrows: int):
@@ -586,13 +594,37 @@ def fold_stripes(s1, reduce_kind: str, npanels: int):
     return out
 
 
+def colsum_lists(chunk_dst, nblocks: int):
+    """K13's row -> chunks lists, built once per upload (``panel_engine.
+    staged_tables`` keeps them): (ptr (nblocks + 1,), idx (nchunks,)) of
+    ``fold_order.row_lists``, ``longs``, the rows of more than
+    COLSUM_LONG chunks, and ``pos``, their list positions; int32, on
+    chunk_dst's device."""
+    ptr, idx = row_lists(chunk_dst, nblocks)
+    n = (ptr[1:] - ptr[:-1]).long()
+    longs = torch.nonzero(n > COLSUM_LONG).squeeze(1)
+    nl = n[longs]
+    # each long row's positions ptr[r] .. ptr[r+1]-1, rows in order
+    shift = ptr[:-1][longs].long() - (torch.cumsum(nl, 0) - nl)
+    pos = (torch.repeat_interleave(shift, nl)
+           + torch.arange(int(nl.sum()), device=nl.device))
+    return ptr, idx, longs.to(torch.int32), pos.to(torch.int32)
+
+
 def colsum_chunks(ystack, chunk_dst, nblocks: int, reduce_kind: str,
-                  identity):
-    """K13: an (nblocks, 128) table that starts at ``identity``; row
-    ``chunk_dst[i]`` ⊕= the column-⊕ of chunk i (rows i*8 .. i*8+7 of
-    ``ystack``). Replaces ``panel_kernels.py::colsum_chunks``. The
-    chunk_dst values are not read back: callers build them from a
-    validated meta (``panel_engine.staged_tables``)."""
+                  identity, lists=None):
+    """K13: an (nblocks, 128) table; row d = identity ⊕ the column-⊕ of
+    each chunk i (rows i*8 .. i*8+7 of ``ystack``, in row order) with
+    ``chunk_dst[i] == d``, in ascending i: the Pallas grid's order, so
+    float sums equal the plain version's bit for bit on every call.
+    Replaces ``panel_kernels.py::colsum_chunks``. ``lists``: its
+    ``colsum_lists(chunk_dst, nblocks)``, built here if None
+    (``panel_engine.staged_tables`` keeps them); the plain version reads
+    none. On the card a row of at most COLSUM_LONG chunks is one thread a
+    lane; a longer one (a hub row) has its chunks' parts folded across
+    the card first, then its chain run by blocks that stage the parts in
+    shared memory. The chunk_dst values are not read back: callers build
+    them from a validated meta (``panel_engine.staged_tables``)."""
     _check_2d("ystack", ystack)
     if ystack.shape[0] % STRIPE:
         raise ValueError("ystack rows must be a multiple of 8")
@@ -604,15 +636,28 @@ def colsum_chunks(ystack, chunk_dst, nblocks: int, reduce_kind: str,
     if not _on_cuda(ystack):
         return colsum_chunks_plain(ystack, chunk_dst, nblocks, reduce_kind,
                                    identity)
+    if lists is None:
+        lists = colsum_lists(chunk_dst[:nchunks], nblocks)
+    ptr, idx, longs, pos = lists
+    for name, t, n in (("ptr", ptr, nblocks + 1), ("idx", idx, nchunks),
+                       ("longs", longs, longs.shape[0]),
+                       ("pos", pos, pos.shape[0])):
+        if (t.dtype != torch.int32 or tuple(t.shape) != (n,)
+                or not t.is_contiguous() or t.device != ystack.device):
+            raise ValueError(f"colsum_chunks {name}: expected a contiguous "
+                             f"({n},) int32 tensor on {ystack.device}")
     lib = _cuda.library()
+    part = torch.empty((pos.shape[0], LANES), dtype=ystack.dtype,
+                       device=ystack.device)
     y = torch.empty((nblocks, LANES), dtype=ystack.dtype,
                     device=ystack.device)
     with torch.cuda.device(ystack.device):
-        rc = lib.gt_colsum_chunks(ystack.data_ptr(), chunk_dst.data_ptr(),
-                                  y.data_ptr(), nchunks, nblocks,
-                                  _DTYPES[ystack.dtype],
-                                  _REDUCE_KINDS[reduce_kind],
-                                  float(identity), _stream(ystack))
+        rc = lib.gt_colsum_chunks(
+            ystack.data_ptr(), ptr.data_ptr(), idx.data_ptr(),
+            longs.data_ptr(), pos.data_ptr(), part.data_ptr(), y.data_ptr(),
+            nblocks, longs.shape[0], pos.shape[0], COLSUM_LONG,
+            _DTYPES[ystack.dtype], _REDUCE_KINDS[reduce_kind],
+            float(identity), _stream(ystack))
     LAUNCHES["colsum_chunks"] += 1
     _cuda.check(rc, "colsum_chunks")
     return y

@@ -61,6 +61,23 @@ def spmv_sorted_scan(x, rows, cols, weights, nnz: int,
                         semiring)
 
 
+def scatter_to_dense(y_compact: torch.Tensor, ir: torch.Tensor,
+                     dense_len: int, semiring: Semiring) -> torch.Tensor:
+    """Expand a renumbered accumulator (NR,) to the dense row block
+    (dense_len,) by ``ir``, the dense local row of each renumbered row;
+    padding entries of ``ir`` point past the end and are dropped, as the
+    reference's IR scatter on update (tcsc_spmspv2.hpp:531-536); an index
+    in [-dense_len, 0) counts from the end, as numpy's. Rows no entry
+    reaches hold the ⊕-identity."""
+    y = torch.full((dense_len,), semiring.identity, dtype=y_compact.dtype,
+                   device=y_compact.device)
+    ir = ir.long()
+    ir = torch.where(ir < 0, ir + dense_len, ir)
+    keep = (ir >= 0) & (ir < dense_len)
+    y[ir[keep]] = y_compact[keep]
+    return y
+
+
 def expand_compact(y_compact: torch.Tensor, iv_dense: torch.Tensor,
                    semiring: Semiring) -> torch.Tensor:
     """Gather-based inverse of the TCSC renumbering: dense row block from

@@ -1,6 +1,7 @@
 """Device times of hand kernels at their main-path shapes, each beside
 its PyTorch call: the plan-ring kernels K1 (``route_xr_exp``) and K11
-(``route_expand``) at the RMAT-20 f32 PageRank shapes, K6
+(``route_expand``) and the staged chunk fold K13 (``colsum_chunks``, on
+the staged stack1 of the same x) at the RMAT-20 f32 PageRank shapes, K6
 (``expand_stream``, its three launches of the degree SpMV) and K8
 (``grouped_reduce``) on the RMAT-20 degree shuffle plan, K5
 (``segment_reduce``) on the RMAT-20 f32 PageRank one-hot plan, and P1
@@ -8,7 +9,8 @@ its PyTorch call: the plan-ring kernels K1 (``route_xr_exp``) and K11
 
     python -m graphtap_tpu_torch.tools.ring_times [name ...]
 
-Names pick rows (``route_xr_exp``, ``route_expand``, ``expand_stream``,
+Names pick rows (``route_xr_exp``, ``route_expand``, ``colsum_chunks``,
+``expand_stream``,
 ``segment_reduce``, ``grouped_reduce``, ``copy_blocks``, ``stream_sum``,
 and ``degree_spmv``: the degree SpMV's warm time on the shuffle plan, the
 median of five calls after a first one by CUDA events, as the smoke times
@@ -28,10 +30,12 @@ largest |y|), then timed device-only (``timing.device_ms``: ten calls
 replayed as one CUDA graph). Prints the card's name and power limit,
 then one JSON line per row: name, device ms, the PyTorch call's device
 ms (``torch.take`` over an index precomputed from the plan, three for
-K6; ``torch.scatter_reduce`` for K5 and K8; ``Tensor.copy_``;
+K6; ``torch.scatter_reduce`` for K5, K8 and K13; ``Tensor.copy_``;
 ``torch.add``), bytes moved (each input read once, each output written
 once); K5's and K8's rows first print their plan's chunk figures
-(``chunk_figures``, which the smoke logs too). Needs a card.
+(``chunk_figures``, which the smoke logs too), K13's its row -> chunks
+lists' (rows, chunks, rows of more than one, the longest). Needs a
+card.
 """
 
 from __future__ import annotations
@@ -350,6 +354,49 @@ def rows(meta, device="cuda", copy_bytes=None):
         copy_row(device, copy_bytes)]
 
 
+def staged_row(meta, device="cuda"):
+    """(name, kernel call, plain call, PyTorch call, bytes, figures) of K13
+    on the staged stack1 (x_ext -> s0 -> s1 -> stack1) of a seeded x on
+    ``meta``; its PyTorch call is one scatter_reduce over
+    repeat_interleave(chunk_dst, 8); the figures are its row -> chunks
+    lists' (rows, chunks, rows of more than one, rows of more than
+    ``panel_kernels.COLSUM_LONG`` and their chunks, the longest list)."""
+    from graphtap_tpu_torch.kernels import panel_kernels as pk
+    from graphtap_tpu_torch.kernels.panel_engine import (CHUNK_LISTS, pad_x,
+                                                         staged_tables)
+    from graphtap_tpu_torch.tools.convert import meta_from_numpy
+    t = staged_tables(meta_from_numpy(meta.arrays, device), meta)
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(rng.random(meta.NC).astype(np.float32)).to(device)
+    nxe = meta.exp_panels + 1
+    x_ext = pk.route_passa(pad_x(x, meta, 0.0), t["xr_bases"], t["xr_plan"],
+                           0.0, nxe, meta.xr_nwin, out_rows=pk.XROWS,
+                           two_layer=False)
+    s1 = pk.route_passa(pk.route_expand(x_ext, t["exp_plan"], None, 0.0,
+                                        nxe),
+                        t["pa_bases"], t["pa_plan"], 0.0,
+                        meta.pa_panels + 1, meta.pa_nwin)
+    stack1 = pk.route_passa(s1, t["fixr_bases"], t["fixr_plan"], 0.0,
+                            meta.fix_panels, meta.fixr_nwin)
+    k13 = (stack1, t["chunk_dst"], meta.nrb, "sum", 0.0)
+    lists = tuple(t[k] for k in CHUNK_LISTS)
+    dest = (t["chunk_dst"].long().repeat_interleave(pk.STRIPE)[:, None]
+            * pk.LANES + torch.arange(pk.LANES, device=stack1.device)
+            ).reshape(-1)
+    y0 = torch.zeros(meta.nrb * pk.LANES, device=stack1.device)
+    per_row = lists[0][1:] - lists[0][:-1]
+    return ("colsum_chunks", lambda: pk.colsum_chunks(*k13, lists=lists),
+            lambda: pk.colsum_chunks_plain(*k13),
+            lambda: torch.scatter_reduce(y0, 0, dest, stack1.reshape(-1),
+                                         "sum").view(meta.nrb, pk.LANES),
+            stack1.numel() * 4 + sum(4 * a.numel() for a in lists)
+            + meta.nrb * pk.LANES * 4,
+            {"rows": meta.nrb, "chunks": int(per_row.sum()),
+             "rows_of_more_than_one": int((per_row > 1).sum()),
+             "long_rows": lists[2].numel(), "long_chunks": lists[3].numel(),
+             "longest_list": int(per_row.max())})
+
+
 def check(name, kern, plain, lib, rtol=None) -> None:
     """The kernel call equals its plain version bit for bit, and its
     PyTorch call bit for bit, or within ``rtol`` of the largest |value|
@@ -391,10 +438,12 @@ def degree_spmv(t, meta, calls: int = 6):
 
 
 PANEL_ROWS = ("route_xr_exp", "route_expand")
-NAMES = PANEL_ROWS + ("expand_stream", "segment_reduce", "grouped_reduce",
+NAMES = PANEL_ROWS + ("colsum_chunks", "expand_stream", "segment_reduce",
+                      "grouped_reduce",
                       "copy_blocks", "stream_sum", "degree_spmv")
-# K5's PyTorch call sums in f32 with atomics, in another order each call
-LIB_RTOL = {"segment_reduce": 1e-4}
+# K5's and K13's PyTorch calls sum in f32 with atomics, in another order
+# each call
+LIB_RTOL = {"segment_reduce": 1e-4, "colsum_chunks": 1e-5}
 
 
 def all_rows(names, device="cuda"):
@@ -405,6 +454,8 @@ def all_rows(names, device="cuda"):
                 if r[0] in names]
     elif "copy_blocks" in names:
         out.append(copy_row(device))
+    if "colsum_chunks" in names:
+        out.append(staged_row(load_meta(meta_path()), device))
     if "expand_stream" in names:
         out.append(expand_row(load_shuffle(shuffle_path()), device))
     if "segment_reduce" in names:

@@ -13,9 +13,11 @@ passes among the cases) and the windowed gathers K9 and K10 (f32, f64 and
 i32; steps with no subop, fewer than nsub, and 30 in f64, so that K10's
 ring of shared-memory windows wraps) match bit for bit. The staged pipeline's kernels: K2's single-layer form and K11 bit
 for bit (K11's s0 equal to K1's), K12 bit for bit in int32 and within rtol
-1e-6 in floats, K13 bit for bit in int32 and within rtol 1e-5 (f32) /
-1e-12 (f64) in float sums (its atomic adds run in no fixed order); the
-staged y equal to the fused y as K13 allows. Whole SpMVs on the card are
+1e-6 in floats, K13 bit for bit in f32, f64 and int32 (it folds each
+row's chunks in ascending chunk order, the Pallas grid's), twice, on
+rows of hundreds of chunks; the staged y equal to the fused y within
+rounding. ``graft_entry.entry()``'s step equals the same step on the
+plain versions bit for bit. Whole SpMVs on the card are
 held against the CPU within the same rtol. The probes P1-P3 match their
 plain versions bit for bit. K2 in both its forms (the source windows
 staged in shared memory beside the plan block, or read from device
@@ -877,7 +879,7 @@ def test_staged_kernels_match_plain(cuda, dtype, weighted):
     assert torch.equal(st["stack1"], pk.route_passa_plain(
         st["s1"], t["fixr_bases"], t["fixr_plan"], fill, meta.fix_panels,
         meta.fixr_nwin))
-    _close(st["y_mid"], pk.colsum_chunks_plain(
+    assert torch.equal(st["y_mid"], pk.colsum_chunks_plain(
         st["stack1"], t["chunk_dst"], meta.nrb, kind, fill))
     _close(st["y_mid"], fused["y_mid"])
     _close(st["y"], fused["y"])
@@ -891,12 +893,67 @@ def test_staged_kernels_reject_bad_arguments(cuda):
     x = torch.zeros((64, 128), device=cuda)
     with pytest.raises(ValueError):
         pk.colsum_chunks(x, torch.zeros(8, dtype=torch.int32, device=cuda),
-                         8, "min", 0.0)           # no float atomicMin
+                         8, "min", 0.0)           # floats take sum only
     with pytest.raises(ValueError):
         pk.fold_stripes(x, "sum", 2)              # 2 panels need 128 rows
     with pytest.raises(ValueError):
         pk.route_expand(x, torch.zeros((224, 128), dtype=torch.uint8),
                         None, 0.0, 2)             # plan on another device
+
+
+@pytest.mark.parametrize("dtype,kind", [(torch.float32, "sum"),
+                                        (torch.float64, "sum"),
+                                        (torch.int32, "min"),
+                                        (torch.int32, "max")])
+def test_colsum_chunks_ascending_order(cuda, dtype, kind):
+    """K13 on 3,000 chunks: three long rows of about 960 chunks (past
+    COLSUM_LONG, on blocks of their own, several shared-memory tiles
+    each), 37 short rows of 2-3 and one with none, values spread over
+    eight decades: twice the same bits, equal to the plain version
+    (ascending chunk order) bit for bit; the same with the lists built
+    by the wrapper."""
+    rng = np.random.default_rng(15)
+    nblocks = 41
+    dst = np.concatenate([rng.integers(0, 3, 2900),
+                          rng.integers(3, nblocks - 1, 100)])
+    rng.shuffle(dst)
+    nchunks = dst.size
+    dst = torch.from_numpy(dst.astype(np.int32))
+    if dtype == torch.int32:
+        stack = torch.from_numpy(rng.integers(
+            -10**6, 10**6, (nchunks * 8, 128), dtype=np.int32))
+        fill = tsr.INF_I32 if kind == "min" else -2**31
+    else:
+        stack = torch.from_numpy(
+            rng.standard_normal((nchunks * 8, 128))
+            * 10.0 ** rng.uniform(-4, 4, (nchunks * 8, 1))).to(dtype)
+        fill = 0.0
+    stack, dst = stack.to(cuda), dst.to(cuda)
+    lists = pk.colsum_lists(dst, nblocks)
+    assert lists[2].tolist() == [0, 1, 2]
+    y = _twice_equal(
+        lambda: pk.colsum_chunks(stack, dst, nblocks, kind, fill,
+                                 lists=lists),
+        lambda: pk.colsum_chunks_plain(stack, dst, nblocks, kind, fill))
+    assert torch.equal(pk.colsum_chunks(stack, dst, nblocks, kind, fill), y)
+    assert torch.equal(y.cpu(), pk.colsum_chunks_plain(
+        stack.cpu(), dst.cpu(), nblocks, kind, fill))
+
+
+def test_entry_step_equals_plain_step(cuda):
+    """graft_entry.entry() on the card: K1-K4 launched 1, 1, 2, 1 times,
+    the step equal to the same step on the plain versions on the card bit
+    for bit, its sum within 1e-5 of the JAX entry step's 1100.7751."""
+    from graphtap_tpu_torch import graft_entry
+    step, args = graft_entry.entry("cuda")
+    pstep, pargs = graft_entry.entry("cuda", plain=True)
+    before = dict(pk.LAUNCHES)
+    out = step(*args)
+    assert {k: pk.LAUNCHES[k] - before[k] for k in before
+            if pk.LAUNCHES[k] != before[k]} == {
+        "route_xr_exp": 1, "route_passa": 1, "route_fold": 2, "hub_fold": 1}
+    assert torch.equal(out, pstep(*pargs))
+    assert abs(float(out.sum()) - 1100.7751) <= 1e-5 * 1100.7751
 
 
 def _twice_equal(call, plain):

@@ -36,6 +36,7 @@ from graphtap_tpu_torch import Graph, GraphConfig
 from graphtap_tpu_torch.ingest import rmat_edges
 from graphtap_tpu_torch.kernels import panel_kernels as pk
 from graphtap_tpu_torch.kernels import semiring as tsr
+from graphtap_tpu_torch.kernels.fold_order import row_lists
 from graphtap_tpu_torch.kernels.panel_engine import (spmv3_local,
                                                      spmv3_staged,
                                                      spmv3_staged_stages,
@@ -197,6 +198,63 @@ def test_colsum_chunks_matches_pallas(composition):
     _close(scattered, k["y_mid"], FOLD_RTOL.get(np.dtype(k["dtype"]), 0))
 
 
+def _chunk_loop(stack, chunk_dst, nblocks, kind, fill):
+    """K13's stated order as an explicit numpy loop: each chunk's 8 rows
+    in row order into a part, then each row from ``fill``, its chunks in
+    the order given."""
+    op = {"sum": np.add, "min": np.minimum, "max": np.maximum}[kind]
+    y = np.full((nblocks, pk.LANES), fill, stack.dtype)
+    for i, d in enumerate(chunk_dst):
+        part = stack[8 * i]
+        for q in range(1, STRIPE):
+            part = op(part, stack[8 * i + q])
+        y[d] = op(y[d], part)
+    return y
+
+
+@pytest.mark.parametrize("dtype,kind", [(np.float32, "sum"),
+                                        (np.float64, "sum"),
+                                        (np.int32, "min"), (np.int32, "max")])
+def test_colsum_chunks_plain_folds_in_ascending_chunk_order(dtype, kind):
+    """K13's plain version equals the ascending-chunk numpy loop bit for
+    bit: 400 chunks on 3 rows (more than one ``fold_order.GROUP`` run a
+    row), on values whose f32 sum the order changes; ``row_lists`` lists
+    each row's chunks in that order."""
+    rng = np.random.default_rng(13)
+    nchunks, nblocks = 400, 3
+    dst = rng.integers(0, nblocks, nchunks).astype(np.int32)
+    if dtype == np.int32:
+        stack = rng.integers(-10**6, 10**6, (nchunks * 8, pk.LANES),
+                             dtype=np.int32)
+        fill = {"min": np.int32(jsr.INF_I32), "max": np.int32(-2**31)}[kind]
+    else:
+        stack = (rng.standard_normal((nchunks * 8, pk.LANES))
+                 * 10.0 ** rng.uniform(-4, 4, (nchunks * 8, 1))).astype(dtype)
+        fill = dtype(0)
+    want = _chunk_loop(stack, dst, nblocks, kind, fill)
+    got = pk.colsum_chunks_plain(_t(stack), _t(dst), nblocks, kind, fill)
+    assert got.numpy().tobytes() == want.tobytes()
+    if dtype == np.float32:     # the order shows in the bits
+        back = _chunk_loop(stack[::-1].reshape(nchunks, 8, -1)[:, ::-1]
+                           .reshape(nchunks * 8, -1), dst[::-1], nblocks,
+                           kind, fill)
+        assert back.tobytes() != want.tobytes()
+    ptr, idx = row_lists(_t(dst), nblocks)
+    for d in range(nblocks):
+        assert idx[ptr[d]:ptr[d + 1]].tolist() == \
+            np.flatnonzero(dst == d).tolist()
+    # K13's lists on the card: every row here is past COLSUM_LONG, so all
+    # its list positions, in row order, are the long rows' parts
+    lptr, lidx, longs, pos = pk.colsum_lists(_t(dst), nblocks)
+    assert torch.equal(lptr, ptr) and torch.equal(lidx, idx)
+    assert longs.tolist() == [d for d in range(nblocks)
+                              if (dst == d).sum() > pk.COLSUM_LONG]
+    assert pos.tolist() == list(range(nchunks))
+    few = np.repeat(np.arange(nblocks, dtype=np.int32), [1, 40, 2])
+    _, _, longs, pos = pk.colsum_lists(_t(few), nblocks)
+    assert longs.tolist() == [1] and pos.tolist() == list(range(1, 41))
+
+
 def _jax_staged(jmeta, x, jsem, dense_len):
     """The staged composition of the Pallas kernels (interpret mode) on the
     JAX package's meta: the same steps as ``spmv3_staged``."""
@@ -270,3 +328,19 @@ def test_spmv3_staged_matches_jax_staged_and_fused(case):
     with pytest.raises(KeyError):          # the tables come from the upload
         spmv3_staged(torch.from_numpy(x), meta_from_numpy(meta.arrays, "cpu"),
                      meta, tsem, n)
+
+
+def test_ring_times_k13_row_agrees_on_cpu(tmp_path):
+    """The device timer's K13 row on the CPU at RMAT-10: the call equals
+    its plain version bit for bit and its scatter_reduce within 1e-5 of
+    the largest |y|; its list figures count every fixr chunk."""
+    from graphtap_tpu_torch.tools import ring_times
+    meta = ring_times.load_meta(ring_times.meta_path(str(tmp_path),
+                                                     scale=10), scale=10)
+    name, kern, plain, lib, nbytes, figs = ring_times.staged_row(meta,
+                                                                 "cpu")
+    assert name == "colsum_chunks" and nbytes > 0
+    ring_times.check(name, kern, plain, lib, ring_times.LIB_RTOL[name])
+    assert figs["rows"] == meta.nrb
+    assert figs["chunks"] == meta.fix_panels * STRIPE
+    assert 1 <= figs["longest_list"] <= figs["chunks"]

@@ -3,7 +3,8 @@
 iterations and f32 convergence), staged-panel, shuffle, shuffle2, one-hot
 and frontier paths, its kernel lab, its device-memory probes, its five
 mains, its 2x2 mesh (four ranks on the one card), its top-level entry
-points and its two profiling tools, on one NVIDIA GPU.
+points, its two profiling tools and its two benchmarks, on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -224,6 +225,23 @@ Phases, each printed as it runs; any failure exits non-zero:
               (d) tools/sparse_exchange_bench.py at RMAT-18 on eight
               ranks of a 2x4 mesh on the one card: every K gives K = 0's
               checksum (golden.bfs's), the rows logged.
+  12. benches the port's two benchmarks (tools/bench.py,
+              tools/bench_suite.py), reading the artifacts the phases
+              above built through the benchmarks' cache (PLAN_DIR), so that
+              nothing is planned again: (a) tools/bench.py at RMAT-20 on
+              panel, 20 iterations, five timed runs, on the main phase's
+              COL and ROW tiles, panel meta and golden sum (written to
+              the cache after phase 8) and the workers' degree shuffle
+              plan: its gate met, every artifact read from the cache,
+              K1-K4 and K6-K8 launched, its checksum within 1e-6 of phase
+              4's, its JSON line logged; (b) the suite's BFS, CC and SSSP
+              rows at RMAT-18 on panel, on the workers' plans (phase 11's
+              BFS tiles too), each gated on tests/golden.py, the panel
+              kernels launched, CC on its own tiles (more edges than
+              BFS's); (c) the suite's comm_model row, PageRank on scan at
+              1x8, 2x4 and 8x1 on eight gloo ranks of one launch on the
+              one card: every rank's counted exchange bytes of every
+              superstep equal ((R-1)*L + (C-1)*L)*4.
 
 Five worker processes, started after the build and stopped at exit, plan
 the RMAT-20 v2 (ROW), degree shuffle (COL) and the three TCSC_CF panel
@@ -2759,6 +2777,98 @@ def phase_entry(torch, np) -> None:
                              "golden.bfs")
 
 
+def _stash_bench(np, g, main_meta, ref) -> None:
+    """Write the main phase's RMAT-SCALE artifacts where tools/bench.py
+    reads them in PLAN_DIR (the edge file, the COL and ROW tiles, the
+    panel meta, the golden sum), so that phase 12 plans nothing again;
+    the workers' degree shuffle plan is there already."""
+    from graphtap_tpu_torch import Ordering
+    from graphtap_tpu_torch.ingest.io import write_binary
+    from graphtap_tpu_torch.tools import artifact_cache as ac
+    from graphtap_tpu_torch.tools import bench
+    t0 = time.perf_counter()
+    if g.config != bench.graph_config(SCALE):
+        raise AssertionError(f"the main graph's config {g.config} is not "
+                             f"the bench's")
+    r, c = ref["edges"]
+    write_binary(os.path.join(PLAN_DIR, f"rmat{SCALE}_ef{EDGE_FACTOR}_"
+                              f"s{SEED}.bin"), r, c, None)
+    for o in (Ordering.COL, Ordering.ROW):
+        ac.save_tileset(g.tiled(o), bench.tiles_path(PLAN_DIR, SCALE,
+                                                     g.config, o))
+    ac.save_spmv3_meta(main_meta, bench.plans_path(
+        PLAN_DIR, g.tiled(Ordering.ROW), SCALE, g.config, Ordering.ROW,
+        "panel", np.float32))
+    with open(bench.golden_path(PLAN_DIR, SCALE, ITERS), "w") as f:
+        f.write(repr(ref["checksum"]))
+    log(f"benches: the main phase's RMAT-{SCALE} edges, tiles, panel meta "
+        f"and golden sum written to the benchmarks' cache in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def _panel_need(iters: int) -> dict:
+    """The panel launches of ``iters`` supersteps, each static or gated."""
+    return {("route_xr_exp", "route_xr_exp_gated"): iters,
+            ("route_passa", "route_passa_gated"): iters,
+            ("route_fold", "route_fold_gated"): 2 * iters,
+            "hub_fold": iters}
+
+
+def phase_benches(np, ref) -> None:
+    """Phase 12 (see the module docstring): (a) tools/bench.py at
+    RMAT-SCALE, (b) the suite's BFS, CC and SSSP rows at RMAT-SUITE_SCALE,
+    (c) its comm_model row."""
+    from graphtap_tpu_torch.tools import bench, bench_suite
+    # (a) the bench on the main phase's artifacts
+    _reset_all_launches()
+    rec = bench.run(SCALE, ITERS, "panel", WARM_RUNS, DEVICE, PLAN_DIR, log)
+    launches = {k: v for k, v in _all_launches().items() if v}
+    d = rec["detail"]
+    log(f"benches: bench {json.dumps(rec)}")
+    log(f"benches: bench launches {launches}")
+    a = d["artifact_seconds"]
+    if not all(a[f"{k}_cached_{o}"] for k in ("tiles", "plans")
+               for o in ("COL", "ROW")):
+        raise AssertionError(f"bench: an artifact was built again: {a}")
+    _need_launches("benches bench", _all_launches(), {
+        **_panel_need(ITERS * (WARM_RUNS + 1)), "expand_stream": 3,
+        "group_stream": 1, "grouped_reduce": 1})
+    rel = abs(d["checksum"] - ref["pr_checksum"]) / abs(ref["pr_checksum"])
+    log(f"benches: bench RMAT-{SCALE} panel: {rec['value']:.4f} GTEPS "
+        f"(median of {WARM_RUNS}, range {d['gteps_range'][0]:.4f}-"
+        f"{d['gteps_range'][1]:.4f}), device superstep "
+        f"{_fmt(d['device_superstep_ms'])}, {d['device_bytes']} device "
+        f"bytes; checksum {d['checksum']!r}, rel err {d['golden_rel_err']:.3e}"
+        f" vs golden, {rel:.3e} vs phase 4's ({d['name']}, "
+        f"{d['power_limit']})")
+    if not rel <= 1e-6:
+        raise AssertionError(f"bench: checksum {d['checksum']} vs phase 4's "
+                             f"{ref['pr_checksum']}")
+    _mark("benches a")
+    # (b) BFS, CC and SSSP on the workers' panel plans
+    for app in bench_suite.APPS:
+        _PREBUILT["spmv3", "ROW", "main", app].get(timeout=1200)
+    edges = {}
+    for app in bench_suite.APPS:
+        _reset_all_launches()
+        row = bench_suite.app_row(app, SUITE_SCALE, "panel", DEVICE,
+                                  PLAN_DIR, log)
+        d = row["detail"]
+        log(f"benches: suite {json.dumps(row)}")
+        if not d["artifact_seconds"]["plans_cached"]:
+            raise AssertionError(f"suite {app}: its plans were built again")
+        _need_launches(f"benches suite {app}", _all_launches(),
+                       _panel_need(d["iterations"]))
+        edges[app] = d["edges"]
+    if not edges["cc"] > edges["bfs"]:
+        raise AssertionError(f"suite: CC's edges {edges['cc']} do not exceed "
+                             f"BFS's {edges['bfs']}")
+    _mark("benches b")
+    # (c) eight ranks on the one card
+    row = bench_suite.comm_model(device=DEVICE, cache=PLAN_DIR, log=log)
+    log(f"benches: suite {json.dumps(row)}")
+
+
 def phase_probes(torch):
     """P1-P3: the quick copy-rate table and the per-panel table, their
     launches counted; then each kernel against its plain version at the
@@ -2964,6 +3074,7 @@ def _phases(torch, np) -> int:
     _mark("paths")
     _submit(SUITE_PREBUILD)
     phase_cf(torch, np, g, ref, main_meta, conv32)
+    _stash_bench(np, g, main_meta, ref)
     del g, main_meta
     _mark("cf")
     phase_csc(torch, np, ref, kernels)
@@ -2980,6 +3091,8 @@ def _phases(torch, np) -> int:
     _mark("mesh")
     phase_entry(torch, np)
     _mark("entry")
+    phase_benches(np, ref)
+    _mark("benches")
     log("ms per call group of one SpMV: route_fold sums its fixr and fix2 "
         "calls, expand_stream its three calls, "
         "windowed_gather its six stage calls; the static panel rows at a "

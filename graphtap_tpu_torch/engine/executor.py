@@ -226,7 +226,10 @@ class Executor:
     uploaded for the superstep (its row of the tiles or plans, and the
     fold lists and scratch of K3, K5 and K8), those of the TCSC_CF phases
     included once they are built. ``exchange`` names the exchanges'
-    transport (``_transport``)."""
+    transport (``_transport``). ``exchange_bytes`` counts the bytes the
+    exchanges moved on this rank since the last superstep began (the
+    flush of convergence mode included); each superstep's own are its
+    ``bytes`` (``_tally``)."""
 
     def __init__(self, graph: Graph, program: VertexProgram,
                  engine: Optional[EngineConfig] = None, kernel: str = "scan",
@@ -283,6 +286,7 @@ class Executor:
         self.changed: Optional[torch.Tensor] = None
         self.iteration = 0
         self.supersteps: List[Dict] = []
+        self.exchange_bytes: Dict[str, List[int]] = {}
 
     # ------------------------------------------------------------------ util
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
@@ -395,11 +399,22 @@ class Executor:
     def _home(self, t: torch.Tensor) -> torch.Tensor:
         return t.to(self.device) if self.exchange == "gloo-host" else t
 
+    def _tally(self, collective: str, members: int, part: torch.Tensor
+               ) -> None:
+        """Count one collective in ``exchange_bytes``: [sent, received],
+        this rank's ``part`` to each other member of its group and as many
+        bytes back (the data's bytes, whatever the transport's algorithm
+        moves; the votes' all-reduces are not counted)."""
+        n = (members - 1) * part.numel() * part.element_size()
+        sent, received = self.exchange_bytes.get(collective, (0, 0))
+        self.exchange_bytes[collective] = [sent + n, received + n]
+
     def _gather_x(self, t: torch.Tensor) -> torch.Tensor:
         """(n,) -> (R*n,): every mesh-column member's ``t``, in i order."""
         if self.mesh is None:
             return t
         import torch.distributed as dist
+        self._tally("all_gather_x", self.part.R, t)
         src = self._wire(t)
         out = torch.empty(self.part.R * src.numel(), dtype=src.dtype,
                           device=src.device)
@@ -412,6 +427,7 @@ class Executor:
         if self.mesh is None:
             return t
         import torch.distributed as dist
+        self._tally("all_to_all_y", self.part.C, t[0])
         src = self._wire(t)
         out = torch.empty_like(src)
         dist.all_to_all_single(out, src, group=self.mesh.ygroup)
@@ -587,8 +603,9 @@ class Executor:
     def _superstep(self, V: State, C: torch.Tensor, it: int, phase: str,
                    timer=None) -> Tuple[State, torch.Tensor, torch.Tensor]:
         """One superstep, recorded in ``supersteps`` (its ms by CUDA events
-        on the card, or, with a ``timer``, fenced on the host clock);
-        returns (V', C', its messages)."""
+        on the card, or, with a ``timer``, fenced on the host clock; its
+        exchanges' ``bytes``); returns (V', C', its messages)."""
+        self.exchange_bytes = {}
         ev = None
         if timer is None and self.device.type == "cuda":
             ev = (torch.cuda.Event(enable_timing=True),
@@ -598,7 +615,8 @@ class Executor:
         with _fenced(timer, "scatter_gather", self.device):
             m = self._messages(V, C)
         V2, C2, branches = self._step(V, m, it, phase, timer, c=C)
-        rec = {"phase": phase, **branches, "ms": None}
+        rec = {"phase": phase, **branches, "ms": None,
+               "bytes": dict(self.exchange_bytes)}
         if ev is not None:
             ev[1].record()
             rec["events"] = ev
@@ -637,6 +655,14 @@ class Executor:
         if printer is not None:
             printer(timer.report())
         return timer
+
+    def step_call(self):
+        """One superstep of the current state as a call that records
+        nothing and leaves the state as it is (it returns (V', C')): what
+        ``tools/timing.py::device_ms`` replays as a CUDA graph."""
+        V, C = self.state, self.changed
+        return lambda: self._step(V, self._messages(V, C), 0, "main",
+                                  c=C)[:2]
 
     def _run(self, num_iterations, timer=None, printer=None) -> int:
         """The superstep loop of ``execute`` and ``execute_profiled``;

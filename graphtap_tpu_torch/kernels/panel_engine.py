@@ -216,13 +216,13 @@ def _fold_tail(y_mid, t, meta: Spmv3Meta, kind: str, fill, dense_len: int,
 def _segok(y_dense, t, meta: Spmv3Meta, fill, dense_len: int):
     """The fix2 fold's table -> y (dense_len,): dense segments no fix2
     panel visits hold the ⊕-identity (the fold table starts filled; the
-    mask keeps the JAX package's contract)."""
+    mask keeps the JAX package's contract). Nothing here reads the card
+    or copies from the host, so a CUDA graph can hold the superstep."""
     if not bool(np.all(meta.arrays["f2_segok"])):
         seg_rows2 = min(meta.f2_rows, FOLD_SEG_ROWS)
-        ok = torch.repeat_interleave(t["f2_segok"] != 0, seg_rows2)[:, None]
-        y_dense = torch.where(
-            ok, y_dense, torch.tensor(fill, dtype=y_dense.dtype,
-                                      device=y_dense.device))
+        ok = (t["f2_segok"] != 0).reshape(-1, 1).expand(-1, seg_rows2)
+        y_dense = torch.where(ok.reshape(-1, 1), y_dense,
+                              y_dense.new_full((), fill))
     return y_dense.reshape(-1)[:dense_len]
 
 

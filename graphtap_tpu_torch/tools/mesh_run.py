@@ -60,12 +60,10 @@ from graphtap_tpu_torch.config import (Compression, EngineConfig,
                                        GraphConfig, Ordering)
 from graphtap_tpu_torch.engine.executor import Executor, _PLANNERS, _device
 from graphtap_tpu_torch.ingest.graph import Graph
-from graphtap_tpu_torch.kernels import (gather_kernels, onehot_spmv,
-                                        panel_kernels, shuffle_kernels)
 from graphtap_tpu_torch.parallel import multihost as mh
 from graphtap_tpu_torch.parallel.layout import make_mesh
+from graphtap_tpu_torch.tools.timing import launches, reset_launches
 
-_COUNTERS = (panel_kernels, shuffle_kernels, gather_kernels, onehot_spmv)
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 _PLAN_KINDS = {"spmv3": "panel", "shuffle": "shuffle", "spmv2": "shuffle2",
                "onehot": "onehot"}
@@ -86,15 +84,6 @@ def app_config(kind: str, nv: int, overrides=None) -> GraphConfig:
     if "compression" in over:
         over["compression"] = Compression(over["compression"])
     return dataclasses.replace(cfg, **over)
-
-
-def _launches() -> dict:
-    return {k: v for mod in _COUNTERS for k, v in mod.LAUNCHES.items() if v}
-
-
-def _reset() -> None:
-    for mod in _COUNTERS:
-        mod.reset_launches()
 
 
 class Runner:
@@ -182,11 +171,11 @@ class Runner:
     def run(self, run: dict, plain: bool = False) -> None:
         name = run["name"] + ("_1x1" if plain else "")
         g = self.graph(run["graph"], plain)
-        _reset()
+        reset_launches()
         t0 = time.perf_counter()
         ex, timer = self._execute(run, g)
         wall = time.perf_counter() - t0
-        mine = {"launches": _launches(), "timings": dict(ex.timings),
+        mine = {"launches": launches(), "timings": dict(ex.timings),
                 "wall_s": wall,
                 "supersteps": [{k: rec[k] for k in ("gated", "sparse",
                                                      "sparse_y", "ms")}

@@ -7,7 +7,8 @@ each phase of a superstep on the host clock, each phase fenced by a
 device synchronize on the card (for profiling, not production: the
 fences cost the overlap the plain loop keeps).
 
-Beside it, the device-only timing that ``chip_smoke.py`` and
+Beside it, the kernel launch counts of the SpMV paths (``launches``,
+``reset_launches``) and the device-only timing that ``chip_smoke.py`` and
 ``tools/ring_times.py`` hold kernels and their PyTorch calls to:
 ``device_ms`` (calls replayed as one CUDA graph), and ``take_call`` /
 ``slot_ids``, which turn a pure gather into one ``torch.take``.
@@ -45,6 +46,25 @@ class PhaseTimer:
                 f"mean={a.mean()*1e3:.3f}ms std={a.std()*1e3:.3f}ms "
                 f"n={a.size}")
         return "\n".join(lines)
+
+
+def _counting_modules():
+    """The modules whose wrappers count their kernels' launches."""
+    from graphtap_tpu_torch.kernels import (gather_kernels, onehot_spmv,
+                                            panel_kernels, shuffle_kernels)
+    return panel_kernels, shuffle_kernels, gather_kernels, onehot_spmv
+
+
+def reset_launches() -> None:
+    for mod in _counting_modules():
+        mod.reset_launches()
+
+
+def launches() -> Dict[str, int]:
+    """The path kernels' launches counted since ``reset_launches`` (those
+    launched at least once)."""
+    return {k: v for mod in _counting_modules()
+            for k, v in mod.LAUNCHES.items() if v}
 
 
 def slot_ids(src: torch.Tensor) -> torch.Tensor:

@@ -3057,34 +3057,37 @@ def _phases(torch, np) -> int:
     phase_shuffle_parity(torch, np)
     phase_gather_parity(torch, np)
     _mark("parity")
-    g, ex, launches, ref = phase_main(torch, np)
-    kernels += phase_kernels(torch, ex, launches, best_copy)
-    kernels += phase_staged(torch, ex)
-    conv32 = {}
-    _converge32("panel", ex, ex.degree_phase, conv32)
-    _profile("panel", ex, ex.degree_phase)
-    main_meta = ex.meta
-    ex.free()
-    deg_ex = ex.degree_phase
-    del ex
-    _mark("main, kernels, staged")
-    kernels += phase_shuffle_kernels(torch, np, g, launches)
-    kernels += phase_new_paths(torch, np, g, deg_ex, ref, conv32)
-    del deg_ex
-    _mark("paths")
-    _submit(SUITE_PREBUILD)
-    phase_cf(torch, np, g, ref, main_meta, conv32)
-    _stash_bench(np, g, main_meta, ref)
-    del g, main_meta
-    _mark("cf")
-    phase_csc(torch, np, ref, kernels)
-    _mark("csc")
-    phase_lab(torch, np, ref)
-    _mark("lab")
-    kernels += phase_bfs(torch, np)
-    _mark("bfs")
-    phase_cc_sssp(torch, np)
-    _mark("cc/sssp")
+    from graphtap_tpu_torch.tools import timing
+    # a tracer gives every superstep its ms, which these phases log
+    with timing.tracing():
+        g, ex, launches, ref = phase_main(torch, np)
+        kernels += phase_kernels(torch, ex, launches, best_copy)
+        kernels += phase_staged(torch, ex)
+        conv32 = {}
+        _converge32("panel", ex, ex.degree_phase, conv32)
+        _profile("panel", ex, ex.degree_phase)
+        main_meta = ex.meta
+        ex.free()
+        deg_ex = ex.degree_phase
+        del ex
+        _mark("main, kernels, staged")
+        kernels += phase_shuffle_kernels(torch, np, g, launches)
+        kernels += phase_new_paths(torch, np, g, deg_ex, ref, conv32)
+        del deg_ex
+        _mark("paths")
+        _submit(SUITE_PREBUILD)
+        phase_cf(torch, np, g, ref, main_meta, conv32)
+        _stash_bench(np, g, main_meta, ref)
+        del g, main_meta
+        _mark("cf")
+        phase_csc(torch, np, ref, kernels)
+        _mark("csc")
+        phase_lab(torch, np, ref)
+        _mark("lab")
+        kernels += phase_bfs(torch, np)
+        _mark("bfs")
+        phase_cc_sssp(torch, np)
+        _mark("cc/sssp")
     phase_cli(torch, np)
     _mark("cli")
     phase_mesh(torch, np, ref)

@@ -78,7 +78,6 @@ synchronizing reads.
 
 from __future__ import annotations
 
-import contextlib
 import os
 import time
 from typing import Dict, List, Optional, Tuple
@@ -110,6 +109,7 @@ from graphtap_tpu_torch.kernels.shuffle_engine import (
 from graphtap_tpu_torch.kernels.spmv import (expand_compact, spmv_segment,
                                              spmv_sorted_scan)
 from graphtap_tpu_torch.parallel import multihost as mh
+from graphtap_tpu_torch.tools import timing
 from graphtap_tpu_torch.tools.convert import meta_from_numpy
 
 KERNELS = ("scan", "segment", "onehot", "shuffle", "shuffle2", "panel")
@@ -153,8 +153,8 @@ def _device(device) -> torch.device:
     return dev
 
 
-def _nbytes(dev: Dict) -> int:
-    return sum(v.numel() * v.element_size() for v in dev.values()
+def _nbytes(values) -> int:
+    return sum(v.numel() * v.element_size() for v in values
                if isinstance(v, torch.Tensor))
 
 
@@ -175,18 +175,6 @@ def _transport(mesh, device: torch.device) -> Optional[str]:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-@contextlib.contextmanager
-def _fenced(timer, name: str, device: torch.device):
-    """``timer``'s phase ``name``, closed by a device synchronize (no
-    timer: nothing)."""
-    if timer is None:
-        yield
-        return
-    with timer.phase(name):
-        yield
-        _sync(device)
 
 
 class Executor:
@@ -220,16 +208,22 @@ class Executor:
     phase), the branch its SpMV took (``gated``: True/False on 'panel',
     None on the other kernels), the branches of its sparse exchange
     (``sparse`` for x, ``sparse_y`` for y: True/False, None where the
-    exchange is dense by rule) and, on a CUDA device, its time by CUDA
-    events (``ms``; None on the CPU); the flush of convergence mode is not
-    among them. ``device_bytes`` is the size of the arrays this rank
-    uploaded for the superstep (its row of the tiles or plans, and the
-    fold lists and scratch of K3, K5 and K8), those of the TCSC_CF phases
-    included once they are built. ``exchange`` names the exchanges'
-    transport (``_transport``). ``exchange_bytes`` counts the bytes the
-    exchanges moved on this rank since the last superstep began (the
-    flush of convergence mode included); each superstep's own are its
-    ``bytes`` (``_tally``)."""
+    exchange is dense by rule) and, while a tracer is open
+    (``tools/timing.py``), its time (``ms``: by CUDA events on a CUDA
+    device, by the host clock under a fenced tracer; else None); the
+    flush of convergence mode is not among them. ``device_bytes`` is the
+    size of the arrays this rank uploaded for the superstep (its row of
+    the tiles or plans, and the fold lists and scratch of K3, K5 and K8),
+    those of the TCSC_CF phases included once they are built.
+    ``exchange`` names the exchanges' transport (``_transport``).
+    ``exchange_bytes`` counts the bytes the exchanges moved on this rank
+    since the last superstep began (the flush of convergence mode
+    included); each superstep's own are its ``bytes`` (``_tally``).
+    With a tracer open, the executor records its spans and counters
+    there (``initialize`` and its stages, ``execute``, each ``superstep``
+    and its phases, the ``vote``, ``flush`` and ``sync``, the ``plans``
+    and ``upload`` of construction; the ``h2d_bytes``, ``d2h_bytes`` and
+    ``supersteps`` counters)."""
 
     def __init__(self, graph: Graph, program: VertexProgram,
                  engine: Optional[EngineConfig] = None, kernel: str = "scan",
@@ -271,13 +265,15 @@ class Executor:
             raise ValueError(f"phase_plans: {sorted(phase_plans)}; only a "
                              f"TCSC_CF graph takes plans of {CF_PHASES}")
         t0 = time.perf_counter()
-        self.meta = self._plans(self.tiles, plans)
+        with timing.span("plans"):
+            self.meta = self._plans(self.tiles, plans)
         if self.meta is not None:
             self.timings["plans"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        self._dev = self._upload(self.tiles, self.meta)
-        self.device_bytes = _nbytes(self._dev)
-        _sync(self.device)
+        with timing.span("upload"):
+            self._dev = self._upload(self.tiles, self.meta)
+            self.device_bytes = _nbytes(self._dev.values())
+            _sync(self.device)
         self.timings["upload"] = time.perf_counter() - t0
         # tile phase -> (tiles, plans, device arrays); the TCSC_CF phases
         # join at the first run that needs them (_cf_phases)
@@ -353,7 +349,7 @@ class Executor:
             t1 = time.perf_counter()
             dev = self._upload(cf[ph], meta)
             dev["apply_mask"] = self._tensor(masks[ph][self.shard])
-            self.device_bytes += _nbytes(dev)
+            self.device_bytes += _nbytes(dev.values())
             _sync(self.device)
             self.timings["cf_plans"] += t1 - t0
             self.timings["cf_upload"] += time.perf_counter() - t1
@@ -364,21 +360,33 @@ class Executor:
         """Build this rank's initial state (reference: initialize(),
         :444-503); the handoff variant takes the predecessor's final state
         (:467-483), which lies on this rank: both programs share one
-        partition."""
-        rows = slice(self.shard, self.shard + 1)
-        vids = self.part.owner_vids()[rows]
-        other_state = None
-        if other is not None:
-            other_state = {k: v.cpu().numpy()[None]
-                           for k, v in other.state.items()}
-        state_np, changed_np = self.program.init(vids, self.tiles.i_own[rows],
-                                                 other_state)
-        self.state = {k: self._tensor(np.asarray(v)[0])
-                      for k, v in state_np.items()}
-        valid = vids < self.graph.nv
-        self.changed = self._tensor((np.asarray(changed_np, dtype=bool)
-                                     & valid)[0])
-        self.iteration = 0
+        partition. Starts a job in the open tracer."""
+        # keep this order of host allocations: which of them reuse freed,
+        # already touched memory sets the pageable copies' speed (with the
+        # handoff first, its copy to the host ran ten times slower)
+        with timing.span("initialize", new_job=True):
+            rows = slice(self.shard, self.shard + 1)
+            with timing.span("initialize.program"):
+                vids = self.part.owner_vids()[rows]
+            other_state = None
+            if other is not None:
+                with timing.span("initialize.handoff"):
+                    other_state = {k: v.cpu().numpy()[None]
+                                   for k, v in other.state.items()}
+                    timing.count("d2h_bytes", _nbytes(other.state.values()))
+            with timing.span("initialize.program"):
+                state_np, changed_np = self.program.init(
+                    vids, self.tiles.i_own[rows], other_state)
+            with timing.span("initialize.upload"):
+                self.state = {k: self._tensor(np.asarray(v)[0])
+                              for k, v in state_np.items()}
+                valid = vids < self.graph.nv
+                self.changed = self._tensor((np.asarray(changed_np,
+                                                        dtype=bool)
+                                             & valid)[0])
+                timing.count("h2d_bytes", _nbytes(self.state.values())
+                             + _nbytes((self.changed,)))
+            self.iteration = 0
 
     def free(self) -> None:
         """Release the device-resident tiles and plans of every phase
@@ -583,45 +591,43 @@ class Executor:
         return m
 
     def _step(self, V: State, m: torch.Tensor, it: int, phase: str,
-              timer=None, c: Optional[torch.Tensor] = None
+              c: Optional[torch.Tensor] = None
               ) -> Tuple[State, torch.Tensor, Dict]:
         """Exchange x (sparse only given the frontier ``c`` of ``m``),
         combine, exchange y, apply -> (V', C', the branches taken:
-        ``gated``, ``sparse``, ``sparse_y``); ``timer`` (a
-        ``PhaseTimer``) times each exchange, combine and apply, fenced."""
-        with _fenced(timer, "exchange", self.device):
+        ``gated``, ``sparse``, ``sparse_y``), each phase a span."""
+        with timing.span("exchange_x"):
             x, sparse = self._exchange_x(m, c)
-        with _fenced(timer, "combine", self.device):
+        with timing.span("combine"):
             y, gated = self._combine(x, phase)
-        with _fenced(timer, "exchange", self.device):
+        with timing.span("exchange_y"):
             y_own, sparse_y = self._exchange_y(y)
-        with _fenced(timer, "apply", self.device):
+        with timing.span("apply"):
             V2, C2 = self._apply(V, y_own, it, phase)
         return V2, C2, {"gated": gated, "sparse": sparse,
                         "sparse_y": sparse_y}
 
     def _superstep(self, V: State, C: torch.Tensor, it: int, phase: str,
-                   timer=None) -> Tuple[State, torch.Tensor, torch.Tensor]:
-        """One superstep, recorded in ``supersteps`` (its ms by CUDA events
-        on the card, or, with a ``timer``, fenced on the host clock; its
-        exchanges' ``bytes``); returns (V', C', its messages)."""
+                   events: bool) -> Tuple[State, torch.Tensor, torch.Tensor]:
+        """One superstep, recorded in ``supersteps`` (its exchanges'
+        ``bytes``; ``events``: between a pair of timing CUDA events, read
+        into its ``ms`` at the end of the execute); returns (V', C', its
+        messages)."""
         self.exchange_bytes = {}
         ev = None
-        if timer is None and self.device.type == "cuda":
+        if events:
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
             ev[0].record()
-        t0 = time.perf_counter()
-        with _fenced(timer, "scatter_gather", self.device):
+        timing.count("supersteps")
+        with timing.span("scatter_gather"):
             m = self._messages(V, C)
-        V2, C2, branches = self._step(V, m, it, phase, timer, c=C)
+        V2, C2, branches = self._step(V, m, it, phase, c=C)
         rec = {"phase": phase, **branches, "ms": None,
                "bytes": dict(self.exchange_bytes)}
         if ev is not None:
             ev[1].record()
             rec["events"] = ev
-        elif timer is not None:
-            rec["ms"] = (time.perf_counter() - t0) * 1e3
         self.supersteps.append(rec)
         return V2, C2, m
 
@@ -647,11 +653,12 @@ class Executor:
         (the SpMV) and apply (the applicator) is timed on the host clock,
         each fenced by a device synchronize on the card; so is the flush of
         convergence mode (its exchanges, combine and apply). The run is
-        ``execute``'s loop, so the result is its result bit for bit.
+        ``execute``'s loop under ``timer``, opened as the process's
+        tracer (the fenced mode), so the result is its result bit for bit.
         ``supersteps`` records each superstep's fenced host ms."""
-        from graphtap_tpu_torch.tools.timing import PhaseTimer
-        timer = timer or PhaseTimer()
-        self._run(num_iterations, timer, printer)
+        timer = timer or timing.PhaseTimer()
+        with timer:
+            self._run(num_iterations, printer)
         if printer is not None:
             printer(timer.report())
         return timer
@@ -664,9 +671,13 @@ class Executor:
         return lambda: self._step(V, self._messages(V, C), 0, "main",
                                   c=C)[:2]
 
-    def _run(self, num_iterations, timer=None, printer=None) -> int:
-        """The superstep loop of ``execute`` and ``execute_profiled``;
-        ``printer`` gets an ``Iteration: n`` line after each superstep."""
+    def _run(self, num_iterations, printer=None) -> int:
+        """The superstep loop of ``execute`` and ``execute_profiled``, an
+        ``execute`` span; each superstep a ``superstep`` span, which holds
+        the release of the state it replaces, and, with a tracer open, has
+        its ``ms`` (by CUDA events on the card, by the span under a fenced
+        tracer); ``printer`` gets an ``Iteration: n`` line after each
+        superstep."""
         if self._dev is None:
             raise RuntimeError("execute() after free()")
         if self.state is None:
@@ -676,36 +687,45 @@ class Executor:
         cf = self.is_cf and (not niters or niters > 1)
         if cf:
             self._cf_phases()
-        self.supersteps = []
-        t0 = time.perf_counter()
-        V, C = self.state, self.changed
-        converge = not (niters and niters > 0)
-        it, converged = 0, False
-        while not converged and it < (MAX_CONVERGENCE_ITERS if converge
-                                      else niters):
-            phase = ("main" if not cf else "first" if it == 0
-                     else "last" if not converge and it == niters - 1
-                     else "middle")
-            V, C, m = self._superstep(V, C, it, phase, timer)
-            it += 1
-            if printer is not None:
-                printer(f"Iteration: {it}")
+        tr = timing.current()
+        events = tr is not None and not tr.fence \
+            and self.device.type == "cuda"
+        with timing.span("execute"):
+            self.supersteps = []
+            t0 = time.perf_counter()
+            V, C = self.state, self.changed
+            converge = not (niters and niters > 0)
+            it, converged = 0, False
+            while not converged and it < (MAX_CONVERGENCE_ITERS if converge
+                                          else niters):
+                phase = ("main" if not cf else "first" if it == 0
+                         else "last" if not converge and it == niters - 1
+                         else "middle")
+                with timing.span("superstep", it=it, phase=phase) as sp:
+                    V, C, m = self._superstep(V, C, it, phase, events)
+                if tr is not None and tr.fence:
+                    self.supersteps[-1]["ms"] = sp.seconds * 1e3
+                it += 1
+                if printer is not None:
+                    printer(f"Iteration: {it}")
+                if converge:
+                    with timing.span("vote"):
+                        converged = self._voted(C)      # a host read
             if converge:
-                with _fenced(timer, "exchange", self.device):
-                    converged = self._voted(C)      # a host read
-        if converge:
-            # one extra combine + apply on the last superstep's messages,
-            # to flush source/sink contributions (reference :425-429); their
-            # x is exchanged dense
-            V, C, _ = self._step(V, m, it, "last" if cf else "main", timer)
-        self.iteration = it
-        self.state, self.changed = V, C
-        _sync(self.device)
-        self.timings["execute"] = time.perf_counter() - t0
-        for rec in self.supersteps:
-            ev = rec.pop("events", None)
-            if ev is not None:
-                rec["ms"] = ev[0].elapsed_time(ev[1])
+                # one extra combine + apply on the last superstep's
+                # messages, to flush source/sink contributions (reference
+                # :425-429); their x is exchanged dense
+                with timing.span("flush"):
+                    V, C, _ = self._step(V, m, it, "last" if cf else "main")
+            self.iteration = it
+            self.state, self.changed = V, C
+            with timing.span("sync"):
+                _sync(self.device)
+            self.timings["execute"] = time.perf_counter() - t0
+            for rec in self.supersteps:
+                ev = rec.pop("events", None)
+                if ev is not None:
+                    rec["ms"] = ev[0].elapsed_time(ev[1])
         return self.iteration
 
     # -------------------------------------------------------------- oracles

@@ -29,6 +29,7 @@ from graphtap_tpu_torch import native
 from graphtap_tpu_torch.config import Compression
 from graphtap_tpu_torch.parallel import multihost as mh
 from graphtap_tpu_torch.parallel.layout import Mesh, Partition
+from graphtap_tpu_torch.tools import timing
 
 
 def _round_up(x: int, m: int) -> int:
@@ -170,145 +171,150 @@ def build_tileset(
     Dedup of parallel edges keeps the minimum weight. ``mesh``: the ranks
     whose edge shares together make the matrix (see the module
     docstring); None on one process."""
-    R, C, L, D = part.R, part.C, part.L, part.D
-    r = np.asarray(r, dtype=np.int64)
-    c = np.asarray(c, dtype=np.int64)
-    if r.size and (r.max() >= part.n_pad or c.max() >= part.n_pad):
-        raise ValueError("vertex id exceeds padded space")
+    with timing.span("tiles.masks"):
+        R, C, L, D = part.R, part.C, part.L, part.D
+        r = np.asarray(r, dtype=np.int64)
+        c = np.asarray(c, dtype=np.int64)
+        if r.size and (r.max() >= part.n_pad or c.max() >= part.n_pad):
+            raise ValueError("vertex id exceeds padded space")
 
-    dev = part.edge_device(r, c)
-    lr = part.local_row(r)
-    lc = part.local_col(c)
-    i_e = dev // C  # mesh row of each edge
-    j_e = dev % C   # mesh col of each edge
+        dev = part.edge_device(r, c)
+        lr = part.local_row(r)
+        lc = part.local_col(c)
+        i_e = dev // C  # mesh row of each edge
+        j_e = dev % C   # mesh col of each edge
 
-    # filtering: nnz-row mask per row group, nnz-col mask per col group
-    # (reference: filter_vertices, matrix.hpp:861-1122)
-    rows_mask = np.zeros((R, C * L), dtype=bool)
-    rows_mask[i_e, lr] = True
-    cols_mask = np.zeros((C, R * L), dtype=bool)
-    cols_mask[j_e, lc] = True
-    # each rank sees only its shard's edges: OR the partial bitvectors
-    # (reference: the leader combine, matrix.hpp:990-1006)
-    rows_mask = mh.global_or(rows_mask, mesh)
-    cols_mask = mh.global_or(cols_mask, mesh)
+        # filtering: nnz-row mask per row group, nnz-col mask per col
+        # group (reference: filter_vertices, matrix.hpp:861-1122)
+        rows_mask = np.zeros((R, C * L), dtype=bool)
+        rows_mask[i_e, lr] = True
+        cols_mask = np.zeros((C, R * L), dtype=bool)
+        cols_mask[j_e, lc] = True
+        # each rank sees only its shard's edges: OR the partial bitvectors
+        # (reference: the leader combine, matrix.hpp:990-1006)
+        rows_mask = mh.global_or(rows_mask, mesh)
+        cols_mask = mh.global_or(cols_mask, mesh)
 
-    # prefix renumbering IV (reference: matrix.hpp:1044-1097)
-    iv = np.cumsum(rows_mask, axis=1, dtype=np.int64) - 1
-    nnzrows_grp = rows_mask.sum(axis=1).astype(np.int64)
-    nnzcols_grp = cols_mask.sum(axis=1).astype(np.int64)
+        # prefix renumbering IV (reference: matrix.hpp:1044-1097)
+        iv = np.cumsum(rows_mask, axis=1, dtype=np.int64) - 1
+        nnzrows_grp = rows_mask.sum(axis=1).astype(np.int64)
+        nnzcols_grp = cols_mask.sum(axis=1).astype(np.int64)
 
-    renumber = compression in (Compression.TCSC, Compression.TCSC_CF)
-    # DCSC: the col-side prefix renumbering JV (reference:
-    # DCSC_BASE::populate, compressed_column.hpp:237-271)
-    renumber_cols = compression == Compression.DCSC
-    jv = np.cumsum(cols_mask, axis=1, dtype=np.int64) - 1 \
-        if renumber_cols else None
+        renumber = compression in (Compression.TCSC, Compression.TCSC_CF)
+        # DCSC: the col-side prefix renumbering JV (reference:
+        # DCSC_BASE::populate, compressed_column.hpp:237-271)
+        renumber_cols = compression == Compression.DCSC
+        jv = np.cumsum(cols_mask, axis=1, dtype=np.int64) - 1 \
+            if renumber_cols else None
 
-    # per-device binning (native counting sort when available)
-    if r.size and r.max() < (1 << 32) and c.max() < (1 << 32):
-        order, counts = native.bin_edges(r, c, part.L, R, C)
-    else:
-        order = np.argsort(dev, kind="stable")
-        counts = np.bincount(dev, minlength=D)
-    lr_s, lc_s = lr[order], lc[order]
-    w_s = w[order] if w is not None else None
-    ends = np.cumsum(counts)
-    starts = ends - counts
-
-    per_rows, per_cols, per_w, per_nnz = [], [], [], []
-    for b in range(D):
-        s, e = starts[b], ends[b]
-        blr, blc = lr_s[s:e], lc_s[s:e]
-        bw = w_s[s:e] if w_s is not None else None
-        # sort by destination row, then col, ties in input order: the JAX
-        # package's lexsort((blc, blr)) order, as one stable sort of an
-        # int64 key (about half lexsort's time at RMAT-18)
-        key = blr * np.int64(R * L) + blc
-        o = np.argsort(key, kind="stable")
-        blr, blc, key = blr[o], blc[o], key[o]
-        bw = bw[o] if bw is not None else None
-        if not parallel_edges and blr.size:
-            # dedup on (row, col); keep min weight for determinism
-            if bw is not None:
-                o2 = np.lexsort((bw, key))
-                key2, blr, blc, bw = key[o2], blr[o2], blc[o2], bw[o2]
-                keep = np.concatenate(([True], key2[1:] != key2[:-1]))
-                blr, blc, bw = blr[keep], blc[keep], bw[keep]
-                o3 = np.lexsort((blc, blr))
-                blr, blc, bw = blr[o3], blc[o3], bw[o3]
-            else:
-                keep = np.concatenate(([True], key[1:] != key[:-1]))
-                blr, blc = blr[keep], blc[keep]
-        per_rows.append(blr)
-        per_cols.append(blc)
-        per_w.append(bw)
-        per_nnz.append(blr.size)
-
-    # per-device counts are exact on the owning rank and zero (or, from
-    # every edge, exact) elsewhere, so the global counts are their max
-    # (reference invariant: matrix.hpp:802-804)
-    per_nnz_g = mh.global_max(np.asarray(per_nnz, np.int64), mesh)
-    nnz_total = int(per_nnz_g.sum())
-    Ep = _round_up(int(max(int(per_nnz_g.max()) if per_nnz_g.size else 0, 1)),
-                   edge_align)
-    NR = _round_up(int(max(nnzrows_grp.max(), 1)), 128) if renumber \
-        else C * L
-
-    rows_arr = np.zeros((D, Ep), dtype=np.int32)
-    cols_arr = np.zeros((D, Ep), dtype=np.int32)
-    w_arr = np.zeros((D, Ep), dtype=weight_dtype) if w is not None else None
-    nnz_arr = np.zeros((D, 1), dtype=np.int32)
-    ja_arr = np.zeros((D, NR + 1), dtype=np.int32)
-    ir_arr = np.full((D, NR), C * L, dtype=np.int32) if renumber else None
-    iv_arr = np.full((D, C * L), -1, dtype=np.int32) if renumber else None
-    nnzrows_arr = np.zeros((D, 1), dtype=np.int32)
-    nnzcols_arr = np.zeros((D, 1), dtype=np.int32)
-    jc_arr = None
-    if renumber_cols:
-        NCp = _round_up(int(max(nnzcols_grp.max(), 1)), 128)
-        jc_arr = np.zeros((D, NCp), dtype=np.int32)
-
-    for b in range(D):
-        i, j = divmod(b, C)
-        n = per_nnz[b]
-        blr, blc, bw = per_rows[b], per_cols[b], per_w[b]
-        seg_ids = iv[i, blr] if renumber else blr
-        rows_arr[b, :n] = seg_ids
-        if n < Ep:  # pad with last valid id to keep sortedness
-            rows_arr[b, n:] = seg_ids[-1] if n else 0
-        if renumber_cols:
-            cols_arr[b, :n] = jv[j, blc]
-            nzc = np.flatnonzero(cols_mask[j])
-            jc_arr[b, :nzc.size] = nzc
+    with timing.span("tiles.bin"):
+        # per-device binning (native counting sort when available)
+        if r.size and r.max() < (1 << 32) and c.max() < (1 << 32):
+            order, counts = native.bin_edges(r, c, part.L, R, C)
         else:
-            cols_arr[b, :n] = blc
-        if w_arr is not None and bw is not None:
-            w_arr[b, :n] = bw
-        nnz_arr[b, 0] = n
-        nnzrows_arr[b, 0] = nnzrows_grp[i]
-        nnzcols_arr[b, 0] = nnzcols_grp[j]
-        ja_arr[b] = np.searchsorted(rows_arr[b, :n], np.arange(NR + 1))
-        if renumber:
-            nz = np.flatnonzero(rows_mask[i])
-            ir_arr[b, :nz.size] = nz
-            iv_arr[b] = np.where(rows_mask[i], iv[i], -1)
+            order = np.argsort(dev, kind="stable")
+            counts = np.bincount(dev, minlength=D)
+        lr_s, lc_s = lr[order], lc[order]
+        w_s = w[order] if w is not None else None
+        ends = np.cumsum(counts)
+        starts = ends - counts
 
-    # owner-segment masks: device (i, j) owns segment s = j*R + i
-    i_own = np.zeros((D, L), dtype=bool)
-    j_own = np.zeros((D, L), dtype=bool)
-    for b in range(D):
-        i, j = divmod(b, C)
-        i_own[b] = rows_mask[i, j * L:(j + 1) * L]
-        j_own[b] = cols_mask[j, i * L:(i + 1) * L]
+    with timing.span("tiles.sort"):
+        per_rows, per_cols, per_w, per_nnz = [], [], [], []
+        for b in range(D):
+            s, e = starts[b], ends[b]
+            blr, blc = lr_s[s:e], lc_s[s:e]
+            bw = w_s[s:e] if w_s is not None else None
+            # sort by destination row, then col, ties in input order: the
+            # JAX package's lexsort((blc, blr)) order, as one stable sort
+            # of an int64 key (about half lexsort's time at RMAT-18)
+            key = blr * np.int64(R * L) + blc
+            o = np.argsort(key, kind="stable")
+            blr, blc, key = blr[o], blc[o], key[o]
+            bw = bw[o] if bw is not None else None
+            if not parallel_edges and blr.size:
+                # dedup on (row, col); keep min weight for determinism
+                if bw is not None:
+                    o2 = np.lexsort((bw, key))
+                    key2, blr, blc, bw = key[o2], blr[o2], blc[o2], bw[o2]
+                    keep = np.concatenate(([True], key2[1:] != key2[:-1]))
+                    blr, blc, bw = blr[keep], blc[keep], bw[keep]
+                    o3 = np.lexsort((blc, blr))
+                    blr, blc, bw = blr[o3], blc[o3], bw[o3]
+                else:
+                    keep = np.concatenate(([True], key[1:] != key[:-1]))
+                    blr, blc = blr[keep], blc[keep]
+            per_rows.append(blr)
+            per_cols.append(blc)
+            per_w.append(bw)
+            per_nnz.append(blr.size)
 
-    return TileSet(
-        part=part, compression=compression, has_weight=w is not None,
-        Ep=Ep, NR=NR, nnz_total=nnz_total,
-        rows=rows_arr, cols=cols_arr, weights=w_arr, nnz=nnz_arr,
-        ja=ja_arr, ir=ir_arr, iv_dense=iv_arr,
-        nnzrows=nnzrows_arr, i_own=i_own, j_own=j_own,
-        regular_own=i_own & j_own, source_own=i_own & ~j_own,
-        sink_own=j_own & ~i_own, nnzcols=nnzcols_arr, jc=jc_arr,
-        dev_nnz=per_nnz_g, mesh=mesh,
-    )
+    with timing.span("tiles.fill"):
+        # per-device counts are exact on the owning rank and zero (or,
+        # from every edge, exact) elsewhere, so the global counts are
+        # their max (reference invariant: matrix.hpp:802-804)
+        per_nnz_g = mh.global_max(np.asarray(per_nnz, np.int64), mesh)
+        nnz_total = int(per_nnz_g.sum())
+        Ep = _round_up(int(max(int(per_nnz_g.max()) if per_nnz_g.size
+                               else 0, 1)), edge_align)
+        NR = _round_up(int(max(nnzrows_grp.max(), 1)), 128) if renumber \
+            else C * L
+
+        rows_arr = np.zeros((D, Ep), dtype=np.int32)
+        cols_arr = np.zeros((D, Ep), dtype=np.int32)
+        w_arr = np.zeros((D, Ep), dtype=weight_dtype) if w is not None \
+            else None
+        nnz_arr = np.zeros((D, 1), dtype=np.int32)
+        ja_arr = np.zeros((D, NR + 1), dtype=np.int32)
+        ir_arr = np.full((D, NR), C * L, dtype=np.int32) if renumber else None
+        iv_arr = np.full((D, C * L), -1, dtype=np.int32) if renumber else None
+        nnzrows_arr = np.zeros((D, 1), dtype=np.int32)
+        nnzcols_arr = np.zeros((D, 1), dtype=np.int32)
+        jc_arr = None
+        if renumber_cols:
+            NCp = _round_up(int(max(nnzcols_grp.max(), 1)), 128)
+            jc_arr = np.zeros((D, NCp), dtype=np.int32)
+
+        for b in range(D):
+            i, j = divmod(b, C)
+            n = per_nnz[b]
+            blr, blc, bw = per_rows[b], per_cols[b], per_w[b]
+            seg_ids = iv[i, blr] if renumber else blr
+            rows_arr[b, :n] = seg_ids
+            if n < Ep:  # pad with last valid id to keep sortedness
+                rows_arr[b, n:] = seg_ids[-1] if n else 0
+            if renumber_cols:
+                cols_arr[b, :n] = jv[j, blc]
+                nzc = np.flatnonzero(cols_mask[j])
+                jc_arr[b, :nzc.size] = nzc
+            else:
+                cols_arr[b, :n] = blc
+            if w_arr is not None and bw is not None:
+                w_arr[b, :n] = bw
+            nnz_arr[b, 0] = n
+            nnzrows_arr[b, 0] = nnzrows_grp[i]
+            nnzcols_arr[b, 0] = nnzcols_grp[j]
+            ja_arr[b] = np.searchsorted(rows_arr[b, :n], np.arange(NR + 1))
+            if renumber:
+                nz = np.flatnonzero(rows_mask[i])
+                ir_arr[b, :nz.size] = nz
+                iv_arr[b] = np.where(rows_mask[i], iv[i], -1)
+
+        # owner-segment masks: device (i, j) owns segment s = j*R + i
+        i_own = np.zeros((D, L), dtype=bool)
+        j_own = np.zeros((D, L), dtype=bool)
+        for b in range(D):
+            i, j = divmod(b, C)
+            i_own[b] = rows_mask[i, j * L:(j + 1) * L]
+            j_own[b] = cols_mask[j, i * L:(i + 1) * L]
+
+        return TileSet(
+            part=part, compression=compression, has_weight=w is not None,
+            Ep=Ep, NR=NR, nnz_total=nnz_total,
+            rows=rows_arr, cols=cols_arr, weights=w_arr, nnz=nnz_arr,
+            ja=ja_arr, ir=ir_arr, iv_dense=iv_arr,
+            nnzrows=nnzrows_arr, i_own=i_own, j_own=j_own,
+            regular_own=i_own & j_own, source_own=i_own & ~j_own,
+            sink_own=j_own & ~i_own, nnzcols=nnzcols_arr, jc=jc_arr,
+            dev_nnz=per_nnz_g, mesh=mesh,
+        )

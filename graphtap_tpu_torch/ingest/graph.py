@@ -32,6 +32,7 @@ from graphtap_tpu_torch.format.tiles import (TileSet, build_cf_tilesets,
 from graphtap_tpu_torch.ingest.io import apply_transforms, read_edge_list
 from graphtap_tpu_torch.parallel import multihost
 from graphtap_tpu_torch.parallel.layout import Mesh, Partition
+from graphtap_tpu_torch.tools import timing
 
 
 @dataclass
@@ -106,14 +107,16 @@ class Graph:
 
     def tiled(self, ordering: Ordering = Ordering.ROW,
               compression: Optional[Compression] = None) -> TileSet:
-        """The TileSet of the stored matrix (ROW) or its transpose (COL)."""
+        """The TileSet of the stored matrix (ROW) or its transpose (COL);
+        a build is a ``tiles`` span in the open tracer."""
         comp = compression or self.config.compression
         if (ordering, comp) not in self._tiles:
-            r, c, w = self._oriented(ordering)
-            self._tiles[ordering, comp] = build_tileset(
-                r, c, w, self.part, compression=comp,
-                parallel_edges=self.config.parallel_edges,
-                edge_align=self.config.edge_align, mesh=self.mesh)
+            with timing.span("tiles", ordering=ordering.name):
+                r, c, w = self._oriented(ordering)
+                self._tiles[ordering, comp] = build_tileset(
+                    r, c, w, self.part, compression=comp,
+                    parallel_edges=self.config.parallel_edges,
+                    edge_align=self.config.edge_align, mesh=self.mesh)
         return self._tiles[ordering, comp]
 
     def tiled_cf(self, ordering: Ordering = Ordering.ROW) -> dict:
@@ -121,9 +124,10 @@ class Graph:
         stored matrix (ROW) or its transpose (COL) (reference:
         compressed_column.hpp:606-1120)."""
         if (ordering, "cf") not in self._tiles:
-            r, c, w = self._oriented(ordering)
-            self._tiles[ordering, "cf"] = build_cf_tilesets(
-                r, c, w, self.part,
-                parallel_edges=self.config.parallel_edges,
-                edge_align=self.config.edge_align, mesh=self.mesh)
+            with timing.span("tiles", ordering=ordering.name, cf=True):
+                r, c, w = self._oriented(ordering)
+                self._tiles[ordering, "cf"] = build_cf_tilesets(
+                    r, c, w, self.part,
+                    parallel_edges=self.config.parallel_edges,
+                    edge_align=self.config.edge_align, mesh=self.mesh)
         return self._tiles[ordering, "cf"]

@@ -62,7 +62,8 @@ from graphtap_tpu_torch.engine.executor import Executor, _PLANNERS, _device
 from graphtap_tpu_torch.ingest.graph import Graph
 from graphtap_tpu_torch.parallel import multihost as mh
 from graphtap_tpu_torch.parallel.layout import make_mesh
-from graphtap_tpu_torch.tools.timing import launches, reset_launches
+from graphtap_tpu_torch.tools.timing import (launches, reset_launches,
+                                             tracing)
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 _PLAN_KINDS = {"spmv3": "panel", "shuffle": "shuffle", "spmv2": "shuffle2",
@@ -173,7 +174,8 @@ class Runner:
         g = self.graph(run["graph"], plain)
         reset_launches()
         t0 = time.perf_counter()
-        ex, timer = self._execute(run, g)
+        with tracing():                 # each superstep's ms
+            ex, timer = self._execute(run, g)
         wall = time.perf_counter() - t0
         mine = {"launches": launches(), "timings": dict(ex.timings),
                 "wall_s": wall,

@@ -72,7 +72,7 @@ from graphtap_tpu_torch.kernels.shuffle_engine import (build_shuffle_plans,
                                                        mul_kind, spmv_stages)
 from graphtap_tpu_torch.kernels.shuffle_plan import build_spmv_plan
 from graphtap_tpu_torch.engine import executor
-from graphtap_tpu_torch.tools import bw_probe, route_cost_probe
+from graphtap_tpu_torch.tools import bw_probe, route_cost_probe, timing
 from graphtap_tpu_torch.tools.convert import meta_from_numpy
 
 pytestmark = pytest.mark.gpu
@@ -243,7 +243,8 @@ def test_apps_on_cuda_match_cpu(cuda, app):
             g = Graph.from_edges(r, c, None, cc_config(n))
             run = lambda device: run_cc(g, kernel="panel", device=device)
     before = dict(pk.LAUNCHES)
-    on_card = run(cuda)
+    with timing.tracing():
+        on_card = run(cuda)
     assert pk.LAUNCHES["hub_fold"] > before["hub_fold"]
     on_cpu = run("cpu")
     assert on_card.iteration == on_cpu.iteration

@@ -14,7 +14,6 @@ five oracle lines (``apps/_cli.py``)."""
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from graphtap_tpu_torch.config import (Compression, EngineConfig,
@@ -35,11 +34,12 @@ class BFSProgram(VertexProgram):
         self.root = root
 
     def init(self, vids, i_mask, other):
-        is_root = vids == self.root
+        vid = vids.to(torch.int32, copy=True)
+        is_root = vid == self.root
         state = {
-            "vid": vids.astype(np.int32),
-            "parent": np.where(is_root, self.root, 0).astype(np.int32),
-            "hops": np.where(is_root, 0, INF_I32).astype(np.int32),
+            "vid": vid,
+            "parent": torch.where(is_root, vid, 0),
+            "hops": torch.full_like(vid, INF_I32).masked_fill_(is_root, 0),
         }
         return state, is_root
 

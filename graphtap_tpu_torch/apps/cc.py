@@ -13,7 +13,6 @@ oracle lines (``apps/_cli.py``)."""
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from graphtap_tpu_torch.config import (Compression, EngineConfig,
@@ -33,7 +32,8 @@ class CCProgram(VertexProgram):
         self.semiring = min_select()
 
     def init(self, vids, i_mask, other):
-        return {"label": vids.astype(np.int32)}, np.ones(vids.shape, bool)
+        return ({"label": vids.to(torch.int32, copy=True)},
+                torch.ones_like(i_mask))
 
     def messenger(self, state):
         return state["label"]

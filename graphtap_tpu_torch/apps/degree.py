@@ -7,12 +7,11 @@ stationary, TCSC, ROW ordering, one iteration).
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from graphtap_tpu_torch.config import EngineConfig, Ordering
 from graphtap_tpu_torch.engine.executor import Executor
-from graphtap_tpu_torch.engine.program import VertexProgram, numpy_dtype
+from graphtap_tpu_torch.engine.program import VertexProgram
 from graphtap_tpu_torch.kernels.semiring import plus_times
 
 
@@ -24,9 +23,9 @@ class DegreeProgram(VertexProgram):
         self.value_dtype = value_dtype
 
     def init(self, vids, i_mask, other):
-        state = {"degree": np.zeros(vids.shape,
-                                    dtype=numpy_dtype(self.value_dtype))}
-        return state, np.ones(vids.shape, dtype=bool)
+        state = {"degree": torch.zeros(vids.shape, dtype=self.value_dtype,
+                                       device=vids.device)}
+        return state, torch.ones_like(i_mask)
 
     def messenger(self, state):
         return torch.ones_like(state["degree"])

@@ -11,13 +11,12 @@ runs the first/middle/last phases (``engine/executor.py``).
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from graphtap_tpu_torch.config import (Compression, EngineConfig,
                                        GraphConfig, Ordering)
 from graphtap_tpu_torch.engine.executor import Executor
-from graphtap_tpu_torch.engine.program import VertexProgram, numpy_dtype
+from graphtap_tpu_torch.engine.program import VertexProgram
 from graphtap_tpu_torch.ingest.graph import Graph
 from graphtap_tpu_torch.kernels.semiring import plus_times
 from graphtap_tpu_torch.apps.degree import run_degree
@@ -37,15 +36,17 @@ class PageRankProgram(VertexProgram):
         self.tol = tol
 
     def init(self, vids, i_mask, other):
-        dt = numpy_dtype(self.value_dtype)
-        degree = np.zeros(vids.shape, dtype=dt)
-        if other is not None:
+        dt = self.value_dtype
+        if other is None:
+            degree = torch.zeros(vids.shape, dtype=dt, device=vids.device)
+        else:
             # copy the degree only where the I bit is set (reference quirk,
             # vertex_program.hpp:476-483)
-            degree = np.where(i_mask, other["degree"].astype(dt), degree)
-        state = {"rank": np.full(vids.shape, self.alpha, dtype=dt),
+            degree = torch.where(i_mask, other["degree"].to(dt), 0.0)
+        state = {"rank": torch.full(vids.shape, self.alpha, dtype=dt,
+                                    device=vids.device),
                  "degree": degree}
-        return state, i_mask.copy()
+        return state, i_mask.clone()
 
     def messenger(self, state):
         d = state["degree"]

@@ -13,7 +13,6 @@ line and the five oracle lines (``apps/_cli.py``)."""
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from graphtap_tpu_torch.config import (Compression, EngineConfig,
@@ -37,8 +36,9 @@ class SSSPProgram(VertexProgram):
 
     def init(self, vids, i_mask, other):
         is_root = vids == self.root
-        state = {"distance": np.where(is_root, 0, INF_I32).astype(np.int32)}
-        return state, is_root
+        distance = torch.full(vids.shape, INF_I32, dtype=torch.int32,
+                              device=vids.device)
+        return {"distance": distance.masked_fill_(is_root, 0)}, is_root
 
     def messenger(self, state):
         return state["distance"]

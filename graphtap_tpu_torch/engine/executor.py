@@ -220,10 +220,12 @@ class Executor:
     since the last superstep began (the flush of convergence mode
     included); each superstep's own are its ``bytes`` (``_tally``).
     With a tracer open, the executor records its spans and counters
-    there (``initialize`` and its stages, ``execute``, each ``superstep``
-    and its phases, the ``vote``, ``flush`` and ``sync``, the ``plans``
-    and ``upload`` of construction; the ``h2d_bytes``, ``d2h_bytes`` and
-    ``supersteps`` counters)."""
+    there (``initialize`` and its ``initialize.program``, ``execute``,
+    each ``superstep`` and its phases, the ``vote``, ``flush`` and
+    ``sync``, the ``plans`` and ``upload`` of construction; the
+    ``init_bytes`` and ``supersteps`` counters, and ``h2d_bytes`` or
+    ``d2h_bytes`` where a handed-over state crosses between the host and
+    the card)."""
 
     def __init__(self, graph: Graph, program: VertexProgram,
                  engine: Optional[EngineConfig] = None, kernel: str = "scan",
@@ -275,6 +277,10 @@ class Executor:
             self.device_bytes = _nbytes(self._dev.values())
             _sync(self.device)
         self.timings["upload"] = time.perf_counter() - t0
+        # the shard's rows that ``initialize`` and apply read, kept past
+        # ``free`` so that a freed executor can still be initialized
+        self._vids, self._i_own = self._dev["vids"], self._dev["i_own"]
+        self._valid = self._vids < graph.nv
         # tile phase -> (tiles, plans, device arrays); the TCSC_CF phases
         # join at the first run that needs them (_cf_phases)
         self._phases = {"main": (self.tiles, self.meta, self._dev)}
@@ -357,35 +363,29 @@ class Executor:
 
     # ------------------------------------------------------------- lifecycle
     def initialize(self, other: Optional["Executor"] = None) -> None:
-        """Build this rank's initial state (reference: initialize(),
-        :444-503); the handoff variant takes the predecessor's final state
-        (:467-483), which lies on this rank: both programs share one
-        partition. Starts a job in the open tracer."""
-        # keep this order of host allocations: which of them reuse freed,
-        # already touched memory sets the pageable copies' speed (with the
-        # handoff first, its copy to the host ran ten times slower)
+        """Build this rank's initial state on its device (reference:
+        initialize(), :444-503) from the shard's rows uploaded at
+        construction; the handoff variant takes the predecessor's final
+        state (:467-483), which lies on this rank: both programs share one
+        partition. Enqueues the program's ``init`` and nothing else: no
+        host array, no copy unless ``other``'s state lies on another
+        device. Starts a job in the open tracer."""
         with timing.span("initialize", new_job=True):
-            rows = slice(self.shard, self.shard + 1)
             with timing.span("initialize.program"):
-                vids = self.part.owner_vids()[rows]
-            other_state = None
-            if other is not None:
-                with timing.span("initialize.handoff"):
-                    other_state = {k: v.cpu().numpy()[None]
+                other_state = None
+                if other is not None:
+                    other_state = {k: v.to(self.device)
                                    for k, v in other.state.items()}
-                    timing.count("d2h_bytes", _nbytes(other.state.values()))
-            with timing.span("initialize.program"):
-                state_np, changed_np = self.program.init(
-                    vids, self.tiles.i_own[rows], other_state)
-            with timing.span("initialize.upload"):
-                self.state = {k: self._tensor(np.asarray(v)[0])
-                              for k, v in state_np.items()}
-                valid = vids < self.graph.nv
-                self.changed = self._tensor((np.asarray(changed_np,
-                                                        dtype=bool)
-                                             & valid)[0])
-                timing.count("h2d_bytes", _nbytes(self.state.values())
-                             + _nbytes((self.changed,)))
+                    moved = [v for v in other.state.values()
+                             if v.device.type != self.device.type]
+                    if moved:
+                        timing.count("d2h_bytes" if self.device.type == "cpu"
+                                     else "h2d_bytes", _nbytes(moved))
+                self.state, changed = self.program.init(
+                    self._vids, self._i_own, other_state)
+                self.changed = changed & self._valid
+            timing.count("init_bytes", _nbytes(self.state.values())
+                         + _nbytes((self.changed,)))
             self.iteration = 0
 
     def free(self) -> None:
@@ -578,7 +578,7 @@ class Executor:
         if mask is not None:
             V2 = {k: torch.where(mask, v2, V[k]) for k, v2 in V2.items()}
             changed = changed & mask
-        return V2, changed & (self._dev["vids"] < self.graph.nv)
+        return V2, changed & self._valid
 
     def _messages(self, V: State, C: torch.Tensor) -> torch.Tensor:
         """Outgoing messages; a nonstationary program's are the

@@ -1292,3 +1292,58 @@ def test_csc_kernels_match_plain(cuda, kernel):
         "route_xr_exp", "route_passa", "route_fold", "hub_fold")} == {
         "route_xr_exp": 2, "route_passa": 2, "route_fold": 4, "hub_fold": 2}
     assert torch.equal(st["s0"], pk.route_xr_exp_plain(*xe))
+
+
+def test_initialize_enqueues_no_copy_or_sync(cuda):
+    """One PageRank job's ``initialize(other=)`` and one BFS query's
+    ``initialize()`` on the onehot executor, under ``torch.profiler``,
+    launch kernels and no copy between the host and the card and no
+    synchronize (the device-to-device copies of ``clone`` are kernels of
+    the card's own): the state is built on the card from the rows
+    uploaded at construction and the degree executor's state (freed, as
+    ``run_pagerank`` hands it over)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from graphtap_tpu_torch.apps import BFSProgram, PageRankProgram
+    from graphtap_tpu_torch.apps.degree import run_degree
+    from graphtap_tpu_torch.config import EngineConfig, Ordering
+    n = 1 << 12
+    r, c, _ = rmat_edges(12, 16, seed=3)
+    pg = Graph.from_edges(r, c, None, GraphConfig(num_vertices=n,
+                                                  transpose=True))
+    deg = run_degree(pg, torch.float32, Ordering.COL, "onehot", cuda)
+    deg.free()
+    pr = executor.Executor(pg, PageRankProgram(torch.float32),
+                           EngineConfig(stationary=True,
+                                        ordering=Ordering.ROW),
+                           kernel="onehot", device=cuda)
+    bfs = executor.Executor(Graph.from_edges(r, c, None, bfs_config(n)),
+                            BFSProgram(root=1),
+                            EngineConfig(stationary=False,
+                                         apply_depends_on_iter=True,
+                                         ordering=Ordering.ROW),
+                            kernel="onehot", device=cuda)
+    jobs = (lambda: pr.initialize(other=deg), bfs.initialize)
+    for job in jobs:                        # warm the allocator's pool
+        job()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("initialize_jobs"):
+            for job in jobs:
+                job()
+    torch.cuda.synchronize()
+    events = prof.events()
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+    span = next(e for e in cpu if e.name == "initialize_jobs")
+    inside = [e.name for e in cpu
+              if span.time_range.start <= e.time_range.start
+              <= span.time_range.end]
+    assert "aten::where" in inside, inside
+    assert not [k for k in inside if "synchronize" in k.lower()], inside
+    copies = [e.name for e in events
+              if "HtoD" in e.name or "DtoH" in e.name]
+    assert not copies, copies
+    np.testing.assert_array_equal(
+        pr.state["degree"].cpu().numpy(),
+        np.where(pg.tiled().i_own[0], deg.state["degree"].cpu().numpy(), 0))

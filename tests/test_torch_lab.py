@@ -199,7 +199,9 @@ class _Bump(VertexProgram):
     value_dtype = torch.float64
 
     def init(self, vids, i_mask, other):
-        return {"v": np.zeros(vids.shape)}, np.ones(vids.shape, bool)
+        return ({"v": torch.zeros(vids.shape, dtype=torch.float64,
+                                  device=vids.device)},
+                torch.ones_like(i_mask))
 
     def messenger(self, state):
         return torch.ones_like(state["v"])

@@ -6,7 +6,8 @@ the scan and onehot kernels:
     children inside their parents, one ``superstep`` a superstep and one
     ``vote`` each; the set-up's ``tiles`` (and its four stages),
     ``plans`` and ``upload``;
-  * the copy counters equal L x the bytes of the fields moved;
+  * ``init_bytes`` equals L x the bytes of the fields made, and a job
+    on one device counts no copy;
   * states bit for bit with the tracer open (plain, fenced, annotated)
     and closed;
   * a closed tracer records nothing, the loop makes no profiler
@@ -121,9 +122,7 @@ def test_pagerank_job_span_tree(pr_graph, degree, kernel):
     assert [tr.spans[k].job for k in roots] == [1, 1, 2, 2]
     assert tr.job == 2
     for init, exe in (roots[:2], roots[2:]):
-        assert _names(tr, _children(tr, init)) == [
-            "initialize.program", "initialize.handoff", "initialize.program",
-            "initialize.upload"]
+        assert _names(tr, _children(tr, init)) == ["initialize.program"]
         kids = _children(tr, exe)
         assert _names(tr, kids) == ["superstep"] * ITERS + ["sync"]
         _check_supersteps(tr, kids[:ITERS])
@@ -141,8 +140,7 @@ def test_bfs_query_span_tree(bfs_graph, kernel):
     roots = _children(tr, -1)
     assert _names(tr, roots) == ["initialize", "execute"]
     assert {sp.job for sp in tr.spans} == {1}
-    assert _names(tr, _children(tr, roots[0])) == [
-        "initialize.program", "initialize.program", "initialize.upload"]
+    assert _names(tr, _children(tr, roots[0])) == ["initialize.program"]
     kids = _children(tr, roots[1])
     assert _names(tr, kids) == ["superstep", "vote"] * n + ["flush", "sync"]
     _check_supersteps(tr, kids[:-2:2])
@@ -170,20 +168,21 @@ def test_setup_spans(edges, kernel):
 
 @pytest.mark.parametrize("kernel", KERNELS)
 def test_copy_counters(pr_graph, bfs_graph, degree, kernel):
-    """h2d: every state field and ``changed`` (1 byte) up; d2h: the
-    predecessor's state down; each L x the field's bytes."""
+    """init_bytes: every state field and ``changed`` (1 byte) made on the
+    device, L x the field's bytes a job; no h2d or d2h copy where the
+    handed-over state lies on the executor's device."""
     L = pr_graph.part.L
     ex = _pagerank(pr_graph, kernel)
-    with timing.tracing() as tr:
+    with timing.tracing() as pr:
         _pr_job(ex, degree)
-    assert tr.counters["d2h_bytes"] == L * 4                 # degree, f32
-    assert tr.counters["h2d_bytes"] == L * (4 + 4 + 1)       # rank, degree
+    assert pr.counters["init_bytes"] == L * (4 + 4 + 1)      # rank, degree
     ex = _bfs(bfs_graph, kernel)
-    with timing.tracing() as tr:
+    with timing.tracing() as bfs:
         _bfs_job(ex)
     assert set(ex.state) == {"vid", "parent", "hops"}
-    assert "d2h_bytes" not in tr.counters
-    assert tr.counters["h2d_bytes"] == bfs_graph.part.L * (3 * 4 + 1)
+    assert bfs.counters["init_bytes"] == bfs_graph.part.L * (3 * 4 + 1)
+    for tr in (pr, bfs):
+        assert not {"h2d_bytes", "d2h_bytes"} & set(tr.counters)
 
 
 @pytest.mark.parametrize("mode", ["plain", "fence", "annotate"])

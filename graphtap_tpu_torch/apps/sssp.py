@@ -20,23 +20,28 @@ from graphtap_tpu_torch.config import (Compression, EngineConfig,
 from graphtap_tpu_torch.engine.executor import Executor
 from graphtap_tpu_torch.engine.program import VertexProgram
 from graphtap_tpu_torch.ingest.graph import Graph
-from graphtap_tpu_torch.kernels.semiring import (INF_I32, min_plus,
+from graphtap_tpu_torch.kernels.semiring import (inf_of, min_plus,
                                                  min_select)
 
 
 class SSSPProgram(VertexProgram):
+    """``value_dtype``: int32, GraphTap's distances (INF = INT32_MAX), or
+    float32, Graph500 kernel 3's (INF = +inf, float weights)."""
     stationary = False
     gather_depends_on_apply = True
     value_dtype = torch.int32
 
-    def __init__(self, root: int = 0, weighted: bool = True):
-        self.semiring = min_plus() if weighted else min_select()
+    def __init__(self, root: int = 0, weighted: bool = True,
+                 value_dtype: torch.dtype = torch.int32):
+        self.value_dtype = value_dtype
+        self.inf = inf_of(value_dtype)
+        self.semiring = (min_plus if weighted else min_select)(self.inf)
         self.weighted = weighted
         self.root = root
 
     def init(self, vids, i_mask, other):
         is_root = vids == self.root
-        distance = torch.full(vids.shape, INF_I32, dtype=torch.int32,
+        distance = torch.full(vids.shape, self.inf, dtype=self.value_dtype,
                               device=vids.device)
         return {"distance": distance.masked_fill_(is_root, 0)}, is_root
 
@@ -46,18 +51,18 @@ class SSSPProgram(VertexProgram):
     def applicator(self, state, y, iteration):
         if not self.weighted:
             # unweighted fallback: hop count y+1 (reference: sssp.h:60-64)
-            y = torch.where(y >= INF_I32, y, y + 1)
+            y = torch.where(y >= self.inf, y, y + 1)
         new = torch.minimum(state["distance"], y)
         return {"distance": new}, new != state["distance"]
 
     def infinity(self):
-        return INF_I32
+        return self.inf
 
     def get_state(self, state):
         return state["distance"]
 
     def format_state(self, row):
-        d = "INF" if row["distance"] == INF_I32 else row["distance"]
+        d = "INF" if row["distance"] == self.inf else row["distance"]
         return f"Distance={d}"
 
 
@@ -73,15 +78,19 @@ def sssp_config(num_vertices: int, weighted: bool = True) -> GraphConfig:
 
 def run_sssp(graph: Graph, root: int = 0, weighted: bool = True,
              kernel: str = "panel", device="cuda", plans=None,
-             sparse_exchange_capacity: int = 0) -> Executor:
+             sparse_exchange_capacity: int = 0,
+             value_dtype: torch.dtype = torch.int32) -> Executor:
     """SSSP from ``root`` to convergence on ``device`` ('cuda' unless the
     caller passes 'cpu'; ``kernel`` any of ``Executor``'s: 'panel',
     'shuffle', 'shuffle2' (its ⊗ is K9's add_sat), 'onehot', 'segment' or
     'scan');
     ``graph`` is read through ``sssp_config`` (with its weights when
     ``weighted``); ``plans`` and ``sparse_exchange_capacity``: as
-    ``run_bfs`` takes them."""
-    ex = Executor(graph, SSSPProgram(root=root, weighted=weighted),
+    ``run_bfs`` takes them; ``value_dtype``: ``SSSPProgram``'s (float32
+    with a float-weighted graph: Graph500 kernel 3 on 'onehot', 'scan'
+    or 'segment')."""
+    ex = Executor(graph, SSSPProgram(root=root, weighted=weighted,
+                                     value_dtype=value_dtype),
                   EngineConfig(stationary=False, gather_depends_on_apply=True,
                                ordering=Ordering.ROW,
                                sparse_exchange_capacity=(

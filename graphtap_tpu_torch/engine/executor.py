@@ -158,6 +158,15 @@ def _nbytes(values) -> int:
                if isinstance(v, torch.Tensor))
 
 
+def _col_degree(tiles: TileSet, b: int) -> np.ndarray:
+    """(R*L,) int32: the stored edges of device ``b``'s tile in each of its
+    x columns (DCSC's compact ids taken back through JC)."""
+    cols = tiles.cols[b, :int(tiles.nnz[b, 0])]
+    if tiles.jc is not None:
+        cols = tiles.jc[b][cols]
+    return np.bincount(cols, minlength=tiles.part.tile_cols).astype(np.int32)
+
+
 def _transport(mesh, device: torch.device) -> Optional[str]:
     """How the exchanges move data: None without a mesh; 'nccl' (the CUDA
     tensors themselves); 'gloo' (CPU tensors) or 'gloo-host' (CUDA
@@ -225,7 +234,13 @@ class Executor:
     ``sync``, the ``plans`` and ``upload`` of construction; the
     ``init_bytes`` and ``supersteps`` counters, and ``h2d_bytes`` or
     ``d2h_bytes`` where a handed-over state crosses between the host and
-    the card)."""
+    the card). For a nonstationary program in convergence mode on one
+    shard it also counts, for each superstep whose SpMV reads every
+    stored edge (all but a gated panel superstep), ``relaxed_edges``, the
+    stored edges of its tiles (a host integer), and ``frontier_edges``,
+    those whose source column is in its frontier, read in the vote's host
+    read from a per-column degree uploaded at the first counted superstep
+    (``col_degree``)."""
 
     def __init__(self, graph: Graph, program: VertexProgram,
                  engine: Optional[EngineConfig] = None, kernel: str = "scan",
@@ -522,12 +537,29 @@ class Executor:
                           else "amax", include_self=True)
         return y[:L], True
 
-    def _voted(self, C: torch.Tensor) -> bool:
+    def _voted(self, C: torch.Tensor,
+               frontier: Optional[torch.Tensor] = None) -> bool:
         """The convergence vote: every rank's vertices unchanged (one
-        all-reduce over the world, read to the host)."""
-        if self.mesh is None:
+        all-reduce over the world, read to the host). ``frontier``: on one
+        shard, the superstep's frontier edges (a device scalar), read in
+        the vote's own host read into the open tracer's
+        ``frontier_edges``."""
+        if self.mesh is not None:
+            return self._count(~C.any(), "world") == self.part.D
+        if frontier is None:
             return not bool(C.any())
-        return self._count(~C.any(), "world") == self.part.D
+        more, n = torch.stack([C.any().to(frontier.dtype), frontier]).tolist()
+        timing.count("frontier_edges", n)
+        return not more
+
+    def _frontier_edges(self, C: torch.Tensor, phase: str) -> torch.Tensor:
+        """The stored edges of ``phase``'s tiles whose source column is in
+        the frontier ``C``, as a device scalar (no host read); the
+        per-column degree is built and uploaded at the first call."""
+        tiles, _, d = self._phases[phase]
+        if "col_degree" not in d:
+            d["col_degree"] = self._tensor(_col_degree(tiles, self.shard))
+        return torch.where(C, d["col_degree"], 0).sum()
 
     # ------------------------------------------------------------- superstep
     def _combine(self, x: torch.Tensor, phase: str
@@ -690,11 +722,16 @@ class Executor:
         tr = timing.current()
         events = tr is not None and not tr.fence \
             and self.device.type == "cuda"
+        converge = not (niters and niters > 0)
+        # the edge counters: only under an open tracer, for a nonstationary
+        # program in convergence mode (the vote carries the frontier's
+        # read), on one shard
+        counting = (tr is not None and converge and self.mesh is None
+                    and not self.program.stationary)
         with timing.span("execute"):
             self.supersteps = []
             t0 = time.perf_counter()
             V, C = self.state, self.changed
-            converge = not (niters and niters > 0)
             it, converged = 0, False
             while not converged and it < (MAX_CONVERGENCE_ITERS if converge
                                           else niters):
@@ -702,15 +739,22 @@ class Executor:
                          else "last" if not converge and it == niters - 1
                          else "middle")
                 with timing.span("superstep", it=it, phase=phase) as sp:
+                    frontier = (self._frontier_edges(C, phase) if counting
+                                else None)
                     V, C, m = self._superstep(V, C, it, phase, events)
                 if tr is not None and tr.fence:
                     self.supersteps[-1]["ms"] = sp.seconds * 1e3
+                if self.supersteps[-1]["gated"]:
+                    frontier = None     # it read only its active panels
+                elif frontier is not None:
+                    timing.count("relaxed_edges", int(
+                        self._phases[phase][0].nnz[self.shard, 0]))
                 it += 1
                 if printer is not None:
                     printer(f"Iteration: {it}")
                 if converge:
                     with timing.span("vote"):
-                        converged = self._voted(C)      # a host read
+                        converged = self._voted(C, frontier)  # a host read
             if converge:
                 # one extra combine + apply on the last superstep's
                 # messages, to flush source/sink contributions (reference

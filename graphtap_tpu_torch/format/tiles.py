@@ -233,17 +233,13 @@ def build_tileset(
             blr, blc, key = blr[o], blc[o], key[o]
             bw = bw[o] if bw is not None else None
             if not parallel_edges and blr.size:
-                # dedup on (row, col); keep min weight for determinism
+                # dedup on (row, col), each run of one key (sorted) keeping
+                # its least weight: the JAX package's two lexsorts in one
+                # pass (fmin skips a NaN, which its sort puts last)
+                keep = np.concatenate(([True], key[1:] != key[:-1]))
                 if bw is not None:
-                    o2 = np.lexsort((bw, key))
-                    key2, blr, blc, bw = key[o2], blr[o2], blc[o2], bw[o2]
-                    keep = np.concatenate(([True], key2[1:] != key2[:-1]))
-                    blr, blc, bw = blr[keep], blc[keep], bw[keep]
-                    o3 = np.lexsort((blc, blr))
-                    blr, blc, bw = blr[o3], blc[o3], bw[o3]
-                else:
-                    keep = np.concatenate(([True], key[1:] != key[:-1]))
-                    blr, blc = blr[keep], blc[keep]
+                    bw = np.fmin.reduceat(bw, np.flatnonzero(keep))
+                blr, blc = blr[keep], blc[keep]
             per_rows.append(blr)
             per_cols.append(blc)
             per_w.append(bw)

@@ -105,6 +105,15 @@ class Graph:
         mine = multihost.host_edge_share(r, c, self.part, self.mesh.shard)
         return r[mine], c[mine], None if self.w is None else self.w[mine]
 
+    @property
+    def _weight_dtype(self):
+        """The tiles' weight type: the weights' own where they are
+        floats (Graph500's uniform weights), else int32 (the reference's
+        u32 weights, as the JAX package tiles them)."""
+        if self.w is not None and np.issubdtype(self.w.dtype, np.floating):
+            return self.w.dtype
+        return np.int32
+
     def tiled(self, ordering: Ordering = Ordering.ROW,
               compression: Optional[Compression] = None) -> TileSet:
         """The TileSet of the stored matrix (ROW) or its transpose (COL);
@@ -116,7 +125,8 @@ class Graph:
                 self._tiles[ordering, comp] = build_tileset(
                     r, c, w, self.part, compression=comp,
                     parallel_edges=self.config.parallel_edges,
-                    edge_align=self.config.edge_align, mesh=self.mesh)
+                    edge_align=self.config.edge_align,
+                    weight_dtype=self._weight_dtype, mesh=self.mesh)
         return self._tiles[ordering, comp]
 
     def tiled_cf(self, ordering: Ordering = Ordering.ROW) -> dict:
@@ -129,5 +139,6 @@ class Graph:
                 self._tiles[ordering, "cf"] = build_cf_tilesets(
                     r, c, w, self.part,
                     parallel_edges=self.config.parallel_edges,
-                    edge_align=self.config.edge_align, mesh=self.mesh)
+                    edge_align=self.config.edge_align,
+                    weight_dtype=self._weight_dtype, mesh=self.mesh)
         return self._tiles[ordering, "cf"]

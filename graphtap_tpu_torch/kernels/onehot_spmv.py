@@ -48,6 +48,10 @@ from graphtap_tpu_torch.parallel import multihost as mh
 RB = 128          # rows per block = lane width
 CHUNK = 2048      # contributions per chunk
 
+# the ⊕ kinds K5 takes on each value type: the shared kinds, and f32 min
+# and max (SSSP's float distances), which only K5 has been tested in
+_K5_REDUCE_OK = {**_REDUCE_OK, torch.float32: ("sum", "min", "max")}
+
 # launches of the CUDA kernel (the plain version is not counted)
 LAUNCHES = {"segment_reduce": 0}
 
@@ -219,7 +223,8 @@ def segment_reduce(contrib, lrows, chunk_block, nblocks: int, NR: int,
     space (NR,). Padding must carry the ⊕-identity (``spmv_onehot`` masks
     it); the kernel reads no validity mask, as the Pallas one reads none.
     Float sums fold in a fixed order, the plain version's, so a call gives
-    the same bits every time. ``lists``: the chunk list
+    the same bits every time; f32 min and max (exact in any order) keep
+    that order too. ``lists``: the chunk list
     (``fold_order.chunk_lists(chunk_block, nblocks)``, built here if
     None); ``scratch``: the lists' and their runs' lane partials
     (allocated here if None); the plain version reads neither. Replaces
@@ -233,7 +238,7 @@ def segment_reduce(contrib, lrows, chunk_block, nblocks: int, NR: int,
     ep = nchunks * CHUNK
     _check("contrib", contrib, None, (ep,), dev)
     _check("lrows", lrows, torch.int32, (ep,), dev)
-    if reduce_kind not in _REDUCE_OK[contrib.dtype]:
+    if reduce_kind not in _K5_REDUCE_OK[contrib.dtype]:
         raise ValueError(f"segment_reduce: {reduce_kind} on {contrib.dtype}")
     if not 0 <= NR <= nblocks * RB:
         raise ValueError(f"NR {NR} outside [0, {nblocks * RB}]")

@@ -15,6 +15,13 @@ import torch
 
 INF_I32 = 2147483647  # INT32_MAX sentinel (reference: bfs.h:12, sssp.h:12)
 
+
+def inf_of(dtype: torch.dtype):
+    """The min semirings' INF in ``dtype``: INT32_MAX for int32, as the
+    reference's sentinel; +inf for a float type (Graph500's float
+    distances), which ``min`` and ``+`` keep as it is."""
+    return float("inf") if dtype.is_floating_point else INF_I32
+
 _SCATTER_REDUCE = {"sum": "sum", "min": "amin", "max": "amax"}
 
 
@@ -30,7 +37,9 @@ class Semiring:
     reduce_kind: str  # 'sum' | 'min' | 'max'
 
     def identity_like(self, dtype: torch.dtype, device=None) -> torch.Tensor:
-        return torch.tensor(self.identity, dtype=dtype, device=device)
+        """The ⊕-identity as a 0-d tensor, filled on ``device`` (no copy
+        from the host: the superstep makes one every call)."""
+        return torch.full((), self.identity, dtype=dtype, device=device)
 
     def segment_reduce(self, data: torch.Tensor, segment_ids: torch.Tensor,
                        num_segments: int) -> torch.Tensor:
@@ -55,7 +64,8 @@ class Semiring:
 
 def _add_sat(x, w, inf):
     """x ⊗ w for the min semirings: INF stays INF, so INF + w never wraps
-    in int32 (valid path lengths are assumed << INT32_MAX)."""
+    in int32 (valid path lengths are assumed << INT32_MAX); over floats
+    ``inf`` is +inf, which the guard keeps as it is."""
     return torch.where(x >= inf, torch.full_like(x, inf), x + w)
 
 
@@ -67,16 +77,17 @@ def plus_times() -> Semiring:
                     identity=0, reduce_kind="sum")
 
 
-def min_plus(inf: int = INF_I32) -> Semiring:
+def min_plus(inf=INF_I32) -> Semiring:
     """(min, +w, INF): SSSP (reference: sssp.h:49-56), with the INF guard
-    on ⊗ (``add_sat``)."""
+    on ⊗ (``add_sat``); ``inf`` is ``inf_of`` the value type (+inf over
+    floats)."""
     def mul(x, w):
         return x if w is None else _add_sat(x, w, inf)
     return Semiring(name="min_plus", add=torch.minimum, mul=mul,
                     identity=inf, reduce_kind="min")
 
 
-def min_select(inf: int = INF_I32) -> Semiring:
+def min_select(inf=INF_I32) -> Semiring:
     """(min, id, INF): CC label propagation and BFS parent-min
     (reference: cc.h:43-49, bfs.h:57-64)."""
     def mul(x, w):

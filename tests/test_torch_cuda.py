@@ -39,7 +39,11 @@ match bit for bit, twice, and equal the CPU, on hub chunks, sorted and
 unsorted K5 chunks, padding tails, K8's all-invalid groups and chunks
 and row blocks with no chunk, in every value type and ⊕. On RMAT-14
 plans of CSC tiles (raw local rows, NR = C*L), K5 on the one-hot plan and
-K1-K4 on the panel meta match bit for bit, twice.
+K1-K4 on the panel meta match bit for bit, twice. K5's f32 min and max
+(Graph500 kernel 3's float SSSP) match bit for bit, twice; float SSSP on
+onehot equals the CPU run; one float SSSP superstep copies nothing
+between the host and the card and does not synchronize, its vote being
+the one read.
 """
 
 import numpy as np
@@ -1347,3 +1351,122 @@ def test_initialize_enqueues_no_copy_or_sync(cuda):
     np.testing.assert_array_equal(
         pr.state["degree"].cpu().numpy(),
         np.where(pg.tiled().i_own[0], deg.state["degree"].cpu().numpy(), 0))
+
+
+_F32_MINMAX = {"f32_min": ("f32", "min", float("inf")),
+               "f32_max": ("f32", "max", -float("inf"))}
+
+
+def _g500_sssp_graph(scale=12, seed=1):
+    """Graph500 kernel 3's graph at ``scale``: undirected, deduplicated,
+    weighted by the pair hash in float32."""
+    from benchmark.g500_weights import pair_weights
+    r, c, _ = rmat_edges(scale, 16, seed=seed)
+    w = pair_weights(torch.from_numpy(r), torch.from_numpy(c)).numpy()
+    return Graph.from_edges(r, c, w, GraphConfig(
+        num_vertices=1 << scale, directed=False, self_loops=False,
+        parallel_edges=False, has_weight=True))
+
+
+def _sssp_executor(g, root, device):
+    from graphtap_tpu_torch.apps.sssp import SSSPProgram
+    from graphtap_tpu_torch.config import EngineConfig, Ordering
+    return executor.Executor(
+        g, SSSPProgram(root=root, value_dtype=torch.float32),
+        EngineConfig(stationary=False, gather_depends_on_apply=True,
+                     ordering=Ordering.ROW), kernel="onehot", device=device)
+
+
+@pytest.mark.parametrize("kind", sorted(_F32_MINMAX))
+def test_k5_f32_min_max_match_plain(cuda, kind):
+    """K5's f32 min and max equal the plain version bit for bit, twice,
+    and the CPU, on the synthetic chunks of ``test_chunk_folds_match_plain``
+    and, for min, on the contributions of a float SSSP superstep from
+    every vertex at RMAT-12 (pair-hash weights, +inf padding)."""
+    dt, red, ident = _F32_MINMAX[kind]
+    c, lr, cb, nblocks = _k5_chunks(np.random.default_rng(12), dt, ident)
+    args = tuple(a.to(cuda) for a in (c, lr, cb)) + (
+        nblocks, nblocks * oh.RB, red, ident)
+    before = oh.LAUNCHES["segment_reduce"]
+    got = _twice_equal(lambda: oh.segment_reduce(*args),
+                       lambda: oh.segment_reduce_plain(*args))
+    assert oh.LAUNCHES["segment_reduce"] == before + 2
+    assert torch.equal(got.cpu(), oh.segment_reduce(
+        *(a.cpu() if torch.is_tensor(a) else a for a in args)))
+    if red != "min":
+        return
+    g = _g500_sssp_graph()
+    ts = g.tiled()
+    plan = oh.build_onehot_plan(ts)
+    assert plan.weights.dtype == np.float32
+    t = meta_from_numpy(plan.arrays, cuda)
+    sem = tsr.min_plus(tsr.inf_of(torch.float32))
+    x = torch.from_numpy(np.random.default_rng(2).random(
+        g.part.tile_cols).astype(np.float32)).to(cuda)
+    x[::7] = float("inf")                       # vertices not reached
+    kargs = (oh.onehot_contrib(x, t, sem), t["oh_lrows"],
+             t["oh_chunk_block"], plan.nblocks, ts.NR, "min", sem.identity)
+    _twice_equal(lambda: oh.segment_reduce(*kargs),
+                 lambda: oh.segment_reduce_plain(*kargs))
+
+
+def test_f32_sssp_on_cuda_matches_cpu(cuda):
+    """Float SSSP to convergence on onehot (K5's f32 min) at RMAT-12:
+    the card's distances equal the CPU's bit for bit, in as many
+    supersteps, for two roots."""
+    g = _g500_sssp_graph()
+    card, cpu = _sssp_executor(g, 0, cuda), _sssp_executor(g, 0, "cpu")
+    for root in (1, 77):
+        for ex in (card, cpu):
+            ex.program.root = root
+            ex.initialize()
+            ex.execute(0)
+        assert card.iteration == cpu.iteration > 3
+        a = card.state_vector()["distance"]
+        b = cpu.state_vector()["distance"]
+        assert a.dtype == np.float32
+        np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+
+
+def test_sssp_superstep_no_copy_or_sync(cuda):
+    """One float SSSP superstep on onehot enqueues no copy between the
+    host and the card and no synchronize (under the sync debug mode's
+    "error"); its vote is the one read, a single device-to-host copy, and
+    under a tracer the frontier's edge count rides in that same copy."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    g = _g500_sssp_graph()
+    ex = _sssp_executor(g, 1, cuda)
+    with timing.tracing():                  # warm the allocator's pool and
+        ex.initialize()                     # upload the counters' degrees
+        ex.execute(0)
+    for tracer in (None, timing.tracing()):
+        ex.initialize()
+        V, C = ex.state, ex.changed
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function("superstep"):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    frontier = (ex._frontier_edges(C, "main")
+                                if tracer is not None else None)
+                    _, C2, _ = ex._superstep(V, C, 0, "main", False)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            with record_function("vote"):
+                if tracer is None:
+                    ex._voted(C2)
+                else:
+                    with tracer:
+                        ex._voted(C2, frontier)
+        torch.cuda.synchronize()
+        copies = [e.name for e in prof.events()
+                  if "HtoD" in e.name or "DtoH" in e.name]
+        assert not [k for k in copies if "HtoD" in k], copies
+        assert len([k for k in copies if "DtoH" in k]) == 1, copies
+        if tracer is not None:                 # the root's stored edges
+            ts = ex.tiles
+            deg = np.bincount(ts.cols[0, :int(ts.nnz[0, 0])],
+                              minlength=g.part.tile_cols)
+            assert tracer.counters["frontier_edges"] == int(
+                deg[C.cpu().numpy()].sum()) > 0

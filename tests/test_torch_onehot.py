@@ -26,6 +26,7 @@ from graphtap_tpu.apps import sssp as jsssp
 from graphtap_tpu.apps.pagerank import run_pagerank as j_run_pagerank
 from graphtap_tpu.config import GraphConfig as JGraphConfig
 from graphtap_tpu.config import Ordering as JOrdering
+from graphtap_tpu.format.tiles import build_tileset as j_build_tileset
 from graphtap_tpu.ingest.graph import Graph as JGraph
 from graphtap_tpu.kernels import pallas_spmv as jps
 from graphtap_tpu.kernels import semiring as jsr
@@ -154,6 +155,14 @@ def test_spmv_onehot_matches_jax(case):
                                                      transpose=True),
                                mesh=_jmesh())
     ts, jts = g.tiled(), jg.tiled(JOrdering.ROW)
+    if case == "sum_f64_weighted":
+        # the port's tiles keep float weights in their own type; the JAX
+        # build does so when asked (its Graph.tiled asks for int32)
+        assert ts.weights.dtype == np.float64
+        jts = j_build_tileset(jg.r, jg.c, jg.w, jg.part,
+                              parallel_edges=jg.config.parallel_edges,
+                              edge_align=jg.config.edge_align,
+                              weight_dtype=np.float64)
     sem, jsem = _semirings({"sum_f64": "plus_times",
                             "sum_f64_weighted": "plus_times",
                             "min_int32_weighted": "min_plus",
@@ -279,7 +288,7 @@ def test_segment_reduce_rejects_bad_inputs(small):
         oh.segment_reduce(torch.stack([c, c], 1)[:, 0], lr, cb,
                           plan.nblocks, nr, "sum", 0.0)
     with pytest.raises(ValueError, match="segment_reduce"):
-        oh.segment_reduce(c, lr, cb, plan.nblocks, nr, "min", 0.0)
+        oh.segment_reduce(c.double(), lr, cb, plan.nblocks, nr, "min", 0.0)
     with pytest.raises(ValueError, match="NR"):
         oh.segment_reduce(c, lr, cb, plan.nblocks, plan.nblocks * 128 + 1,
                           "sum", 0.0)

@@ -122,12 +122,16 @@ Phases, each printed as it runs; any failure exits non-zero:
               onehot (run_pagerank with degree_kernel="onehot"): each
               checksum within 1e-4 relative of the f64 golden, the one-hot
               degrees equal golden.degree, launches (windowed_gather 6,
-              grouped_reduce 1, segment_reduce 1 per superstep), warm
-              GTEPS beside panel's. Then the kernel rows of K9 (its six
-              stage calls at the shuffle2 superstep), K10 (one RMAT-20
-              stage re-planned with 64-row steps; no path launches it) and
-              K5 (the one-hot superstep), with torch.take and
-              torch.scatter_reduce as their library calls. Then f32
+              grouped_reduce 1, segment_reduce_gather 1 per
+              superstep), warm GTEPS beside panel's. Then the kernel rows
+              of K9 (its six stage calls at the shuffle2 superstep), K10
+              (one RMAT-20 stage re-planned with 64-row steps; no path
+              launches it) and K5 (on contributions, at the one-hot
+              superstep's shapes), with torch.take and
+              torch.scatter_reduce as their library calls, and K5 from
+              the plan (segment_reduce_gather, the path's launch: x
+              gathered, ⊗ and masked in the fold) beside the torch
+              contributions and K5 it replaces (bit for bit). Then f32
               PageRank to convergence on both executors, re-initialized
               from their degree phases, the onehot one profiled for 20
               iterations as panel's; and on a scan executor (the portable
@@ -288,7 +292,7 @@ SHUFFLE = ("expand_stream", "group_stream", "grouped_reduce")
 PATH_LAUNCHES = {"shuffle": {"expand_stream": 3, "group_stream": 1,
                              "grouped_reduce": 1},
                  "shuffle2": {"windowed_gather": 6, "grouped_reduce": 1},
-                 "onehot": {"segment_reduce": 1},
+                 "onehot": {"segment_reduce_gather": 1},
                  "panel": {"route_xr_exp": 1, "route_passa": 1,
                            "route_fold": 2, "hub_fold": 1}}
 # one staged SpMV and K12 on its stack1
@@ -304,7 +308,7 @@ MESH_TIMEOUT = 600
 MESH_CAPS = (4096, 8)
 MESH_KERNELS = ("route_xr_exp", "route_passa", "route_fold", "hub_fold",
                 "expand_stream", "group_stream", "grouped_reduce",
-                "segment_reduce")
+                "segment_reduce_gather")
 GOLDEN_RTOL = 1e-4
 # entry(): the JAX entry step's sum (interpret mode on the CPU), and the
 # launches of one step
@@ -321,7 +325,7 @@ SOURCES = {"panel": "graphtap_tpu_torch/csrc/panel_route.cu",
 PROBES = ("copy_blocks", "stream_sum", "route_like")
 # the fixed-order float folds (ROADMAP F8): two calls give the same bits
 FOLDS = ("route_fold", "route_fold_gated", "grouped_reduce",
-         "segment_reduce", "colsum_chunks")
+         "segment_reduce", "segment_reduce_gather", "colsum_chunks")
 # the card's published peaks (NVIDIA H100 SXM data sheet): memory bytes/s,
 # and non-tensor-core operations/s by value type
 PEAK_BYTES = 3.35e12
@@ -374,6 +378,9 @@ REPLACES = {
     "windowed_gather": "graphtap_tpu/kernels/gather_kernels.py:102",
     "windowed_gather64": "graphtap_tpu/kernels/gather_kernels.py:166",
     "segment_reduce": "graphtap_tpu/kernels/pallas_spmv.py:165",
+    # and the gather, ⊗ and padding mask of graphtap_tpu/engine/
+    # executor.py:203-221 before it
+    "segment_reduce_gather": "graphtap_tpu/kernels/pallas_spmv.py:165",
     "route_passa_single": "graphtap_tpu/kernels/panel_kernels.py:435",
     "route_expand": "graphtap_tpu/kernels/panel_kernels.py:407",
     "fold_stripes": "graphtap_tpu/kernels/panel_kernels.py:543",
@@ -1062,6 +1069,33 @@ def _k5_call(torch, t, plan, nr, sem, contrib):
             lambda: oh.segment_reduce_plain(*f64),
             lambda: torch.scatter_reduce(y0.double(), 0, dst, f64[0],
                                          op)[:nr])
+
+
+def _k5_gather_call(torch, t, plan, nr, sem, x):
+    """(name, kernel call, plain call, (bytes, ops), library call) of K5
+    from the plan on x: bytes read every slot's col, row and ev byte (and
+    weight), chunk_block and x once, and write y; ops one ⊗ (where
+    weighted) and one ⊕ per slot; the "library" call is what the kernel
+    replaces, the contributions built in torch and K5, which must give
+    the same bits."""
+    from graphtap_tpu_torch.kernels import onehot_spmv as oh
+    from graphtap_tpu_torch.kernels.shuffle_engine import mul_kind
+    folds = oh.fold_tables(t, plan, x.dtype)
+    w = oh.plan_weights(t, x.dtype)
+    args = (x, t["oh_cols"], t["oh_evalid"], w, t["oh_lrows"],
+            t["oh_chunk_block"], plan.nblocks, nr, plan.col_bound,
+            sem.reduce_kind, mul_kind(plan, sem), sem.identity)
+    slot = 9 + (0 if w is None else w.element_size())
+    work = (plan.Ep * slot + _nbytes(t["oh_chunk_block"]) + _nbytes(x)
+            + plan.nblocks * oh.RB * x.element_size(),
+            plan.Ep * (1 if w is None else 2))
+    return ("segment_reduce_gather",
+            lambda: oh.segment_reduce_gather(*args, **folds),
+            lambda: oh.segment_reduce_gather_plain(*args), work,
+            lambda: oh.segment_reduce(
+                oh.onehot_contrib(x, t, sem), t["oh_lrows"],
+                t["oh_chunk_block"], plan.nblocks, nr, sem.reduce_kind,
+                sem.identity, **folds))
 
 
 def _check_call(tag, name, a, b, kern=None) -> None:
@@ -1851,7 +1885,7 @@ def phase_new_paths(torch, np, g, deg_ex, ref, conv32):
                              "golden.degree")
     ref["gteps_onehot"] = _pagerank_checks(
         np, "onehot", ex, ref, launches,
-        {"segment_reduce": ITERS + 1})                  # + the degree SpMV
+        {"segment_reduce_gather": ITERS + 1})           # + the degree SpMV
     sem = ex.program.semiring
     x = ex.program.messenger(ex.state).to(torch.float32)
     _log_chunks("segment_reduce", ex._dev["oh_lrows"],
@@ -1860,6 +1894,9 @@ def phase_new_paths(torch, np, g, deg_ex, ref, conv32):
     call = _k5_call(torch, ex._dev, ex.meta, ex.tiles.NR, sem,
                     oh.onehot_contrib(x, ex._dev, sem))
     _kernel_row(torch, rows, call, launches.get("segment_reduce", 0),
+                x.dtype)
+    call = _k5_gather_call(torch, ex._dev, ex.meta, ex.tiles.NR, sem, x)
+    _kernel_row(torch, rows, call, launches.get("segment_reduce_gather", 0),
                 x.dtype)
     _converge32("onehot", ex, deg, conv32)
     _profile("onehot", ex, deg)
@@ -1945,7 +1982,7 @@ def _time_row(torch, rows, name, kern, plain, err, launches, bound,
     kms, pms = min(k1, k2), min(p1, p2)
     source = SOURCES["shuffle" if name in SHUFFLE else
                      "gather" if name.startswith("windowed") else
-                     "onehot" if name == "segment_reduce" else
+                     "onehot" if name.startswith("segment_reduce") else
                      "probe" if name in PROBES else "panel"]
     row = rows.setdefault(name, {
         "name": name, "route": "cuda", "source": source,
@@ -2397,7 +2434,8 @@ def phase_csc(torch, np, ref, kernels) -> None:
     _reset_all_launches()
     deg = run_degree(g, torch.float32, Ordering.COL, "onehot", DEVICE)
     deg.free()
-    _need_launches("csc degree", _all_launches(), {"segment_reduce": 1})
+    _need_launches("csc degree", _all_launches(),
+                   {"segment_reduce_gather": 1})
     if not np.array_equal(deg.state_vector()["degree"],
                           ref["degree"].astype(np.float32)):
         raise AssertionError("csc: onehot degrees differ from golden.degree")
@@ -2487,7 +2525,7 @@ def phase_lab(torch, np, ref) -> None:
             log(f"lab RMAT-{scale} {which}: launches {launches}")
             if which == 6:
                 _need_launches("lab 6", launches,
-                               {"segment_reduce": 1 + 2 * ITERS})
+                               {"segment_reduce_gather": 1 + 2 * ITERS})
         for ln in lab_table.render(scale, rows, f"{_SMI[0]}; ITERS "
                                    f"{ITERS}, f32").splitlines():
             log(f"lab RMAT-{scale} | {ln}")
@@ -3101,7 +3139,8 @@ def _phases(torch, np) -> int:
         "windowed_gather its six stage calls; the static panel rows at a "
         "PageRank superstep, the shuffle rows at the degree SpMV "
         f"(RMAT-{SCALE}), windowed_gather at the shuffle2 and "
-        "segment_reduce at the onehot PageRank superstep, windowed_gather64 "
+        "segment_reduce and segment_reduce_gather at the onehot PageRank "
+        "superstep, windowed_gather64 "
         f"on one RMAT-{SCALE} v2 stage re-planned with 64-row steps, the "
         f"gated rows at BFS's first superstep (RMAT-{SUITE_SCALE}); "
         "bound_ms from the published peaks (3.35 TB/s; 67/34 TOP/s "

@@ -25,18 +25,36 @@ enum Dtype { F32 = 0, F64 = 1, I32 = 2 };
 enum MulKind { MUL_NONE = 0, MUL_MUL = 1, MUL_ADD_SAT = 2 };
 enum ReduceKind { RED_SUM = 0, RED_MIN = 1, RED_MAX = 2 };
 
+// a + b and a * b as one IEEE-rounded operation each: never contracted
+// into an FMA with a neighbouring ⊗ or ⊕, so a ⊗ rounds as the plain
+// version's elementwise torch op does; int32 wraps (two's complement), as
+// the Pallas kernels' and torch's int32 arithmetic does.
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ int add_rn(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) +
+                          static_cast<unsigned>(b));
+}
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ int mul_rn(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) *
+                          static_cast<unsigned>(b));
+}
+
 // min-plus ⊗: INF stays INF, so INF + w never wraps (panel_kernels.py:134,
 // shuffle_kernels.py:59-61).
 template <typename T>
 __device__ __forceinline__ T add_sat(T acc, T w, T fill) {
-  return acc >= fill ? fill : acc + w;
-}
-template <>
-__device__ __forceinline__ int add_sat<int>(int acc, int w, int fill) {
-  // below INF the sum is the Pallas kernels' int32 add (two's complement)
-  return acc >= fill ? fill
-                     : static_cast<int>(static_cast<unsigned>(acc) +
-                                        static_cast<unsigned>(w));
+  return acc >= fill ? fill : add_rn(acc, w);
 }
 
 template <int RED, typename T>
@@ -50,16 +68,26 @@ __device__ __forceinline__ T combine(T a, T b) {
   }
 }
 
-// ⊗ of one contribution with its weight pw[e] (MUL_NONE: none).
+// ⊗ of one contribution v with its weight w (MUL_NONE: v).
+template <typename T, int MUL>
+__device__ __forceinline__ T mul_value(T v, T w, T fill) {
+  if constexpr (MUL == MUL_MUL) {
+    return mul_rn(v, w);
+  } else if constexpr (MUL == MUL_ADD_SAT) {
+    return add_sat<T>(v, w, fill);
+  } else {
+    return v;
+  }
+}
+
+// ⊗ of one contribution with its weight pw[e] (MUL_NONE: none, pw unread).
 template <typename T, int MUL>
 __device__ __forceinline__ T apply_mul(T v, const T* __restrict__ pw,
                                        long long e, T fill) {
-  if constexpr (MUL == MUL_MUL) {
-    return v * pw[e];
-  } else if constexpr (MUL == MUL_ADD_SAT) {
-    return add_sat<T>(v, pw[e], fill);
-  } else {
+  if constexpr (MUL == MUL_NONE) {
     return v;
+  } else {
+    return mul_value<T, MUL>(v, pw[e], fill);
   }
 }
 
@@ -332,6 +360,16 @@ void launch_row_fold(const void* part, const void* rptr, const void* gptr,
 // with K8's run fold). Occupancy is what the fold buys time with (K8
 // 0.137 ms at 8 blocks an SM and 32 registers against 0.179 at 50), so
 // the registers are capped.
+//
+// GATHER (K5 from its plan, MUL_NONE, MUL_MUL or MUL_ADD_SAT; NO_GATHER
+// otherwise): c is x, and a slot's value is made in the block, not read
+// from a contribution array: x[cols[e]] ⊗ w[e] where ev[e] is set, the
+// ⊕-identity where it is not (the padding, which stays in the fold as
+// K5's does, and whose x is not read). lane, cols, ev and w are streams
+// read once (evict-first loads, so they do not push x out of L2); the
+// thread issues all E of its x gathers (read-only path) before it uses
+// one, so their latencies overlap.
+constexpr int NO_GATHER = -1;
 constexpr int CHUNK_FOLD_RUN = 32;   // entries per run (fold_order.py::RUN)
 constexpr int CHUNK_FOLD_THREADS = 256;
 constexpr int CHUNK_FOLD_WARPS = CHUNK_FOLD_THREADS / 32;
@@ -394,15 +432,18 @@ __device__ __forceinline__ void lane_runs(S& s) {
   if (id == 31) s.runbase[LANES] = incl >> 16;
 }
 
-template <typename T, int RED, typename L, int CHUNK, bool MASKED>
+template <typename T, int RED, typename L, int CHUNK, bool MASKED,
+          int GATHER = NO_GATHER>
 __global__ void __launch_bounds__(CHUNK_FOLD_THREADS, MASKED ? 8 : 6)
 chunk_fold_kernel(const T* __restrict__ c, const L* __restrict__ lane,
                   const int8_t* __restrict__ ev,
                   const int* __restrict__ chunks, T* __restrict__ part,
-                  T ident) {
+                  T ident, const int* __restrict__ cols = nullptr,
+                  const T* __restrict__ wts = nullptr) {
   constexpr int SEG = CHUNK / CHUNK_FOLD_WARPS;   // slots of a warp
   constexpr int E = SEG / 32;                     // slots of a thread
   static_assert(E * 32 * CHUNK_FOLD_WARPS == CHUNK, "whole rounds");
+  static_assert(!(MASKED && GATHER != NO_GATHER), "one use of ev");
   __shared__ ChunkFoldSmem<T, CHUNK> s;
   const int t = threadIdx.x, i = t & 31, w = t >> 5;
   const int chunk = __ldg(chunks + blockIdx.x);
@@ -410,16 +451,38 @@ chunk_fold_kernel(const T* __restrict__ c, const L* __restrict__ lane,
   if (chunk >= 0) {              // the same in the whole block
     const int p0 = w * SEG + i;  // slot p0 + 32 j of the chunk
     const long long base = static_cast<long long>(chunk) * CHUNK + p0;
-    const T* cp = c + base;
     const L* lp = lane + base;
     T v[E];
     int ln[E];                   // the lane, -1 where not kept
+    if constexpr (GATHER == NO_GATHER) {
+      const T* cp = c + base;
 #pragma unroll
-    for (int j = 0; j < E; ++j) {
-      ln[j] = static_cast<int>(__ldcs(lp + 32 * j));
-      v[j] = __ldcs(cp + 32 * j);
-      if constexpr (MASKED) {    // every load, then the mask
-        if (__ldcs(ev + base + 32 * j) == 0) ln[j] = -1;
+      for (int j = 0; j < E; ++j) {
+        ln[j] = static_cast<int>(__ldcs(lp + 32 * j));
+        v[j] = __ldcs(cp + 32 * j);
+        if constexpr (MASKED) {  // every load, then the mask
+          if (__ldcs(ev + base + 32 * j) == 0) ln[j] = -1;
+        }
+      }
+    } else {
+      int col[E];                // the x row of each slot
+      unsigned edge = 0;         // bit j: slot j holds an edge
+#pragma unroll
+      for (int j = 0; j < E; ++j) {
+        ln[j] = static_cast<int>(__ldcs(lp + 32 * j));
+        col[j] = __ldcs(cols + base + 32 * j);
+        if (__ldcs(ev + base + 32 * j) != 0) edge |= 1u << j;
+      }
+#pragma unroll
+      for (int j = 0; j < E; ++j) {
+        v[j] = (edge >> j & 1u) ? __ldg(c + col[j]) : ident;
+      }
+      if constexpr (GATHER != MUL_NONE) {
+#pragma unroll
+        for (int j = 0; j < E; ++j) {
+          const T wj = __ldcs(wts + base + 32 * j);
+          if (edge >> j & 1u) v[j] = mul_value<T, GATHER>(v[j], wj, ident);
+        }
       }
     }
     // ranks within the warp's segment: ln[j] becomes lane | rank << 8
@@ -486,23 +549,26 @@ chunk_fold_kernel(const T* __restrict__ c, const L* __restrict__ lane,
 
 // K5 and K8: pass (a) over the nitems list items into part (nitems, 128),
 // then pass (b) by launch_row_fold over the list positions into y
-// (nblocks, 128).
-template <typename T, typename L, int CHUNK, bool MASKED>
+// (nblocks, 128). GATHER: c is x, gathered through cols and ⊗ by w.
+template <typename T, typename L, int CHUNK, bool MASKED,
+          int GATHER = NO_GATHER>
 int launch_chunk_fold(const void* c, const void* lane, const void* ev,
                       const void* chunks, const void* rptr,
                       const void* gptr, void* part, void* gpart, void* y,
                       long long nitems, long long nblocks, long long ngroups,
-                      int red, double identity, cudaStream_t st) {
+                      int red, double identity, cudaStream_t st,
+                      const void* cols = nullptr, const void* w = nullptr) {
   const T ident = static_cast<T>(identity);
   const int rc = dispatch_red(red, [&](auto rk) {
     constexpr int RED = decltype(rk)::value;
     if (nitems > 0) {
-      chunk_fold_kernel<T, RED, L, CHUNK, MASKED>
+      chunk_fold_kernel<T, RED, L, CHUNK, MASKED, GATHER>
           <<<static_cast<unsigned>(nitems), CHUNK_FOLD_THREADS, 0, st>>>(
               static_cast<const T*>(c), static_cast<const L*>(lane),
               static_cast<const int8_t*>(ev),
               static_cast<const int*>(chunks), static_cast<T*>(part),
-              ident);
+              ident, static_cast<const int*>(cols),
+              static_cast<const T*>(w));
     }
     launch_row_fold<T, RED>(part, rptr, gptr, nullptr, gpart, y, nblocks,
                             ngroups, ident, st);

@@ -5,6 +5,11 @@
 //
 //   K5 gt_segment_reduce      replaces pallas_segment_reduce
 //                             (_reduce_kernel :115-138, call :144-162)
+//   K5 gt_segment_reduce_gather   the same fold, its contributions made
+//                             in pass (a) from the plan: also replaces
+//                             the gather, ⊗ and padding mask the JAX
+//                             executor leaves to XLA before the call
+//                             (executor.py:203-221)
 //
 // What it computes. The host plan (build_pallas_plan) regroups the edges
 // by 128-row destination block and pads each block's run to whole chunks
@@ -41,6 +46,16 @@
 // (kernels/fold_order.py::chunk_lists). The result equals the plain
 // version's (segment_reduce_plain, the same order) bit for bit.
 //
+// The gathering form. Built in torch, the contributions cost a pass per
+// operation over every plan slot (the x gather, the ⊗'s compare, add and
+// select, the padding's select: 27 B a slot unweighted, 62 B under the
+// min-plus ⊗, with K5's own reads), where the work needs the plan's
+// cols, lrows and ev (9 B a slot) and its weights (13 B). So pass (a)
+// reads those streams once, evict-first, gathers x[cols[e]] (x, 4-8 MB,
+// stays in the 50 MB L2) and applies the ⊗ itself (common.cuh:
+// chunk_fold_kernel's GATHER); a padding slot takes the ⊕-identity, as
+// the masked contribution did, so the fold and its bits are the same.
+//
 // The launcher is extern "C" (bound with ctypes), launches on the
 // caller's stream, allocates nothing (the scratch is the caller's), and
 // returns cudaGetLastError(). Element offsets are 64-bit.
@@ -66,6 +81,33 @@ int launch_segment_reduce(const void* c, const void* lr, const void* chunks,
   return launch_chunk_fold<T, int, CHUNK, false>(
       c, lr, nullptr, chunks, rptr, gptr, part, gpart, y, nitems, nblocks,
       ngroups, red, identity, st);
+}
+
+template <typename T>
+int launch_segment_reduce_gather(const void* x, const void* lr,
+                                 const void* cols, const void* ev,
+                                 const void* w, const void* chunks,
+                                 const void* rptr, const void* gptr,
+                                 void* part, void* gpart, void* y,
+                                 long long nitems, long long nblocks,
+                                 long long ngroups, int mul, int red,
+                                 double identity, cudaStream_t st) {
+  switch (mul) {
+    case MUL_NONE:
+      return launch_chunk_fold<T, int, CHUNK, false, MUL_NONE>(
+          x, lr, ev, chunks, rptr, gptr, part, gpart, y, nitems, nblocks,
+          ngroups, red, identity, st, cols, w);
+    case MUL_MUL:
+      return launch_chunk_fold<T, int, CHUNK, false, MUL_MUL>(
+          x, lr, ev, chunks, rptr, gptr, part, gpart, y, nitems, nblocks,
+          ngroups, red, identity, st, cols, w);
+    case MUL_ADD_SAT:
+      return launch_chunk_fold<T, int, CHUNK, false, MUL_ADD_SAT>(
+          x, lr, ev, chunks, rptr, gptr, part, gpart, y, nitems, nblocks,
+          ngroups, red, identity, st, cols, w);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -97,6 +139,36 @@ int gt_segment_reduce(const void* contrib, const void* lrows,
       return launch_segment_reduce<int>(contrib, lrows, chunks, rptr, gptr,
                                         part, gpart, y, nitems, nblocks,
                                         ngroups, reduce_kind, identity, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The same fold of x[cols[e]] ⊗ w[e] (mul_kind; w NULL under MUL_NONE)
+// where ev[e] is set and of the identity where it is not: x (any length
+// past the largest col), cols (nitems' chunks x 2048) int32, ev int8.
+int gt_segment_reduce_gather(const void* x, const void* lrows,
+                             const void* cols, const void* ev, const void* w,
+                             const void* chunks, const void* rptr,
+                             const void* gptr, void* part, void* gpart,
+                             void* y, long long nitems, long long nblocks,
+                             long long ngroups, int dtype, int mul_kind,
+                             int reduce_kind, double identity,
+                             void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case F32:
+      return launch_segment_reduce_gather<float>(
+          x, lrows, cols, ev, w, chunks, rptr, gptr, part, gpart, y, nitems,
+          nblocks, ngroups, mul_kind, reduce_kind, identity, st);
+    case F64:
+      return launch_segment_reduce_gather<double>(
+          x, lrows, cols, ev, w, chunks, rptr, gptr, part, gpart, y, nitems,
+          nblocks, ngroups, mul_kind, reduce_kind, identity, st);
+    case I32:
+      return launch_segment_reduce_gather<int>(
+          x, lrows, cols, ev, w, chunks, rptr, gptr, part, gpart, y, nitems,
+          nblocks, ngroups, mul_kind, reduce_kind, identity, st);
     default:
       return cudaErrorInvalidValue;
   }

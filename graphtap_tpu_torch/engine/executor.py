@@ -192,12 +192,13 @@ class Executor:
 
     ``kernel``: 'panel' (the v3 panel-route pipeline, K1-K4), 'shuffle'
     (the v1 shuffle pipeline, K6-K8), 'shuffle2' (the v2 windowed-gather
-    pipeline, K9 and K8), 'onehot' (the blocked one-hot reduce, K5, after
-    a torch gather and ⊗), 'segment' or 'scan' (portable torch SpMVs);
-    only 'panel' is ever gated, as in the JAX package. ``plans``: prebuilt
-    plans of this graph's tiles (a ``Spmv3Meta`` for 'panel', a
-    ``ShufflePlans`` for 'shuffle', a ``Spmv2Meta`` for 'shuffle2', a
-    ``PallasPlan`` for 'onehot', e.g. from ``tools/artifact_cache.py``),
+    pipeline, K9 and K8), 'onehot' (the blocked one-hot reduce, K5, which
+    gathers x and applies the ⊗ itself), 'segment' or 'scan' (portable
+    torch SpMVs); only 'panel' is ever gated, as in the JAX package.
+    ``plans``: prebuilt plans of this graph's tiles (a ``Spmv3Meta`` for
+    'panel', a ``ShufflePlans`` for 'shuffle', a ``Spmv2Meta`` for
+    'shuffle2', a ``PallasPlan`` for 'onehot', e.g. from
+    ``tools/artifact_cache.py``),
     validated here, else built here. ``phase_plans``: on a TCSC_CF graph,
     prebuilt plans of the "first", "middle" and "last" phase tiles (any
     of them; the rest are built), validated as ``plans`` is.

@@ -16,16 +16,25 @@ chunks of ``CHUNK`` contributions:
     CUDA tensor — never a fallback; ``segment_reduce_plain`` is its plain
     torch version, which folds floats in the kernel's fixed order
     (``fold_order.py``), and ``LAUNCHES`` its launch count;
-  * ``fold_tables``: K5's chunk list and scratch, kept in the device dict
+  * ``segment_reduce_gather`` (K5 from the plan): the same fold, whose
+    contributions the kernel makes itself, x gathered by the plan's cols,
+    ⊗ by its weights and the padding the ⊕-identity (the JAX package
+    leaves those to XLA before K5), so no contribution array is built;
+    the CPU runs ``segment_reduce_gather_plain``, those contributions in
+    plain torch (``gather_contrib``, which ``onehot_contrib`` runs too)
+    and ``segment_reduce_plain``; ``LAUNCHES`` counts each kernel apart;
+  * ``fold_tables``: K5's chunk list and scratch, and the plan's weights
+    in the value type where they are of another, kept in the device dict
     once per upload;
-  * ``spmv_onehot``: the gather of x by the plan's cols, ⊗ by its weights
-    and the mask of padding to the ⊕-identity (plain torch, as the JAX
-    package leaves them to XLA), then K5.
+  * ``spmv_onehot``: K5 from the plan on x where the kernel knows the
+    semiring's ⊗ (``Semiring.mul_kind``), else K5 on the contributions
+    of the semiring's own ``mul``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import cached_property
 from typing import Dict, Optional
 
 import numpy as np
@@ -37,13 +46,14 @@ from graphtap_tpu_torch.kernels.fold_order import (chunk_fold_plain,
                                                    chunk_lists, fold_args)
 from graphtap_tpu_torch.kernels.fold_order import \
     fold_tables as _fold_tables
-from graphtap_tpu_torch.kernels.panel_kernels import (_DTYPES,
+from graphtap_tpu_torch.kernels.panel_kernels import (_DTYPES, _MUL_KINDS,
                                                       _REDUCE_KINDS,
                                                       _REDUCE_OK, _on_cuda,
                                                       _stream)
-from graphtap_tpu_torch.kernels.semiring import Semiring
+from graphtap_tpu_torch.kernels.semiring import Semiring, _add_sat
 from graphtap_tpu_torch.kernels.shuffle_kernels import _check, _check_values
 from graphtap_tpu_torch.parallel import multihost as mh
+from graphtap_tpu_torch.tools import timing
 
 RB = 128          # rows per block = lane width
 CHUNK = 2048      # contributions per chunk
@@ -52,8 +62,9 @@ CHUNK = 2048      # contributions per chunk
 # and max (SSSP's float distances), which only K5 has been tested in
 _K5_REDUCE_OK = {**_REDUCE_OK, torch.float32: ("sum", "min", "max")}
 
-# launches of the CUDA kernel (the plain version is not counted)
-LAUNCHES = {"segment_reduce": 0}
+# launches of the CUDA kernels, K5 from contributions and K5 from the plan
+# (the plain versions are not counted)
+LAUNCHES = {"segment_reduce": 0, "segment_reduce_gather": 0}
 
 
 def reset_launches() -> None:
@@ -74,6 +85,16 @@ class PallasPlan:
     weights: Optional[np.ndarray]  # (D, Ep) or None
     evalid: np.ndarray        # (D, Ep) bool — real edge vs block padding
     chunk_block: np.ndarray   # (D, nchunks) int32 row block of each chunk
+
+    @property
+    def has_w(self) -> bool:
+        return self.weights is not None
+
+    @cached_property
+    def col_bound(self) -> int:
+        """One past the largest column the plan reads: the fewest values
+        x may hold (read from ``cols`` once)."""
+        return int(self.cols.max(initial=-1)) + 1
 
     @property
     def arrays(self) -> Dict[str, np.ndarray]:
@@ -264,26 +285,155 @@ def segment_reduce(contrib, lrows, chunk_block, nblocks: int, NR: int,
     return y[:NR]
 
 
+def gather_contrib(x, cols, evalid, weights, mul, identity):
+    """Per-slot ``mul(x[cols], weights)``, the padding slots (evalid 0)
+    the ⊕-identity: the one-hot contributions in plain torch."""
+    c = mul(torch.index_select(x, 0, cols), weights)
+    return torch.where(evalid != 0, c,
+                       torch.full((), identity, dtype=c.dtype,
+                                  device=c.device))
+
+
+def _kind_mul(mul_kind: str, identity):
+    """The ⊗ ``mul_kind`` names ('none', 'mul' or 'add_sat', saturating
+    at the identity), in the semirings' own torch ops."""
+    if mul_kind == "mul":
+        return lambda c, w: c * w
+    if mul_kind == "add_sat":
+        return lambda c, w: _add_sat(c, w, identity)
+    return lambda c, w: c
+
+
+def segment_reduce_gather_plain(x, cols, evalid, weights, lrows, chunk_block,
+                                nblocks: int, NR: int, NC: int,
+                                reduce_kind: str, mul_kind: str, identity):
+    """``segment_reduce_plain`` of ``gather_contrib``'s contributions by
+    the ⊗ ``mul_kind`` names (``NC`` is not read: the gather checks x)."""
+    return segment_reduce_plain(
+        gather_contrib(x, cols, evalid, weights,
+                       _kind_mul(mul_kind, identity), identity),
+        lrows, chunk_block, nblocks, NR, reduce_kind, identity)
+
+
+def segment_reduce_gather(x, cols, evalid, weights, lrows, chunk_block,
+                          nblocks: int, NR: int, NC: int, reduce_kind: str,
+                          mul_kind: str, identity, lists=None, scratch=None):
+    """K5 from the plan: ⊕-fold x[cols[e]] ⊗ weights[e] (the padding,
+    evalid 0, the ⊕-identity) into the compact row space (NR,), in K5's
+    order, so the result is ``segment_reduce`` of the same contributions
+    bit for bit; no contribution array is made. x (NC,) of the values'
+    type; cols and lrows int32 and evalid int8 of the plan's length;
+    weights of x's type, present exactly when ``mul_kind`` is not 'none'.
+    ``NC``: the plan's ``col_bound``, which x must reach; the cols are not
+    read back here (``validate_pallas_plan`` held them below the column
+    count). ``lists``, ``scratch``: as ``segment_reduce``. On the card one
+    launch counts as ``segment_reduce_gather``'s and adds the plan's
+    length to the open tracer's ``onehot_gathered_slots``."""
+    _check_values("x", x)
+    if x.dim() != 1:
+        raise ValueError(f"x: expected a 1-D tensor, got {tuple(x.shape)}")
+    dev = x.device
+    _check("x", x, None, device=dev)
+    if x.shape[0] < NC:
+        raise ValueError(f"x: {x.shape[0]} values, but the plan reads "
+                         f"columns below {NC}")
+    _check("chunk_block", chunk_block, torch.int32, device=dev)
+    if chunk_block.dim() != 1:
+        raise ValueError("chunk_block: expected a 1-D tensor")
+    ep = chunk_block.shape[0] * CHUNK
+    _check("cols", cols, torch.int32, (ep,), dev)
+    _check("evalid", evalid, torch.int8, (ep,), dev)
+    _check("lrows", lrows, torch.int32, (ep,), dev)
+    if mul_kind not in _MUL_KINDS:
+        raise ValueError(f"mul_kind {mul_kind!r}")
+    if (weights is None) != (mul_kind == "none"):
+        raise ValueError(f"mul_kind {mul_kind!r} with weights "
+                         f"{'absent' if weights is None else 'given'}")
+    if weights is not None:
+        _check("weights", weights, x.dtype, (ep,), dev)
+    if reduce_kind not in _K5_REDUCE_OK[x.dtype]:
+        raise ValueError(f"segment_reduce_gather: {reduce_kind} on "
+                         f"{x.dtype}")
+    if not 0 <= NR <= nblocks * RB:
+        raise ValueError(f"NR {NR} outside [0, {nblocks * RB}]")
+    if not _on_cuda(x):
+        return segment_reduce_gather_plain(x, cols, evalid, weights, lrows,
+                                           chunk_block, nblocks, NR, NC,
+                                           reduce_kind, mul_kind, identity)
+    if lists is None:
+        lists = chunk_lists(chunk_block, nblocks)
+    rptr, gptr, chunks, part, gpart = fold_args(
+        lists, scratch, nblocks, lists[2].shape[0], x.dtype, dev)
+    lib = _cuda.library()
+    y = torch.empty((nblocks * RB,), dtype=x.dtype, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.gt_segment_reduce_gather(
+            x.data_ptr(), lrows.data_ptr(), cols.data_ptr(),
+            evalid.data_ptr(),
+            None if weights is None else weights.data_ptr(),
+            chunks.data_ptr(), rptr.data_ptr(), gptr.data_ptr(),
+            part.data_ptr(), gpart.data_ptr(), y.data_ptr(),
+            chunks.shape[0], nblocks, gptr.shape[0] - 1, _DTYPES[x.dtype],
+            _MUL_KINDS[mul_kind], _REDUCE_KINDS[reduce_kind],
+            float(identity), _stream(x))
+    LAUNCHES["segment_reduce_gather"] += 1
+    _cuda.check(rc, "segment_reduce_gather")
+    timing.count("onehot_gathered_slots", ep)
+    return y[:NR]
+
+
+def plan_weights(t: Dict[str, torch.Tensor], dtype):
+    """The plan's weights (``oh_w``) in the value type ``dtype``, or None:
+    ``oh_w`` itself, or its copy in ``dtype`` (``oh_wv``), made once where
+    torch's promotion of the two types already gives ``dtype`` (so the ⊗
+    rounds as before: an int32 weight by an f32 value, an f32 weight by an
+    f64 one); any other pair raises TypeError."""
+    w = t.get("oh_w")
+    if w is None or w.dtype == dtype:
+        return w
+    if torch.promote_types(w.dtype, dtype) != dtype:
+        raise TypeError(f"one-hot plan: {w.dtype} weights by {dtype} "
+                        f"values do not give {dtype}")
+    wv = t.get("oh_wv")
+    if wv is None or wv.dtype != dtype:
+        wv = t["oh_wv"] = w.to(dtype)
+    return wv
+
+
 def fold_tables(t: Dict[str, torch.Tensor], plan: PallasPlan, dtype):
-    """K5's chunk list and scratch, kept in ``t`` (once per upload);
-    returns segment_reduce's (lists, scratch) arguments."""
+    """K5's chunk list and scratch, and the plan's weights in ``dtype``
+    (``plan_weights``), kept in ``t`` (once per upload); returns
+    segment_reduce's (lists, scratch) arguments."""
+    plan_weights(t, dtype)
     return _fold_tables(t, "oh", lambda: chunk_lists(t["oh_chunk_block"],
                                                       plan.nblocks), dtype)
 
 
 def onehot_contrib(x: torch.Tensor, t: Dict[str, torch.Tensor],
                    semiring: Semiring) -> torch.Tensor:
-    """Per-slot x[cols] ⊗ w, the padding slots the ⊕-identity."""
-    c = semiring.mul(torch.index_select(x, 0, t["oh_cols"]), t.get("oh_w"))
-    return torch.where(t["oh_evalid"] != 0, c,
-                       semiring.identity_like(c.dtype, c.device))
+    """Per-slot x[cols] ⊗ w by the semiring's own ``mul``, the padding
+    slots the ⊕-identity: K5's input on its own."""
+    return gather_contrib(x, t["oh_cols"], t["oh_evalid"], t.get("oh_w"),
+                          semiring.mul, semiring.identity)
 
 
 def spmv_onehot(x: torch.Tensor, t: Dict[str, torch.Tensor],
                 plan: PallasPlan, semiring: Semiring,
                 NR: int) -> torch.Tensor:
-    """One-device one-hot SpMV: x (NC,) -> the compact y (NR,)."""
-    return segment_reduce(onehot_contrib(x, t, semiring), t["oh_lrows"],
-                          t["oh_chunk_block"], plan.nblocks, NR,
-                          semiring.reduce_kind, semiring.identity,
-                          **fold_tables(t, plan, x.dtype))
+    """One-device one-hot SpMV: x (NC,) -> the compact y (NR,): K5 from
+    the plan where the kernel knows the semiring's ⊗
+    (``Semiring.mul_kind``), else K5 on ``onehot_contrib``'s
+    contributions."""
+    folds = fold_tables(t, plan, x.dtype)
+    if semiring.mul_kind is None:
+        return segment_reduce(onehot_contrib(x, t, semiring), t["oh_lrows"],
+                              t["oh_chunk_block"], plan.nblocks, NR,
+                              semiring.reduce_kind, semiring.identity,
+                              **folds)
+    w = plan_weights(t, x.dtype)
+    return segment_reduce_gather(x, t["oh_cols"], t["oh_evalid"], w,
+                                 t["oh_lrows"], t["oh_chunk_block"],
+                                 plan.nblocks, NR, plan.col_bound,
+                                 semiring.reduce_kind,
+                                 "none" if w is None else semiring.mul_kind,
+                                 semiring.identity, **folds)

@@ -28,13 +28,17 @@ _SCATTER_REDUCE = {"sum": "sum", "min": "amin", "max": "amax"}
 @dataclass(frozen=True)
 class Semiring:
     """A semiring (⊕, ⊗, id⊕) acting on message values; ``mul(x, w)``
-    combines a gathered message with an edge weight (w None = unweighted)."""
+    combines a gathered message with an edge weight (w None = unweighted).
+    ``mul_kind`` names that ⊗ for a hand kernel that applies it itself
+    ('mul': x * w; 'add_sat': ``_add_sat``); None where only ``mul``
+    computes it."""
 
     name: str
     add: Callable[[Any, Any], Any]
     mul: Callable[[Any, Optional[Any]], Any]
     identity: Any
     reduce_kind: str  # 'sum' | 'min' | 'max'
+    mul_kind: Optional[str] = None
 
     def identity_like(self, dtype: torch.dtype, device=None) -> torch.Tensor:
         """The ⊕-identity as a 0-d tensor, filled on ``device`` (no copy
@@ -74,7 +78,7 @@ def plus_times() -> Semiring:
     def mul(x, w):
         return x if w is None else x * w
     return Semiring(name="plus_times", add=torch.add, mul=mul,
-                    identity=0, reduce_kind="sum")
+                    identity=0, reduce_kind="sum", mul_kind="mul")
 
 
 def min_plus(inf=INF_I32) -> Semiring:
@@ -84,7 +88,7 @@ def min_plus(inf=INF_I32) -> Semiring:
     def mul(x, w):
         return x if w is None else _add_sat(x, w, inf)
     return Semiring(name="min_plus", add=torch.minimum, mul=mul,
-                    identity=inf, reduce_kind="min")
+                    identity=inf, reduce_kind="min", mul_kind="add_sat")
 
 
 def min_select(inf=INF_I32) -> Semiring:
@@ -93,4 +97,4 @@ def min_select(inf=INF_I32) -> Semiring:
     def mul(x, w):
         return x if w is None else _add_sat(x, w, inf)
     return Semiring(name="min_select", add=torch.minimum, mul=mul,
-                    identity=inf, reduce_kind="min")
+                    identity=inf, reduce_kind="min", mul_kind="add_sat")

@@ -12,7 +12,8 @@ one API:
   3  shuffle   — the v1 static-shuffle pipeline (K6-K8)
   4  shuffle2  — the v2 windowed-gather pipeline (K9 + K8)
   5  panel     — the v3 panel-route pipeline (K1-K4)
-  6  onehot    — torch gather + the blocked one-hot reduce (K5)
+  6  onehot    — the blocked one-hot reduce from the plan (K5, which
+                 gathers x and applies the ⊗ itself)
   7  scan-cf   — TCSC_CF phase execution (first/middle/last subsets)
   8  scan-dcsc — DCSC: compact nnz-col ids, x gathered through the JC
                  table (reference: dcsc_spmv.hpp:216-230)

@@ -4,14 +4,18 @@ its PyTorch call: the plan-ring kernels K1 (``route_xr_exp``) and K11
 the staged stack1 of the same x) at the RMAT-20 f32 PageRank shapes, K6
 (``expand_stream``, its three launches of the degree SpMV) and K8
 (``grouped_reduce``) on the RMAT-20 degree shuffle plan, K5
-(``segment_reduce``) on the RMAT-20 f32 PageRank one-hot plan, and P1
-(``copy_blocks``) and P2 (``stream_sum``) at their kernels-line shapes.
+(``segment_reduce``) on the RMAT-20 f32 PageRank one-hot plan, K5 from
+the plan on the same plan (``segment_reduce_gather``: the f32 sum;
+``segment_reduce_gather_w``: f32 min-plus over seeded weights, as SSSP's),
+and P1 (``copy_blocks``) and P2 (``stream_sum``) at their kernels-line
+shapes.
 
     python -m graphtap_tpu_torch.tools.ring_times [name ...]
 
 Names pick rows (``route_xr_exp``, ``route_expand``, ``colsum_chunks``,
-``expand_stream``,
-``segment_reduce``, ``grouped_reduce``, ``copy_blocks``, ``stream_sum``,
+``expand_stream``, ``segment_reduce``, ``segment_reduce_gather``,
+``segment_reduce_gather_w``, ``grouped_reduce``, ``copy_blocks``,
+``stream_sum``,
 and ``degree_spmv``: the degree SpMV's warm time on the shuffle plan, the
 median of five calls after a first one by CUDA events, as the smoke times
 it; none: all). The RMAT-20 panel meta (edge factor 16, seed 1,
@@ -30,7 +34,9 @@ largest |y|), then timed device-only (``timing.device_ms``: ten calls
 replayed as one CUDA graph). Prints the card's name and power limit,
 then one JSON line per row: name, device ms, the PyTorch call's device
 ms (``torch.take`` over an index precomputed from the plan, three for
-K6; ``torch.scatter_reduce`` for K5, K8 and K13; ``Tensor.copy_``;
+K6; ``torch.scatter_reduce`` for K5, K8 and K13; for K5 from the plan
+the torch contributions and K5, which it replaces and must equal bit for
+bit; ``Tensor.copy_``;
 ``torch.add``), bytes moved (each input read once, each output written
 once); K5's and K8's rows first print their plan's chunk figures
 (``chunk_figures``, which the smoke logs too), K13's its row -> chunks
@@ -216,6 +222,54 @@ def segment_row(plan, nr, nc, device="cuda"):
     return ("segment_reduce", lambda: oh.segment_reduce(*args, **folds),
             lambda: oh.segment_reduce_plain(*args),
             lambda: lib()[:nr], nbytes, figs)
+
+
+def gather_rows(plan, nr, nc, device="cuda"):
+    """(name, kernel call, plain call, PyTorch call, bytes) of K5 from the
+    one-hot plan ``plan`` (nr rows, nc columns), twice: the f32 sum of
+    seeded x (``segment_reduce_gather``), and f32 min-plus over seeded
+    weights in [0, 1) with a third of x +inf (``segment_reduce_gather_w``,
+    SSSP's ⊗ and ⊕). The PyTorch call is what the kernel replaces: the
+    contributions built in torch (``onehot_contrib``), then K5. Bytes:
+    each slot's col, row and ev byte (and weight), chunk_block, x read
+    once, and y written once."""
+    import dataclasses
+    from graphtap_tpu_torch.kernels import onehot_spmv as oh
+    from graphtap_tpu_torch.kernels.semiring import (inf_of, min_plus,
+                                                     plus_times)
+    from graphtap_tpu_torch.kernels.shuffle_engine import mul_kind
+    from graphtap_tpu_torch.tools.convert import meta_from_numpy
+    rng = np.random.default_rng(SEED)
+    out = []
+    for name, sem, weighted in (
+            ("segment_reduce_gather", plus_times(), False),
+            ("segment_reduce_gather_w", min_plus(inf_of(torch.float32)),
+             True)):
+        xh = rng.random(nc).astype(np.float32)
+        if weighted:
+            plan = dataclasses.replace(plan, weights=rng.random(
+                (1, plan.Ep)).astype(np.float32))
+            xh[rng.random(nc) < 1 / 3] = np.inf
+        t = meta_from_numpy(plan.arrays, device)
+        x = torch.from_numpy(xh).to(device)
+        folds = oh.fold_tables(t, plan, torch.float32)
+        w = t.get("oh_w")
+        args = (x, t["oh_cols"], t["oh_evalid"], w, t["oh_lrows"],
+                t["oh_chunk_block"], plan.nblocks, nr, nc, sem.reduce_kind,
+                mul_kind(plan, sem), sem.identity)
+
+        def glue(t=t, x=x, sem=sem, folds=folds, nblocks=plan.nblocks):
+            return oh.segment_reduce(
+                oh.onehot_contrib(x, t, sem), t["oh_lrows"],
+                t["oh_chunk_block"], nblocks, nr, sem.reduce_kind,
+                sem.identity, **folds)
+        nbytes = (plan.Ep * (13 if weighted else 9) + plan.nchunks * 4
+                  + nc * 4 + plan.nblocks * oh.RB * 4)
+        out.append((name,
+                    lambda a=args, f=folds: oh.segment_reduce_gather(*a, **f),
+                    lambda a=args: oh.segment_reduce_gather_plain(*a),
+                    glue, nbytes))
+    return out
 
 
 def grouped_row(meta, device="cuda"):
@@ -438,8 +492,9 @@ def degree_spmv(t, meta, calls: int = 6):
 
 
 PANEL_ROWS = ("route_xr_exp", "route_expand")
+GATHER_ROWS = ("segment_reduce_gather", "segment_reduce_gather_w")
 NAMES = PANEL_ROWS + ("colsum_chunks", "expand_stream", "segment_reduce",
-                      "grouped_reduce",
+                      *GATHER_ROWS, "grouped_reduce",
                       "copy_blocks", "stream_sum", "degree_spmv")
 # K5's and K13's PyTorch calls sum in f32 with atomics, in another order
 # each call
@@ -460,6 +515,9 @@ def all_rows(names, device="cuda"):
         out.append(expand_row(load_shuffle(shuffle_path()), device))
     if "segment_reduce" in names:
         out.append(segment_row(*load_onehot(onehot_path()), device))
+    if set(names) & set(GATHER_ROWS):
+        out += [r for r in gather_rows(*load_onehot(onehot_path()), device)
+                if r[0] in names]
     if "grouped_reduce" in names:
         out.append(grouped_row(load_shuffle(shuffle_path()), device))
     if "stream_sum" in names:

@@ -43,8 +43,15 @@ K1-K4 on the panel meta match bit for bit, twice. K5's f32 min and max
 (Graph500 kernel 3's float SSSP) match bit for bit, twice; float SSSP on
 onehot equals the CPU run; one float SSSP superstep copies nothing
 between the host and the card and does not synchronize, its vote being
-the one read.
+the one read. K5 from the plan (the gather, ⊗ and padding mask made in
+the fold) equals the torch contributions folded by K5 bit for bit, twice,
+at RMAT-16 in every value type, ⊕ and ⊗ and on a last chunk of padding;
+a PageRank and a float SSSP superstep on onehot run no torch op over the
+plan's slots and count the plan's length in ``onehot_gathered_slots``.
 """
+
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -78,6 +85,9 @@ from graphtap_tpu_torch.kernels.shuffle_plan import build_spmv_plan
 from graphtap_tpu_torch.engine import executor
 from graphtap_tpu_torch.tools import bw_probe, route_cost_probe, timing
 from graphtap_tpu_torch.tools.convert import meta_from_numpy
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from onehot_cases import GATHER_CASES, gather_case  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -1470,3 +1480,80 @@ def test_sssp_superstep_no_copy_or_sync(cuda):
                               minlength=g.part.tile_cols)
             assert tracer.counters["frontier_edges"] == int(
                 deg[C.cpu().numpy()].sum()) > 0
+
+
+@pytest.mark.parametrize("case", GATHER_CASES)
+def test_k5_gather_matches_composition(cuda, case):
+    """K5 from the plan equals the torch contributions (``onehot_contrib``)
+    folded by K5, bit for bit, twice, and the plain composition, at
+    RMAT-16; one launch each, counted as ``segment_reduce_gather``'s
+    alone."""
+    x, plan, nr, sem = gather_case(case, scale=16)
+    x = x.to(cuda)
+    t = meta_from_numpy(plan.arrays, cuda)
+    folds = oh.fold_tables(t, plan, x.dtype)
+    w = t.get("oh_w")
+    args = (t["oh_lrows"], t["oh_chunk_block"], plan.nblocks, nr,
+            sem.reduce_kind)
+    old = oh.segment_reduce(oh.onehot_contrib(x, t, sem), *args,
+                            sem.identity, **folds)
+    gargs = (x, t["oh_cols"], t["oh_evalid"], w, *args[:4], plan.col_bound,
+             sem.reduce_kind, mul_kind(plan, sem), sem.identity)
+    before = dict(oh.LAUNCHES)
+    got = _twice_equal(lambda: oh.segment_reduce_gather(*gargs, **folds),
+                       lambda: oh.segment_reduce_gather_plain(*gargs))
+    assert oh.LAUNCHES == {**before, "segment_reduce_gather":
+                           before["segment_reduce_gather"] + 2}
+    assert torch.equal(got, old)
+    assert torch.equal(oh.spmv_onehot(x, t, plan, sem, nr), old)
+
+
+@pytest.mark.parametrize("app", ["pagerank", "sssp"])
+def test_onehot_superstep_builds_no_slot_array(cuda, app):
+    """One PageRank and one float SSSP superstep on onehot, under
+    ``torch.profiler``, run no torch op with an input of the plan's length
+    (the gather, ⊗ and padding mask over every slot are K5's now) and no
+    index_select or gather kernel, and launch K5 from the plan once and K5
+    on contributions never; under a tracer each superstep adds the plan's
+    length to ``onehot_gathered_slots``."""
+    from torch.profiler import ProfilerActivity, profile
+    from graphtap_tpu_torch.apps import PageRankProgram
+    from graphtap_tpu_torch.config import EngineConfig, Ordering
+    if app == "pagerank":
+        r, c, _ = rmat_edges(12, 16, seed=3)
+        ex = executor.Executor(
+            Graph.from_edges(r, c, None, GraphConfig(num_vertices=1 << 12,
+                                                     transpose=True)),
+            PageRankProgram(torch.float32),
+            EngineConfig(stationary=True, ordering=Ordering.ROW),
+            kernel="onehot", device=cuda)
+    else:
+        ex = _sssp_executor(_g500_sssp_graph(), 1, cuda)
+    ep = ex.meta.Ep
+    ex.initialize()
+    ex.execute(2)                               # warm the allocator's pool
+    ex.initialize()
+    torch.cuda.synchronize()
+    before = dict(oh.LAUNCHES)
+    with timing.tracing() as tr:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            ex._superstep(ex.state, ex.changed, 0, "main", False)
+            torch.cuda.synchronize()
+    assert oh.LAUNCHES == {**before, "segment_reduce_gather":
+                           before["segment_reduce_gather"] + 1}
+    assert tr.counters["onehot_gathered_slots"] == ep
+    assert tr.counters["supersteps"] == 1
+    events = prof.events()
+    slot_long = [e.name for e in events
+                 if any(ep in s for s in e.input_shapes if s)]
+    assert not slot_long, slot_long
+    gathers = [e.name for e in events if "index_select" in e.name.lower()
+               or "indexselect" in e.name.lower()
+               or "scatter_gather" in e.name.lower()]
+    assert not gathers, gathers
+    with timing.tracing() as tr:
+        ex.initialize()
+        ex.execute(3)
+    assert tr.counters["onehot_gathered_slots"] == ep * 3

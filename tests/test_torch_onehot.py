@@ -2,8 +2,11 @@
 the JAX package's; the plain K5 against the Pallas kernel in interpret
 mode; the one-hot SpMV against the JAX executor's; and PageRank, BFS, CC
 and SSSP through ``Executor(kernel="onehot")`` against ``tests/golden.py``
-and the JAX onehot executor. Inputs come from numpy seeds and
-``rmat_edges(10, 16, seed=1)``.
+and the JAX onehot executor; K5 from the plan (the gather, ⊗ and padding
+mask made in the fold) against the contributions built in torch and the
+plain K5, bit for bit, in every value type, ⊕ and ⊗ (a last chunk of
+padding among the cases), and its checks of its inputs. Inputs come from
+numpy seeds and ``rmat_edges(10, 16, seed=1)``.
 
 Tolerances: K5 matches bit for bit in int32 min and max; in float sums
 within rtol 1e-5 (f32) elementwise, 1e-12 (f64), since only the order of
@@ -41,11 +44,14 @@ from graphtap_tpu_torch.engine.executor import Executor
 from graphtap_tpu_torch.ingest import rmat_edges
 from graphtap_tpu_torch.kernels import onehot_spmv as oh
 from graphtap_tpu_torch.kernels import semiring as tsr
+from graphtap_tpu_torch.kernels.shuffle_engine import mul_kind
 from graphtap_tpu_torch.kernels.spmv import expand_compact
+from graphtap_tpu_torch.tools import timing
 from graphtap_tpu_torch.tools.convert import meta_from_numpy
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import golden  # noqa: E402
+from onehot_cases import GATHER_CASES, gather_case  # noqa: E402
 
 INF = tsr.INF_I32
 NEG_INF = -INF - 1
@@ -64,15 +70,20 @@ def _jmesh():
 
 
 def _semirings(name):
-    """(port, JAX) semirings by name; 'max' is a max-select pair."""
-    if name != "max":
+    """(port, JAX) semirings by name; 'max' is a max-select pair and
+    'maxplus' a max-plus pair, neither naming its ⊗ (``mul_kind``)."""
+    if name not in ("max", "maxplus"):
         return getattr(tsr, name)(), getattr(jsr, name)()
-    return (tsr.Semiring(name="max_select", add=torch.maximum,
-                         mul=lambda x, w: x, identity=NEG_INF,
-                         reduce_kind="max"),
-            jsr.Semiring(name="max_select", add=jnp.maximum,
-                         mul=lambda x, w: x, identity=NEG_INF,
-                         reduce_kind="max"))
+    if name == "max":
+        def mul(x, w):
+            return x
+    else:
+        def mul(x, w):
+            return x if w is None else x + w
+    return (tsr.Semiring(name=name, add=torch.maximum, mul=mul,
+                         identity=NEG_INF, reduce_kind="max"),
+            jsr.Semiring(name=name, add=jnp.maximum, mul=mul,
+                         identity=NEG_INF, reduce_kind="max"))
 
 
 def _graphs(weighted):
@@ -139,13 +150,16 @@ def test_plain_segment_reduce_matches_pallas(kind):
 
 # ------------------------------------- (c) the one-hot SpMV against JAX
 @pytest.mark.parametrize("case", ["sum_f64", "sum_f64_weighted",
-                                  "min_int32_weighted", "max_int32"])
+                                  "min_int32_weighted", "max_int32",
+                                  "max_int32_weighted",
+                                  "maxplus_int32_weighted"])
 def test_spmv_onehot_matches_jax(case):
     """The port's one-hot SpMV (gather, ⊗, mask, K5, expand) against the
     JAX onehot executor's combine (executor.py:203-221) on the same plan
-    arrays."""
+    arrays; on weighted plans too where the semiring's ⊗ is its own
+    (max-select and max-plus, which K5 from the plan does not apply)."""
     weighted = "weighted" in case
-    g, jg = _graphs(weighted and case.startswith("min"))
+    g, jg = _graphs(weighted and not case.startswith("sum"))
     if case == "sum_f64_weighted":        # PR config with float weights
         r, c, _ = rmat_edges(10, 16, seed=1)
         w = np.random.default_rng(9).random(r.size)
@@ -166,13 +180,15 @@ def test_spmv_onehot_matches_jax(case):
     sem, jsem = _semirings({"sum_f64": "plus_times",
                             "sum_f64_weighted": "plus_times",
                             "min_int32_weighted": "min_plus",
-                            "max_int32": "max"}[case])
+                            "max_int32": "max",
+                            "max_int32_weighted": "max",
+                            "maxplus_int32_weighted": "maxplus"}[case])
     rng = np.random.default_rng(7)
     nc = g.part.tile_cols
     if case.startswith("sum"):
         x = rng.random(nc)
     else:
-        x = rng.integers(-1000 if case == "max_int32" else 0, 1000,
+        x = rng.integers(-1000 if case.startswith("max") else 0, 1000,
                          nc).astype(np.int32)
         x[rng.random(nc) < 0.3] = sem.identity
     plan = oh.build_onehot_plan(ts)
@@ -330,3 +346,106 @@ def test_executor_onehot_plans_type_and_reuse(small):
     with pytest.raises(ValueError, match="lrows"):
         Executor(g, PageRankProgram(torch.float32), kernel="onehot",
                  plans=bad, device="cpu")
+
+
+# ------------------------------------------ (f) K5 from the plan (fused)
+@pytest.mark.parametrize("case", GATHER_CASES)
+def test_segment_reduce_gather_matches_composition(case):
+    """K5 from the plan, on the CPU, equals the one-hot contributions by
+    the semiring's ⊗ (``onehot_contrib``) folded by ``segment_reduce_plain``
+    bit for bit, and so does ``spmv_onehot``; the CPU launches nothing and
+    gathers no slot into the tracer's counter."""
+    x, plan, nr, sem = gather_case(case)
+    if case == "f32_sum_pad_chunk":
+        assert not plan.evalid[0, -oh.CHUNK:].any()
+    t = meta_from_numpy(plan.arrays, "cpu")
+    w = t.get("oh_w")
+    assert (w is not None) == ("_w" in case)
+    assert w is None or w.dtype == x.dtype
+    args = (t["oh_lrows"], t["oh_chunk_block"], plan.nblocks, nr,
+            sem.reduce_kind)
+    want = oh.segment_reduce_plain(oh.onehot_contrib(x, t, sem), *args,
+                                   sem.identity)
+    before = dict(oh.LAUNCHES)
+    with timing.tracing() as tr:
+        got = oh.segment_reduce_gather(
+            x, t["oh_cols"], t["oh_evalid"], w, *args[:4], plan.col_bound,
+            sem.reduce_kind, mul_kind(plan, sem), sem.identity)
+        y = oh.spmv_onehot(x, t, plan, sem, nr)
+    assert got.dtype == x.dtype and got.shape == (nr,)
+    assert torch.equal(got, want) and torch.equal(y, want)
+    if case == "f32_minplus_w_inf":
+        assert torch.isinf(want).any() and not torch.isinf(want).all()
+    assert oh.LAUNCHES == before
+    assert tr.counters["onehot_gathered_slots"] == 0
+
+
+def test_plan_weights_in_the_value_type():
+    """Int32 weights by f32 values are converted once (``oh_wv``, kept in
+    the device dict by ``fold_tables``) and give torch's promoted ⊗ bit
+    for bit; f64 weights by f32 values raise."""
+    x, plan, nr, sem = gather_case("f32_sum")
+    w = np.random.default_rng(3).integers(0, 9, (1, plan.Ep)).astype(np.int32)
+    plan = dataclasses.replace(plan, weights=w)
+    t = meta_from_numpy(plan.arrays, "cpu")
+    oh.fold_tables(t, plan, torch.float32)
+    wv = t["oh_wv"]
+    assert wv.dtype == torch.float32
+    want = oh.segment_reduce_plain(
+        oh.onehot_contrib(x, t, sem), t["oh_lrows"], t["oh_chunk_block"],
+        plan.nblocks, nr, "sum", 0)
+    assert torch.equal(oh.spmv_onehot(x, t, plan, sem, nr), want)
+    assert t["oh_wv"] is wv
+    plan = dataclasses.replace(plan, weights=w.astype(np.float64))
+    t = meta_from_numpy(plan.arrays, "cpu")
+    with pytest.raises(TypeError, match="weights"):
+        oh.spmv_onehot(x, t, plan, sem, nr)
+
+
+_GATHER_BAD = {
+    "x_dtype": (lambda a: {**a, "x": a["x"].half()}, TypeError, "dtype"),
+    "x_2d": (lambda a: {**a, "x": a["x"][None]}, ValueError, "1-D"),
+    "x_strided": (lambda a: {**a, "x": torch.stack([a["x"]] * 2, 1)[:, 0]},
+                  ValueError, "contiguous"),
+    "x_short": (lambda a: {**a, "x": a["x"][:a["NC"] - 1]}, ValueError,
+                "columns below"),
+    "cols_dtype": (lambda a: {**a, "cols": a["cols"].long()}, TypeError,
+                   "cols"),
+    "cols_shape": (lambda a: {**a, "cols": a["cols"][:-1]}, ValueError,
+                   "cols"),
+    "cols_device": (lambda a: {**a, "cols": a["cols"].to("meta")},
+                    ValueError, "cols on meta"),
+    "evalid_dtype": (lambda a: {**a, "evalid": a["evalid"] != 0},
+                     TypeError, "evalid"),
+    "lrows_shape": (lambda a: {**a, "lrows": a["lrows"][1:]}, ValueError,
+                    "lrows"),
+    "weights_dtype": (lambda a: {**a, "weights": a["weights"].double()},
+                      TypeError, "weights"),
+    "weights_without_mul": (lambda a: {**a, "mul_kind": "none"},
+                            ValueError, "mul_kind"),
+    "mul_without_weights": (lambda a: {**a, "weights": None}, ValueError,
+                            "mul_kind"),
+    "mul_kind_unknown": (lambda a: {**a, "mul_kind": "pow"}, ValueError,
+                         "mul_kind"),
+    "reduce_kind": (lambda a: {**a, "x": a["x"].double(),
+                               "weights": a["weights"].double(),
+                               "reduce_kind": "min"}, ValueError,
+                    "segment_reduce_gather"),
+    "nr": (lambda a: {**a, "NR": a["nblocks"] * oh.RB + 1}, ValueError,
+           "NR"),
+}
+
+
+@pytest.mark.parametrize("bad", sorted(_GATHER_BAD))
+def test_segment_reduce_gather_rejects_bad_inputs(bad):
+    x, plan, nr, sem = gather_case("f32_sum_w", scale=8)
+    t = meta_from_numpy(plan.arrays, "cpu")
+    good = {"x": x, "cols": t["oh_cols"], "evalid": t["oh_evalid"],
+            "weights": t["oh_w"], "lrows": t["oh_lrows"],
+            "chunk_block": t["oh_chunk_block"], "nblocks": plan.nblocks,
+            "NR": nr, "NC": plan.col_bound, "reduce_kind": "sum",
+            "mul_kind": "mul", "identity": 0.0}
+    oh.segment_reduce_gather(**good)
+    edit, err, match = _GATHER_BAD[bad]
+    with pytest.raises(err, match=match):
+        oh.segment_reduce_gather(**edit(good))

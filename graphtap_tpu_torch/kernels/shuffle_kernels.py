@@ -8,8 +8,8 @@ three Pallas kernels has here
     version for a CPU tensor or launches the hand-written Hopper kernel
     (``csrc/shuffle.cu``) for a CUDA tensor — never a fallback;
   * a plain torch version (``*_plain``) of the same function, which the
-    CPU tests hold against the Pallas kernels and ``chip_smoke.py`` holds
-    against the CUDA kernels;
+    CPU tests hold against the Pallas kernels and the ``gpu`` tests
+    (``tests/test_torch_cuda.py``) hold against the CUDA kernels;
   * a launch count in ``LAUNCHES``, incremented only where the wrapper
     launches the CUDA kernel.
 

@@ -18,7 +18,7 @@ bfs_profile/``), so a re-run skips the plan build.
 
 ``scale`` defaults to 18 (RMAT, edge factor 16, seed 1, through
 ``bfs_config(2**scale + 1)``; ``profile(nv=)`` takes another vertex
-count, as the smoke does to reuse its plans), the highest BFS scale the
+count, so that plans cached for it are read back), the highest BFS scale the
 panel planner routes. On the card it prints the card's name and power
 limit first.
 """

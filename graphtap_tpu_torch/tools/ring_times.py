@@ -7,7 +7,7 @@ the staged stack1 of the same x) at the RMAT-20 f32 PageRank shapes, K6
 (``segment_reduce``) on the RMAT-20 f32 PageRank one-hot plan, K5 from
 the plan on the same plan (``segment_reduce_gather``: the f32 sum;
 ``segment_reduce_gather_w``: f32 min-plus over seeded weights, as SSSP's),
-and P1 (``copy_blocks``) and P2 (``stream_sum``) at their kernels-line
+and P1 (``copy_blocks``) and P2 (``stream_sum``) at the probes' table
 shapes.
 
     python -m graphtap_tpu_torch.tools.ring_times [name ...]
@@ -17,9 +17,9 @@ Names pick rows (``route_xr_exp``, ``route_expand``, ``colsum_chunks``,
 ``segment_reduce_gather_w``, ``grouped_reduce``, ``copy_blocks``,
 ``stream_sum``,
 and ``degree_spmv``: the degree SpMV's warm time on the shuffle plan, the
-median of five calls after a first one by CUDA events, as the smoke times
-it; none: all). The RMAT-20 panel meta (edge factor 16, seed 1,
-transposed TCSC, f32, as ``run_pagerank`` plans it), the degree shuffle
+median of five calls after a first one by CUDA events; none: all). The
+RMAT-20 panel meta (edge factor 16, seed 1, transposed TCSC, f32, as
+``run_pagerank`` plans it), the degree shuffle
 plan (its COL ordering) and the one-hot plan (ROW, as ``run_pagerank``'s
 onehot kernel plans it) are planned once (minutes; seconds) and kept in
 the package's build directory under names that carry those settings
@@ -39,7 +39,7 @@ the torch contributions and K5, which it replaces and must equal bit for
 bit; ``Tensor.copy_``;
 ``torch.add``), bytes moved (each input read once, each output written
 once); K5's and K8's rows first print their plan's chunk figures
-(``chunk_figures``, which the smoke logs too), K13's its row -> chunks
+(``chunk_figures``), K13's its row -> chunks
 lists' (rows, chunks, rows of more than one, the longest). Needs a
 card.
 """
@@ -352,7 +352,7 @@ def expand_row(meta, device="cuda"):
 def sum_row(device="cuda", sum_bytes=None):
     """(name, kernel call, plain call, PyTorch call, bytes) of P2 on two
     f32 (rows, 1024) streams of ``sum_bytes`` in all (default the probe's
-    TARGET_BYTES: (34,304, 1024), the smoke's kernels-line shape)."""
+    TARGET_BYTES: (34,304, 1024))."""
     from graphtap_tpu_torch.tools import bw_probe as bw
     gen = torch.Generator(device=device).manual_seed(SEED)
     rows = (sum_bytes or bw.TARGET_BYTES) // (1024 * 4 * 2) // 64 * 64
@@ -366,7 +366,7 @@ def sum_row(device="cuda", sum_bytes=None):
 def copy_row(device="cuda", copy_bytes=None):
     """(name, kernel call, plain call, PyTorch call, bytes) of P1 on
     ``copy_bytes`` (default the probe's TARGET_BYTES) in (256, 1024)
-    tiles, the smoke's kernels-line shape."""
+    tiles."""
     from graphtap_tpu_torch.tools import bw_probe as bw
     xc = torch.rand(((copy_bytes or bw.TARGET_BYTES) // 4096, 1024),
                     device=device)

@@ -7,7 +7,7 @@ printed as sum/mean/std (:2134-2152), grown into one in-memory tracer.
 ``Tracer`` keeps spans (name, start and end on ``time.perf_counter_ns``,
 the enclosing span, a job id, a few attributes) and named counters, both
 recorded where the engine's layers meet: ``Executor.initialize`` and its
-handoff, program and upload stages, ``execute``, each superstep and its
+one stage, ``initialize.program``, ``execute``, each superstep and its
 phases, the host's waits on the device (the vote, the closing
 synchronize), the tile build's stages, the plans and the upload. One
 tracer at a time is open in the process (``with tracing() as tr:``);
@@ -22,10 +22,10 @@ profiler's trace holds every span as an annotation on its own clock.
 uses it. Spans are recorded from one thread.
 
 Beside it, the kernel launch counts of the SpMV paths (``launches``,
-``reset_launches``) and the device-only timing that ``chip_smoke.py`` and
-``tools/ring_times.py`` hold kernels and their PyTorch calls to:
-``device_ms`` (calls replayed as one CUDA graph), and ``take_call`` /
-``slot_ids``, which turn a pure gather into one ``torch.take``.
+``reset_launches``) and the device-only timing of ``tools/ring_times.py``
+and ``tools/bench.py``: ``device_ms`` (calls replayed as one CUDA graph),
+and ``take_call`` / ``slot_ids``, with which ``ring_times`` turns a pure
+gather into one ``torch.take``.
 """
 
 from __future__ import annotations

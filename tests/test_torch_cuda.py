@@ -1,8 +1,10 @@
-"""The CUDA kernels against their plain torch versions, on the card.
+"""The CUDA kernels and the port's paths against their plain torch
+versions and the CPU, on the card.
 
 Marked ``gpu``: each test skips (with a reason) where torch sees no CUDA
 device, and runs on the card with
-``python -m pytest tests/test_torch_cuda.py -q``. K1, K2 and K4 must match
+``python -m pytest tests/test_torch_cuda.py -q --noconftest`` (the
+tests' conftest imports jax). K1, K2 and K4 must match
 bit for bit, and so must K3, K5 and K8, whose float sums fold in a fixed
 order that their plain versions follow (``kernels/fold_order.py``); called
 twice on the same RMAT-14 f32 inputs they give the same bits, and f32
@@ -48,9 +50,21 @@ the fold) equals the torch contributions folded by K5 bit for bit, twice,
 at RMAT-16 in every value type, ⊕ and ⊗ and on a last chunk of padding;
 a PageRank and a float SSSP superstep on onehot run no torch op over the
 plan's slots and count the plan's length in ``onehot_gathered_slots``.
+
+Whole paths: PageRank on panel, shuffle, shuffle2 and onehot over TCSC,
+TCSC_CF and CSC tiles equals the CPU, the golden model and
+``golden.degree``, with each path's launches a superstep
+(``PATH_LAUNCHES``); BFS, CC and SSSP on panel equal the CPU with the
+panel gate on its vote, forced and off. The mesh on the card (four gloo
+ranks of a 2x2 mesh on the one card; one rank in an NCCL group), the five
+mains, ``dryrun_multichip(4)`` and the kernel lab's nine variants run at
+RMAT-10 against the card's group-free runs, the golden models and
+``lab_table``'s gates.
 """
 
+import json
 import os
+import subprocess
 import sys
 
 import numpy as np
@@ -62,6 +76,7 @@ from graphtap_tpu_torch.apps import (bfs_config, cc_config, run_bfs,
                                      run_cc, run_pagerank, run_sssp,
                                      sssp_config)
 from graphtap_tpu_torch.ingest import rmat_edges
+from graphtap_tpu_torch.ingest.io import write_binary
 from graphtap_tpu_torch.kernels import gather_kernels as gk
 from graphtap_tpu_torch.kernels import onehot_spmv as oh
 from graphtap_tpu_torch.kernels import panel_kernels as pk
@@ -83,10 +98,13 @@ from graphtap_tpu_torch.kernels.shuffle_engine import (build_shuffle_plans,
                                                        mul_kind, spmv_stages)
 from graphtap_tpu_torch.kernels.shuffle_plan import build_spmv_plan
 from graphtap_tpu_torch.engine import executor
+from graphtap_tpu_torch.parallel.launch import launch
 from graphtap_tpu_torch.tools import bw_probe, route_cost_probe, timing
 from graphtap_tpu_torch.tools.convert import meta_from_numpy
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import golden  # noqa: E402
 from onehot_cases import GATHER_CASES, gather_case  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -149,17 +167,49 @@ def test_kernels_match_plain(cuda, dtype, weighted):
         assert torch.equal(got, want)
 
 
-def test_pagerank_on_cuda_matches_cpu(cuda):
+# the launches each kernel path makes a superstep (a degree SpMV is one)
+PATH_LAUNCHES = {"panel": {"route_xr_exp": 1, "route_passa": 1,
+                           "route_fold": 2, "hub_fold": 1},
+                 "shuffle": {"expand_stream": 3, "group_stream": 1,
+                             "grouped_reduce": 1},
+                 "shuffle2": {"windowed_gather": 6, "grouped_reduce": 1},
+                 "onehot": {"segment_reduce_gather": 1}}
+
+
+@pytest.mark.parametrize("kernel,comp", [
+    ("panel", "TCSC"), ("shuffle", "TCSC"), ("shuffle2", "TCSC"),
+    ("onehot", "TCSC"), ("panel", "TCSC_CF"), ("onehot", "TCSC_CF"),
+    ("panel", "CSC"), ("shuffle2", "CSC"), ("onehot", "CSC")])
+def test_pagerank_on_cuda_matches_cpu(cuda, kernel, comp):
+    """20 f64 PageRank iterations at RMAT-12 on each kernel path, on TCSC,
+    TCSC_CF (pr.cpp's first/middle/last phases) and CSC tiles: the ranks
+    equal the CPU's within 1e-12 relative, the checksum the f64 golden
+    model's, and the degree phase (on shuffle, or onehot, which takes CSC)
+    ``golden.degree``; the run launches its degree SpMV and, each
+    superstep, its path's kernels (``PATH_LAUNCHES``), and nothing else."""
     r, c, _ = rmat_edges(12, 16, seed=1)
-    g = Graph.from_edges(r, c, None, GraphConfig(num_vertices=1 << 12,
-                                                 transpose=True))
-    on_card = run_pagerank(g, 20, torch.float64, kernel="panel",
-                           device=cuda)
-    on_cpu = run_pagerank(g, 20, torch.float64, kernel="panel",
-                          device="cpu")
+    n = 1 << 12
+    g = Graph.from_edges(r, c, None, GraphConfig(
+        num_vertices=n, transpose=True, compression=Compression[comp]))
+    deg = "onehot" if kernel == "onehot" or comp == "CSC" else "shuffle"
+    timing.reset_launches()
+    on_card = run_pagerank(g, 20, torch.float64, kernel=kernel,
+                           device=cuda, degree_kernel=deg)
+    want = dict(PATH_LAUNCHES[deg])
+    for k, v in PATH_LAUNCHES[kernel].items():
+        want[k] = want.get(k, 0) + 20 * v
+    assert on_card.iteration == 20
+    assert timing.launches() == want
+    on_cpu = run_pagerank(g, 20, torch.float64, kernel=kernel,
+                          device="cpu", degree_kernel=deg)
     np.testing.assert_allclose(on_card.state_vector()["rank"],
                                on_cpu.state_vector()["rank"], rtol=1e-12,
                                atol=0)
+    np.testing.assert_array_equal(
+        on_card.degree_phase.state_vector()["degree"],
+        golden.degree(r, c, n + 1).astype(np.float64))
+    gsum = float(golden.pagerank(r, c, n + 1, 20).sum())
+    assert abs(on_card.checksum()[0] - gsum) <= 1e-10 * gsum
 
 
 def test_wrappers_reject_mixed_devices(cuda):
@@ -241,7 +291,13 @@ def test_gated_kernels_match_plain(cuda, weighted, frontier):
 
 
 @pytest.mark.parametrize("app", ["bfs", "cc", "sssp"])
-def test_apps_on_cuda_match_cpu(cuda, app):
+@pytest.mark.parametrize("gate", ["auto", "1", "0"])
+def test_apps_on_cuda_match_cpu(cuda, monkeypatch, gate, app):
+    """BFS, CC and SSSP on panel at RMAT-12 equal the CPU's runs, with the
+    panel gate (``GRAPHTAP_PANEL_GATE``) on its vote, forced and off: every
+    superstep takes the same branch on both, every one gated when forced
+    and none when off."""
+    monkeypatch.setenv(executor.GATE_ENV, gate)
     n = 1 << 12
     if app == "sssp":
         r, c, w = rmat_edges(12, 16, seed=1, weighted=True)
@@ -262,8 +318,10 @@ def test_apps_on_cuda_match_cpu(cuda, app):
     assert pk.LAUNCHES["hub_fold"] > before["hub_fold"]
     on_cpu = run("cpu")
     assert on_card.iteration == on_cpu.iteration
-    assert [s["gated"] for s in on_card.supersteps] == \
-        [s["gated"] for s in on_cpu.supersteps]
+    branches = [s["gated"] for s in on_card.supersteps]
+    assert branches == [s["gated"] for s in on_cpu.supersteps]
+    if gate != "auto":
+        assert set(branches) == {gate == "1"}
     assert all(s["ms"] > 0 for s in on_card.supersteps)
     a, b = on_card.state_vector(), on_cpu.state_vector()
     for k in b:
@@ -838,14 +896,15 @@ def test_onehot_matches_plain(cuda, case):
 
 
 @pytest.mark.parametrize("kernel", ["shuffle2", "onehot"])
-@pytest.mark.parametrize("app", ["bfs", "sssp"])
+@pytest.mark.parametrize("app", ["bfs", "cc", "sssp"])
 def test_apps_new_kernels_on_cuda_match_cpu(cuda, app, kernel):
     n = 1 << 12
     weighted = app == "sssp"
     r, c, w = rmat_edges(12, 16, seed=1, weighted=weighted)
-    g = Graph.from_edges(r, c, w, (sssp_config if weighted
-                                   else bfs_config)(n))
+    cfg = {"bfs": bfs_config, "cc": cc_config, "sssp": sssp_config}[app](n)
+    g = Graph.from_edges(r, c, w, cfg)
     run = {"bfs": lambda d: run_bfs(g, 0, kernel=kernel, device=d),
+           "cc": lambda d: run_cc(g, kernel=kernel, device=d),
            "sssp": lambda d: run_sssp(g, 0, kernel=kernel, device=d)}[app]
     on_card = run(cuda)
     on_cpu = run("cpu")
@@ -1557,3 +1616,226 @@ def test_onehot_superstep_builds_no_slot_array(cuda, app):
         ex.initialize()
         ex.execute(3)
     assert tr.counters["onehot_gathered_slots"] == ep * 3
+
+
+# the mesh on the card: (shape, the exchange's transport) of a backend
+_MESH = {"gloo": ((2, 2), "gloo-host"), "nccl": ((1, 1), "nccl")}
+
+
+def _mesh_spec(tmp_path, backend):
+    """A ``tools/mesh_run.py`` spec at RMAT-10 (seed 1; SSSP weighted),
+    with every shard holding vertices (``segment_align`` 128): BFS, CC
+    and SSSP on onehot and shuffle2 with the sparse exchange at K = 8,
+    then f32 PageRank, 20 iterations, on panel and onehot (the degree
+    phase on shuffle), onehot's once more through ``execute_profiled``;
+    each run again on the group-free 1x1 layout (``plain``)."""
+    files = {}
+    for tag, weighted in (("", False), ("w", True)):
+        files[tag] = str(tmp_path / f"rmat10{tag}.bin")
+        write_binary(files[tag], *rmat_edges(10, 16, seed=1,
+                                             weighted=weighted))
+    graphs = {app: {"path": files["w" if app == "sssp" else ""],
+                    "nv": 1 << 10, "config": app,
+                    "overrides": {"segment_align": 128}}
+              for app in ("pr", "bfs", "cc", "sssp")}
+    runs = [{"name": f"{app}_{k}", "graph": app, "app": app, "kernel": k,
+             "capacity": 8, "plain": True}
+            for app in ("bfs", "cc", "sssp")
+            for k in ("onehot", "shuffle2")]
+    runs += [{"name": f"pagerank_{k}", "graph": "pr", "app": "pagerank",
+              "kernel": k, "dtype": "float32", "iters": 20,
+              "degree_kernel": "shuffle", "plain": True}
+             for k in ("panel", "onehot")]
+    runs.append(dict(runs[-1], name="pagerank_onehot_profiled",
+                     profiled=True))
+    return {"shape": list(_MESH[backend][0]), "backend": backend,
+            "device": "cuda", "out": str(tmp_path / "out"),
+            "graphs": graphs, "runs": runs}
+
+
+def _mesh_result(out, name):
+    with np.load(os.path.join(out, f"{name}.npz")) as z:
+        state = {k: z[k] for k in z.files}
+    with open(os.path.join(out, f"{name}.json")) as f:
+        return state, json.load(f)
+
+
+@pytest.mark.parametrize("backend", sorted(_MESH))
+def test_mesh_on_cuda_matches_group_free(cuda, tmp_path, backend):
+    """The mesh on the card (``parallel/launch.py`` starting
+    ``tools/mesh_run.py``): four gloo ranks of a 2x2 mesh, whose
+    exchanges go through host memory, and one rank in an NCCL group (NCCL
+    puts one rank on a card). Each run against the card's group-free run
+    of the same case: BFS, CC and SSSP bit for bit, in as many
+    supersteps, with both branches of the sparse exchange seen at 2x2;
+    PageRank elementwise within 1e-5 relative (f32) and its checksum
+    within 1e-6, bit for bit in NCCL's 1x1; ``execute_profiled`` equal to
+    ``execute`` bit for bit. Every rank launches its path's kernels each
+    superstep (and the flush)."""
+    from graphtap_tpu_torch.kernels import _cuda
+    _cuda.library()                     # the ranks load what this built
+    spec = _mesh_spec(tmp_path, backend)
+    path = tmp_path / "spec.json"
+    path.write_text(json.dumps(spec))
+    shape, transport = _MESH[backend]
+    launch([sys.executable, "-m", "graphtap_tpu_torch.tools.mesh_run",
+            str(path)], shape[0] * shape[1], 600,
+           env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO)
+    for run in spec["runs"]:
+        name, kernel = run["name"], run["kernel"]
+        state, meta = _mesh_result(spec["out"], name)
+        want, alone = _mesh_result(spec["out"], name + "_1x1")
+        assert meta["exchange"] == transport and alone["exchange"] is None
+        assert len(meta["ranks"]) == shape[0] * shape[1]
+        steps = 20 if run["app"] == "pagerank" else meta["iteration"] + 1
+        for rk in meta["ranks"]:
+            for k, v in PATH_LAUNCHES[kernel].items():
+                assert rk["launches"].get(k, 0) == steps * v, (name, k)
+        assert meta["iteration"] == alone["iteration"], name
+        if run["app"] == "pagerank" and backend == "gloo":
+            np.testing.assert_allclose(state["rank"], want["rank"],
+                                       rtol=1e-5, atol=0, err_msg=name)
+            np.testing.assert_array_equal(state["degree"], want["degree"])
+            assert abs(meta["checksum"] - alone["checksum"]) <= \
+                1e-6 * abs(alone["checksum"]), name
+        else:
+            assert set(state) == set(want), name
+            for k in want:
+                np.testing.assert_array_equal(state[k], want[k],
+                                              err_msg=f"{name} {k}")
+        if run["app"] != "pagerank" and backend == "gloo":
+            assert {rec["sparse"] for rk in meta["ranks"]
+                    for rec in rk["supersteps"]} == {True, False}, name
+    # execute_profiled gives execute's bits, and each rank's fenced phases
+    state, meta = _mesh_result(spec["out"], "pagerank_onehot_profiled")
+    want, _ = _mesh_result(spec["out"], "pagerank_onehot")
+    for k in want:
+        np.testing.assert_array_equal(state[k], want[k], err_msg=k)
+    assert all("exchange" in rk["phases"] for rk in meta["ranks"])
+
+
+# the five mains: app -> (third argument, weighted edge file)
+_MAINS = {"pr": ("20", False), "pr1": ("20", False), "bfs": ("0", False),
+          "cc": (None, False), "sssp": ("0", True)}
+
+
+@pytest.fixture(scope="module")
+def mains_on_card(tmp_path_factory):
+    """The five mains as subprocesses on the card, all at once, each on
+    its default device and kernel (``cuda``, panel), on RMAT-10 files
+    (seed 1; weighted for SSSP): app -> (the finished process, its
+    stdout, its stderr, the edges it read)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "False)")
+    from graphtap_tpu_torch.kernels import _cuda
+    _cuda.library()
+    d = tmp_path_factory.mktemp("mains")
+    edges, files = {}, {}
+    for weighted in (False, True):
+        edges[weighted] = rmat_edges(10, 16, seed=1, weighted=weighted)
+        files[weighted] = str(d / f"rmat10{'w' if weighted else ''}.bin")
+        write_binary(files[weighted], *edges[weighted])
+    procs = {app: subprocess.Popen(
+        [sys.executable, "-m", f"graphtap_tpu_torch.apps.{app}",
+         files[weighted], str(1 << 10)] + ([third] if third else []),
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for app, (third, weighted) in _MAINS.items()}
+    done = {}
+    try:
+        for app, p in procs.items():
+            out, err = p.communicate(timeout=600)
+            done[app] = (p, out, err, edges[_MAINS[app][1]])
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return done
+
+
+@pytest.mark.parametrize("app", sorted(_MAINS))
+def test_mains_on_cuda_match_golden(cuda, mains_on_card, app):
+    """``python -m graphtap_tpu_torch.apps.<app> <file> 1024 [20|0]`` on
+    the card prints the balance line and the five oracle lines; PageRank's
+    checksum (pr: TCSC_CF; pr1: two loads) within 1e-4 relative of the
+    f64 golden model's after 20 iterations, BFS's, CC's and SSSP's
+    checksum and reachable count equal the golden models'."""
+    p, out, err, (r, c, w) = mains_on_card[app]
+    assert p.returncode == 0, err[-3000:]
+    balance, *lines = out.strip().splitlines()
+    assert balance.startswith("Edge balance: edges=")
+    assert [ln.split(":")[0] for ln in lines] == [
+        f"{app} end-to-end time", "Execute time", "Iterations",
+        "Value checksum", "Reachable vertices"]
+    checksum = float(lines[3].split(":")[1])
+    reach = int(lines[4].split(":")[1])
+    nv = (1 << 10) + 1
+    r64, c64 = r.astype(np.int64), c.astype(np.int64)
+    if app in ("pr", "pr1"):
+        want = float(golden.pagerank(r, c, nv, 20).sum())
+        assert int(lines[2].split(":")[1]) == 20
+        assert abs(checksum - want) <= 1e-4 * want
+        return
+    v = {"bfs": lambda: golden.bfs(r64, c64, nv, 0)[1],
+         "cc": lambda: golden.cc(r64, c64, nv),
+         "sssp": lambda: golden.sssp(r64, c64, w.astype(np.int64), nv,
+                                     0)}[app]()
+    v = v[v != golden.INF]
+    assert (checksum, reach) == (float(v.sum()), int(v.size))
+
+
+def test_dryrun_multichip_on_cuda(cuda):
+    """``dryrun_multichip(4)`` on the card (four gloo ranks of a 2x2 mesh
+    on one card) equals ``dryrun_multichip(1)``: BFS and SSSP bit for bit,
+    the PageRank programs' checksums within 1e-6 relative; every rank of
+    a panel program launches K1-K3 (static or gated) and K4, and the
+    gated K1-K3 where one of its supersteps is gated."""
+    from graphtap_tpu_torch import graft_entry
+    got = graft_entry.dryrun_multichip(4, cuda, timeout=600)
+    one = graft_entry.dryrun_multichip(1, cuda, timeout=600)
+    for name, r in got.items():
+        want = one[name]
+        assert r["exchange"] == "gloo-host" and len(r["ranks"]) == 4, name
+        if name in ("bfs", "sssp"):
+            for k, v in want["state"].items():
+                np.testing.assert_array_equal(r["state"][k], v,
+                                              err_msg=f"{name} {k}")
+        else:
+            assert abs(r["checksum"] - want["checksum"]) <= \
+                1e-6 * abs(want["checksum"]), name
+        for rk in r["ranks"]:
+            if rk["supersteps"][0]["gated"] is None:
+                continue                    # scan: no kernel to launch
+            n = rk["launches"]
+            for k in ("route_xr_exp", "route_passa", "route_fold"):
+                assert n.get(k, 0) + n.get(k + "_gated", 0) > 0, (name, k)
+            assert n.get("hub_fold", 0) > 0, name
+            if any(st["gated"] for st in rk["supersteps"]):
+                for k in ("route_xr_exp", "route_passa", "route_fold"):
+                    assert n.get(k + "_gated", 0) > 0, (name, k)
+
+
+def test_lab_on_cuda_gates(cuda, tmp_path):
+    """The kernel lab's nine variants on the card at RMAT-10 (seed 1), 20
+    iterations each (``tools/lab_table.py``): its gates hold (operations
+    equal, checksums within 1e-5 relative of each other), every checksum
+    is within 1e-4 relative of the f64 golden model's, and variant 6
+    (onehot) launches K5 from the plan for its degree SpMV, its warm-up
+    and its timed run: 1 + 2 x 20 times."""
+    from graphtap_tpu_torch.tools import lab_table
+    r, c, _ = rmat_edges(10, 16, seed=1)
+    path = str(tmp_path / "rmat10.bin")
+    write_binary(path, r, c)
+    n = 1 << 10
+    rows = []
+    for which in range(9):
+        timing.reset_launches()
+        rows += lab_table.run_rows(path, n, 20, [which], "cuda")
+        if which == 6:
+            assert timing.launches() == {"segment_reduce_gather": 41}
+    lab_table.gates(rows)
+    want = float(golden.pagerank(r, c, n + 1, 20).sum())
+    for row in rows:
+        assert abs(row["checksum"] - want) <= 1e-4 * want, row["which"]

@@ -9,7 +9,7 @@ of RUN and then the runs' results: on one-lane chunks, a sorted K5 chunk
 ending in a padding tail, an all-padding chunk and K8 chunks with
 all-invalid 4-slot groups, in sum, min and max on f32, f64 and int32.
 The CUDA kernels are held against these plain versions bit for bit on
-the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
+the card (``tests/test_torch_cuda.py``)."""
 
 import numpy as np
 import pytest

@@ -12,8 +12,7 @@ Pallas rejects; the test calls ``_body`` through a ``pallas_call`` with the
 same specs and the table passed ``nwin`` times, and the port's
 ``route_like`` (which takes the table once) must equal it bit for bit,
 its library form within f32 rounding. The CUDA kernels are held against
-the same plain versions on the card (``tests/test_torch_cuda.py``,
-``chip_smoke.py``).
+the same plain versions on the card (``tests/test_torch_cuda.py``).
 """
 
 import functools

@@ -599,9 +599,10 @@ def test_artifact_cache_shuffle_roundtrip_and_key(tmp_path, small):
 
 
 def test_expand_figures_match_numpy(small):
-    """``expand_figures`` (the smoke's log of K6's plan) counts the RMAT-8
-    plan as numpy does: steps, slots, valid slots, windows, runs of one
-    window and the share of all-invalid 4-slot groups."""
+    """``expand_figures`` (nothing but this test calls it; ROADMAP Queue E
+    item 8) counts the RMAT-8 plan as numpy does: steps, slots, valid
+    slots, windows, runs of one window and the share of all-invalid 4-slot
+    groups."""
     _, plans, t, _ = small
     grp, ev = plans.arrays["grp"][0], plans.arrays["ev_x"][0]
     fig = sk.expand_figures(t["grp"], t["ev_x"])

@@ -120,7 +120,8 @@ def composition(sem, args, kw):
     reduce_kind, identity = args[9], args[11]
     return lambda: oh.segment_reduce(
         oh.gather_contrib(x, cols, evalid, w, sem.mul, identity), lrows,
-        chunk_block, nblocks, nr, reduce_kind, identity, **kw)
+        chunk_block, nblocks, nr, reduce_kind, identity, lists=kw["lists"],
+        scratch=kw["scratch"])
 
 
 def kernel_row(name: str, ex, args, kw, launches: int) -> dict:

@@ -323,14 +323,16 @@ void launch_row_fold(const void* part, const void* rptr, const void* gptr,
 }
 
 // ------------------------------------------------ K5's and K8's chunk fold
-// Pass (a): one CHUNK_FOLD_THREADS-thread block per item k of the chunk
-// list (kernels/fold_order.py::chunk_lists): chunks[k], or -1, a null
-// item whose lane partials are the identity. The block folds its chunk's
-// kept entries into 128 lane partials, part[k], in the order of
-// fold_order.py: each lane's entries, in index order, cut into runs of
-// CHUNK_FOLD_RUN, each run folded from the ⊕-identity, then the lane's
-// runs' results in order from the ⊕-identity. Pass (b) is
-// launch_row_fold over the list positions.
+// Pass (a): the chunk's kept entries fold into 128 lane partials, in the
+// order of fold_order.py: each lane's entries, in index order, cut into
+// runs of CHUNK_FOLD_RUN, each run folded from the ⊕-identity, then the
+// lane's runs' results in order from the ⊕-identity. chunk_fold_kernel
+// runs one CHUNK_FOLD_THREADS-thread block per item k of the chunk list
+// (kernels/fold_order.py::chunk_lists): chunks[k], or -1, a null item
+// whose lane partials are the identity, into part[k]. K5 from the plan
+// puts its values in their sorted places from tables built once per
+// upload and runs the same fold from there (lane_bounds, fold_runs;
+// onehot.cu). Pass (b) is launch_row_fold over the list positions.
 //
 // Warp w owns the chunk's slots [w SEG, (w+1) SEG) and its thread i the
 // slots w SEG + i + 32 j, j = 0 .. SEG/32 - 1 (coalesced loads; K8 loads
@@ -354,22 +356,12 @@ void launch_row_fold(const void* part, const void* rptr, const void* gptr,
 //
 // MASKED (K8) masks the slots by ev; its lanes are short (a chunk's
 // longest lane has a median of 64 entries at RMAT-20), so a run folds to
-// its end, at 8 blocks an SM. K5 reads no mask (its padding carries the
-// identity); its lanes are long (median 466), so a run keeps all
-// CHUNK_FOLD_RUN loads in flight, at 6 blocks an SM (0.1087 ms at 8
+// its end (SHORT_RUNS), at 8 blocks an SM. K5 reads no mask (its padding
+// carries the identity); its lanes are long (median 466), so a run keeps
+// all CHUNK_FOLD_RUN loads in flight, at 6 blocks an SM (0.1087 ms at 8
 // with K8's run fold). Occupancy is what the fold buys time with (K8
 // 0.137 ms at 8 blocks an SM and 32 registers against 0.179 at 50), so
 // the registers are capped.
-//
-// GATHER (K5 from its plan, MUL_NONE, MUL_MUL or MUL_ADD_SAT; NO_GATHER
-// otherwise): c is x, and a slot's value is made in the block, not read
-// from a contribution array: x[cols[e]] ⊗ w[e] where ev[e] is set, the
-// ⊕-identity where it is not (the padding, which stays in the fold as
-// K5's does, and whose x is not read). lane, cols, ev and w are streams
-// read once (evict-first loads, so they do not push x out of L2); the
-// thread issues all E of its x gathers (read-only path) before it uses
-// one, so their latencies overlap.
-constexpr int NO_GATHER = -1;
 constexpr int CHUNK_FOLD_RUN = 32;   // entries per run (fold_order.py::RUN)
 constexpr int CHUNK_FOLD_THREADS = 256;
 constexpr int CHUNK_FOLD_WARPS = CHUNK_FOLD_THREADS / 32;
@@ -387,26 +379,17 @@ struct alignas(16) ChunkFoldSmem {
   unsigned char runlane[CHUNK / CHUNK_FOLD_RUN + LANES];   // each run's lane
 };
 
-// Warp 0: from the warps' counts of each lane in hist (which become each
-// warp's first rank of the lane), each lane's start (the exclusive scan
-// of the counts) and end, its first run (runbase, and the total at
-// [LANES]) and each run's lane (runlane). A count and its runs share one
-// 32-bit scan (at most CHUNK entries, CHUNK / RUN + 128 runs).
+// Warp 0, thread id: from the entries c[j] of lanes 4 id + j, each
+// lane's start (the exclusive scan of the counts) and end, its first run
+// (runbase, and the total at [LANES]) and each run's lane (runlane). A
+// count and its runs share one 32-bit scan (at most CHUNK entries, CHUNK /
+// RUN + 128 runs).
 template <typename S>
-__device__ __forceinline__ void lane_runs(S& s) {
+__device__ __forceinline__ void lane_bounds(S& s, const int (&c)[4]) {
   const int id = threadIdx.x;
-  int c[4], pk[4], tot = 0;
+  int pk[4], tot = 0;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    const int l = 4 * id + j;
-    int n = 0;
-#pragma unroll
-    for (int k = 0; k < CHUNK_FOLD_WARPS; ++k) {
-      const int h = s.hist[k][l];
-      s.hist[k][l] = n;
-      n += h;
-    }
-    c[j] = n;
     pk[j] = tot;
     tot += c[j] | (((c[j] + CHUNK_FOLD_RUN - 1) / CHUNK_FOLD_RUN) << 16);
   }
@@ -432,143 +415,167 @@ __device__ __forceinline__ void lane_runs(S& s) {
   if (id == 31) s.runbase[LANES] = incl >> 16;
 }
 
-template <typename T, int RED, typename L, int CHUNK, bool MASKED,
-          int GATHER = NO_GATHER>
+// Warp 0: the warps' counts of each lane in hist become each warp's first
+// rank of the lane, and the lanes' totals their bounds (lane_bounds).
+template <typename S>
+__device__ __forceinline__ void lane_runs(S& s) {
+  const int id = threadIdx.x;
+  int c[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int l = 4 * id + j;
+    int n = 0;
+#pragma unroll
+    for (int k = 0; k < CHUNK_FOLD_WARPS; ++k) {
+      const int h = s.hist[k][l];
+      s.hist[k][l] = n;
+      n += h;
+    }
+    c[j] = n;
+  }
+  lane_bounds(s, c);
+}
+
+// The fold of the values in s.val, sorted by lane (skewed), with the
+// lanes' bounds and runs (lane_bounds): thread r folds run r into
+// s.runres, then thread l < 128 folds lane l's runs. Returns lane t's
+// partial in thread t < 128 (the identity in the others). The caller
+// synchronizes before the first read of s.val and before s is used again.
+template <typename T, int RED, int CHUNK, bool SHORT_RUNS>
+__device__ __forceinline__ T fold_runs(ChunkFoldSmem<T, CHUNK>& s,
+                                       T ident) {
+  const int t = threadIdx.x;
+  const int nruns = s.runbase[LANES];
+  for (int r = t; r < nruns; r += CHUNK_FOLD_THREADS) {
+    const int l = s.runlane[r];
+    const int from = s.start[l] + (r - s.runbase[l]) * CHUNK_FOLD_RUN;
+    const int to = min(from + CHUNK_FOLD_RUN, s.end[l]);
+    T x = ident;
+    if constexpr (SHORT_RUNS) {   // short runs (K8: ~7 entries a lane)
+#pragma unroll 8
+      for (int e = from; e < to; ++e) {
+        x = combine<RED>(x, s.val[chunk_skew(e)]);
+      }
+    } else {                      // long runs: all their loads in flight
+#pragma unroll
+      for (int e = 0; e < CHUNK_FOLD_RUN; ++e) {
+        if (from + e < to) {
+          x = combine<RED>(x, s.val[chunk_skew(from + e)]);
+        }
+      }
+    }
+    s.runres[r] = x;
+  }
+  __syncthreads();
+  T acc = ident;
+  if (t < LANES) {
+    const int end = s.runbase[t + 1];
+#pragma unroll 4
+    for (int r = s.runbase[t]; r < end; ++r) {
+      acc = combine<RED>(acc, s.runres[r]);
+    }
+  }
+  return acc;
+}
+
+// The fold of one chunk by the whole block: thread t = 32 w + i holds the
+// chunk's slots w SEG + i + 32 j as v[j] (the value) and ln[j] (its lane,
+// -1 where the slot is not kept): each warp ranks its slots within their
+// lanes, the values go to s.val sorted by lane, and fold_runs folds them.
+// Returns lane t's partial in thread t < 128 (the identity in the others).
+// Four block barriers; the last read of s follows the last one, so the
+// caller synchronizes before s is used again.
+template <typename T, int RED, int CHUNK, bool SHORT_RUNS, int E>
+__device__ __forceinline__ T fold_kept(ChunkFoldSmem<T, CHUNK>& s,
+                                       const T (&v)[E], int (&ln)[E],
+                                       T ident) {
+  static_assert(E * 32 * CHUNK_FOLD_WARPS == CHUNK, "whole rounds");
+  const int t = threadIdx.x, i = t & 31, w = t >> 5;
+  // ranks within the warp's segment: ln[j] becomes lane | rank << 8
+  int* hist = s.hist[w];
+  reinterpret_cast<int4*>(hist)[i] = make_int4(0, 0, 0, 0);
+  __syncwarp();
+  const unsigned below = (1u << i) - 1u;
+#pragma unroll
+  for (int j = 0; j < E; ++j) {
+    const int l = ln[j];
+    const unsigned peers = __match_any_sync(FULL_MASK, l >= 0 ? l
+                                                       : LANES + i);
+    const int before = l >= 0 ? hist[l] : 0;
+    __syncwarp();
+    if (l >= 0 && (peers & below) == 0) {
+      hist[l] = before + __popc(peers);
+    }
+    __syncwarp();
+    if (l >= 0) ln[j] = l | (before + __popc(peers & below)) << 8;
+  }
+  __syncthreads();
+  if (t < 32) lane_runs(s);
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < E; ++j) {
+    if (ln[j] >= 0) {
+      const int l = ln[j] & 0xff;
+      s.val[chunk_skew(s.start[l] + hist[l] + (ln[j] >> 8))] = v[j];
+    }
+  }
+  __syncthreads();
+  return fold_runs<T, RED, CHUNK, SHORT_RUNS>(s, ident);
+}
+
+// K5 on contributions and K8: c and lane are streams read once
+// (evict-first loads); MASKED drops the slots whose ev byte is 0.
+template <typename T, int RED, typename L, int CHUNK, bool MASKED>
 __global__ void __launch_bounds__(CHUNK_FOLD_THREADS, MASKED ? 8 : 6)
 chunk_fold_kernel(const T* __restrict__ c, const L* __restrict__ lane,
                   const int8_t* __restrict__ ev,
                   const int* __restrict__ chunks, T* __restrict__ part,
-                  T ident, const int* __restrict__ cols = nullptr,
-                  const T* __restrict__ wts = nullptr) {
+                  T ident) {
   constexpr int SEG = CHUNK / CHUNK_FOLD_WARPS;   // slots of a warp
   constexpr int E = SEG / 32;                     // slots of a thread
-  static_assert(E * 32 * CHUNK_FOLD_WARPS == CHUNK, "whole rounds");
-  static_assert(!(MASKED && GATHER != NO_GATHER), "one use of ev");
   __shared__ ChunkFoldSmem<T, CHUNK> s;
   const int t = threadIdx.x, i = t & 31, w = t >> 5;
   const int chunk = __ldg(chunks + blockIdx.x);
   T acc = ident;                 // thread t < 128: lane t's partial
   if (chunk >= 0) {              // the same in the whole block
-    const int p0 = w * SEG + i;  // slot p0 + 32 j of the chunk
-    const long long base = static_cast<long long>(chunk) * CHUNK + p0;
+    const long long base =
+        static_cast<long long>(chunk) * CHUNK + w * SEG + i;
     const L* lp = lane + base;
+    const T* cp = c + base;
     T v[E];
     int ln[E];                   // the lane, -1 where not kept
-    if constexpr (GATHER == NO_GATHER) {
-      const T* cp = c + base;
-#pragma unroll
-      for (int j = 0; j < E; ++j) {
-        ln[j] = static_cast<int>(__ldcs(lp + 32 * j));
-        v[j] = __ldcs(cp + 32 * j);
-        if constexpr (MASKED) {  // every load, then the mask
-          if (__ldcs(ev + base + 32 * j) == 0) ln[j] = -1;
-        }
-      }
-    } else {
-      int col[E];                // the x row of each slot
-      unsigned edge = 0;         // bit j: slot j holds an edge
-#pragma unroll
-      for (int j = 0; j < E; ++j) {
-        ln[j] = static_cast<int>(__ldcs(lp + 32 * j));
-        col[j] = __ldcs(cols + base + 32 * j);
-        if (__ldcs(ev + base + 32 * j) != 0) edge |= 1u << j;
-      }
-#pragma unroll
-      for (int j = 0; j < E; ++j) {
-        v[j] = (edge >> j & 1u) ? __ldg(c + col[j]) : ident;
-      }
-      if constexpr (GATHER != MUL_NONE) {
-#pragma unroll
-        for (int j = 0; j < E; ++j) {
-          const T wj = __ldcs(wts + base + 32 * j);
-          if (edge >> j & 1u) v[j] = mul_value<T, GATHER>(v[j], wj, ident);
-        }
-      }
-    }
-    // ranks within the warp's segment: ln[j] becomes lane | rank << 8
-    int* hist = s.hist[w];
-    reinterpret_cast<int4*>(hist)[i] = make_int4(0, 0, 0, 0);
-    __syncwarp();
-    const unsigned below = (1u << i) - 1u;
 #pragma unroll
     for (int j = 0; j < E; ++j) {
-      const int l = ln[j];
-      const unsigned peers = __match_any_sync(FULL_MASK, l >= 0 ? l
-                                                         : LANES + i);
-      const int before = l >= 0 ? hist[l] : 0;
-      __syncwarp();
-      if (l >= 0 && (peers & below) == 0) {
-        hist[l] = before + __popc(peers);
-      }
-      __syncwarp();
-      if (l >= 0) ln[j] = l | (before + __popc(peers & below)) << 8;
-    }
-    __syncthreads();
-    if (t < 32) lane_runs(s);
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < E; ++j) {
-      if (ln[j] >= 0) {
-        const int l = ln[j] & 0xff;
-        s.val[chunk_skew(s.start[l] + hist[l] + (ln[j] >> 8))] = v[j];
+      ln[j] = static_cast<int>(__ldcs(lp + 32 * j));
+      v[j] = __ldcs(cp + 32 * j);
+      if constexpr (MASKED) {    // every load, then the mask
+        if (__ldcs(ev + base + 32 * j) == 0) ln[j] = -1;
       }
     }
-    __syncthreads();
-    const int nruns = s.runbase[LANES];
-    for (int r = t; r < nruns; r += CHUNK_FOLD_THREADS) {
-      const int l = s.runlane[r];
-      const int from = s.start[l] + (r - s.runbase[l]) * CHUNK_FOLD_RUN;
-      const int to = min(from + CHUNK_FOLD_RUN, s.end[l]);
-      T x = ident;
-      if constexpr (MASKED) {   // short runs (K8: ~7 entries a lane)
-#pragma unroll 8
-        for (int e = from; e < to; ++e) {
-          x = combine<RED>(x, s.val[chunk_skew(e)]);
-        }
-      } else {                  // long runs: all their loads in flight
-#pragma unroll
-        for (int e = 0; e < CHUNK_FOLD_RUN; ++e) {
-          if (from + e < to) {
-            x = combine<RED>(x, s.val[chunk_skew(from + e)]);
-          }
-        }
-      }
-      s.runres[r] = x;
-    }
-    __syncthreads();
-    if (t < LANES) {
-      const int end = s.runbase[t + 1];
-#pragma unroll 4
-      for (int r = s.runbase[t]; r < end; ++r) {
-        acc = combine<RED>(acc, s.runres[r]);
-      }
-    }
+    acc = fold_kept<T, RED, CHUNK, MASKED>(s, v, ln, ident);
   }
   if (t < LANES) part[static_cast<long long>(blockIdx.x) * LANES + t] = acc;
 }
 
-// K5 and K8: pass (a) over the nitems list items into part (nitems, 128),
-// then pass (b) by launch_row_fold over the list positions into y
-// (nblocks, 128). GATHER: c is x, gathered through cols and ⊗ by w.
-template <typename T, typename L, int CHUNK, bool MASKED,
-          int GATHER = NO_GATHER>
+// K5 on contributions and K8: pass (a) over the nitems list items into
+// part (nitems, 128), then pass (b) by launch_row_fold over the list
+// positions into y (nblocks, 128).
+template <typename T, typename L, int CHUNK, bool MASKED>
 int launch_chunk_fold(const void* c, const void* lane, const void* ev,
                       const void* chunks, const void* rptr,
                       const void* gptr, void* part, void* gpart, void* y,
                       long long nitems, long long nblocks, long long ngroups,
-                      int red, double identity, cudaStream_t st,
-                      const void* cols = nullptr, const void* w = nullptr) {
+                      int red, double identity, cudaStream_t st) {
   const T ident = static_cast<T>(identity);
   const int rc = dispatch_red(red, [&](auto rk) {
     constexpr int RED = decltype(rk)::value;
     if (nitems > 0) {
-      chunk_fold_kernel<T, RED, L, CHUNK, MASKED, GATHER>
+      chunk_fold_kernel<T, RED, L, CHUNK, MASKED>
           <<<static_cast<unsigned>(nitems), CHUNK_FOLD_THREADS, 0, st>>>(
               static_cast<const T*>(c), static_cast<const L*>(lane),
               static_cast<const int8_t*>(ev),
               static_cast<const int*>(chunks), static_cast<T*>(part),
-              ident, static_cast<const int*>(cols),
-              static_cast<const T*>(w));
+              ident);
     }
     launch_row_fold<T, RED>(part, rptr, gptr, nullptr, gpart, y, nblocks,
                             ngroups, ident, st);

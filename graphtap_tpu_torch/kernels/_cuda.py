@@ -87,11 +87,12 @@ _SIGNATURES = {
     # ngroups, dtype, reduce_kind, identity, stream
     "gt_segment_reduce": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
                           _I32, _I32, _F64, _P],
-    # x, lrows, cols, ev, w, chunks, rptr, gptr, part, gpart, y, nitems,
-    # nblocks, ngroups, dtype, mul_kind, reduce_kind, identity, stream
+    # x, ecol, edest, ew, eptr, lcount, chunks, rptr, gptr, part, gpart,
+    # y, nitems, nblocks, ngroups, dtype, mul_kind, reduce_kind, identity,
+    # stream
     "gt_segment_reduce_gather": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                 _I64, _I64, _I64, _I32, _I32, _I32, _F64,
-                                 _P],
+                                 _P, _I64, _I64, _I64, _I32, _I32, _I32,
+                                 _F64, _P],
     # x, y, rows, row_bytes, bm, bn_bytes, chunk_rows, pieces, piece_bytes,
     # stream
     "gt_probe_copy": [_P, _P, _I64, _I64, _I32, _I64, _I32, _I32, _I64, _P],

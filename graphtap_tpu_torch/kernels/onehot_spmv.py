@@ -20,12 +20,15 @@ chunks of ``CHUNK`` contributions:
     contributions the kernel makes itself, x gathered by the plan's cols,
     ⊗ by its weights and the padding the ⊕-identity (the JAX package
     leaves those to XLA before K5), so no contribution array is built;
-    the CPU runs ``segment_reduce_gather_plain``, those contributions in
-    plain torch (``gather_contrib``, which ``onehot_contrib`` runs too)
-    and ``segment_reduce_plain``; ``LAUNCHES`` counts each kernel apart;
-  * ``fold_tables``: K5's chunk list and scratch, and the plan's weights
-    in the value type where they are of another, kept in the device dict
-    once per upload;
+    the kernel reads the plan through ``gather_tables`` (each chunk's
+    edges by col, with their places in the fold order;
+    ``gather_tables_plain`` folds them as the kernel does); the CPU runs
+    ``segment_reduce_gather_plain``, those contributions in plain torch
+    (``gather_contrib``, which ``onehot_contrib`` runs too) and
+    ``segment_reduce_plain``; ``LAUNCHES`` counts each kernel apart;
+  * ``fold_tables``: K5's chunk list and scratch, the plan's weights in
+    the value type where they are of another, and on the card the gather
+    tables, kept in the device dict once per upload;
   * ``spmv_onehot``: K5 from the plan on x where the kernel knows the
     semiring's ⊗ (``Semiring.mul_kind``), else K5 on the contributions
     of the semiring's own ``mul``.
@@ -304,6 +307,57 @@ def _kind_mul(mul_kind: str, identity):
     return lambda c, w: c
 
 
+def gather_tables(cols, evalid, lrows, weights, NC: int):
+    """K5 from the plan's gather tables, from the plan's slots (chunks of
+    CHUNK consecutive slots): (ecol, edest, ew, eptr, lcount). ``lcount``
+    (nchunks, 128) int16: each chunk's slots of each lane, padding
+    included. The slots that hold an edge (``evalid`` set), by chunk and,
+    within a chunk, by col (stably): ``ecol`` int32 their cols, ``edest``
+    int16 their places in the chunk's fold order (by lane, then slot: the
+    order K5 folds a chunk in), ``ew`` their weights (None without);
+    ``eptr`` (nchunks + 1,) int32: chunk c's are ``eptr[c] ..
+    eptr[c + 1] - 1``. ``NC``: past the largest col. Two stable sorts on
+    the slots' device (int32 keys where they fit, the temporaries let go
+    as soon as they are used); the edge count is read back once."""
+    dev, nch = cols.device, cols.shape[0] // CHUNK
+    slot = torch.arange(cols.shape[0], dtype=torch.int32, device=dev)
+    chunk = slot // CHUNK
+    key = chunk * RB + lrows
+    dest = torch.empty(cols.shape[0], dtype=torch.int16, device=dev)
+    dest[torch.sort(key, stable=True).indices] = (slot % CHUNK).to(
+        torch.int16)
+    lcount = torch.bincount(key, minlength=nch * RB).view(nch, RB)
+    del slot, key
+    edge = torch.nonzero(evalid).squeeze(1)
+    edge = edge[torch.sort(chunk[edge].long() * max(NC, 1) + cols[edge],
+                           stable=True).indices]
+    eptr = torch.zeros(nch + 1, dtype=torch.int32, device=dev)
+    eptr[1:] = torch.cumsum(torch.bincount(chunk[edge], minlength=nch), 0)
+    return (cols[edge], dest[edge], None if weights is None
+            else weights[edge], eptr, lcount.to(torch.int16))
+
+
+def gather_tables_plain(x, tables, chunk_block, nblocks: int, NR: int,
+                        reduce_kind: str, mul_kind: str, identity):
+    """K5 from the plan as its kernel runs it from ``gather_tables``, in
+    plain torch: each chunk's fold order filled with the ⊕-identity, each
+    edge's x[ecol] ⊗ ew placed at edest, then folded lane by lane
+    (``chunk_fold_plain`` on the lane-sorted values); equals
+    ``segment_reduce_gather_plain`` of the plan bit for bit."""
+    ecol, edest, ew, eptr, lcount = tables
+    nch = lcount.shape[0]
+    val = torch.full((nch, CHUNK), identity, dtype=x.dtype, device=x.device)
+    echunk = torch.repeat_interleave(
+        torch.arange(nch, device=x.device), (eptr[1:] - eptr[:-1]).long())
+    val[echunk, edest.long()] = _kind_mul(mul_kind, identity)(
+        torch.index_select(x, 0, ecol), ew)
+    lanes = torch.repeat_interleave(
+        torch.arange(RB, device=x.device).repeat(nch),
+        lcount.reshape(-1).long())
+    return chunk_fold_plain(val.reshape(-1), lanes, None, CHUNK, chunk_block,
+                            nblocks, reduce_kind, identity).reshape(-1)[:NR]
+
+
 def segment_reduce_gather_plain(x, cols, evalid, weights, lrows, chunk_block,
                                 nblocks: int, NR: int, NC: int,
                                 reduce_kind: str, mul_kind: str, identity):
@@ -317,7 +371,8 @@ def segment_reduce_gather_plain(x, cols, evalid, weights, lrows, chunk_block,
 
 def segment_reduce_gather(x, cols, evalid, weights, lrows, chunk_block,
                           nblocks: int, NR: int, NC: int, reduce_kind: str,
-                          mul_kind: str, identity, lists=None, scratch=None):
+                          mul_kind: str, identity, lists=None, scratch=None,
+                          tables=None):
     """K5 from the plan: ⊕-fold x[cols[e]] ⊗ weights[e] (the padding,
     evalid 0, the ⊕-identity) into the compact row space (NR,), in K5's
     order, so the result is ``segment_reduce`` of the same contributions
@@ -326,8 +381,10 @@ def segment_reduce_gather(x, cols, evalid, weights, lrows, chunk_block,
     weights of x's type, present exactly when ``mul_kind`` is not 'none'.
     ``NC``: the plan's ``col_bound``, which x must reach; the cols are not
     read back here (``validate_pallas_plan`` held them below the column
-    count). ``lists``, ``scratch``: as ``segment_reduce``. On the card one
-    launch counts as ``segment_reduce_gather``'s and adds the plan's
+    count). ``lists``, ``scratch``: as ``segment_reduce``; ``tables``:
+    ``gather_tables`` of the plan (built here if None), which the card's
+    kernel reads in place of cols, evalid, lrows and weights. On the card
+    one launch counts as ``segment_reduce_gather``'s and adds the plan's
     length to the open tracer's ``onehot_gathered_slots``."""
     _check_values("x", x)
     if x.dim() != 1:
@@ -364,15 +421,29 @@ def segment_reduce_gather(x, cols, evalid, weights, lrows, chunk_block,
         lists = chunk_lists(chunk_block, nblocks)
     rptr, gptr, chunks, part, gpart = fold_args(
         lists, scratch, nblocks, lists[2].shape[0], x.dtype, dev)
+    if tables is None:
+        tables = gather_tables(cols, evalid, lrows, weights, NC)
+    ecol, edest, ew, eptr, lcount = tables
+    nch = chunk_block.shape[0]
+    nedges = ecol.shape[0]
+    for name, t, dtype, shape in (
+            ("ecol", ecol, torch.int32, (nedges,)),
+            ("edest", edest, torch.int16, (nedges,)),
+            ("eptr", eptr, torch.int32, (nch + 1,)),
+            ("lcount", lcount, torch.int16, (nch, RB))):
+        _check(name, t, dtype, shape, dev)
+    if (ew is None) != (weights is None):
+        raise ValueError("gather tables: ew present exactly with weights")
+    if ew is not None:
+        _check("ew", ew, x.dtype, (nedges,), dev)
     lib = _cuda.library()
     y = torch.empty((nblocks * RB,), dtype=x.dtype, device=dev)
     with torch.cuda.device(dev):
         rc = lib.gt_segment_reduce_gather(
-            x.data_ptr(), lrows.data_ptr(), cols.data_ptr(),
-            evalid.data_ptr(),
-            None if weights is None else weights.data_ptr(),
-            chunks.data_ptr(), rptr.data_ptr(), gptr.data_ptr(),
-            part.data_ptr(), gpart.data_ptr(), y.data_ptr(),
+            x.data_ptr(), ecol.data_ptr(), edest.data_ptr(),
+            None if ew is None else ew.data_ptr(), eptr.data_ptr(),
+            lcount.data_ptr(), chunks.data_ptr(), rptr.data_ptr(),
+            gptr.data_ptr(), part.data_ptr(), gpart.data_ptr(), y.data_ptr(),
             chunks.shape[0], nblocks, gptr.shape[0] - 1, _DTYPES[x.dtype],
             _MUL_KINDS[mul_kind], _REDUCE_KINDS[reduce_kind],
             float(identity), _stream(x))
@@ -400,11 +471,23 @@ def plan_weights(t: Dict[str, torch.Tensor], dtype):
     return wv
 
 
+_GATHER_KEYS = ("oh_ecol", "oh_edest", "oh_ew", "oh_eptr", "oh_lcount")
+
+
 def fold_tables(t: Dict[str, torch.Tensor], plan: PallasPlan, dtype):
-    """K5's chunk list and scratch, and the plan's weights in ``dtype``
-    (``plan_weights``), kept in ``t`` (once per upload); returns
+    """K5's chunk list and scratch, the plan's weights in ``dtype``
+    (``plan_weights``) and, on the card, K5 from the plan's
+    ``gather_tables`` (``oh_ecol``, ...), kept in ``t`` (once per upload;
+    the tables anew for weights of another type); returns
     segment_reduce's (lists, scratch) arguments."""
-    plan_weights(t, dtype)
+    w = plan_weights(t, dtype)
+    ew = t.get("oh_ew")
+    if t["oh_cols"].is_cuda and ("oh_ecol" not in t or (
+            w is not None and (ew is None or ew.dtype != w.dtype))):
+        tabs = gather_tables(t["oh_cols"], t["oh_evalid"], t["oh_lrows"], w,
+                             plan.col_bound)
+        t.update((k, v) for k, v in zip(_GATHER_KEYS, tabs)
+                 if v is not None)
     return _fold_tables(t, "oh", lambda: chunk_lists(t["oh_chunk_block"],
                                                       plan.nblocks), dtype)
 
@@ -431,9 +514,11 @@ def spmv_onehot(x: torch.Tensor, t: Dict[str, torch.Tensor],
                               semiring.reduce_kind, semiring.identity,
                               **folds)
     w = plan_weights(t, x.dtype)
+    tables = (tuple(t.get(k) for k in _GATHER_KEYS) if "oh_ecol" in t
+              else None)
     return segment_reduce_gather(x, t["oh_cols"], t["oh_evalid"], w,
                                  t["oh_lrows"], t["oh_chunk_block"],
                                  plan.nblocks, NR, plan.col_bound,
                                  semiring.reduce_kind,
                                  "none" if w is None else semiring.mul_kind,
-                                 semiring.identity, **folds)
+                                 semiring.identity, tables=tables, **folds)

@@ -230,9 +230,10 @@ def gather_rows(plan, nr, nc, device="cuda"):
     seeded x (``segment_reduce_gather``), and f32 min-plus over seeded
     weights in [0, 1) with a third of x +inf (``segment_reduce_gather_w``,
     SSSP's ⊗ and ⊕). The PyTorch call is what the kernel replaces: the
-    contributions built in torch (``onehot_contrib``), then K5. Bytes:
-    each slot's col, row and ev byte (and weight), chunk_block, x read
-    once, and y written once."""
+    contributions built in torch (``onehot_contrib``), then K5. The
+    kernel reads the plan's gather tables, built once here. Bytes (the
+    plan's, which the bound is counted in): each slot's col, row and ev byte
+    (and weight), chunk_block, x read once, and y written once."""
     import dataclasses
     from graphtap_tpu_torch.kernels import onehot_spmv as oh
     from graphtap_tpu_torch.kernels.semiring import (inf_of, min_plus,
@@ -257,6 +258,9 @@ def gather_rows(plan, nr, nc, device="cuda"):
         args = (x, t["oh_cols"], t["oh_evalid"], w, t["oh_lrows"],
                 t["oh_chunk_block"], plan.nblocks, nr, nc, sem.reduce_kind,
                 mul_kind(plan, sem), sem.identity)
+        # an older checkout's K5 reads the plan itself (no gather tables)
+        tabs = ({"tables": oh.gather_tables(*args[1:3], args[4], w, nc)}
+                if hasattr(oh, "gather_tables") else {})
 
         def glue(t=t, x=x, sem=sem, folds=folds, nblocks=plan.nblocks):
             return oh.segment_reduce(
@@ -266,7 +270,8 @@ def gather_rows(plan, nr, nc, device="cuda"):
         nbytes = (plan.Ep * (13 if weighted else 9) + plan.nchunks * 4
                   + nc * 4 + plan.nblocks * oh.RB * 4)
         out.append((name,
-                    lambda a=args, f=folds: oh.segment_reduce_gather(*a, **f),
+                    lambda a=args, f={**folds, **tabs}:
+                    oh.segment_reduce_gather(*a, **f),
                     lambda a=args: oh.segment_reduce_gather_plain(*a),
                     glue, nbytes))
     return out

@@ -1545,8 +1545,11 @@ def test_sssp_superstep_no_copy_or_sync(cuda):
 def test_k5_gather_matches_composition(cuda, case):
     """K5 from the plan equals the torch contributions (``onehot_contrib``)
     folded by K5, bit for bit, twice, and the plain composition, at
-    RMAT-16; one launch each, counted as ``segment_reduce_gather``'s
-    alone."""
+    RMAT-16 (the gather tables' edge cases of ``onehot_cases``: a few
+    chunks, null items, chunks with no edge, a hub lane, x of
+    ``col_bound`` values); one launch each, counted as
+    ``segment_reduce_gather``'s alone; the tables built on the card equal
+    those built on the CPU."""
     x, plan, nr, sem = gather_case(case, scale=16)
     x = x.to(cuda)
     t = meta_from_numpy(plan.arrays, cuda)
@@ -1565,6 +1568,39 @@ def test_k5_gather_matches_composition(cuda, case):
                            before["segment_reduce_gather"] + 2}
     assert torch.equal(got, old)
     assert torch.equal(oh.spmv_onehot(x, t, plan, sem, nr), old)
+    cpu = meta_from_numpy(plan.arrays, "cpu")
+    want = oh.gather_tables(cpu["oh_cols"], cpu["oh_evalid"],
+                            cpu["oh_lrows"], cpu.get("oh_w"), plan.col_bound)
+    for k, a in zip(oh._GATHER_KEYS, want):
+        assert (k in t) == (a is not None)
+        assert a is None or torch.equal(t[k].cpu(), a), k
+    if case == "f32_sum_null_items":
+        assert (folds["lists"][2] < 0).any()
+
+
+def test_k5_gather_equals_plain_on_pagerank_supersteps(cuda):
+    """Every K5-from-the-plan call of three RMAT-16 f32 PageRank
+    supersteps on onehot equals the plain version of its inputs bit for
+    bit (the plain version folds in the order of the rank-and-sort kernel
+    the gather tables replaced)."""
+    r, c, _ = rmat_edges(16, 16, seed=1)
+    g = Graph.from_edges(r, c, None, GraphConfig(num_vertices=1 << 16,
+                                                 transpose=True))
+    calls, kernel = [], oh.segment_reduce_gather
+
+    def record(*args, **kw):
+        y = kernel(*args, **kw)
+        calls.append(((args[0].clone(),) + args[1:], y.clone()))
+        return y
+    oh.segment_reduce_gather = record
+    try:
+        run_pagerank(g, 3, torch.float32, kernel="onehot", device=cuda,
+                     degree_kernel="scan")
+    finally:
+        oh.segment_reduce_gather = kernel
+    assert len(calls) == 3
+    for args, y in calls:
+        assert torch.equal(y, oh.segment_reduce_gather_plain(*args))
 
 
 @pytest.mark.parametrize("app", ["pagerank", "sssp"])

@@ -380,6 +380,51 @@ def test_segment_reduce_gather_matches_composition(case):
     assert tr.counters["onehot_gathered_slots"] == 0
 
 
+@pytest.mark.parametrize("case", GATHER_CASES)
+def test_gather_tables_fold_as_the_plan(case):
+    """K5 from the plan's gather tables hold each chunk's edges by col,
+    each at its slot's place in the chunk's fold order (by lane, then
+    slot), with each chunk's lane counts; folded as the card's kernel folds
+    them (``gather_tables_plain``), they give ``segment_reduce_gather_plain``
+    of the plan bit for bit."""
+    x, plan, nr, sem = gather_case(case)
+    t = meta_from_numpy(plan.arrays, "cpu")
+    w = oh.plan_weights(t, x.dtype)
+    tables = oh.gather_tables(t["oh_cols"], t["oh_evalid"], t["oh_lrows"],
+                              w, plan.col_bound)
+    ecol, edest, ew, eptr, lcount = tables
+    nch, ev = plan.nchunks, t["oh_evalid"] != 0
+    assert (ecol.dtype, edest.dtype, eptr.dtype, lcount.dtype) == (
+        torch.int32, torch.int16, torch.int32, torch.int16)
+    assert (ew is None) == (w is None)
+    assert lcount.shape == (nch, oh.RB)
+    assert bool((lcount.sum(1) == oh.CHUNK).all())
+    assert int(eptr[0]) == 0 and int(eptr[-1]) == int(ev.sum())
+    slots = torch.nonzero(ev).squeeze(1)
+    per = torch.bincount(slots // oh.CHUNK, minlength=nch)
+    assert torch.equal(eptr[1:] - eptr[:-1], per.to(torch.int32))
+    lanes = t["oh_lrows"].long()
+    for c in sorted({0, nch // 2, nch - 1}):
+        e = slice(int(eptr[c]), int(eptr[c + 1]))
+        cc, dd = ecol[e].long(), edest[e].long()
+        assert bool((cc[1:] >= cc[:-1]).all())
+        own = slots[slots // oh.CHUNK == c]
+        assert torch.equal(torch.sort(cc).values,
+                           torch.sort(t["oh_cols"][own].long()).values)
+        chunk_lanes = lanes[c * oh.CHUNK:(c + 1) * oh.CHUNK]
+        order = torch.sort(chunk_lanes, stable=True).indices
+        place = torch.empty_like(order)
+        place[order] = torch.arange(oh.CHUNK)
+        assert torch.equal(torch.sort(dd).values,
+                           torch.sort(place[own - c * oh.CHUNK]).values)
+    args = (t["oh_chunk_block"], plan.nblocks, nr, sem.reduce_kind,
+            mul_kind(plan, sem), sem.identity)
+    want = oh.segment_reduce_gather_plain(
+        x, t["oh_cols"], t["oh_evalid"], w, t["oh_lrows"], *args[:3],
+        plan.col_bound, *args[3:])
+    assert torch.equal(oh.gather_tables_plain(x, tables, *args), want)
+
+
 def test_plan_weights_in_the_value_type():
     """Int32 weights by f32 values are converted once (``oh_wv``, kept in
     the device dict by ``fold_tables``) and give torch's promoted ⊗ bit

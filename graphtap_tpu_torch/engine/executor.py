@@ -241,7 +241,9 @@ class Executor:
     stored edges of its tiles (a host integer), and ``frontier_edges``,
     those whose source column is in its frontier, read in the vote's host
     read from a per-column degree uploaded at the first counted superstep
-    (``col_degree``)."""
+    (``col_degree``). On a TCSC_CF graph it counts, for each superstep
+    and flush that runs a CF phase, ``cf_phase_edges``, the stored edges
+    of that phase's tiles; ``_cf_phases`` is a ``cf_phases`` span."""
 
     def __init__(self, graph: Graph, program: VertexProgram,
                  engine: Optional[EngineConfig] = None, kernel: str = "scan",
@@ -355,27 +357,35 @@ class Executor:
         """Build and upload the TCSC_CF phases once (reference:
         compressed_column.hpp:606-1120): each phase's tiles, plans and
         apply mask (regular rows for first and middle, regular | source
-        rows for last)."""
+        rows for last). A ``cf_phases`` span, with ``cf_phases.tiles``
+        and, for each phase (``phase``), ``cf_phases.plans`` and
+        ``cf_phases.upload``: the intervals of ``timings["cf_tiles"]``,
+        ``["cf_plans"]`` and ``["cf_upload"]``."""
         if "first" in self._phases:
             return
-        t0 = time.perf_counter()
-        cf = self.graph.tiled_cf(self.engine.ordering)
-        self.timings["cf_tiles"] = time.perf_counter() - t0
-        full = cf["full"]
-        masks = {"first": full.regular_own, "middle": full.regular_own,
-                 "last": full.regular_own | full.source_own}
-        self.timings["cf_plans"] = self.timings["cf_upload"] = 0.0
-        for ph in CF_PHASES:
+        with timing.span("cf_phases"):
             t0 = time.perf_counter()
-            meta = self._plans(cf[ph], self._phase_plans.pop(ph, None))
-            t1 = time.perf_counter()
-            dev = self._upload(cf[ph], meta)
-            dev["apply_mask"] = self._tensor(masks[ph][self.shard])
-            self.device_bytes += _nbytes(dev.values())
-            _sync(self.device)
-            self.timings["cf_plans"] += t1 - t0
-            self.timings["cf_upload"] += time.perf_counter() - t1
-            self._phases[ph] = (cf[ph], meta, dev)
+            with timing.span("cf_phases.tiles"):
+                cf = self.graph.tiled_cf(self.engine.ordering)
+            self.timings["cf_tiles"] = time.perf_counter() - t0
+            full = cf["full"]
+            masks = {"first": full.regular_own, "middle": full.regular_own,
+                     "last": full.regular_own | full.source_own}
+            self.timings["cf_plans"] = self.timings["cf_upload"] = 0.0
+            for ph in CF_PHASES:
+                t0 = time.perf_counter()
+                with timing.span("cf_phases.plans", phase=ph):
+                    meta = self._plans(cf[ph],
+                                       self._phase_plans.pop(ph, None))
+                t1 = time.perf_counter()
+                with timing.span("cf_phases.upload", phase=ph):
+                    dev = self._upload(cf[ph], meta)
+                    dev["apply_mask"] = self._tensor(masks[ph][self.shard])
+                    self.device_bytes += _nbytes(dev.values())
+                    _sync(self.device)
+                self.timings["cf_plans"] += t1 - t0
+                self.timings["cf_upload"] += time.perf_counter() - t1
+                self._phases[ph] = (cf[ph], meta, dev)
 
     # ------------------------------------------------------------- lifecycle
     def initialize(self, other: Optional["Executor"] = None) -> None:
@@ -562,6 +572,12 @@ class Executor:
             d["col_degree"] = self._tensor(_col_degree(tiles, self.shard))
         return torch.where(C, d["col_degree"], 0).sum()
 
+    def _count_phase_edges(self, phase: str) -> None:
+        """Add the stored edges of ``phase``'s tiles on this shard to the
+        open tracer's ``cf_phase_edges`` (a TCSC_CF superstep or flush)."""
+        timing.count("cf_phase_edges",
+                     int(self._phases[phase][0].nnz[self.shard, 0]))
+
     # ------------------------------------------------------------- superstep
     def _combine(self, x: torch.Tensor, phase: str
                  ) -> Tuple[torch.Tensor, Optional[bool]]:
@@ -745,6 +761,8 @@ class Executor:
                     V, C, m = self._superstep(V, C, it, phase, events)
                 if tr is not None and tr.fence:
                     self.supersteps[-1]["ms"] = sp.seconds * 1e3
+                if cf:
+                    self._count_phase_edges(phase)
                 if self.supersteps[-1]["gated"]:
                     frontier = None     # it read only its active panels
                 elif frontier is not None:
@@ -762,6 +780,8 @@ class Executor:
                 # :425-429); their x is exchanged dense
                 with timing.span("flush"):
                     V, C, _ = self._step(V, m, it, "last" if cf else "main")
+                if cf:
+                    self._count_phase_edges("last")
             self.iteration = it
             self.state, self.changed = V, C
             with timing.span("sync"):

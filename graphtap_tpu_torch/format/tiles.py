@@ -11,17 +11,18 @@ max- and sum-reduced, at the JAX package's three points
 the JAX multi-process layout, its own row equal to the single-process
 build's. TCSC_CF renumbers rows as TCSC does; its first/middle/last edge
 subsets are ``build_cf_tilesets``'s, and the engine runs them as phases
-(``engine/executor.py``). DCSC (reference: compressed_column.hpp:156-271)
-renumbers the columns into the compact nnz-col space and keeps the JC
-table, compact id -> dense local col, through which the engine gathers x
-(dcsc_spmv.hpp:216-230). The engine moves the fields it needs to the
-device itself.
+(``engine/executor.py``); ``build_cf_subsets`` takes the same subsets
+from the full build's sorted edges, with no second bin or sort. DCSC
+(reference: compressed_column.hpp:156-271) renumbers the columns into the
+compact nnz-col space and keeps the JC table, compact id -> dense local
+col, through which the engine gathers x (dcsc_spmv.hpp:216-230). The
+engine moves the fields it needs to the device itself.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -96,6 +97,17 @@ class TileSet:
         return line
 
 
+@dataclass
+class SortedEdges:
+    """A build's edges as its ``tiles.sort`` left them, parallel ones
+    dropped where the config drops them: for each device, the index of
+    each kept edge in the build's input list, and its weight (the least
+    of its run where parallel edges were dropped), or None unweighted."""
+
+    idx: List[np.ndarray]
+    w: Optional[List[np.ndarray]]
+
+
 def classify_vertices(r: np.ndarray, c: np.ndarray, n_pad: int,
                       mesh: Optional[Mesh] = None):
     """Vertex classes over the stored matrix (reference:
@@ -155,7 +167,59 @@ def build_cf_tilesets(r: np.ndarray, c: np.ndarray, w: Optional[np.ndarray],
             "last": subset(~(~row_is_source & col_is_sink))}
 
 
-def build_tileset(
+def build_cf_subsets(full: TileSet, srt: SortedEdges, r: np.ndarray,
+                     c: np.ndarray, edge_align: int = 1024,
+                     weight_dtype=np.int32) -> Dict[str, TileSet]:
+    """The "first", "middle" and "last" tilesets of ``build_cf_tilesets``
+    taken from ``full`` and ``srt``, the TCSC_CF build of the same edges
+    ``r``, ``c`` and its sorted edges (``build_tileset_sorted``): each
+    phase masks the sorted edges instead of binning and sorting its
+    subset again. The result is the same, byte for byte: the sort is
+    stable with ties in input order, so filtering the sorted list gives
+    the stably sorted filtered list; the phase masks hold a vertex class
+    of each end, so a run of parallel edges is kept or dropped whole.
+    Each phase renumbers and fills on its own, a ``tiles.cf_subset`` span
+    (``phase``)."""
+    part, mesh = full.part, full.mesh
+    r = np.asarray(r, np.int64)
+    c = np.asarray(c, np.int64)
+    cls = classify_vertices(r, c, part.n_pad, mesh)
+    regular_row = ~cls["source_row"][r]
+    sink_col = cls["sink_col"][c]
+    keeps = {"first": regular_row, "middle": regular_row & ~sink_col,
+             "last": ~(regular_row & sink_col)}
+    R, C, L = part.R, part.C, part.L
+    out = {}
+    for ph, keep in keeps.items():
+        with timing.span("tiles.cf_subset", phase=ph):
+            per_rows, per_cols, per_w = [], [], []
+            rows_mask = np.zeros((R, C * L), dtype=bool)
+            cols_mask = np.zeros((C, R * L), dtype=bool)
+            for b, idx in enumerate(srt.idx):
+                i, j = divmod(b, C)
+                m = keep[idx]
+                sel = idx[m]
+                blr, blc = part.local_row(r[sel]), part.local_col(c[sel])
+                rows_mask[i, blr] = True
+                cols_mask[j, blc] = True
+                per_rows.append(blr)
+                per_cols.append(blc)
+                per_w.append(srt.w[b][m] if srt.w is not None else None)
+            out[ph] = _fill(part, Compression.TCSC_CF,
+                            _group_masks(rows_mask, cols_mask,
+                                         Compression.TCSC_CF, mesh),
+                            per_rows, per_cols, per_w, srt.w is not None,
+                            edge_align, weight_dtype, mesh)
+    return out
+
+
+def build_tileset(*args, **kwargs) -> TileSet:
+    """Build the tiled, compressed representation from a host edge list:
+    ``build_tileset_sorted``'s tileset alone."""
+    return build_tileset_sorted(*args, **kwargs)[0]
+
+
+def build_tileset_sorted(
     r: np.ndarray,
     c: np.ndarray,
     w: Optional[np.ndarray],
@@ -165,12 +229,15 @@ def build_tileset(
     edge_align: int = 1024,
     weight_dtype=np.int32,
     mesh: Optional[Mesh] = None,
-) -> TileSet:
-    """Build the tiled, compressed representation from a host edge list
-    (global, already transformed row/col ids; ``w`` optional weights).
-    Dedup of parallel edges keeps the minimum weight. ``mesh``: the ranks
-    whose edge shares together make the matrix (see the module
-    docstring); None on one process."""
+) -> Tuple[TileSet, Optional[SortedEdges]]:
+    """The tiled, compressed representation of a host edge list (global,
+    already transformed row/col ids; ``w`` optional weights), and, for
+    TCSC_CF, its sorted edges, from which ``build_cf_subsets`` takes the
+    phases (None for the other compressions). Dedup of parallel edges
+    keeps the minimum weight. ``mesh``: the ranks whose edge shares
+    together make the matrix (see the module docstring); None on one
+    process."""
+    keep_sorted = compression == Compression.TCSC_CF
     with timing.span("tiles.masks"):
         R, C, L, D = part.R, part.C, part.L, part.D
         r = np.asarray(r, dtype=np.int64)
@@ -192,20 +259,7 @@ def build_tileset(
         cols_mask[j_e, lc] = True
         # each rank sees only its shard's edges: OR the partial bitvectors
         # (reference: the leader combine, matrix.hpp:990-1006)
-        rows_mask = mh.global_or(rows_mask, mesh)
-        cols_mask = mh.global_or(cols_mask, mesh)
-
-        # prefix renumbering IV (reference: matrix.hpp:1044-1097)
-        iv = np.cumsum(rows_mask, axis=1, dtype=np.int64) - 1
-        nnzrows_grp = rows_mask.sum(axis=1).astype(np.int64)
-        nnzcols_grp = cols_mask.sum(axis=1).astype(np.int64)
-
-        renumber = compression in (Compression.TCSC, Compression.TCSC_CF)
-        # DCSC: the col-side prefix renumbering JV (reference:
-        # DCSC_BASE::populate, compressed_column.hpp:237-271)
-        renumber_cols = compression == Compression.DCSC
-        jv = np.cumsum(cols_mask, axis=1, dtype=np.int64) - 1 \
-            if renumber_cols else None
+        masks = _group_masks(rows_mask, cols_mask, compression, mesh)
 
     with timing.span("tiles.bin"):
         # per-device binning (native counting sort when available)
@@ -220,7 +274,7 @@ def build_tileset(
         starts = ends - counts
 
     with timing.span("tiles.sort"):
-        per_rows, per_cols, per_w, per_nnz = [], [], [], []
+        per_rows, per_cols, per_w, per_idx = [], [], [], []
         for b in range(D):
             s, e = starts[b], ends[b]
             blr, blc = lr_s[s:e], lc_s[s:e]
@@ -232,6 +286,7 @@ def build_tileset(
             o = np.argsort(key, kind="stable")
             blr, blc, key = blr[o], blc[o], key[o]
             bw = bw[o] if bw is not None else None
+            bidx = order[s:e][o] if keep_sorted else None
             if not parallel_edges and blr.size:
                 # dedup on (row, col), each run of one key (sorted) keeping
                 # its least weight: the JAX package's two lexsorts in one
@@ -240,77 +295,129 @@ def build_tileset(
                 if bw is not None:
                     bw = np.fmin.reduceat(bw, np.flatnonzero(keep))
                 blr, blc = blr[keep], blc[keep]
+                bidx = bidx[keep] if keep_sorted else None
             per_rows.append(blr)
             per_cols.append(blc)
             per_w.append(bw)
-            per_nnz.append(blr.size)
+            per_idx.append(bidx)
 
     with timing.span("tiles.fill"):
-        # per-device counts are exact on the owning rank and zero (or,
-        # from every edge, exact) elsewhere, so the global counts are
-        # their max (reference invariant: matrix.hpp:802-804)
-        per_nnz_g = mh.global_max(np.asarray(per_nnz, np.int64), mesh)
-        nnz_total = int(per_nnz_g.sum())
-        Ep = _round_up(int(max(int(per_nnz_g.max()) if per_nnz_g.size
-                               else 0, 1)), edge_align)
-        NR = _round_up(int(max(nnzrows_grp.max(), 1)), 128) if renumber \
-            else C * L
+        ts = _fill(part, compression, masks, per_rows, per_cols, per_w,
+                   w is not None, edge_align, weight_dtype, mesh)
+    srt = SortedEdges(per_idx, per_w if w is not None else None) \
+        if keep_sorted else None
+    return ts, srt
 
-        rows_arr = np.zeros((D, Ep), dtype=np.int32)
-        cols_arr = np.zeros((D, Ep), dtype=np.int32)
-        w_arr = np.zeros((D, Ep), dtype=weight_dtype) if w is not None \
-            else None
-        nnz_arr = np.zeros((D, 1), dtype=np.int32)
-        ja_arr = np.zeros((D, NR + 1), dtype=np.int32)
-        ir_arr = np.full((D, NR), C * L, dtype=np.int32) if renumber else None
-        iv_arr = np.full((D, C * L), -1, dtype=np.int32) if renumber else None
-        nnzrows_arr = np.zeros((D, 1), dtype=np.int32)
-        nnzcols_arr = np.zeros((D, 1), dtype=np.int32)
-        jc_arr = None
+
+@dataclass
+class _GroupMasks:
+    """The nnz-row mask of each row group and the nnz-col mask of each
+    col group, reduced over the mesh, and what is taken from them."""
+
+    rows: np.ndarray                 # (R, C*L) bool
+    cols: np.ndarray                 # (C, R*L) bool
+    iv: np.ndarray                   # (R, C*L) row prefix renumbering
+    jv: Optional[np.ndarray]         # (C, R*L) col renumbering, DCSC only
+    nnzrows: np.ndarray              # (R,) int64
+    nnzcols: np.ndarray              # (C,) int64
+
+
+def _group_masks(rows_mask: np.ndarray, cols_mask: np.ndarray,
+                 compression: Compression, mesh: Optional[Mesh]
+                 ) -> _GroupMasks:
+    """This rank's partial masks OR-combined over the mesh (reference: the
+    leader combine, matrix.hpp:990-1006), and the prefix renumberings."""
+    rows_mask = mh.global_or(rows_mask, mesh)
+    cols_mask = mh.global_or(cols_mask, mesh)
+    # prefix renumbering IV (reference: matrix.hpp:1044-1097); DCSC: the
+    # col-side prefix renumbering JV (reference: DCSC_BASE::populate,
+    # compressed_column.hpp:237-271)
+    return _GroupMasks(
+        rows=rows_mask, cols=cols_mask,
+        iv=np.cumsum(rows_mask, axis=1, dtype=np.int64) - 1,
+        jv=(np.cumsum(cols_mask, axis=1, dtype=np.int64) - 1
+            if compression == Compression.DCSC else None),
+        nnzrows=rows_mask.sum(axis=1).astype(np.int64),
+        nnzcols=cols_mask.sum(axis=1).astype(np.int64))
+
+
+def _fill(part: Partition, compression: Compression, masks: _GroupMasks,
+          per_rows, per_cols, per_w, has_weight: bool, edge_align: int,
+          weight_dtype, mesh: Optional[Mesh]) -> TileSet:
+    """The padded (D, ...) tile arrays of each device's sorted local
+    (row, col) edges and weights."""
+    R, C, L, D = part.R, part.C, part.L, part.D
+    rows_mask, cols_mask = masks.rows, masks.cols
+    iv, jv = masks.iv, masks.jv
+    nnzrows_grp, nnzcols_grp = masks.nnzrows, masks.nnzcols
+    renumber = compression in (Compression.TCSC, Compression.TCSC_CF)
+    renumber_cols = jv is not None
+    per_nnz = [blr.size for blr in per_rows]
+    # per-device counts are exact on the owning rank and zero (or,
+    # from every edge, exact) elsewhere, so the global counts are
+    # their max (reference invariant: matrix.hpp:802-804)
+    per_nnz_g = mh.global_max(np.asarray(per_nnz, np.int64), mesh)
+    nnz_total = int(per_nnz_g.sum())
+    Ep = _round_up(int(max(int(per_nnz_g.max()) if per_nnz_g.size
+                           else 0, 1)), edge_align)
+    NR = _round_up(int(max(nnzrows_grp.max(), 1)), 128) if renumber \
+        else C * L
+
+    rows_arr = np.zeros((D, Ep), dtype=np.int32)
+    cols_arr = np.zeros((D, Ep), dtype=np.int32)
+    w_arr = np.zeros((D, Ep), dtype=weight_dtype) if has_weight \
+        else None
+    nnz_arr = np.zeros((D, 1), dtype=np.int32)
+    ja_arr = np.zeros((D, NR + 1), dtype=np.int32)
+    ir_arr = np.full((D, NR), C * L, dtype=np.int32) if renumber else None
+    iv_arr = np.full((D, C * L), -1, dtype=np.int32) if renumber else None
+    nnzrows_arr = np.zeros((D, 1), dtype=np.int32)
+    nnzcols_arr = np.zeros((D, 1), dtype=np.int32)
+    jc_arr = None
+    if renumber_cols:
+        NCp = _round_up(int(max(nnzcols_grp.max(), 1)), 128)
+        jc_arr = np.zeros((D, NCp), dtype=np.int32)
+
+    for b in range(D):
+        i, j = divmod(b, C)
+        n = per_nnz[b]
+        blr, blc, bw = per_rows[b], per_cols[b], per_w[b]
+        seg_ids = iv[i, blr] if renumber else blr
+        rows_arr[b, :n] = seg_ids
+        if n < Ep:  # pad with last valid id to keep sortedness
+            rows_arr[b, n:] = seg_ids[-1] if n else 0
         if renumber_cols:
-            NCp = _round_up(int(max(nnzcols_grp.max(), 1)), 128)
-            jc_arr = np.zeros((D, NCp), dtype=np.int32)
+            cols_arr[b, :n] = jv[j, blc]
+            nzc = np.flatnonzero(cols_mask[j])
+            jc_arr[b, :nzc.size] = nzc
+        else:
+            cols_arr[b, :n] = blc
+        if w_arr is not None and bw is not None:
+            w_arr[b, :n] = bw
+        nnz_arr[b, 0] = n
+        nnzrows_arr[b, 0] = nnzrows_grp[i]
+        nnzcols_arr[b, 0] = nnzcols_grp[j]
+        ja_arr[b] = np.searchsorted(rows_arr[b, :n], np.arange(NR + 1))
+        if renumber:
+            nz = np.flatnonzero(rows_mask[i])
+            ir_arr[b, :nz.size] = nz
+            iv_arr[b] = np.where(rows_mask[i], iv[i], -1)
 
-        for b in range(D):
-            i, j = divmod(b, C)
-            n = per_nnz[b]
-            blr, blc, bw = per_rows[b], per_cols[b], per_w[b]
-            seg_ids = iv[i, blr] if renumber else blr
-            rows_arr[b, :n] = seg_ids
-            if n < Ep:  # pad with last valid id to keep sortedness
-                rows_arr[b, n:] = seg_ids[-1] if n else 0
-            if renumber_cols:
-                cols_arr[b, :n] = jv[j, blc]
-                nzc = np.flatnonzero(cols_mask[j])
-                jc_arr[b, :nzc.size] = nzc
-            else:
-                cols_arr[b, :n] = blc
-            if w_arr is not None and bw is not None:
-                w_arr[b, :n] = bw
-            nnz_arr[b, 0] = n
-            nnzrows_arr[b, 0] = nnzrows_grp[i]
-            nnzcols_arr[b, 0] = nnzcols_grp[j]
-            ja_arr[b] = np.searchsorted(rows_arr[b, :n], np.arange(NR + 1))
-            if renumber:
-                nz = np.flatnonzero(rows_mask[i])
-                ir_arr[b, :nz.size] = nz
-                iv_arr[b] = np.where(rows_mask[i], iv[i], -1)
+    # owner-segment masks: device (i, j) owns segment s = j*R + i
+    i_own = np.zeros((D, L), dtype=bool)
+    j_own = np.zeros((D, L), dtype=bool)
+    for b in range(D):
+        i, j = divmod(b, C)
+        i_own[b] = rows_mask[i, j * L:(j + 1) * L]
+        j_own[b] = cols_mask[j, i * L:(i + 1) * L]
 
-        # owner-segment masks: device (i, j) owns segment s = j*R + i
-        i_own = np.zeros((D, L), dtype=bool)
-        j_own = np.zeros((D, L), dtype=bool)
-        for b in range(D):
-            i, j = divmod(b, C)
-            i_own[b] = rows_mask[i, j * L:(j + 1) * L]
-            j_own[b] = cols_mask[j, i * L:(i + 1) * L]
-
-        return TileSet(
-            part=part, compression=compression, has_weight=w is not None,
-            Ep=Ep, NR=NR, nnz_total=nnz_total,
-            rows=rows_arr, cols=cols_arr, weights=w_arr, nnz=nnz_arr,
-            ja=ja_arr, ir=ir_arr, iv_dense=iv_arr,
-            nnzrows=nnzrows_arr, i_own=i_own, j_own=j_own,
-            regular_own=i_own & j_own, source_own=i_own & ~j_own,
-            sink_own=j_own & ~i_own, nnzcols=nnzcols_arr, jc=jc_arr,
-            dev_nnz=per_nnz_g, mesh=mesh,
-        )
+    return TileSet(
+        part=part, compression=compression, has_weight=has_weight,
+        Ep=Ep, NR=NR, nnz_total=nnz_total,
+        rows=rows_arr, cols=cols_arr, weights=w_arr, nnz=nnz_arr,
+        ja=ja_arr, ir=ir_arr, iv_dense=iv_arr,
+        nnzrows=nnzrows_arr, i_own=i_own, j_own=j_own,
+        regular_own=i_own & j_own, source_own=i_own & ~j_own,
+        sink_own=j_own & ~i_own, nnzcols=nnzcols_arr, jc=jc_arr,
+        dev_nnz=per_nnz_g, mesh=mesh,
+    )

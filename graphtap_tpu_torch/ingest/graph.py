@@ -15,8 +15,8 @@ masks and counts across the ranks (``format/tiles.py``), so every rank
 holds the (D, ...) tiles of the JAX multi-process layout, its own row
 filled. Both are a pure function of the stored edges and the config, so
 each is built once per ordering and kept on the Graph (a PageRank builds
-its tiles for the degree phase, the main run and the CF phases; at
-RMAT-20 one tileset takes seconds, the CF set about a minute).
+its tiles for the degree phase and the main run, and takes the CF phases
+from the main run's; at RMAT-20 one tileset takes seconds).
 """
 
 from __future__ import annotations
@@ -27,8 +27,9 @@ from typing import Dict, Optional
 import numpy as np
 
 from graphtap_tpu_torch.config import Compression, GraphConfig, Ordering
-from graphtap_tpu_torch.format.tiles import (TileSet, build_cf_tilesets,
-                                             build_tileset)
+from graphtap_tpu_torch.format.tiles import (SortedEdges, TileSet,
+                                             build_cf_subsets,
+                                             build_tileset_sorted)
 from graphtap_tpu_torch.ingest.io import apply_transforms, read_edge_list
 from graphtap_tpu_torch.parallel import multihost
 from graphtap_tpu_torch.parallel.layout import Mesh, Partition
@@ -46,6 +47,10 @@ class Graph:
     mesh: Optional[Mesh] = None
     # built tilesets: (ordering, compression or "cf") -> TileSet / CF dict
     _tiles: Dict = field(default_factory=dict, repr=False, compare=False)
+    # a TCSC_CF build's sorted edges, by ordering, until ``tiled_cf``
+    # takes the phases from them
+    _cf_sorted: Dict[Ordering, SortedEdges] = field(
+        default_factory=dict, repr=False, compare=False)
 
     @property
     def nv(self) -> int:
@@ -117,28 +122,38 @@ class Graph:
     def tiled(self, ordering: Ordering = Ordering.ROW,
               compression: Optional[Compression] = None) -> TileSet:
         """The TileSet of the stored matrix (ROW) or its transpose (COL);
-        a build is a ``tiles`` span in the open tracer."""
+        a build is a ``tiles`` span in the open tracer. The Graph keeps a
+        TCSC_CF build's sorted edges until ``tiled_cf`` takes its phases
+        (an ordering that never runs them, as the degree phase's COL,
+        keeps them with the graph)."""
         comp = compression or self.config.compression
         if (ordering, comp) not in self._tiles:
             with timing.span("tiles", ordering=ordering.name):
                 r, c, w = self._oriented(ordering)
-                self._tiles[ordering, comp] = build_tileset(
+                ts, srt = build_tileset_sorted(
                     r, c, w, self.part, compression=comp,
                     parallel_edges=self.config.parallel_edges,
                     edge_align=self.config.edge_align,
                     weight_dtype=self._weight_dtype, mesh=self.mesh)
+            self._tiles[ordering, comp] = ts
+            if srt is not None:
+                self._cf_sorted[ordering] = srt
         return self._tiles[ordering, comp]
 
     def tiled_cf(self, ordering: Ordering = Ordering.ROW) -> dict:
         """The TCSC_CF phase tilesets (full/first/middle/last) of the
         stored matrix (ROW) or its transpose (COL) (reference:
-        compressed_column.hpp:606-1120)."""
+        compressed_column.hpp:606-1120): "full" is ``tiled(ordering,
+        TCSC_CF)`` itself, and the three phases are taken from its sorted
+        edges (``format/tiles.py::build_cf_subsets``), which the Graph
+        then lets go."""
         if (ordering, "cf") not in self._tiles:
+            full = self.tiled(ordering, Compression.TCSC_CF)
             with timing.span("tiles", ordering=ordering.name, cf=True):
-                r, c, w = self._oriented(ordering)
-                self._tiles[ordering, "cf"] = build_cf_tilesets(
-                    r, c, w, self.part,
-                    parallel_edges=self.config.parallel_edges,
+                r, c, _ = self._oriented(ordering)
+                phases = build_cf_subsets(
+                    full, self._cf_sorted.pop(ordering), r, c,
                     edge_align=self.config.edge_align,
-                    weight_dtype=self._weight_dtype, mesh=self.mesh)
+                    weight_dtype=self._weight_dtype)
+            self._tiles[ordering, "cf"] = {"full": full, **phases}
         return self._tiles[ordering, "cf"]

@@ -9,7 +9,9 @@ the enclosing span, a job id, a few attributes) and named counters, both
 recorded where the engine's layers meet: ``Executor.initialize`` and its
 one stage, ``initialize.program``, ``execute``, each superstep and its
 phases, the host's waits on the device (the vote, the closing
-synchronize), the tile build's stages, the plans and the upload. One
+synchronize), the tile build's stages (and each TCSC_CF phase subset,
+``tiles.cf_subset``), the plans and the upload, and the TCSC_CF phases'
+build (``cf_phases``; each CF superstep's edges in ``cf_phase_edges``). One
 tracer at a time is open in the process (``with tracing() as tr:``);
 ``span`` and ``count`` record into it and, with none open, return a
 shared null context and do nothing. A job id starts at each

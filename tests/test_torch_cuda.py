@@ -50,6 +50,9 @@ the fold) equals the torch contributions folded by K5 bit for bit, twice,
 at RMAT-16 in every value type, ⊕ and ⊗ and on a last chunk of padding;
 a PageRank and a float SSSP superstep on onehot run no torch op over the
 plan's slots and count the plan's length in ``onehot_gathered_slots``.
+TCSC_CF PageRank to tolerance (pr.cpp's deployment) runs K5 from each
+phase's own plan bit for bit with its plain version, and takes the CPU
+run's supersteps.
 
 Whole paths: PageRank on panel, shuffle, shuffle2 and onehot over TCSC,
 TCSC_CF and CSC tiles equals the CPU, the golden model and
@@ -1601,6 +1604,56 @@ def test_k5_gather_equals_plain_on_pagerank_supersteps(cuda):
     assert len(calls) == 3
     for args, y in calls:
         assert torch.equal(y, oh.segment_reduce_gather_plain(*args))
+
+
+def _cf_graph(scale):
+    r, c, _ = rmat_edges(scale, 16, seed=1)
+    return Graph.from_edges(r, c, None, GraphConfig(
+        num_vertices=1 << scale, transpose=True,
+        compression=Compression.TCSC_CF))
+
+
+def test_k5_gather_equals_plain_on_cf_phases(cuda):
+    """Every K5-from-the-plan call of an RMAT-14 f32 TCSC_CF PageRank run
+    to tolerance on onehot equals the plain version of its inputs bit for
+    bit, on each phase's own plan: "first" once, "middle" until the vote,
+    the flush on "last"."""
+    calls, kernel = [], oh.segment_reduce_gather
+
+    def record(*args, **kw):
+        y = kernel(*args, **kw)
+        calls.append(((args[0].clone(),) + args[1:], y.clone()))
+        return y
+    oh.segment_reduce_gather = record
+    try:
+        ex = run_pagerank(_cf_graph(14), 0, torch.float32, kernel="onehot",
+                          device=cuda, degree_kernel="scan")
+    finally:
+        oh.segment_reduce_gather = kernel
+    n = ex.iteration
+    phase_of = {ex._phases[ph][2]["oh_cols"].data_ptr(): ph
+                for ph in executor.CF_PHASES}
+    assert [phase_of[args[1].data_ptr()] for args, _ in calls] == (
+        ["first"] + ["middle"] * (n - 1) + ["last"])
+    for args, y in calls:
+        assert torch.equal(y, oh.segment_reduce_gather_plain(*args))
+
+
+def test_cf_pagerank_to_tolerance_on_cuda_matches_cpu(cuda):
+    """f32 TCSC_CF PageRank to tolerance at RMAT-14 on onehot: the card's
+    run takes the CPU run's supersteps and its ranks within rtol 1e-6
+    (K5 folds in one fixed order on both, and every other step is an
+    elementwise f32 op, so the two agree to the last bits; the tolerance
+    leaves room for an elementwise kernel's own rounding)."""
+    g = _cf_graph(14)
+    on_card = run_pagerank(g, 0, torch.float32, kernel="onehot",
+                           device=cuda, degree_kernel="scan")
+    on_cpu = run_pagerank(g, 0, torch.float32, kernel="onehot",
+                          device="cpu", degree_kernel="scan")
+    assert on_card.iteration == on_cpu.iteration > 50
+    np.testing.assert_allclose(on_card.state_vector()["rank"],
+                               on_cpu.state_vector()["rank"], rtol=1e-6,
+                               atol=0)
 
 
 @pytest.mark.parametrize("app", ["pagerank", "sssp"])
